@@ -19,6 +19,16 @@
    per request (180 STW / 91 temporal / 200 resnet / 5 grid-sample layers)
    and the outputs, and compares one float32 Unet3D forward at batch 1 on
    the card (kernels) with the same weights on the CPU (plain versions).
+6. Training: builds bench.py's KTH train-step configuration (float32 master
+   weights, bf16 compute, remat) at batch 8 and takes one warm-up step,
+   recording the inputs and incoming cotangent of each backward kernel at
+   every distinct shape; checks each backward kernel against its plain
+   version (the autograd of the plain forward) there in bf16 and at one small
+   shape in float32, and times both; takes 3 timed steps with the counters
+   from 0 (18 STW / 10 temporal / 20 resnet layers forward and backward, 1
+   grid sample per step); and compares one float32 loss and every UNet
+   gradient at batch 1, kernels on the card against the plain versions on
+   the CPU.
 
 Prints one JSON line per kernel and shape, the end-to-end timings, a summary
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -41,6 +51,8 @@ import torch.nn.functional as F
 
 BATCH = 4
 TIMED_CALLS = 3
+TRAIN_BATCH = 8
+TIMED_STEPS = 3
 # Peak rates of one H100 SXM at 700 W (NVIDIA data sheet): HBM bytes/s and
 # dense flop/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -68,6 +80,22 @@ BRANCH_MEAN_REL_TOL = 2.0 ** -6
 F32_REL_TOL = 1e-4
 # float32 Unet3D, card vs CPU: ~50 layers of float32 sums in another order.
 UNET_F32_REL_TOL = 1e-3
+# Backward kernels in bf16, each gradient against the plain backward's:
+#   max|kernel - plain| <= BWD_MAX_REL_TOL * max|plain| and
+#   mean|kernel - plain| <= BWD_MEAN_REL_TOL * mean|plain|.
+# The plain backward rounds every product's output (dq/dk/dv, dO, dS, the
+# conv gradients) to bf16 and the kernels sum in float32, so they differ by
+# bf16 rounding carried through sums with cancellation. Sound runs read at
+# most 0.77% of max|plain| (max error) and 0.32% of mean|plain| (mean error)
+# at the KTH training shapes: 2^-5 (3.1%) leaves four times the first, 2^-6
+# (1.6%) five times the second, and a dropped or halved term moves a gradient
+# by far more.
+BWD_MAX_REL_TOL = 2.0 ** -5
+BWD_MEAN_REL_TOL = 2.0 ** -6
+# float32 train step at batch 1, card kernels vs CPU plain versions, TF32
+# off: forward and backward through ~60 layers summed in other orders; each
+# UNet gradient to this fraction of its own max, the loss relatively.
+TRAIN_F32_REL_TOL = 1e-3
 
 
 def log(obj) -> None:
@@ -212,25 +240,115 @@ def kernel_table():
     }
 
 
+def backward_table(forward):
+    """name -> the backward kernels' entries, in the layout of kernel_table:
+    wrapper and plain take (cotangent, *forward args); sites are where the
+    autograd Functions call the wrapper."""
+    from extdm_tpu_torch.ops import fused_resnet, fused_stw
+
+    def bwd(fn):  # a forward helper applied to the args after the cotangent
+        return lambda g, *a, **k: fn(*a, **k)
+
+    def grad_cost(name):
+        fwd_cost = forward[name]["cost"]
+
+        def cost(g, x, *a, **k):
+            # only the inputs: one recompute of the forward's products and
+            # two products (input and weight gradients) per forward product;
+            # bytes: x, g and dx once each, the weights and their float32
+            # gradients, and the bias table and its gradient.
+            byts, flops, dtype = fwd_cost(x, *a, **k)
+            weights = [t for t in a if torch.is_tensor(t) and t.ndim >= 2]
+            extra = x.numel() * x.element_size() + sum(t.numel() * 4 for t in weights)
+            return byts + extra, 3 * flops, dtype
+        return cost
+
+    entries = {
+        "stw_layer_bwd": (fused_stw.stw_layer_bwd, fused_stw.stw_layer_plain_vjp, fused_stw,
+                          "stw_layer", "extdm_tpu_torch/csrc/attention_bwd.cu",
+                          "extdm_tpu/ops/pallas_stw.py:1123"),
+        "temporal_layer_bwd": (fused_stw.temporal_layer_bwd, fused_stw.temporal_layer_plain_vjp,
+                               fused_stw, "temporal_layer", "extdm_tpu_torch/csrc/attention_bwd.cu",
+                               "extdm_tpu/ops/pallas_stw.py:2013"),
+        "resnet_block_bwd": (fused_resnet.resnet_block_bwd, fused_resnet.resnet_block_plain_vjp,
+                             fused_resnet, "resnet_block", "extdm_tpu_torch/csrc/resnet.cu",
+                             "extdm_tpu/ops/pallas_resnet.py:594"),
+    }
+    return {name: dict(wrapper=wrapper, plain=plain, sites=[(mod, name)],
+                       key=bwd(forward[fwd]["key"]), cost=grad_cost(fwd), source=source,
+                       replaces=replaces)
+            for name, (wrapper, plain, mod, fwd, source, replaces) in entries.items()}
+
+
+def check_grads(name: str, got, want, max_rel: float, mean_rel: float | None = None) -> dict:
+    """Each gradient of got against want: max|got - want| <= max_rel *
+    max|want| (with mean_rel: also mean|got - want| <= mean_rel * mean|want|),
+    or, without mean_rel, max error <= max_rel * max(1, max|want|).
+    Returns the worst ratios."""
+    worst = {"max_abs_err": 0.0, "max_ratio": 0.0, "mean_ratio": 0.0}
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"{name} gradient {i}: present in one version only")
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name} gradient {i}: {a.dtype}{tuple(a.shape)} vs "
+                                 f"{b.dtype}{tuple(b.shape)}")
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{name} gradient {i}: non-finite values")
+        diff = (a.float() - b.float()).abs()
+        err, size = diff.max().item(), b.float().abs().max().item()
+        if mean_rel is None:
+            ok, ratio, mean_ratio = err <= max_rel * max(1.0, size), err / max(1.0, size), 0.0
+        else:
+            mean_ratio = diff.mean().item() / max(b.float().abs().mean().item(), 1e-30)
+            ratio = err / max(size, 1e-30)
+            ok = ratio <= max_rel and mean_ratio <= mean_rel
+        if not ok:
+            raise AssertionError(f"{name} gradient {i} {tuple(a.shape)}: kernel and plain "
+                                 f"backward differ beyond a limit: max error {err} (ratio "
+                                 f"{ratio}), mean ratio {mean_ratio}")
+        worst = {"max_abs_err": max(worst["max_abs_err"], err),
+                 "max_ratio": max(worst["max_ratio"], ratio),
+                 "mean_ratio": max(worst["mean_ratio"], mean_ratio)}
+    return worst
+
+
+class Recorder:
+    """Stands in for a wrapper at a call site: keeps the first inputs of each
+    distinct shape, counts the calls, then calls the wrapper. Its `launches`
+    is the wrapper's own counter, which the wrapper may update through the
+    name this recorder replaces."""
+
+    def __init__(self, k, entries):
+        self.k, self.entries = k, entries
+
+    @property
+    def launches(self):
+        return self.k["wrapper"].launches
+
+    @launches.setter
+    def launches(self, value):
+        self.k["wrapper"].launches = value
+
+    def __call__(self, *args, **kwargs):
+        entry = self.entries.setdefault(self.k["key"](*args, **kwargs), {"count": 0})
+        if entry["count"] == 0:
+            entry["args"] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            entry["kwargs"] = dict(kwargs)
+        entry["count"] += 1
+        return self.k["wrapper"](*args, **kwargs)
+
+
 @contextlib.contextmanager
 def recording(table, record):
-    """Route every call site through a recorder that keeps the first inputs
-    of each distinct shape and counts the calls, then calls the wrapper."""
+    """Route every call site through a Recorder."""
     saved = []
     for name, k in table.items():
-        def make(name=name, k=k):
-            def rec(*args, **kwargs):
-                entry = record[name].setdefault(k["key"](*args, **kwargs), {"count": 0})
-                if entry["count"] == 0:
-                    entry["args"] = [a.clone() if torch.is_tensor(a) else a for a in args]
-                    entry["kwargs"] = dict(kwargs)
-                entry["count"] += 1
-                return k["wrapper"](*args, **kwargs)
-            return rec
         record[name] = {}
         for mod, attr in k["sites"]:
             saved.append((mod, attr, getattr(mod, attr)))
-            setattr(mod, attr, make())
+            setattr(mod, attr, Recorder(k, record[name]))
     try:
         yield
     finally:
@@ -350,6 +468,183 @@ def unet_f32_card_vs_cpu(cfg):
          "cpu_s": cpu_s, **res})
 
 
+def backward_phase(table, record, card):
+    """Backward kernels vs their plain versions at every recorded training
+    shape (bf16) and at one small shape in float32; CUDA-event times."""
+    summary = {}
+    for name, k in table.items():
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                   library_ms=None, max_abs_err=0.0)
+        for key, entry in record[name].items():
+            args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+            got = k["wrapper"](*args, **kwargs)
+            want = k["plain"](*args, **kwargs)
+            torch.cuda.synchronize()
+            res = check_grads(f"{name}{key}", got, want, BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+            ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 5)
+            plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 5)
+            byts, flops, op_dtype = k["cost"](*args, **kwargs)
+            bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
+            log({"kernel": name, "shape": list(key[0]), "key": str(key[1:]),
+                 "dtype": str(args[1].dtype).replace("torch.", ""), "per_step": count,
+                 "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                 "library_ms_note": "no single PyTorch call computes this layer's gradients",
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res,
+                 "card": card})
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bound_ms"] += count * max(bytes_ms, ops_ms)
+            tot["bytes_ms"] += count * bytes_ms
+            tot["ops_ms"] += count * ops_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
+        summary[name] = tot
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    fwd_names = {"stw_layer": "stw_layer_bwd", "temporal_layer": "temporal_layer_bwd",
+                 "resnet_block": "resnet_block_bwd"}
+    for fwd, args, kwargs in f32_cases(dev):
+        if fwd not in fwd_names:
+            continue
+        name = fwd_names[fwd]
+        k = table[name]
+        x = args[0]
+        out_shape = x.shape[:-1] + args[1].shape[:1] if fwd == "resnet_block" else x.shape
+        g = torch.randn(out_shape, generator=gen, device=dev)
+        res = check_grads(f"{name} float32", k["wrapper"](g, *args, **kwargs),
+                          k["plain"](g, *args, **kwargs), F32_REL_TOL)
+        log({"kernel": name, "shape": list(args[0].shape), "dtype": "float32",
+             "check": "kernel vs plain backward", **res})
+    return summary
+
+
+def expected_train_launches(cfg):
+    levels = len(cfg.dim_mults)
+    per_layer = {"stw_layer": 2 * (2 * levels + 1), "temporal_layer": 2 + 2 * levels,
+                 "resnet_block": 4 * levels + 4}
+    fwd = dict(per_layer, grid_sample=1)
+    bwd = {f"{n}_bwd": c for n, c in per_layer.items()}
+    return fwd, bwd
+
+
+def train_f32_card_vs_cpu(cfg):
+    """One float32 loss and backward at batch 1 with the same weights, t and
+    noise: kernels on the card against the plain versions on the CPU."""
+    import dataclasses
+
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+
+    cfg32 = dataclasses.replace(cfg, dtype=None)
+    g = torch.Generator().manual_seed(12)
+    T, px = cfg.cond_frames + cfg.pred_frames, cfg.frame_shape
+    video = torch.rand((1, T, px, px, 3), generator=g)
+    t = torch.tensor([417])
+    noise = torch.randn((1, cfg.pred_frames, px // 2, px // 2, 3), generator=g)
+    results = {}
+    for device in ("cuda", "cpu"):
+        fd = FlowDiffusion(cfg32, device=device, seed=3)
+        t0 = time.perf_counter()
+        loss, _ = fd.loss(None, video, t=t, noise=noise)
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        results[device] = (loss.detach().cpu(), {n: p.grad.cpu() for n, p in fd.unet.named_parameters()},
+                           time.perf_counter() - t0)
+        del fd
+    (loss_gpu, grads_gpu, _), (loss_cpu, grads_cpu, cpu_s) = results["cuda"], results["cpu"]
+    loss_err = abs(loss_gpu.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    if not loss_err <= TRAIN_F32_REL_TOL:
+        raise AssertionError(f"float32 loss card {loss_gpu.item()} vs cpu {loss_cpu.item()}")
+    worst, worst_name = 0.0, None
+    for name, want in grads_cpu.items():
+        got = grads_gpu[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"float32 gradient {name}: non-finite on the card")
+        ratio = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if ratio > TRAIN_F32_REL_TOL:
+            raise AssertionError(f"float32 gradient {name}: card vs cpu max error {ratio} of its max")
+    log({"check": "train step float32 batch 1, card kernels vs CPU plain", "loss_card": loss_gpu.item(),
+         "loss_cpu": loss_cpu.item(), "loss_rel_err": loss_err, "gradients": len(grads_cpu),
+         "worst_grad_rel_err": worst, "worst_grad": worst_name, "tol": TRAIN_F32_REL_TOL,
+         "cpu_s": cpu_s})
+
+
+def train_phase(table, btable, card):
+    """The DM train step at full width: warm-up with recording, backward
+    kernel checks, timed steps with launch counts, float32 card vs CPU."""
+    from extdm_tpu_torch.config import kth_training_config
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
+
+    cfg = kth_training_config(torch.bfloat16)
+    fd = FlowDiffusion(cfg, device="cuda", seed=0)
+    trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), 2e-4, (500000,), 0.5))
+    T, px = cfg.cond_frames + cfg.pred_frames, cfg.frame_shape
+    video = torch.rand((TRAIN_BATCH, T, px, px, 3), generator=torch.Generator().manual_seed(2)).cuda()
+    gen = torch.Generator(device="cuda")
+
+    record, frecord = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(table, frecord), recording(btable, record):
+        aux = trainer.train_step(gen.manual_seed(0), video)
+        torch.cuda.synchronize()
+    log({"phase": "train warm-up step", "seconds": time.perf_counter() - t0,
+         "loss": aux["loss"].item(), "grad_norm": aux["grad_norm"].item(),
+         "shapes": {n: len(r) for n, r in record.items()}})
+    want_fwd, want_bwd = expected_train_launches(cfg)
+    seen = {n: sum(e["count"] for e in r.values()) for n, r in record.items()}
+    if seen != want_bwd:
+        raise AssertionError(f"warm-up backward kernel calls {seen} != expected {want_bwd}")
+
+    summary = backward_phase(btable, record, card)
+    del record
+    fwd_ms = 0.0  # forward kernels per step at the training shapes (timed only)
+    with torch.no_grad():
+        for name, entries in frecord.items():
+            for entry in entries.values():
+                fwd_ms += entry["count"] * cuda_ms(
+                    lambda: table[name]["wrapper"](*entry["args"], **entry["kwargs"]), 5)
+    del frecord
+
+    counters = {**{n: k["wrapper"] for n, k in table.items()},
+                **{n: k["wrapper"] for n, k in btable.items()}}
+    times = []
+    for i in range(TIMED_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        aux = trainer.train_step(gen.manual_seed(10 + i), video)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        loss, grad_norm = aux["loss"].item(), aux["grad_norm"].item()
+        if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+            raise AssertionError(f"train step {i}: loss {loss}, grad_norm {grad_norm}")
+        if launches != {**want_fwd, **want_bwd}:
+            raise AssertionError(f"train step {i}: launches {launches} != expected "
+                                 f"{ {**want_fwd, **want_bwd} }")
+        log({"phase": "train step", "step": i, "ms": times[-1] * 1e3, "loss": loss,
+             "grad_norm": grad_norm})
+    med = statistics.median(times)
+    bwd_ms = sum(s["ms"] for s in summary.values())
+    log({"phase": "train end to end", "config": "KTH 64px tc=10 tp=20 bf16 compute, float32 "
+         "master weights, remat", "batch": TRAIN_BATCH, "ms_per_step": [t * 1e3 for t in times],
+         "median_ms": med * 1e3, "train_frames_per_s": TRAIN_BATCH * T / med,
+         "launches_per_step": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "forward_kernels_ms": fwd_ms, "backward_kernels_ms": bwd_ms,
+         "rest_ms_by_difference": med * 1e3 - fwd_ms - bwd_ms, "card": card})
+    del trainer, fd
+    torch.cuda.empty_cache()
+    train_f32_card_vs_cpu(cfg)
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -414,12 +709,20 @@ def main() -> int:
          "predicted_frames_per_s": B * tp / med, "launches_per_call": launches, "card": card})
 
     unet_f32_card_vs_cpu(cfg)
+    del fd, sampler
+    torch.cuda.empty_cache()
+
+    # ---- the train path
+    btable = backward_table(table)
+    bsummary, train_launches = train_phase(table, btable, card)
 
     kernels = []
-    for name, k in table.items():
-        s = summary[name]
+    for name, k in {**table, **btable}.items():
+        s = summary[name] if name in summary else bsummary[name]
         kernels.append({"name": name, "route": "cuda", "source": k["source"],
-                        "replaces": k["replaces"], "launches": launches[name],
+                        "replaces": k["replaces"],
+                        "launches": launches[name] if name in launches else train_launches[name],
+                        "train_step_launches": train_launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",

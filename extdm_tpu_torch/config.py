@@ -1,9 +1,11 @@
 """Config loading, same YAML schema as the JAX package (port of
-extdm_tpu/config.py), plus the KTH sampling preset that ``bench.py`` runs."""
+extdm_tpu/config.py), plus the KTH sampling and training presets that
+``bench.py`` runs."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
 import yaml
 
 from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusionConfig
@@ -50,6 +52,12 @@ def kth_sampling_config(**overrides) -> FlowDiffusionConfig:
                   attn_heads=8, attn_dim_head=32)
     kwargs.update(overrides)
     return FlowDiffusionConfig(**kwargs)
+
+
+def kth_training_config(dtype=torch.bfloat16, **overrides) -> FlowDiffusionConfig:
+    """bench.py's KTH train-step configuration (``bench_train_step``): the
+    sampling preset's widths with remat, computing in `dtype` (None: float32)."""
+    return kth_sampling_config(remat=True, dtype=dtype, **overrides)
 
 
 def load_config(path: str) -> Dict[str, Any]:

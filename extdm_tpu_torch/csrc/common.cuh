@@ -68,6 +68,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+namespace {
+
+// out[i] = sum over p of part[p * n + i], in order of p: the second pass of a
+// reduction whose first pass wrote one partial buffer per block or split, so
+// that the result does not depend on the order in which blocks ran.
+__global__ void sum_parts_kernel(const float* __restrict__ part, int nparts, long long n,
+                                 float* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < nparts; ++p) s += part[p * n + i];
+    out[i] = s;
+  }
+}
+
+inline cudaError_t sum_parts(const float* part, int nparts, long long n, float* out,
+                             cudaStream_t stream) {
+  const long long want = (n + 255) / 256;
+  sum_parts_kernel<<<(int)(want < 1024 ? want : 1024), 256, 0, stream>>>(part, nparts, n, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 #define DISPATCH_DTYPE(code, ...)         \
   do {                                    \
     if ((code) == 0) {                    \

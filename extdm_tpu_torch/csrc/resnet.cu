@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(NT) conv_kernel(const T* __restrict__ in, cons
     for (int i = 0; i < 4; ++i) {
       const int p = ty + 16 * i, gy = y0 + p / TILE, gx = x0 + p % TILE;
       if (gy >= H || gx >= W) continue;
-      const float v = round_to<T>(acc[i][j] + bias[co]);
+      const float v = round_to<T>(acc[i][j] + (bias != nullptr ? bias[co] : 0.f));
       out[(((long long)frame * H + gy) * W + gx) * Cout + co] = from_f<T>(v);
       s += v;
       sq += v * v;
@@ -265,7 +265,7 @@ __global__ void __launch_bounds__(NT) conv_kernel_mma(const bf16* __restrict__ i
       for (int h = 0; h < 2; ++h) {
         const int p = h ? p1 : p0, gy = y0 + p / TILE, gx = x0 + p % TILE;
         if (gy < H && gx < W && co < Cout) {
-          const float v = round_to<bf16>(acc[j][2 * h + e] + bias[co]);
+          const float v = round_to<bf16>(acc[j][2 * h + e] + (bias != nullptr ? bias[co] : 0.f));
           out[(((long long)frame * H + gy) * W + gx) * Cout + co] = __float2bfloat16(v);
           s += v;
           sq += v * v;
@@ -357,6 +357,332 @@ int block(const T* x, const T* w1, const float* b1, const float* g1s, const floa
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+// The block's backward given x and the output's cotangent g (kernel 7,
+// replacing pallas_resnet.py _bwd_kernel_impl / _make_bwd_kernel): the
+// forward's convs run again (y1, y2 and their GroupNorm sums), then
+//   GN2 stage:  per-(b, c) sums of du and du * yhat (du = g SiLU'(u), u the
+//               SiLU's input), from which dscale2, dbias2 and the per-group
+//               means of the GN backward follow; dy2 elementwise;
+//   conv2:      dW2 / db2 = sums over pixels of a1 (x) dy2 per tap
+//               (conv_wgrad_kernel, split over pixel tiles, summed in order),
+//               da1 = conv(dy2) with flipped, transposed weights (the
+//               forward's conv kernel, no bias);
+//   GN1 stage:  as GN2 with FiLM: dscale1, dbias1 and dfilm (B, 2 Cout);
+//   conv1:      dW1 / db1 and dx1 likewise;
+//   residual:   dWres / dbres and dres = g Wres (1x1), or g itself; dx = dx1 + dres.
+// Per-(b, c) sums are float within a block and float64 atomics across
+// blocks (the order of those adds varies between runs, below float32
+// resolution); the weight-gradient sums are deterministic.
+__device__ __forceinline__ float silu_grad(float u) {
+  const float sg = 1.f / (1.f + expf(-u));
+  return sg * (1.f + u * (1.f - sg));
+}
+
+// SiLU(FiLM(GN(y))) rounded to T: the conv2 input the forward forms on load.
+template <typename T>
+__global__ void __launch_bounds__(NT) gn_act_kernel(const T* __restrict__ y, GNIn gn,
+                                                   T* __restrict__ out, long long S, int C,
+                                                   long long total) {
+  const double n = (double)S * (C / gn.groups);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % C), b = (int)(i / (S * C));
+    float mean, rstd;
+    group_moments(gn.stats, b, c / (C / gn.groups), gn.groups, n, gn.eps, &mean, &rstd);
+    float v = (to_f(y[i]) - mean) * rstd * gn.scale[c] + gn.bias[c];
+    if (gn.film != nullptr) {
+      const float* f = gn.film + (long long)b * 2 * C;
+      v = v * (f[c] + 1.f) + f[C + c];
+    }
+    out[i] = from_f<T>(silu(v));
+  }
+}
+
+// sums[b][c] += (sum of du, sum of du * yhat) over the pixels of this block's
+// chunk of sample b (grid: chunks x B), du = gup * SiLU'(u).
+template <typename T>
+__global__ void __launch_bounds__(NT) gn_bwd_sums_kernel(const T* __restrict__ y,
+                                                        const T* __restrict__ gup, GNIn gn,
+                                                        double* __restrict__ sums, long long S,
+                                                        int C) {
+  __shared__ float s_du[256], s_duy[256];
+  __shared__ float g_mean[MAXG], g_rstd[MAXG];
+  const int tid = threadIdx.x, b = blockIdx.y, cg = C / gn.groups;
+  for (int c = tid; c < C; c += NT) s_du[c] = s_duy[c] = 0.f;
+  if (tid < gn.groups)
+    group_moments(gn.stats, b, tid, gn.groups, (double)S * cg, gn.eps, &g_mean[tid], &g_rstd[tid]);
+  __syncthreads();
+  const float* f = gn.film != nullptr ? gn.film + (long long)b * 2 * C : nullptr;
+  const long long chunk = (S + gridDim.x - 1) / gridDim.x;
+  const long long p0 = blockIdx.x * chunk, p1 = min(S, p0 + chunk);
+  const long long base = (long long)b * S * C;
+  const bool fixed = NT % C == 0;  // each thread then sees one channel only
+  float du_acc = 0.f, duy_acc = 0.f;
+  for (long long e = p0 * C + tid; e < p1 * C; e += NT) {
+    const int c = (int)(e % C), gi = c / cg;
+    const float yh = (to_f(y[base + e]) - g_mean[gi]) * g_rstd[gi];
+    float u = yh * gn.scale[c] + gn.bias[c];
+    if (f != nullptr) u = u * (f[c] + 1.f) + f[C + c];
+    const float du = to_f(gup[base + e]) * silu_grad(u);
+    if (fixed) {
+      du_acc += du;
+      duy_acc += du * yh;
+    } else {
+      atomicAdd(&s_du[c], du);
+      atomicAdd(&s_duy[c], du * yh);
+    }
+  }
+  if (fixed && tid < C * (NT / C)) {
+    atomicAdd(&s_du[tid % C], du_acc);
+    atomicAdd(&s_duy[tid % C], duy_acc);
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += NT) {
+    atomicAdd(&sums[((long long)b * C + c) * 2], (double)s_du[c]);
+    atomicAdd(&sums[((long long)b * C + c) * 2 + 1], (double)s_duy[c]);
+  }
+}
+
+// One block: from the per-(b, c) sums A = sum du, Q = sum du yhat, with
+// k = FiLM scale + 1 (1 without FiLM):
+//   dscale[c] = sum_b k Q, dbias[c] = sum_b k A,
+//   dfilm[b] = (scale Q + bias A | A),
+//   coef[b][g] = means over the group of dyhat and dyhat yhat, dyhat = du k scale.
+__global__ void __launch_bounds__(NT) gn_bwd_finalize_kernel(const double* __restrict__ sums, GNIn gn,
+                                                            float* __restrict__ dscale,
+                                                            float* __restrict__ dbias,
+                                                            float* __restrict__ dfilm,
+                                                            float* __restrict__ coef, int B,
+                                                            long long S, int C) {
+  const int tid = threadIdx.x, cg = C / gn.groups;
+  for (int c = tid; c < C; c += NT) {
+    double ds = 0.0, db = 0.0;
+    for (int b = 0; b < B; ++b) {
+      const double A = sums[((long long)b * C + c) * 2], Q = sums[((long long)b * C + c) * 2 + 1];
+      const double k = gn.film != nullptr ? (double)gn.film[(long long)b * 2 * C + c] + 1.0 : 1.0;
+      ds += k * Q;
+      db += k * A;
+      if (dfilm != nullptr) {
+        dfilm[(long long)b * 2 * C + c] = (float)(gn.scale[c] * Q + gn.bias[c] * A);
+        dfilm[(long long)b * 2 * C + C + c] = (float)A;
+      }
+    }
+    dscale[c] = (float)ds;
+    dbias[c] = (float)db;
+  }
+  const double n = (double)S * cg;
+  for (int e = tid; e < B * gn.groups; e += NT) {
+    const int b = e / gn.groups, gi = e % gn.groups;
+    double s1 = 0.0, s2 = 0.0;
+    for (int c = gi * cg; c < (gi + 1) * cg; ++c) {
+      const double k = gn.film != nullptr ? (double)gn.film[(long long)b * 2 * C + c] + 1.0 : 1.0;
+      s1 += gn.scale[c] * k * sums[((long long)b * C + c) * 2];
+      s2 += gn.scale[c] * k * sums[((long long)b * C + c) * 2 + 1];
+    }
+    coef[e * 2] = (float)(s1 / n);
+    coef[e * 2 + 1] = (float)(s2 / n);
+  }
+}
+
+// dy = rstd (dyhat - mean dyhat - yhat mean(dyhat yhat)), dyhat = du k scale.
+template <typename T>
+__global__ void __launch_bounds__(NT) gn_bwd_dy_kernel(const T* __restrict__ y,
+                                                      const T* __restrict__ gup, GNIn gn,
+                                                      const float* __restrict__ coef,
+                                                      T* __restrict__ dy, long long S, int C,
+                                                      long long total) {
+  const double n = (double)S * (C / gn.groups);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % C), b = (int)(i / (S * C)), gi = c / (C / gn.groups);
+    float mean, rstd;
+    group_moments(gn.stats, b, gi, gn.groups, n, gn.eps, &mean, &rstd);
+    const float yh = (to_f(y[i]) - mean) * rstd;
+    float u = yh * gn.scale[c] + gn.bias[c], k = 1.f;
+    if (gn.film != nullptr) {
+      const float* f = gn.film + (long long)b * 2 * C;
+      k = f[c] + 1.f;
+      u = u * k + f[C + c];
+    }
+    const float dyh = to_f(gup[i]) * silu_grad(u) * k * gn.scale[c];
+    const float* cf = coef + ((long long)b * gn.groups + gi) * 2;
+    dy[i] = from_f<T>(rstd * (dyh - cf[0] - yh * cf[1]));
+  }
+}
+
+// part_w[z][co][ci][tap] = sum over the pixel tiles of split z of
+// dy[p][co] in[p + tap][ci]; part_b[z][co] = sum of dy[p][co] (written by the
+// blocks of the first input-channel tile). Grid: (Cin / 16, Cout / 64, splits);
+// a thread owns one input channel and 4 output channels, all K*K taps.
+template <typename T, int K>
+__global__ void __launch_bounds__(NT) conv_wgrad_kernel(const T* __restrict__ in,
+                                                       const T* __restrict__ dy,
+                                                       float* __restrict__ part_w,
+                                                       float* __restrict__ part_b, int frames,
+                                                       int H, int W, int Cin, int Cout,
+                                                       int tiles_per_split) {
+  constexpr int P = TILE + K - 1, DS = CO_T + 1;
+  __shared__ float patch[P * P * CI_T];    // [pixel][input channel]
+  __shared__ float dys[TILE * TILE * DS];  // [pixel][output channel]
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int ci0 = blockIdx.x * CI_T, co0 = blockIdx.y * CO_T, z = blockIdx.z;
+  const int tiles_w = (W + TILE - 1) / TILE, tiles_h = (H + TILE - 1) / TILE;
+  const int ntiles = frames * tiles_h * tiles_w;
+  const int t_begin = z * tiles_per_split, t_end = min(ntiles, t_begin + tiles_per_split);
+  float acc[4][K * K], bacc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bacc[j] = 0.f;
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) acc[j][t] = 0.f;
+  }
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int frame = tile / (tiles_h * tiles_w), rem = tile % (tiles_h * tiles_w);
+    const int y0 = (rem / tiles_w) * TILE, x0 = (rem % tiles_w) * TILE;
+    const T* in_f = in + (long long)frame * H * W * Cin;
+    const T* dy_f = dy + (long long)frame * H * W * Cout;
+    __syncthreads();
+    for (int e = tid; e < P * P * CI_T; e += NT) {
+      const int cl = e % CI_T, pix = e / CI_T;
+      const int gy = y0 + pix / P - K / 2, gx = x0 + pix % P - K / 2, ci = ci0 + cl;
+      patch[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < Cin)
+                     ? to_f(in_f[((long long)gy * W + gx) * Cin + ci]) : 0.f;
+    }
+    for (int e = tid; e < TILE * TILE * CO_T; e += NT) {
+      const int col = e % CO_T, pix = e / CO_T;
+      const int gy = y0 + pix / TILE, gx = x0 + pix % TILE, co = co0 + col;
+      dys[pix * DS + col] = (gy < H && gx < W && co < Cout)
+                                ? to_f(dy_f[((long long)gy * W + gx) * Cout + co]) : 0.f;
+    }
+    __syncthreads();
+    for (int p = 0; p < TILE * TILE; ++p) {
+      const int py = p / TILE, px = p % TILE;
+      float dv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dv[j] = dys[p * DS + tx + 16 * j];
+        bacc[j] += dv[j];
+      }
+#pragma unroll
+      for (int t = 0; t < K * K; ++t) {
+        const float av = patch[((py + t / K) * P + px + t % K) * CI_T + ty];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j][t] = fmaf(av, dv[j], acc[j][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int co = co0 + tx + 16 * j, ci = ci0 + ty;
+    if (co >= Cout) continue;
+    if (ci < Cin) {
+#pragma unroll
+      for (int t = 0; t < K * K; ++t)
+        part_w[(((long long)z * Cout + co) * Cin + ci) * K * K + t] = acc[j][t];
+    }
+    if (part_b != nullptr && blockIdx.x == 0 && ty == 0) part_b[(long long)z * Cout + co] = bacc[j];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) add_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                                                T* __restrict__ out, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    out[i] = from_f<T>(to_f(a[i]) + to_f(b[i]));
+}
+
+int grid_for(long long total) {
+  const long long want = (total + NT - 1) / NT;
+  return (int)(want < 132 * 32 ? want : 132 * 32);
+}
+
+template <typename T, int K>
+cudaError_t wgrad(const T* in, const T* dy, float* part_w, float* part_b, float* dw, float* db,
+                  int frames, int H, int W, int Cin, int Cout, int splits, cudaStream_t stream) {
+  const int ntiles = frames * ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+  const int per = (ntiles + splits - 1) / splits;
+  const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, splits);
+  conv_wgrad_kernel<T, K><<<grid, NT, 0, stream>>>(in, dy, part_w, db != nullptr ? part_b : nullptr,
+                                                   frames, H, W, Cin, Cout, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = sum_parts(part_w, splits, (long long)Cout * Cin * K * K, dw, stream)) != cudaSuccess)
+    return err;
+  return db != nullptr ? sum_parts(part_b, splits, Cout, db, stream) : cudaSuccess;
+}
+
+// GN + SiLU backward of one stage: sums, finalize, dy.
+template <typename T>
+cudaError_t gn_bwd(const T* y, const T* gup, const GNIn& gn, double* sums, float* dscale,
+                   float* dbias, float* dfilm, float* coef, T* dy, int B, long long S, int C,
+                   cudaStream_t stream) {
+  const long long chunks = (S * C + NT * 64 - 1) / (NT * 64);
+  const dim3 grid((unsigned)(chunks < 128 ? chunks : 128), B);
+  gn_bwd_sums_kernel<T><<<grid, NT, 0, stream>>>(y, gup, gn, sums, S, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_bwd_finalize_kernel<<<1, NT, 0, stream>>>(sums, gn, dscale, dbias, dfilm, coef, B, S, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long total = (long long)B * S * C;
+  gn_bwd_dy_kernel<T><<<grid_for(total), NT, 0, stream>>>(y, gup, gn, coef, dy, S, C, total);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int block_bwd(const T* x, const T* gout, const T* w1, const T* w1f, const float* b1,
+              const float* g1s, const float* g1b, const float* film, const T* w2, const T* w2f,
+              const float* b2, const float* g2s, const float* g2b, const T* wresf, T* y1, T* y2,
+              T* a1, T* dy2, T* da1, T* dy1, T* dx1, T* dres, double* stats, double* sums,
+              float* coef, float* part_w, float* part_b, T* dx, float* dw1, float* db1,
+              float* dg1s, float* dg1b, float* dfilm, float* dw2, float* db2, float* dg2s,
+              float* dg2b, float* dwres, float* dbres, int B, int F, int H, int W, int Cin,
+              int Cout, int groups, float eps, int splits1, int splits2, int splits_res,
+              cudaStream_t stream) {
+  if (groups > MAXG || Cout % groups || Cout > 256) return (int)cudaErrorInvalidValue;
+  double* stats1 = stats;
+  double* stats2 = stats + 2 * B * groups;
+  double* sums1 = sums;
+  double* sums2 = sums + 2 * (long long)B * Cout;
+  const GNIn none{nullptr, nullptr, nullptr, nullptr, 1, eps};
+  const GNIn gn1{stats1, g1s, g1b, film, groups, eps};
+  const GNIn gn2{stats2, g2s, g2b, nullptr, groups, eps};
+  const long long S = (long long)F * H * W, total = S * B * Cout;
+  cudaError_t err;
+#define CHECK(call)                               \
+  if ((err = (call)) != cudaSuccess) return (int)err;
+  // the forward's convs again, with their GroupNorm sums
+  CHECK((conv<T, 3, false, true>(x, w1, b1, y1, none, stats1, groups, B, F, H, W, Cin, Cout, stream)));
+  CHECK((conv<T, 3, true, true>(y1, w2, b2, y2, gn1, stats2, groups, B, F, H, W, Cout, Cout, stream)));
+  gn_act_kernel<T><<<grid_for(total), NT, 0, stream>>>(y1, gn1, a1, S, Cout, total);
+  CHECK(cudaGetLastError());
+  // GN2 + SiLU, conv2
+  CHECK(gn_bwd<T>(y2, gout, gn2, sums2, dg2s, dg2b, nullptr, coef + 2 * B * groups, dy2, B, S, Cout,
+                  stream));
+  CHECK((wgrad<T, 3>(a1, dy2, part_w, part_b, dw2, db2, B * F, H, W, Cout, Cout, splits2, stream)));
+  CHECK((conv<T, 3, false, false>(dy2, w2f, nullptr, da1, none, nullptr, groups, B, F, H, W, Cout,
+                                  Cout, stream)));
+  // GN1 + FiLM + SiLU, conv1
+  CHECK(gn_bwd<T>(y1, da1, gn1, sums1, dg1s, dg1b, dfilm, coef, dy1, B, S, Cout, stream));
+  CHECK((wgrad<T, 3>(x, dy1, part_w, part_b, dw1, db1, B * F, H, W, Cin, Cout, splits1, stream)));
+  CHECK((conv<T, 3, false, false>(dy1, w1f, nullptr, dx1, none, nullptr, groups, B, F, H, W, Cout,
+                                  Cin, stream)));
+  // residual
+  const T* res = gout;
+  if (wresf != nullptr) {
+    CHECK((wgrad<T, 1>(x, gout, part_w, part_b, dwres, dbres, B * F, H, W, Cin, Cout, splits_res,
+                       stream)));
+    CHECK((conv<T, 1, false, false>(gout, wresf, nullptr, dres, none, nullptr, groups, B, F, H, W,
+                                    Cout, Cin, stream)));
+    res = dres;
+  }
+  const long long n_in = S * B * Cin;
+  add_kernel<T><<<grid_for(n_in), NT, 0, stream>>>(dx1, res, dx, n_in);
+#undef CHECK
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // stats: (2, B, groups, 2) float64, zeroed by the caller. y1, y2, r: scratch
@@ -372,5 +698,35 @@ extern "C" int resnet_block(int dtype, const void* x, const void* w1, const floa
                                         (const T*)w2, b2, g2s, g2b, (const T*)wres, bres, (T*)y1,
                                         (T*)y2, (T*)r, stats, (T*)out, B, F, H, W, Cin, Cout,
                                         groups, eps, (cudaStream_t)stream));
+  return 0;
+}
+
+// Gradients of resnet_block given x and the output's cotangent gout. w1f,
+// w2f: the conv weights flipped in (kh, kw) and transposed to (Cin', Cout'),
+// the layout of the dgrad convs; wresf (Cin, Cout) or null. Scratch: y1, y2,
+// a1, dy2, da1, dy1 of the output's shape, dx1 and dres (with wresf) of x's,
+// stats (2, B, groups, 2) and sums (2, B, Cout, 2) float64 zeroed by the
+// caller, coef (2, B, groups, 2), part_w and part_b large enough for the
+// largest of the three weight-gradient splits. Gradients of the float
+// operands are float32; dfilm (B, 2 Cout) or null.
+extern "C" int resnet_block_bwd(int dtype, const void* x, const void* gout, const void* w1,
+                                const void* w1f, const float* b1, const float* g1s,
+                                const float* g1b, const float* film, const void* w2,
+                                const void* w2f, const float* b2, const float* g2s,
+                                const float* g2b, const void* wresf, void* y1, void* y2, void* a1,
+                                void* dy2, void* da1, void* dy1, void* dx1, void* dres,
+                                double* stats, double* sums, float* coef, float* part_w,
+                                float* part_b, void* dx, float* dw1, float* db1, float* dg1s,
+                                float* dg1b, float* dfilm, float* dw2, float* db2, float* dg2s,
+                                float* dg2b, float* dwres, float* dbres, int B, int F, int H,
+                                int W, int Cin, int Cout, int groups, float eps, int splits1,
+                                int splits2, int splits_res, void* stream) {
+  if ((long long)B * F * H * W == 0) return 0;
+  DISPATCH_DTYPE(dtype, return block_bwd<T>(
+      (const T*)x, (const T*)gout, (const T*)w1, (const T*)w1f, b1, g1s, g1b, film, (const T*)w2,
+      (const T*)w2f, b2, g2s, g2b, (const T*)wresf, (T*)y1, (T*)y2, (T*)a1, (T*)dy2, (T*)da1,
+      (T*)dy1, (T*)dx1, (T*)dres, stats, sums, coef, part_w, part_b, (T*)dx, dw1, db1, dg1s, dg1b,
+      dfilm, dw2, db2, dg2s, dg2b, dwres, dbres, B, F, H, W, Cin, Cout, groups, eps, splits1,
+      splits2, splits_res, (cudaStream_t)stream));
   return 0;
 }

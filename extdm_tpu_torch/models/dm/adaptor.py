@@ -1,9 +1,14 @@
 """Motion adaptor, the distribution-extrapolation module (port of
 extdm_tpu/models/dm/adaptor.py). Layout (B, T, H, W, C); parameter names are
-the reference denoiser's (``adaptors.predictor.fn.norm.gamma``, ...)."""
+the reference denoiser's (``adaptors.predictor.fn.norm.gamma``, ...).
+
+Each module takes an explicit compute ``dtype`` (None: float32), as the flax
+modules do: parameters keep their own dtype (float32 when training) and are
+cast to the compute type where they are used; norm statistics stay float32."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -47,24 +52,33 @@ class Residual(nn.Module):
         return x + self.fn(x)
 
 
+def cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class PointwiseConv3d(nn.Conv3d):
     """1x1x1 Conv3d on (..., C) tensors, as a product over channels."""
 
-    def __init__(self, cin: int, cout: int, bias: bool = True):
+    def __init__(self, cin: int, cout: int, bias: bool = True, dtype=None):
         super().__init__(cin, cout, 1, bias=bias)
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight.flatten(1), self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.flatten(1).to(dt), cast(self.bias, dt))
 
 
 class Conv3x3x3(nn.Conv3d):
     """Bias-free 3x3x3 Conv3d, zero padded, on (B, T, H, W, C) tensors."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=None):
         super().__init__(dim, dim, 3, padding=1, bias=False)
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype).permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        dt = self.compute_dtype
+        y = self._conv_forward(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt), None)
+        return y.permute(0, 2, 3, 4, 1)
 
 
 def compute_layer(tm: int, tp: int):
@@ -78,10 +92,10 @@ class Extrapolator(nn.Module):
     variance, add a 3x3x3 residual conv, re-scale and append along T,
     doubling the window per layer; returns only the new frames."""
 
-    def __init__(self, dim: int, num_layers: int):
+    def __init__(self, dim: int, num_layers: int, dtype=None):
         super().__init__()
-        self.predictor = Residual(PreNorm(dim, PointwiseConv3d(dim, dim)))
-        self.extrapolators = nn.ModuleList(Residual(Conv3x3x3(dim)) for _ in range(num_layers))
+        self.predictor = Residual(PreNorm(dim, PointwiseConv3d(dim, dim, dtype=dtype)))
+        self.extrapolators = nn.ModuleList(Residual(Conv3x3x3(dim, dtype)) for _ in range(num_layers))
 
     def forward(self, xm):
         tm = xm.shape[1]
@@ -101,13 +115,14 @@ class MotionAdaptor(nn.Module):
     """Extrapolate the cond-frame features into the prediction window and
     fuse them with the prediction stream (T-major fuse)."""
 
-    def __init__(self, dim: int, tc: int, tp: int):
+    def __init__(self, dim: int, tc: int, tp: int, dtype=None):
         super().__init__()
         self.tc, self.tp = tc, tp
+        self.compute_dtype = dtype or torch.float32
         num_layers, self.num_frames = compute_layer(tc, tp)
-        self.adaptors = Extrapolator(dim, num_layers)
+        self.adaptors = Extrapolator(dim, num_layers, dtype)
         self.Tmodulator = nn.Conv2d(self.num_frames * dim, tp * dim, 1)
-        self.fuser = PreNorm(2 * dim, PointwiseConv3d(2 * dim, dim))
+        self.fuser = PreNorm(2 * dim, PointwiseConv3d(2 * dim, dim, dtype=dtype))
 
     def forward(self, x):
         B, T, H, W, C = x.shape
@@ -115,8 +130,9 @@ class MotionAdaptor(nn.Module):
             raise ValueError(f"{T} frames, the adaptor was built for {self.tc} + {self.tp}")
         xm, xp = x[:, :self.tc], x[:, self.tc:]
         xm2p = self.adaptors(xm)  # (B, nf, H, W, C)
-        w3 = self.Tmodulator.weight.reshape(self.tp * C, self.num_frames, C)
-        y = torch.einsum("bfhwc,ofc->bhwo", xm2p.to(w3.dtype), w3) + self.Tmodulator.bias
+        dt = self.compute_dtype
+        w3 = self.Tmodulator.weight.reshape(self.tp * C, self.num_frames, C).to(dt)
+        y = torch.einsum("bfhwc,ofc->bhwo", xm2p.to(dt), w3) + self.Tmodulator.bias.to(dt)
         y = y.reshape(B, H, W, self.tp, C).permute(0, 3, 1, 2, 4)
         fused = self.fuser(torch.cat([y, xp.to(y.dtype)], dim=-1))
         return torch.cat([xm, fused + xp], dim=1)

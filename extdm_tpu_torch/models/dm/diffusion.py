@@ -1,11 +1,12 @@
-"""Gaussian diffusion over video latents, DDIM sampling (port of
-extdm_tpu/models/dm/diffusion.py): the fp64 cosine schedule cast to float32
-buffers, Imagen dynamic thresholding, and the reference's DDIM time grid.
-Noise comes from an explicit ``torch.Generator``."""
+"""Gaussian diffusion over video latents, DDIM sampling and the training
+loss (port of extdm_tpu/models/dm/diffusion.py): the fp64 cosine schedule
+cast to float32 buffers, q_sample and the epsilon loss, Imagen dynamic
+thresholding, and the reference's DDIM time grid. Timesteps and noise come
+from an explicit ``torch.Generator``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,27 +21,43 @@ def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
 
 @dataclass(frozen=True)
 class DiffusionSchedule:
-    """Schedule buffers (numpy float32) of the sampling path."""
+    """Schedule buffers (numpy float32), computed in float64."""
 
     num_timesteps: int
     betas: np.ndarray
     alphas_cumprod: np.ndarray
     alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
     sqrt_recip_alphas_cumprod: np.ndarray
     sqrt_recipm1_alphas_cumprod: np.ndarray
+    posterior_variance: np.ndarray
+    posterior_log_variance_clipped: np.ndarray
+    posterior_mean_coef1: np.ndarray
+    posterior_mean_coef2: np.ndarray
 
     @staticmethod
     def create(timesteps: int = 1000) -> "DiffusionSchedule":
         betas = cosine_beta_schedule(timesteps)
-        alphas_cumprod = np.cumprod(1.0 - betas)
+        alphas = 1.0 - betas
+        alphas_cumprod = np.cumprod(alphas)
+        alphas_cumprod_prev = np.concatenate([[1.0], alphas_cumprod[:-1]])
+        posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
         f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
         return DiffusionSchedule(
             num_timesteps=timesteps,
             betas=f32(betas),
             alphas_cumprod=f32(alphas_cumprod),
-            alphas_cumprod_prev=f32(np.concatenate([[1.0], alphas_cumprod[:-1]])),
+            alphas_cumprod_prev=f32(alphas_cumprod_prev),
+            sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
             sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
             sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1.0)),
+            posterior_variance=f32(posterior_variance),
+            posterior_log_variance_clipped=f32(np.log(np.maximum(posterior_variance, 1e-20))),
+            posterior_mean_coef1=f32(betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
+            posterior_mean_coef2=f32((1.0 - alphas_cumprod_prev) * np.sqrt(alphas)
+                                     / (1.0 - alphas_cumprod)),
         )
 
 
@@ -62,18 +79,54 @@ def ddim_time_pairs(num_timesteps: int, sampling_steps: int) -> np.ndarray:
 DenoiseFn = Callable[..., torch.Tensor]  # (x, t, cond_frames, cond_fea) -> eps
 
 
+def _extract(buf: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """buf[t] shaped (B, 1, ..., 1) to broadcast over a rank-`ndim` batch."""
+    return torch.as_tensor(buf, device=t.device)[t].reshape((-1,) + (1,) * (ndim - 1))
+
+
 @dataclass(frozen=True)
 class GaussianDiffusion:
     schedule: DiffusionSchedule
     sampling_timesteps: int = 10
     ddim_eta: float = 1.0
+    loss_type: str = "l2"
+
+    def q_sample(self, x_start, t, noise):
+        s = self.schedule
+        return (_extract(s.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+                + _extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
 
     def predict_start_from_noise(self, x_t, t, noise):
         s = self.schedule
-        shape = (-1,) + (1,) * (x_t.ndim - 1)
-        a = torch.as_tensor(s.sqrt_recip_alphas_cumprod, device=x_t.device)[t].reshape(shape)
-        b = torch.as_tensor(s.sqrt_recipm1_alphas_cumprod, device=x_t.device)[t].reshape(shape)
-        return a * x_t - b * noise
+        return (_extract(s.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+                - _extract(s.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise)
+
+    def p_losses(self, denoise_fn: "DenoiseFn", generator: torch.Generator, x_cond: torch.Tensor,
+                 x_pred: torch.Tensor, cond_fea: Optional[torch.Tensor],
+                 t: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, pred_x0) of one batch of (B, T, h, w, C) latents: t ~ U[0,
+        num_timesteps) and standard normal noise, drawn from `generator` in
+        that order unless given; pred_x0 is detached and dynamically
+        thresholded."""
+        b, device = x_pred.shape[0], x_pred.device
+        if t is None:
+            t = torch.randint(0, self.schedule.num_timesteps, (b,), generator=generator,
+                              device=generator.device)
+        if noise is None:
+            noise = torch.randn(x_pred.shape, generator=generator, device=generator.device)
+        t, noise = t.to(device, torch.long), noise.to(device, x_pred.dtype)
+        x_noisy = self.q_sample(x_pred, t, noise)
+        pred_noise = denoise_fn(x_noisy, t, x_cond, cond_fea)
+        if self.loss_type == "l1":
+            loss = (noise - pred_noise).abs().mean()
+        elif self.loss_type == "l2":
+            loss = ((noise * 10.0 - pred_noise * 10.0) ** 2).mean()
+        else:
+            raise NotImplementedError(self.loss_type)
+        with torch.no_grad():
+            pred_x0 = dynamic_threshold(self.predict_start_from_noise(x_noisy, t, pred_noise))
+        return loss, pred_x0
 
     def ddim_sample(self, denoise_fn: DenoiseFn, generator: torch.Generator,
                     x_cond: torch.Tensor, pred_frames: int, cond_fea: Optional[torch.Tensor],

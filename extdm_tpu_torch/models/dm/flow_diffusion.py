@@ -1,14 +1,17 @@
 """FlowDiffusion: frozen LFAE + 3-D UNet + Gaussian diffusion, DDIM sampling
-(port of extdm_tpu/models/dm/flow_diffusion.py).
+and the training loss (port of extdm_tpu/models/dm/flow_diffusion.py).
 
 ``FlowDiffusion(cfg, device="cuda")`` builds the modules with this package's
-own initialisation (seeded) on the given device and in ``cfg.dtype``; load
-converted JAX weights with ``fd.lfae.load_state_dict(...)`` and
-``fd.unet.load_state_dict(...)`` (see ``convert.py``). There is no silent CPU
-fallback: a CUDA device without a card raises; the CPU runs only when asked.
+own initialisation (seeded) on the given device. The frozen LFAE is stored
+in ``cfg.dtype``; the UNet keeps float32 master weights (trainable) and
+computes in ``cfg.dtype``, as the JAX trainer does. Load converted JAX
+weights with ``fd.lfae.load_state_dict(...)`` and ``fd.unet.load_state_dict(...)``
+(see ``convert.py``). There is no silent CPU fallback: a CUDA device
+without a card raises; the CPU runs only when asked.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -101,6 +104,7 @@ class FlowDiffusionConfig:
     timesteps: int = 1000
     sampling_timesteps: int = 10
     ddim_eta: float = 1.0
+    loss_type: str = "l2"
     use_residual_flow: bool = False
     dim: int = 64
     dim_mults: Tuple[int, ...] = (1, 2, 4, 4)
@@ -111,7 +115,9 @@ class FlowDiffusionConfig:
     conditioning: str = "adaptor"
     down_adaptor_from_level: int = 0
     path: int = 0  # 1 -> THW combined temporal bias
-    dtype: Any = None  # torch dtype of the modules; None -> float32
+    with_rec_losses: bool = False  # loss() also reports no-grad reconstruction monitors
+    remat: bool = True  # UNet: MotionAdaptors under torch.utils.checkpoint when training
+    dtype: Any = None  # compute dtype (and the frozen LFAE's storage dtype); None -> float32
 
     @property
     def bottleneck_dim(self) -> int:
@@ -125,7 +131,8 @@ class FlowDiffusionConfig:
                       attn_heads=self.attn_heads, attn_dim_head=self.attn_dim_head,
                       cond_num=self.cond_frames, pred_num=self.pred_frames,
                       use_ref_features=self.use_ref_features, conditioning=self.conditioning,
-                      down_adaptor_from_level=self.down_adaptor_from_level, path=self.path)
+                      down_adaptor_from_level=self.down_adaptor_from_level, path=self.path,
+                      remat=self.remat, dtype=self.dtype)
 
     def make_lfae(self) -> LFAE:
         return LFAE(self.flow_params)
@@ -133,7 +140,7 @@ class FlowDiffusionConfig:
     def make_diffusion(self) -> GaussianDiffusion:
         return GaussianDiffusion(schedule=DiffusionSchedule.create(self.timesteps),
                                  sampling_timesteps=self.sampling_timesteps,
-                                 ddim_eta=self.ddim_eta)
+                                 ddim_eta=self.ddim_eta, loss_type=self.loss_type)
 
 
 def resolve_device(device) -> torch.device:
@@ -150,14 +157,30 @@ class FlowDiffusion:
     def __init__(self, cfg: FlowDiffusionConfig, device="cuda", seed: int = 0):
         self.cfg = cfg
         self.device = resolve_device(device)
-        dtype = cfg.dtype or torch.float32
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.lfae = cfg.make_lfae()
             self.unet = cfg.make_unet()
-        self.lfae = self.lfae.to(self.device, dtype).eval().requires_grad_(False)
-        self.unet = self.unet.to(self.device, dtype).eval().requires_grad_(False)
+        self.lfae = self.lfae.to(self.device, cfg.dtype or torch.float32)
+        self.lfae.eval().requires_grad_(False)
+        self.unet = self.unet.to(self.device)  # float32 master weights, trainable
+        self._sampling_unet = None  # (weight versions, copy in the compute dtype)
         self.diffusion = cfg.make_diffusion()
+
+    def sampling_unet(self) -> Unet3D:
+        """The UNet the sampler runs: the weights themselves in float32, else
+        a no-grad copy cast once to the compute dtype, made again whenever the
+        weights have changed (an optimizer step or a load bumps their versions)."""
+        dtype = self.cfg.dtype or torch.float32
+        if all(p.dtype == dtype for p in self.unet.parameters()):
+            return self.unet
+        key = tuple((p.data_ptr(), p._version) for p in self.unet.parameters())
+        if self._sampling_unet is None or self._sampling_unet[0] != key:
+            unet = copy.deepcopy(self.unet).to(dtype).requires_grad_(False)
+            for p in unet.parameters():
+                p.grad = None
+            self._sampling_unet = (key, unet)
+        return self._sampling_unet[1]
 
     def _identity_grid(self, h: int, w: int) -> torch.Tensor:
         return make_coordinate_grid(h, w, device=self.device)[None, None]
@@ -176,19 +199,49 @@ class FlowDiffusion:
             flow = flow + self._identity_grid(*flow.shape[2:4])
         return flow
 
-    def denoise_fn(self, cond_cache=None):
+    def denoise_fn(self, cond_cache=None, unet: Optional[Unet3D] = None):
+        unet = unet or self.unet
+
         def fn(x, t, cond_frames, cond_fea):
-            return self.unet(x, t, cond_frames, cond_fea, cond_cache=cond_cache)
+            return unet(x, t, cond_frames, cond_fea, cond_cache=cond_cache)
         return fn
 
-    def cond_cache(self, x_cond: torch.Tensor, fea: Optional[torch.Tensor]):
+    def cond_cache(self, x_cond: torch.Tensor, fea: Optional[torch.Tensor],
+                   unet: Optional[Unet3D] = None):
         """The (x, t)-invariant conditioning term, computed once per sampler call."""
         if fea is None:
             return None
         B, tc, h, w, C = x_cond.shape
         x_dummy = torch.zeros((B, self.cfg.pred_frames, h, w, C), device=x_cond.device)
         t_dummy = torch.zeros((B,), dtype=torch.long, device=x_cond.device)
-        return self.unet(x_dummy, t_dummy, x_cond, fea, cond_only=True)
+        return (unet or self.unet)(x_dummy, t_dummy, x_cond, fea, cond_only=True)
+
+    def loss(self, generator: torch.Generator, video: torch.Tensor,
+             t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The epsilon loss of one batch, differentiable in the UNet only.
+        video (B, tc+tp, H, W, C) in [0, 1]. The frozen LFAE encodes under
+        no_grad; `t` and `noise` replace the draws from `generator`. Returns
+        (loss, aux): aux holds the detached loss and, with
+        cfg.with_rec_losses, the no-grad reconstruction monitors."""
+        cfg = self.cfg
+        tc, tp = cfg.cond_frames, cfg.pred_frames
+        video = video.to(self.device)
+        with torch.no_grad():
+            enc = self.lfae.encode_video(video, tc)
+            fea = self.lfae.ref_features(video, tc, tp) if cfg.use_ref_features else None
+            frames = self.latents_from_encode(enc).float()
+        loss, pred_x0 = self.diffusion.p_losses(self.denoise_fn(), generator, frames[:, :tc],
+                                                frames[:, tc:tc + tp], fea, t=t, noise=noise)
+        aux = {"loss": loss.detach()}
+        if cfg.with_rec_losses:
+            with torch.no_grad():
+                dec = self.lfae.decode_flows(video[:, tc - 1], self.flow_from_pred(pred_x0),
+                                             (pred_x0[..., 2:3] + 1.0) * 0.5)
+                gt = video[:, tc:tc + tp].float()
+                aux["rec_loss"] = (gt * 10.0 - dec["out_vid"].float() * 10.0).abs().mean()
+                aux["rec_warp_loss"] = (gt * 10.0 - dec["warped_vid"].float() * 10.0).abs().mean()
+        return loss, aux
 
     def make_sampler(self):
         """fn(generator, cond_video, init_noise=None) -> dict with the keys of
@@ -206,9 +259,10 @@ class FlowDiffusion:
             enc = self.lfae.encode_video(cond_video, tc)
             fea = self.lfae.ref_features(cond_video, tc, tp) if cfg.use_ref_features else None
             x_cond = self.latents_from_encode(enc)
-            cache = self.cond_cache(x_cond, fea)
-            pred = self.diffusion.ddim_sample(self.denoise_fn(cache), generator, x_cond, tp, fea,
-                                              init_noise=init_noise)
+            unet = self.sampling_unet()
+            cache = self.cond_cache(x_cond, fea, unet)
+            pred = self.diffusion.ddim_sample(self.denoise_fn(cache, unet), generator, x_cond, tp,
+                                              fea, init_noise=init_noise)
             enc_flow, enc_conf = enc["flow"], enc["conf"]
             sample_flow = torch.cat([enc_flow, self.flow_from_pred(pred)], dim=1)
             sample_conf = None

@@ -8,6 +8,14 @@ kernels (``ops/fused_*.py``); on the CPU as their plain versions.
 Parameter names follow the reference denoiser's state dict
 (``downs.{i}.{0..6}``, ``mid_block1``, ``final_conv.0``, ...), so
 ``convert.py`` maps the JAX variables onto them. Layout (B, T, H, W, C).
+
+Dtype policy, as in the flax modules: ``dtype`` is the compute type (None:
+float32); parameters keep their own type (float32 master weights when
+training) and each layer casts them to the compute type where it uses them.
+The time MLP runs in float32 and norm statistics stay float32. With
+``remat``, the MotionAdaptors run under ``torch.utils.checkpoint``: their
+autograd would keep every intermediate of the extrapolator, while the
+kernel layers' autograd Functions already keep only their inputs.
 """
 from __future__ import annotations
 
@@ -17,8 +25,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from extdm_tpu_torch.models.dm.adaptor import MotionAdaptor, PointwiseConv3d, PreNorm
+from extdm_tpu_torch.models.dm.adaptor import MotionAdaptor, PointwiseConv3d, PreNorm, cast
 from extdm_tpu_torch.nn.attention import (RelativePositionBias, RelativePositionBiasTHW,
                                           TemporalAttentionLayer, WindowAttention3D,
                                           get_window_size)
@@ -43,13 +52,14 @@ class SinusoidalPosEmb(nn.Module):
         return sinusoidal_pos_emb(t, self.dim)
 
 
-def conv_frames(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+def conv_frames(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], dtype,
                 stride: int = 1, padding: int = 0, transpose: bool = False) -> torch.Tensor:
-    """A (1, k, k) Conv3d (or ConvTranspose3d) applied frame by frame to (B, T, H, W, C)."""
+    """A (1, k, k) Conv3d (or ConvTranspose3d) applied frame by frame to
+    (B, T, H, W, C), computing in `dtype`."""
     B, T, H, W, C = x.shape
-    xf = x.to(weight.dtype).reshape(B * T, H, W, C).permute(0, 3, 1, 2)
+    xf = x.to(dtype).reshape(B * T, H, W, C).permute(0, 3, 1, 2)
     op = F.conv_transpose2d if transpose else F.conv2d
-    y = op(xf, weight.squeeze(2), bias, stride=stride, padding=padding)
+    y = op(xf, weight.squeeze(2).to(dtype), cast(bias, dtype), stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1).reshape(B, T, *y.shape[2:], y.shape[1])
 
 
@@ -67,9 +77,10 @@ class ResnetBlock3d(nn.Module):
     ``fused_resnet_block``."""
 
     def __init__(self, dim: int, dim_out: int, time_emb_dim: Optional[int] = None,
-                 groups: int = 8):
+                 groups: int = 8, dtype=None):
         super().__init__()
         self.groups = groups
+        self.compute_dtype = dtype or torch.float32
         self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
                     if time_emb_dim is not None else None)
         self.block1 = Block3d(dim, dim_out, groups)
@@ -78,11 +89,13 @@ class ResnetBlock3d(nn.Module):
 
     def forward(self, x, time_emb=None):
         film = None
+        dt = self.compute_dtype
         if self.mlp is not None and time_emb is not None:
-            film = self.mlp(time_emb.to(self.mlp[1].weight.dtype))
+            lin = self.mlp[1]
+            film = F.linear(self.mlp[0](time_emb.to(dt)), lin.weight.to(dt), lin.bias.to(dt))
         b1, b2, rc = self.block1, self.block2, self.res_conv
         return fused_resnet_block(
-            x, b1.proj.weight, b1.proj.bias, b1.norm.weight, b1.norm.bias, film,
+            x.to(dt), b1.proj.weight, b1.proj.bias, b1.norm.weight, b1.norm.bias, film,
             b2.proj.weight, b2.proj.bias, b2.norm.weight, b2.norm.bias,
             rc.weight if rc is not None else None, rc.bias if rc is not None else None,
             groups=self.groups)
@@ -91,21 +104,24 @@ class ResnetBlock3d(nn.Module):
 class Downsample(nn.Conv3d):
     """conv (1,4,4) stride (1,2,2)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=None):
         super().__init__(dim, dim, (1, 4, 4), (1, 2, 2), (0, 1, 1))
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x):
-        return conv_frames(x, self.weight, self.bias, stride=2, padding=1)
+        return conv_frames(x, self.weight, self.bias, self.compute_dtype, stride=2, padding=1)
 
 
 class Upsample(nn.ConvTranspose3d):
     """transposed conv (1,4,4) stride (1,2,2): doubles H and W."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=None):
         super().__init__(dim, dim, (1, 4, 4), (1, 2, 2), (0, 1, 1))
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x):
-        return conv_frames(x, self.weight, self.bias, stride=2, padding=1, transpose=True)
+        return conv_frames(x, self.weight, self.bias, self.compute_dtype, stride=2, padding=1,
+                           transpose=True)
 
 
 class STWAttentionLayer(nn.Module):
@@ -175,11 +191,12 @@ class Unet3D(nn.Module):
                  init_kernel_size: int = 7, resnet_groups: int = 8, cond_num: int = 0,
                  pred_num: int = 0, use_ref_features: bool = True,
                  conditioning: str = "adaptor", down_adaptor_from_level: int = 0,
-                 path: int = 0):
+                 path: int = 0, remat: bool = True, dtype=None):
         super().__init__()
         if conditioning not in ("adaptor", "none"):
             raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
-        self.channels, self.path = channels, path
+        self.channels, self.path, self.remat = channels, path, remat
+        self.compute_dtype = dt = dtype or torch.float32
         self.cond_num, self.pred_num = cond_num, pred_num
         self.use_ref_features = use_ref_features
         heads, dh = attn_heads, attn_dim_head
@@ -197,7 +214,7 @@ class Unet3D(nn.Module):
         in_ch = channels + (cond_feature_dim if use_ref_features else 0)
         self.init_conv = nn.Conv3d(in_ch, init_dim, (1, k0, k0), padding=(0, k0 // 2, k0 // 2))
         if use_ref_features:
-            self.cond_adaptor = MotionAdaptor(cond_feature_dim, cond_num, pred_num)
+            self.cond_adaptor = MotionAdaptor(cond_feature_dim, cond_num, pred_num, dt)
             self.cond_temporal_attn = PreNormTemporalAttn(cond_feature_dim, heads, dh)
         self.init_temporal_attn = PreNormTemporalAttn(init_dim, heads, dh)
 
@@ -211,13 +228,13 @@ class Unet3D(nn.Module):
 
         def level(d_in, d_out, adaptor, resample):
             return nn.ModuleList([
-                ResnetBlock3d(d_in, d_out, time_dim, resnet_groups),
+                ResnetBlock3d(d_in, d_out, time_dim, resnet_groups, dt),
                 PreNormSTW(d_out, window_size, shift, heads, dh),
-                ResnetBlock3d(d_out, d_out, time_dim, resnet_groups),
+                ResnetBlock3d(d_out, d_out, time_dim, resnet_groups, dt),
                 PreNormSTW(d_out, window_size, (0, 0, 0), heads, dh),
-                MotionAdaptor(d_out, cond_num, pred_num) if adaptor else nn.Identity(),
+                MotionAdaptor(d_out, cond_num, pred_num, dt) if adaptor else nn.Identity(),
                 PreNormTemporalAttn(d_out, heads, dh),
-                resample(d_out) if resample is not None else nn.Identity(),
+                resample(d_out, dt) if resample is not None else nn.Identity(),
             ])
 
         ada = conditioning == "adaptor"
@@ -226,18 +243,18 @@ class Unet3D(nn.Module):
                   Downsample if i < n - 1 else None)
             for i, (d_in, d_out) in enumerate(in_out))
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock3d(mid, mid, time_dim, resnet_groups)
+        self.mid_block1 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt)
         self.mid_attn1 = PreNormSTW(mid, window_size, shift, heads, dh)
-        self.mid_block2 = ResnetBlock3d(mid, mid, time_dim, resnet_groups)
+        self.mid_block2 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt)
         self.mid_attn2 = PreNormSTW(mid, window_size, (0, 0, 0), heads, dh)
-        self.mid_adaptor = MotionAdaptor(mid, cond_num, pred_num) if ada else nn.Identity()
+        self.mid_adaptor = MotionAdaptor(mid, cond_num, pred_num, dt) if ada else nn.Identity()
         self.ups = nn.ModuleList(
             level(d_out * 2, d_in, ada and i > 1, Upsample if i < n - 1 else None)
             for i, (d_in, d_out) in enumerate(reversed(in_out)))
-        self.final_conv = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups),
-                                        PointwiseConv3d(dim, out_grid_dim))
-        self.occlusion_map = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups),
-                                           PointwiseConv3d(dim, out_conf_dim))
+        self.final_conv = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt),
+                                        PointwiseConv3d(dim, out_grid_dim, dtype=dt))
+        self.occlusion_map = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt),
+                                           PointwiseConv3d(dim, out_conf_dim, dtype=dt))
 
     def _pos_bias(self, T: int, H: int, W: int) -> torch.Tensor:
         if self.path != 1:
@@ -255,15 +272,20 @@ class Unet3D(nn.Module):
         return (self.alpha[:, None, None, None] * tb.expand(full)
                 + self.beta[:, None, None, None] * (hb.expand(full) + wb.expand(full)))
 
+    def _adapt(self, adaptor: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and isinstance(adaptor, MotionAdaptor) and torch.is_grad_enabled():
+            return checkpoint(adaptor, x, use_reentrant=False)
+        return adaptor(x)
+
     def cond_stream(self, cond_fea: torch.Tensor, H: int, W: int,
                     pos_bias: torch.Tensor) -> torch.Tensor:
         """The (x, t)-invariant conditioning term added after the init conv."""
         B, T = cond_fea.shape[:2]
-        cf = self.cond_adaptor(cond_fea.to(self.init_conv.weight.dtype))
+        cf = self._adapt(self.cond_adaptor, cond_fea.to(self.compute_dtype))
         cf = self.cond_temporal_attn(cf, pos_bias)
         cf = interpolate_bilinear(cf.reshape(B * T, *cf.shape[2:]), (H, W))
         cf = cf.reshape(B, T, H, W, -1)
-        return conv_frames(cf, self.init_conv.weight[:, self.channels:], None,
+        return conv_frames(cf, self.init_conv.weight[:, self.channels:], None, self.compute_dtype,
                            padding=self.init_pad)
 
     def forward(self, x, time, cond_frames, cond_fea=None, cond_cache=None,
@@ -275,7 +297,7 @@ class Unet3D(nn.Module):
         if (tc, tp) != (self.cond_num, self.pred_num):
             raise ValueError(f"frames (cond, pred) = {(tc, tp)}, the UNet was built for "
                              f"{(self.cond_num, self.pred_num)}")
-        dtype = self.init_conv.weight.dtype
+        dtype = self.compute_dtype
         x = torch.cat([cond_frames, x], dim=1).to(dtype)
         B, T, H, W, _ = x.shape
         pos_bias = self._pos_bias(T, H, W)
@@ -286,9 +308,9 @@ class Unet3D(nn.Module):
                 cond_cache = self.cond_stream(cond_fea, H, W, pos_bias)
             if cond_only:
                 return cond_cache
-            x = conv_frames(x, w0[:, :self.channels], b0, padding=self.init_pad) + cond_cache
+            x = conv_frames(x, w0[:, :self.channels], b0, dtype, padding=self.init_pad) + cond_cache
         else:
-            x = conv_frames(x, w0, b0, padding=self.init_pad)
+            x = conv_frames(x, w0, b0, dtype, padding=self.init_pad)
 
         r = x
         x = self.init_temporal_attn(x, pos_bias)
@@ -300,17 +322,17 @@ class Unet3D(nn.Module):
         hs = []
         for res1, stw1, res2, stw2, adaptor, tattn, down in self.downs:
             x = res2(res1(x, t_emb), t_emb)
-            x = adaptor(stw2(stw1(x)))
+            x = self._adapt(adaptor, stw2(stw1(x)))
             x = tattn(x, pos_bias)
             hs.append(x)
             x = down(x)
         x = self.mid_block1(x, t_emb)
-        x = self.mid_adaptor(self.mid_attn2(self.mid_attn1(x)))
+        x = self._adapt(self.mid_adaptor, self.mid_attn2(self.mid_attn1(x)))
         x = self.mid_block2(x, t_emb)
         for res1, stw1, res2, stw2, adaptor, tattn, up in self.ups:
             x = torch.cat([x, hs.pop()], dim=-1)
             x = res2(res1(x, t_emb), t_emb)
-            x = adaptor(stw2(stw1(x)))
+            x = self._adapt(adaptor, stw2(stw1(x)))
             x = tattn(x, pos_bias)
             x = up(x)
         x = torch.cat([x, r], dim=-1)

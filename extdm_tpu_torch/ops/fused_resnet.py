@@ -1,4 +1,4 @@
-"""Kernel 3 of the sampling path: the whole ResnetBlock3d (``csrc/resnet.cu``).
+"""Kernel 3, the whole ResnetBlock3d, and its backward, kernel 7 (``csrc/resnet.cu``).
 
 Replaces ``extdm_tpu/ops/pallas_resnet.py`` ``fused_resnet_block``
 (``_kernel_impl`` -> ``_make_kernel``): conv(1,3,3)+b -> GroupNorm -> FiLM
@@ -19,6 +19,16 @@ counterpart: every block of the path takes the kernels.
 version (``resnet_block_plain``) for CPU tensors; ``fused_resnet_block.launches``
 counts blocks run on the card. Weights are in torch Conv layout:
 w1 (Cout, Cin, 1, 3, 3), w2 (Cout, Cout, 1, 3, 3), wres (Cout, Cin, 1, 1, 1).
+
+Training: when an operand needs a gradient, the CUDA path runs as a
+``torch.autograd.Function`` that saves the block's inputs only; its
+backward launches ``resnet_block_bwd`` (kernel 7, replacing
+``pallas_resnet._bwd_kernel_impl``), which recomputes the forward and takes
+every gradient (dx, the conv weights per tap and their biases, both
+GroupNorms' scale and bias, dFiLM (B, 2 Cout) and the residual projection's)
+in this file's kernels. The JAX VMEM gate (``pallas_resnet._bwd_supported``)
+has no counterpart: every block takes the kernels. The plain backward is
+``resnet_block_plain_vjp``.
 """
 from __future__ import annotations
 
@@ -28,8 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from extdm_tpu_torch import _build
+from extdm_tpu_torch.ops.fused_stw import _needs_grad, _sm_count, plain_vjp
 
-__all__ = ["fused_resnet_block", "resnet_block_plain"]
+__all__ = ["fused_resnet_block", "resnet_block_plain", "resnet_block_bwd",
+           "resnet_block_plain_vjp"]
 
 
 def _group_norm(y: torch.Tensor, scale, bias, groups: int, eps: float) -> torch.Tensor:
@@ -67,22 +79,17 @@ def resnet_block_plain(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2
     return (h2 + res).to(dtype)
 
 
-def fused_resnet_block(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2, g2s, g2b,
-                       wres=None, bres=None, *, groups=8, eps=1e-5):
-    """Whole ResnetBlock3d; same arguments and result as ``resnet_block_plain``."""
-    if x.device.type == "cpu":
-        return resnet_block_plain(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres,
-                                  groups=groups, eps=eps)
+def _check_block(what, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, groups):
     operands = [t for t in (w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres) if t is not None]
     if not x.is_cuda or any(t.device != x.device for t in operands):
-        raise ValueError(f"fused_resnet_block: activation on {x.device}, operands on "
+        raise ValueError(f"{what}: activation on {x.device}, operands on "
                          f"{sorted({str(t.device) for t in operands})}")
     B, T, H, W, Cin = x.shape
     Cout = w1.shape[0]
     if groups > 32 or Cout % groups:
-        raise ValueError(f"fused_resnet_block: {Cout} channels in {groups} groups")
+        raise ValueError(f"{what}: {Cout} channels in {groups} groups")
     if (wres is None) != (Cin == Cout):
-        raise ValueError("fused_resnet_block: a residual projection is needed iff Cin != Cout")
+        raise ValueError(f"{what}: a residual projection is needed iff Cin != Cout")
     shapes = {"w1": (w1, (Cout, Cin, 1, 3, 3)), "w2": (w2, (Cout, Cout, 1, 3, 3)),
               "film": (film, (B, 2 * Cout)), "wres": (wres, (Cout, Cin, 1, 1, 1))}
     shapes.update({n: (t, (Cout,)) for n, t in
@@ -90,16 +97,27 @@ def fused_resnet_block(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2
                     ("g2b", g2b), ("bres", bres))})
     for name, (t, shape) in shapes.items():
         if t is not None and tuple(t.shape) != shape:
-            raise ValueError(f"fused_resnet_block: {name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-    dt = x.dtype
-    x = x.contiguous()
-    # converted operands stay referenced until the launch has been queued
-    weights = [None if t is None else t.detach().to(dt).contiguous() for t in (w1, w2, wres)]
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _converted(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres):
+    """Weights in x.dtype and vectors in float32, as the kernels read them.
+    The caller keeps them referenced until the launch has been queued."""
+    weights = [None if t is None else t.detach().to(x.dtype).contiguous() for t in (w1, w2, wres)]
     vectors = [None if t is None else t.detach().float().contiguous()
                for t in (b1, g1s, g1b, film, b2, g2s, g2b, bres)]
-    w1c, w2c, wresc = weights
-    b1c, g1sc, g1bc, filmc, b2c, g2sc, g2bc, bresc = vectors
+    return weights, vectors
+
+
+def _resnet_forward(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, groups, eps):
+    _check_block("fused_resnet_block", x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres,
+                 groups)
+    B, T, H, W, Cin = x.shape
+    Cout = w1.shape[0]
+    dt = x.dtype
+    x = x.detach().contiguous()
+    (w1c, w2c, wresc), (b1c, g1sc, g1bc, filmc, b2c, g2sc, g2bc, bresc) = _converted(
+        x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres)
     shape = (B, T, H, W, Cout)
     y1 = torch.empty(shape, dtype=dt, device=x.device)
     y2 = torch.empty_like(y1)
@@ -115,4 +133,98 @@ def fused_resnet_block(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2
     return out
 
 
+class _ResnetBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kw, x, *params):
+        ctx.kw = kw
+        ctx.save_for_backward(x, *params)
+        return _resnet_forward(x, *params, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *resnet_block_bwd(g, *ctx.saved_tensors, **ctx.kw))
+
+
+def fused_resnet_block(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2, g2s, g2b,
+                       wres=None, bres=None, *, groups=8, eps=1e-5):
+    """Whole ResnetBlock3d; same arguments and result as ``resnet_block_plain``."""
+    operands = (x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres)
+    kw = dict(groups=groups, eps=eps)
+    if x.device.type == "cpu":
+        return resnet_block_plain(*operands, **kw)
+    if _needs_grad(*[t for t in operands if t is not None]):
+        return _ResnetBlock.apply(kw, *operands)
+    return _resnet_forward(*operands, **kw)
+
+
 fused_resnet_block.launches = 0
+
+
+def _wgrad_splits(B, T, H, W, cin, cout, device) -> int:
+    """Splits over pixel tiles of a conv weight gradient, for ~4 blocks per SM."""
+    tiles = -(-cin // 16) * -(-cout // 64)
+    pixel_tiles = B * T * -(-H // 8) * -(-W // 8)
+    return max(1, min(pixel_tiles, -(-4 * _sm_count(device) // tiles)))
+
+
+def resnet_block_bwd(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, bres=None, *,
+                     groups=8, eps=1e-5):
+    """Kernel 7: (dx, dw1, db1, dg1s, dg1b, dfilm, dw2, db2, dg2s, dg2b, dwres,
+    dbres) of ``fused_resnet_block`` at its inputs for the cotangent g; None
+    for an absent operand, each gradient in its operand's dtype."""
+    operands = (x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres)
+    if x.device.type == "cpu":
+        return resnet_block_plain_vjp(g, *operands, groups=groups, eps=eps)
+    _check_block("resnet_block_bwd", *operands, groups)
+    if g.device != x.device or tuple(g.shape) != tuple(x.shape[:4]) + (w1.shape[0],):
+        raise ValueError(f"resnet_block_bwd: cotangent {tuple(g.shape)} on {g.device}")
+    B, T, H, W, Cin = x.shape
+    Cout = w1.shape[0]
+    dt = x.dtype
+    x = x.detach().contiguous()
+    gc = g.detach().to(dt).contiguous()
+    (w1c, w2c, wresc), (b1c, g1sc, g1bc, filmc, b2c, g2sc, g2bc, _) = _converted(*operands)
+    # dgrad weights: flipped in (kh, kw), transposed to (Cin', Cout') = (Cin, Cout)
+    w1f = w1c.flip(-1, -2).transpose(0, 1).contiguous()
+    w2f = w2c.flip(-1, -2).transpose(0, 1).contiguous()
+    wresf = None if wres is None else wresc.flatten(1).t().contiguous()
+    out_shape, in_shape = (B, T, H, W, Cout), (B, T, H, W, Cin)
+    y1, y2, a1, dy2, da1, dy1 = (torch.empty(out_shape, dtype=dt, device=x.device)
+                                 for _ in range(6))
+    dx1, dxo = torch.empty(in_shape, dtype=dt, device=x.device), torch.empty_like(x)
+    dres = None if wres is None else torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    stats = torch.zeros((2, B, groups, 2), dtype=torch.float64, device=x.device)
+    sums = torch.zeros((2, B, Cout, 2), dtype=torch.float64, device=x.device)
+    coef = torch.empty((2, B, groups, 2), **f32)
+    s1 = _wgrad_splits(B, T, H, W, Cin, Cout, x.device)
+    s2 = _wgrad_splits(B, T, H, W, Cout, Cout, x.device)
+    sr = _wgrad_splits(B, T, H, W, Cin, Cout, x.device) if wres is not None else 1
+    part_w = torch.empty(max(s1 * Cout * Cin * 9, s2 * Cout * Cout * 9, sr * Cout * Cin), **f32)
+    part_b = torch.empty(max(s1, s2, sr) * Cout, **f32)
+    dw1, dw2 = torch.empty((Cout, Cin, 1, 3, 3), **f32), torch.empty((Cout, Cout, 1, 3, 3), **f32)
+    db1, dg1s, dg1b, db2, dg2s, dg2b = (torch.empty(Cout, **f32) for _ in range(6))
+    dfilm = None if film is None else torch.empty((B, 2 * Cout), **f32)
+    dwres = None if wres is None else torch.empty((Cout, Cin, 1, 1, 1), **f32)
+    dbres = None if wres is None else torch.empty(Cout, **f32)
+    P = _build.ptr
+    _build.launch("resnet", "resnet_block_bwd", _build.dtype_code(dt),
+                  P(x), P(gc), P(w1c), P(w1f), P(b1c), P(g1sc), P(g1bc), P(filmc), P(w2c), P(w2f),
+                  P(b2c), P(g2sc), P(g2bc), P(wresf), P(y1), P(y2), P(a1), P(dy2), P(da1), P(dy1),
+                  P(dx1), P(dres), P(stats), P(sums), P(coef), P(part_w), P(part_b), P(dxo),
+                  P(dw1), P(db1), P(dg1s), P(dg1b), P(dfilm), P(dw2), P(db2), P(dg2s), P(dg2b),
+                  P(dwres), P(dbres), B, T, H, W, Cin, Cout, groups, eps, s1, s2, sr,
+                  _build.stream(x))
+    resnet_block_bwd.launches += 1
+    grads = (dxo, dw1, db1, dg1s, dg1b, dfilm, dw2, db2, dg2s, dg2b, dwres, dbres)
+    return tuple(None if t is None else d.to(t.dtype) for d, t in zip(grads, operands))
+
+
+resnet_block_bwd.launches = 0
+
+
+def resnet_block_plain_vjp(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, bres=None,
+                           **kwargs):
+    """The plain version of kernel 7: autograd of ``resnet_block_plain``."""
+    return plain_vjp(resnet_block_plain, g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres,
+                     bres, **kwargs)

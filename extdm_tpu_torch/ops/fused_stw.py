@@ -1,4 +1,5 @@
-"""Kernels 1 and 2 of the sampling path: whole attention layers (``csrc/attention.cu``).
+"""Kernels 1 and 2 (``csrc/attention.cu``) and their backward kernels 5 and 6
+(``csrc/attention_bwd.cu``): whole attention layers.
 
 ``fused_stw_layer`` replaces ``extdm_tpu/ops/pallas_stw.py``
 ``fused_stw_layer`` (``_fused_padded`` -> ``_make_kernel``): the whole
@@ -23,6 +24,16 @@ Each wrapper runs its kernel for CUDA tensors and its plain version
 (``stw_layer_plain``, ``temporal_layer_plain``) for CPU tensors, and counts
 launches in ``<wrapper>.launches``. Weights are in torch Linear layout
 (out, in).
+
+Training: when an operand needs a gradient, the CUDA path runs as a
+``torch.autograd.Function`` that saves the layer's inputs only (as the JAX
+``custom_vjp`` does) and whose backward launches ``stw_layer_bwd`` (kernel 5,
+replacing ``pallas_stw._stw_bwd_padded``) or ``temporal_layer_bwd`` (kernel
+6, replacing ``pallas_stw._temporal_bwd_impl``), each counting its own
+``.launches``. Their plain versions are ``stw_layer_plain_vjp`` and
+``temporal_layer_plain_vjp``, the autograd of the plain forwards. Backward
+functions take the cotangent first, then the forward's arguments, and
+return one gradient per tensor argument, each in that argument's dtype.
 """
 from __future__ import annotations
 
@@ -44,7 +55,9 @@ from extdm_tpu_torch.nn.attention import (
 )
 from extdm_tpu_torch.nn.layers import chan_layer_norm
 
-__all__ = ["fused_stw_layer", "stw_layer_plain", "fused_temporal_layer", "temporal_layer_plain"]
+__all__ = ["fused_stw_layer", "stw_layer_plain", "stw_layer_bwd", "stw_layer_plain_vjp",
+           "fused_temporal_layer", "temporal_layer_plain", "temporal_layer_bwd",
+           "temporal_layer_plain_vjp"]
 
 
 def _pads(T: int, H: int, W: int, window) -> Tuple[int, int, int]:
@@ -118,34 +131,82 @@ def _f32(t):
     return t.detach().float().contiguous()
 
 
-def fused_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
-                    dim_head, eps=1e-5):
-    """Whole PreNormSTW layer; same arguments and result as ``stw_layer_plain``."""
-    if x.device.type == "cpu":
-        return stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
-                               shift=shift, heads=heads, dim_head=dim_head, eps=eps)
-    _check_cuda(x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
+def _weights(x, *ws):
+    """Weights in the activation dtype, as the kernels read them."""
+    return [w.detach().to(x.dtype).contiguous() for w in ws]
+
+
+def _needs_grad(*operands) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+
+
+def plain_vjp(fn, g, *operands, **kwargs):
+    """Gradients of fn(*operands, **kwargs) with cotangent g, by autograd,
+    one per operand (None where an operand is None)."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(True) for t in operands]
+        out = fn(*ins, **kwargs)
+        live = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(out, live, g, allow_unused=True))
+    return tuple(None if t is None else next(grads) for t in ins)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits(rows: int, m: int, k: int, device) -> int:
+    """Splits over rows of a weight-gradient product, for ~4 blocks per SM."""
+    tiles = -(-m // 64) * -(-k // 64)
+    return max(1, min(-(-rows // 256), -(-4 * _sm_count(device) // tiles)))
+
+
+def _stw_prepare(x, window, shift, heads, dim_head):
+    """Pad and roll x as the kernels take it, with the mask and rope tables."""
     B, T, H, W, C = x.shape
-    wd, wh, ww = window
-    N = wd * wh * ww
-    hid = heads * dim_head
-    _check_operands("fused_stw_layer", x, N, heads, dim_head, gamma=(gamma, (C,)),
-                    w_qkv=(w_qkv, (3 * hid, C)), w_proj=(w_proj, (C, hid)),
-                    b_proj=(b_proj, (C,)), bias_hnn=(bias_hnn, (heads, N, N)))
+    N = window[0] * window[1] * window[2]
     pd, ph, pw = _pads(T, H, W, window)
     xp = F.pad(x, (0, 0, 0, pw, 0, ph, 0, pd))
     shifted = any(s > 0 for s in shift)
     if shifted:
         xp = torch.roll(xp, shifts=(-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
     xp = xp.contiguous()
-    _, Tp, Hp, Wp, _ = xp.shape
     masks = ids = None
     if shifted:
-        masks, ids = _mask_tables(Tp, Hp, Wp, tuple(window), tuple(shift), x.device)
+        masks, ids = _mask_tables(*xp.shape[1:4], tuple(window), tuple(shift), x.device)
     rot = min(32, dim_head)
     cos, sin = _rope_tables(N, rot, x.device)
+    return xp, masks, ids, rot, cos, sin
+
+
+def _stw_unroll(out, x_shape, shift):
+    if any(s > 0 for s in shift):
+        out = torch.roll(out, shifts=tuple(shift), dims=(1, 2, 3))
+    _, T, H, W, _ = x_shape
+    return out[:, :T, :H, :W]
+
+
+def _stw_checked(what, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads, dim_head):
+    _check_cuda(x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
+    C = x.shape[-1]
+    N = window[0] * window[1] * window[2]
+    hid = heads * dim_head
+    _check_operands(what, x, N, heads, dim_head, gamma=(gamma, (C,)),
+                    w_qkv=(w_qkv, (3 * hid, C)), w_proj=(w_proj, (C, hid)),
+                    b_proj=(b_proj, (C,)), bias_hnn=(bias_hnn, (heads, N, N)))
+
+
+def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head,
+                 eps):
+    _stw_checked("fused_stw_layer", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
+                 dim_head)
+    C = x.shape[-1]
+    xp, masks, ids, rot, cos, sin = _stw_prepare(x.detach(), window, shift, heads, dim_head)
+    B, Tp, Hp, Wp, _ = xp.shape
+    wd, wh, ww = window
     out = torch.empty_like(xp)
-    wq, wp = w_qkv.to(x.dtype).contiguous(), w_proj.to(x.dtype).contiguous()
+    wq, wp = _weights(x, w_qkv, w_proj)
     g, bp, bias = _f32(gamma), _f32(b_proj), _f32(bias_hnn)
     P = _build.ptr
     _build.launch("attention", "stw_layer", _build.dtype_code(x.dtype),
@@ -153,12 +214,85 @@ def fused_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
                   P(sin), B, Tp, Hp, Wp, C, wd, wh, ww, heads, dim_head, rot, eps,
                   _build.stream(x))
     fused_stw_layer.launches += 1
-    if shifted:
-        out = torch.roll(out, shifts=tuple(shift), dims=(1, 2, 3))
-    return out[:, :T, :H, :W]
+    return _stw_unroll(out, x.shape, shift)
+
+
+class _STWLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kw, x, *params):
+        ctx.kw = kw
+        ctx.save_for_backward(x, *params)
+        return _stw_forward(x, *params, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *stw_layer_bwd(g, *ctx.saved_tensors, **ctx.kw))
+
+
+def fused_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
+                    dim_head, eps=1e-5):
+    """Whole PreNormSTW layer; same arguments and result as ``stw_layer_plain``."""
+    kw = dict(window=tuple(window), shift=tuple(shift), heads=heads, dim_head=dim_head, eps=eps)
+    operands = (x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
+    if x.device.type == "cpu":
+        return stw_layer_plain(*operands, **kw)
+    if _needs_grad(*operands):
+        return _STWLayer.apply(kw, *operands)
+    return _stw_forward(*operands, **kw)
 
 
 fused_stw_layer.launches = 0
+
+
+def stw_layer_bwd(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
+                  dim_head, eps=1e-5):
+    """Kernel 5: (dx, dgamma, dw_qkv, dw_proj, db_proj, dbias) of
+    ``fused_stw_layer`` at its inputs for the cotangent g. Pads and rolls g
+    like x (``pallas_stw._stw_bwd_impl``), rolls dx back and crops it."""
+    if x.device.type == "cpu":
+        return stw_layer_plain_vjp(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
+                                   shift=shift, heads=heads, dim_head=dim_head, eps=eps)
+    _stw_checked("stw_layer_bwd", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
+                 dim_head)
+    _check_cuda(x, g)
+    C, hid = x.shape[-1], heads * dim_head
+    xp, masks, ids, rot, cos, sin = _stw_prepare(x.detach(), window, shift, heads, dim_head)
+    gp = _stw_prepare(g.detach().to(x.dtype), window, shift, heads, dim_head)[0]
+    B, Tp, Hp, Wp, _ = xp.shape
+    wd, wh, ww = window
+    N = wd * wh * ww
+    tokens = xp.numel() // C
+    units = B * (Tp // wd) * (Hp // wh) * (Wp // ww)
+    nblk = max(1, min(units, 2 * _sm_count(x.device)))
+    sq, sp = _splits(tokens, 3 * hid, C, x.device), _splits(tokens, C, hid, x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dxp, h_tok = torch.empty_like(xp), torch.empty_like(xp)
+    dqkv, o_tok = torch.empty((tokens, 3 * hid), **f32), torch.empty((tokens, hid), **f32)
+    vec_part = torch.empty((nblk, 2, C), **f32)
+    bias_part = torch.empty((nblk, heads, N, N), **f32)
+    w_part = torch.empty(max(sq * 3 * hid * C, sp * C * hid), **f32)
+    vec, dbias = torch.empty(2 * C, **f32), torch.empty((heads, N, N), **f32)
+    dwqkv, dwproj = torch.empty((3 * hid, C), **f32), torch.empty((C, hid), **f32)
+    wq, wp = _weights(x, w_qkv, w_proj)
+    gm, bias = _f32(gamma), _f32(bias_hnn)
+    P = _build.ptr
+    _build.launch("attention_bwd", "stw_layer_bwd", _build.dtype_code(x.dtype),
+                  P(xp), P(gp), P(dxp), P(h_tok), P(wq), P(wp), P(gm), P(bias), P(masks), P(ids),
+                  P(cos), P(sin), P(dqkv), P(o_tok), P(vec_part), P(bias_part), P(w_part),
+                  P(vec), P(dbias), P(dwqkv), P(dwproj), B, Tp, Hp, Wp, C, wd, wh, ww,
+                  heads, dim_head, rot, eps, nblk, sq, sp, _build.stream(x))
+    stw_layer_bwd.launches += 1
+    dx = _stw_unroll(dxp, x.shape, shift)
+    return (dx, vec[:C].to(gamma.dtype), dwqkv.to(w_qkv.dtype), dwproj.to(w_proj.dtype),
+            vec[C:].to(b_proj.dtype), dbias.to(bias_hnn.dtype))
+
+
+stw_layer_bwd.launches = 0
+
+
+def stw_layer_plain_vjp(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, **kwargs):
+    """The plain version of kernel 5: autograd of ``stw_layer_plain``."""
+    return plain_vjp(stw_layer_plain, g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, **kwargs)
 
 
 # ------------------------------------------------------------------- temporal
@@ -176,25 +310,27 @@ def temporal_layer_plain(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn
     return (x.float() + attn).to(dtype)
 
 
-def fused_temporal_layer(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
-                         dim_head, eps=1e-5):
-    """Whole PreNormTemporalAttn layer; same arguments and result as
-    ``temporal_layer_plain``."""
-    if x.device.type == "cpu":
-        return temporal_layer_plain(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn,
-                                    heads=heads, dim_head=dim_head, eps=eps)
+def _temporal_checked(what, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, heads,
+                      dim_head):
     _check_cuda(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn)
     B, T, H, W, C = x.shape
     hid = heads * dim_head
-    _check_operands("fused_temporal_layer", x, T, heads, dim_head, gamma_cln=(gamma_cln, (C,)),
+    _check_operands(what, x, T, heads, dim_head, gamma_cln=(gamma_cln, (C,)),
                     ln_scale=(ln_scale, (C,)), ln_bias=(ln_bias, (C,)),
                     w_qkv=(w_qkv, (3 * hid, C)), w_out=(w_out, (C, hid)),
                     bias_hnn=(bias_hnn, (heads, T, T)))
-    x = x.contiguous()
+
+
+def _temporal_forward(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
+                      dim_head, eps):
+    _temporal_checked("fused_temporal_layer", x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
+                      bias_hnn, heads, dim_head)
+    B, T, H, W, C = x.shape
+    x = x.detach().contiguous()
     rot = min(32, dim_head)
     cos, sin = _rope_tables(T, rot, x.device)
     out = torch.empty_like(x)
-    wq, wo = w_qkv.to(x.dtype).contiguous(), w_out.to(x.dtype).contiguous()
+    wq, wo = _weights(x, w_qkv, w_out)
     g, s, b, bias = _f32(gamma_cln), _f32(ln_scale), _f32(ln_bias), _f32(bias_hnn)
     P = _build.ptr
     _build.launch("attention", "temporal_layer", _build.dtype_code(x.dtype),
@@ -204,4 +340,81 @@ def fused_temporal_layer(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn
     return out
 
 
+class _TemporalLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kw, x, *params):
+        ctx.kw = kw
+        ctx.save_for_backward(x, *params)
+        return _temporal_forward(x, *params, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *temporal_layer_bwd(g, *ctx.saved_tensors, **ctx.kw))
+
+
+def fused_temporal_layer(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
+                         dim_head, eps=1e-5):
+    """Whole PreNormTemporalAttn layer; same arguments and result as
+    ``temporal_layer_plain``."""
+    kw = dict(heads=heads, dim_head=dim_head, eps=eps)
+    operands = (x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn)
+    if x.device.type == "cpu":
+        return temporal_layer_plain(*operands, **kw)
+    if _needs_grad(*operands):
+        return _TemporalLayer.apply(kw, *operands)
+    return _temporal_forward(*operands, **kw)
+
+
 fused_temporal_layer.launches = 0
+
+
+def temporal_layer_bwd(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
+                       dim_head, eps=1e-5):
+    """Kernel 6: (dx, dgamma_cln, dln_scale, dln_bias, dw_qkv, dw_out, dbias)
+    of ``fused_temporal_layer`` at its inputs for the cotangent g."""
+    if x.device.type == "cpu":
+        return temporal_layer_plain_vjp(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
+                                        bias_hnn, heads=heads, dim_head=dim_head, eps=eps)
+    _temporal_checked("temporal_layer_bwd", x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
+                      bias_hnn, heads, dim_head)
+    _check_cuda(x, g)
+    B, T, H, W, C = x.shape
+    hid = heads * dim_head
+    x = x.detach().contiguous()
+    gc = g.detach().to(x.dtype).contiguous()
+    rot = min(32, dim_head)
+    cos, sin = _rope_tables(T, rot, x.device)
+    tokens = x.numel() // C
+    G = 64 // T if T <= 64 else 1
+    nblk = max(1, min(-(-(B * H * W) // G), 2 * _sm_count(x.device)))
+    sq, sp = _splits(tokens, 3 * hid, C, x.device), _splits(tokens, C, hid, x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, h_tok = torch.empty_like(x), torch.empty_like(x)
+    dqkv, o_tok = torch.empty((tokens, 3 * hid), **f32), torch.empty((tokens, hid), **f32)
+    vec_part = torch.empty((nblk, 3, C), **f32)
+    bias_part = torch.empty((nblk, heads, T, T), **f32)
+    w_part = torch.empty(max(sq * 3 * hid * C, sp * C * hid), **f32)
+    vec, dbias = torch.empty(3 * C, **f32), torch.empty((heads, T, T), **f32)
+    dwqkv, dwout = torch.empty((3 * hid, C), **f32), torch.empty((C, hid), **f32)
+    wq, wo = _weights(x, w_qkv, w_out)
+    gm, s, b, bias = _f32(gamma_cln), _f32(ln_scale), _f32(ln_bias), _f32(bias_hnn)
+    P = _build.ptr
+    _build.launch("attention_bwd", "temporal_layer_bwd", _build.dtype_code(x.dtype),
+                  P(x), P(gc), P(dx), P(h_tok), P(wq), P(wo), P(gm), P(s), P(b), P(bias), P(cos),
+                  P(sin), P(dqkv), P(o_tok), P(vec_part), P(bias_part), P(w_part), P(vec),
+                  P(dbias), P(dwqkv), P(dwout), B, T, H * W, C, heads, dim_head, rot, eps, nblk,
+                  sq, sp, _build.stream(x))
+    temporal_layer_bwd.launches += 1
+    return (dx, vec[:C].to(gamma_cln.dtype), vec[C:2 * C].to(ln_scale.dtype),
+            vec[2 * C:].to(ln_bias.dtype), dwqkv.to(w_qkv.dtype), dwout.to(w_out.dtype),
+            dbias.to(bias_hnn.dtype))
+
+
+temporal_layer_bwd.launches = 0
+
+
+def temporal_layer_plain_vjp(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn,
+                             **kwargs):
+    """The plain version of kernel 6: autograd of ``temporal_layer_plain``."""
+    return plain_vjp(temporal_layer_plain, g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
+                     bias_hnn, **kwargs)

@@ -63,6 +63,32 @@ def test_wrappers_take_plain_path_on_cpu():
     assert [f.launches for f in counters] == before  # no kernel ran
 
 
+def test_backward_wrappers_take_plain_path_on_cpu_and_refuse_other_devices():
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    wrappers = (fused_stw.stw_layer_bwd, fused_stw.temporal_layer_bwd,
+                fused_resnet.resnet_block_bwd)
+    before = [f.launches for f in wrappers]
+    x, heads, dh = t(1, 4, 4, 4, 16), 2, 8
+    cases = [
+        (fused_stw.stw_layer_bwd, fused_stw.stw_layer_plain_vjp, x,
+         (x, t(16), t(48, 16), t(16, 16), t(16), t(heads, 64, 64)),
+         dict(window=(4, 4, 4), shift=(2, 0, 0), heads=heads, dim_head=dh)),
+        (fused_stw.temporal_layer_bwd, fused_stw.temporal_layer_plain_vjp, x,
+         (x, t(16), t(16), t(16), t(48, 16), t(16, 16), t(heads, 4, 4)),
+         dict(heads=heads, dim_head=dh)),
+        (fused_resnet.resnet_block_bwd, fused_resnet.resnet_block_plain_vjp, t(1, 4, 4, 4, 8),
+         (x, t(8, 16, 1, 3, 3), t(8), t(8), t(8), t(1, 16), t(8, 8, 1, 3, 3), t(8), t(8), t(8),
+          t(8, 16, 1, 1, 1), t(8)), dict(groups=4)),
+    ]
+    for wrapper, plain, g, args, kw in cases:
+        for got, want in zip(wrapper(g, *args, **kw), plain(g, *args, **kw)):
+            assert torch.equal(got, want)
+        with pytest.raises(ValueError):  # neither CPU nor CUDA: no kernel, no fallback
+            wrapper(g.to("meta"), *[a.to("meta") for a in args], **kw)
+    assert [f.launches for f in wrappers] == before  # no kernel ran
+
+
 def test_kernel_calls_match_their_c_entry_points():
     """Every ``_build.launch(source, name, *args)`` call passes as many
     arguments as the C entry it names declares, and every entry is called."""
