@@ -29,6 +29,19 @@
    grid sample per step); and compares one float32 loss and every UNet
    gradient at batch 1, kernels on the card against the plain versions on
    the CPU.
+7. Stage-1 (AE) training: builds configs/AE/kth.yaml's ReconstructionModel
+   at full width (float32, seeded init, random VGG19) and AETrainer with the
+   KTH flip + jitter device augmentation, takes one warm-up step on raw
+   uint8 gray pairs at batch 64, recording the inputs and incoming cotangent
+   of every grid-sample backward; checks the grid-sample backward kernel
+   against its plain version there in float32 and, at the decode shapes
+   (C >= 67), in bf16, and times kernel, plain version and ATen's
+   grid_sampler_2d_backward; takes 3 timed steps with the counters from 0 (6
+   grid-sample forward and 5 backward launches per step); and compares one
+   float32 loss and every gradient at batch 2, kernels on the card against
+   the plain versions on the CPU, with the same weights, augmentation and
+   TPS draws; one more step runs under torch.profiler for the card's busy
+   share and the ops that take its time.
 
 Prints one JSON line per kernel and shape, the end-to-end timings, a summary
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -53,6 +66,8 @@ BATCH = 4
 TIMED_CALLS = 3
 TRAIN_BATCH = 8
 TIMED_STEPS = 3
+AE_BATCH = 64  # the first float32 batch bench_train.py --stage ae recorded
+AE_CPU_BATCH = 2
 # Peak rates of one H100 SXM at 700 W (NVIDIA data sheet): HBM bytes/s and
 # dense flop/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -96,6 +111,25 @@ BWD_MEAN_REL_TOL = 2.0 ** -6
 # off: forward and backward through ~60 layers summed in other orders; each
 # UNet gradient to this fraction of its own max, the loss relatively.
 TRAIN_F32_REL_TOL = 1e-3
+# float32 AE step at batch 2, card kernels vs CPU plain versions, TF32 off:
+# the losses to AE_LOSS_REL_TOL relatively. The gradients are rough at the
+# model's init: train-mode BatchNorm scales near-dead channels up by as much
+# as 1/sqrt(eps) = 316, so moving the input frames by one part in 10^7 (a
+# float32 rounding) moves some gradients by ~1% of their max (measured on
+# the CPU; the JAX package's float32 gradients lie as far from its float64
+# ones). So each card gradient must lie within AE_GRAD_REL_TOL of its max
+# plus AE_ROUGH_MULT times how far the CPU's own gradient moves under that
+# perturbation, plus AE_GRAD_FLOOR of the largest gradient: float32 noise
+# at the scale of the whole gradient, for tensors whose own gradient is
+# tiny (a conv bias in front of a BatchNorm has a gradient that is 0 in
+# exact arithmetic; a deep VGG bias's, 0.2% of the largest, differed by 3%
+# of its own max between card and CPU). A gradient lost on the card (as
+# when the warps had no backward) moves by ~100% and fails.
+AE_LOSS_REL_TOL = 1e-5
+AE_GRAD_REL_TOL = 1e-3
+AE_ROUGH_MULT = 2.0
+AE_ROUGH_EPS = 1e-7
+AE_GRAD_FLOOR = 1e-4
 
 
 def log(obj) -> None:
@@ -153,7 +187,7 @@ def kernel_table():
     """name -> (wrapper, plain, module attributes that call it, key, cost, residual
     part of the output (None: all of it is the kernel's products), source, replaces)."""
     from extdm_tpu_torch.models.dm import unet3d
-    from extdm_tpu_torch.models.lfae import generator, pixelwise_flow
+    from extdm_tpu_torch.models.lfae import generator, pixelwise_flow, transform
     from extdm_tpu_torch.nn.layers import chan_layer_norm
     from extdm_tpu_torch.ops import fused_resnet, fused_stw, fused_warp
 
@@ -216,7 +250,8 @@ def kernel_table():
     return {
         "grid_sample": dict(
             wrapper=fused_warp.grid_sample, plain=fused_warp.grid_sample_plain,
-            sites=[(pixelwise_flow, "grid_sample"), (generator, "grid_sample")],
+            sites=[(pixelwise_flow, "grid_sample"), (generator, "grid_sample"),
+                   (transform, "grid_sample")],
             key=warp_key, cost=warp_cost, residual=None,
             source="extdm_tpu_torch/csrc/grid_sample.cu",
             replaces="extdm_tpu/ops/pallas_warp.py:195"),
@@ -574,9 +609,10 @@ def train_f32_card_vs_cpu(cfg):
          "cpu_s": cpu_s})
 
 
-def train_phase(table, btable, card):
+def train_phase(table, btable, card, others=None):
     """The DM train step at full width: warm-up with recording, backward
-    kernel checks, timed steps with launch counts, float32 card vs CPU."""
+    kernel checks, timed steps with launch counts (`others`: further
+    kernels, which the step must not launch), float32 card vs CPU."""
     from extdm_tpu_torch.config import kth_training_config
     from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
     from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
@@ -612,8 +648,8 @@ def train_phase(table, btable, card):
                     lambda: table[name]["wrapper"](*entry["args"], **entry["kwargs"]), 5)
     del frecord
 
-    counters = {**{n: k["wrapper"] for n, k in table.items()},
-                **{n: k["wrapper"] for n, k in btable.items()}}
+    counters = {n: k["wrapper"] for n, k in {**table, **btable, **(others or {})}.items()}
+    want_others = {n: 0 for n in others or {}}
     times = []
     for i in range(TIMED_STEPS):
         for fn in counters.values():
@@ -626,9 +662,9 @@ def train_phase(table, btable, card):
         loss, grad_norm = aux["loss"].item(), aux["grad_norm"].item()
         if not (math.isfinite(loss) and math.isfinite(grad_norm)):
             raise AssertionError(f"train step {i}: loss {loss}, grad_norm {grad_norm}")
-        if launches != {**want_fwd, **want_bwd}:
+        if launches != {**want_fwd, **want_bwd, **want_others}:
             raise AssertionError(f"train step {i}: launches {launches} != expected "
-                                 f"{ {**want_fwd, **want_bwd} }")
+                                 f"{ {**want_fwd, **want_bwd, **want_others} }")
         log({"phase": "train step", "step": i, "ms": times[-1] * 1e3, "loss": loss,
              "grad_norm": grad_norm})
     med = statistics.median(times)
@@ -642,6 +678,323 @@ def train_phase(table, btable, card):
     del trainer, fd
     torch.cuda.empty_cache()
     train_f32_card_vs_cpu(cfg)
+    return summary, launches
+
+
+# ------------------------------------------------------------- AE training
+WARP_MODES = ("zeros", "border", "reflection")
+
+
+def ae_backward_table():
+    """The grid-sample backward kernel in the layout of kernel_table: wrapper
+    and plain take (cotangent, image, grid, padding_mode, image_grad,
+    grid_grad); the site is where the autograd Function calls the wrapper."""
+    from extdm_tpu_torch.ops import fused_warp
+
+    def plain(g, image, grid, padding_mode="zeros", image_grad=True, grid_grad=True):
+        d = fused_warp.grid_sample_plain_vjp(g, image, grid, padding_mode)
+        return tuple(t if want else None for t, want in zip(d, (image_grad, grid_grad)))
+
+    def key(g, image, grid, padding_mode="zeros", image_grad=True, grid_grad=True):
+        return (tuple(image.shape), tuple(grid.shape), padding_mode, image_grad, grid_grad)
+
+    def cost(g, image, grid, padding_mode="zeros", image_grad=True, grid_grad=True):
+        # dout and grid read; the image read only for d_grid; d_image and
+        # d_grid written once. Per (pixel, channel): 4 weighted scatters
+        # (8 flops) for d_image, two differences of lerps (10) for d_grid.
+        byts = g.numel() * g.element_size() + grid.numel() * 4
+        flops_per = 0
+        if image_grad:
+            byts += image.numel() * image.element_size()
+            flops_per += 8
+        if grid_grad:
+            byts += image.numel() * image.element_size() + grid.numel() * grid.element_size()
+            flops_per += 10
+        return byts, flops_per * g.numel(), torch.float32
+
+    return {"grid_sample_bwd": dict(
+        wrapper=fused_warp.grid_sample_bwd, plain=plain, sites=[(fused_warp, "grid_sample_bwd")],
+        key=key, cost=cost, source="extdm_tpu_torch/csrc/grid_sample.cu",
+        replaces="extdm_tpu/ops/pallas_warp.py:356")}
+
+
+def warp_bwd_library(g, image, grid, padding_mode="zeros", image_grad=True, grid_grad=True):
+    """ATen's grid-sample backward on NCHW-contiguous operands (made outside
+    the timed call): the one PyTorch call that computes the same gradients."""
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+    img_nchw = image.permute(0, 3, 1, 2).contiguous()
+    mode = WARP_MODES.index(padding_mode)
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, img_nchw, grid, 0, mode, True, [image_grad, grid_grad])
+
+
+def ae_backward_phase(btable, record, card):
+    """The grid-sample backward kernel against its plain version at every
+    recorded AE-step shape (float32, and bf16 at the decode shapes), CUDA-event
+    times of kernel, plain version and ATen's call."""
+    name, k = "grid_sample_bwd", btable["grid_sample_bwd"]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+               max_abs_err=0.0)
+    for key, entry in record[name].items():
+        args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+        got = k["wrapper"](*args, **kwargs)
+        want = k["plain"](*args, **kwargs)
+        torch.cuda.synchronize()
+        # relative to each gradient's own size: at batch 64 the decode warps'
+        # d_image is ~1e-5, far under the max(1, .) floor of F32_REL_TOL
+        res = check_grads(f"{name}{key}", got, want, F32_REL_TOL, F32_REL_TOL)
+        line = {"kernel": name, "shape": list(key[0]), "key": str(key[1:]), "dtype": "float32",
+                "per_step": count, **res}
+        if args[1].shape[-1] >= 67:  # the decode warps: the kernel serves bf16 images too
+            g16, img16 = args[0].bfloat16(), args[1].bfloat16()
+            res16 = check_grads(f"{name}{key} bf16", k["wrapper"](g16, img16, *args[2:], **kwargs),
+                                k["plain"](g16, img16, *args[2:], **kwargs),
+                                BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+            line["bf16"] = res16
+        ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 5)
+        plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 5)
+        library_ms = cuda_ms(warp_bwd_library(*args, **kwargs), 5)
+        byts, flops, op_dtype = k["cost"](*args, **kwargs)
+        bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
+        line.update(kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    library_call="aten.grid_sampler_2d_backward (NCHW-contiguous operands)",
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations", card=card)
+        log(line)
+        for field, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                             ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms),
+                             ("ops_ms", ops_ms)):
+            tot[field] += count * value
+        tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
+    # the padding modes the AE step does not differentiate through, float32
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for mode in WARP_MODES:
+        image = torch.randn((2, 12, 16, 67), generator=gen, device="cuda")
+        grid = torch.rand((2, 10, 14, 2), generator=gen, device="cuda") * 2.4 - 1.2
+        g = torch.randn((2, 10, 14, 67), generator=gen, device="cuda")
+        res = check_grads(f"{name} {mode} float32", k["wrapper"](g, image, grid, mode),
+                          k["plain"](g, image, grid, mode), F32_REL_TOL, F32_REL_TOL)
+        log({"kernel": name, "shape": list(image.shape), "padding_mode": mode, "dtype": "float32",
+             "check": "kernel vs plain backward", **res})
+    return {name: tot}
+
+
+def grad_fn_check():
+    """On a CUDA tensor that needs a gradient, grid_sample's result has a
+    grad_fn whose backward launches the backward kernel once."""
+    from extdm_tpu_torch.ops import fused_warp
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    image = torch.randn((2, 16, 16, 67), generator=gen, device="cuda", requires_grad=True)
+    grid = (torch.rand((2, 16, 16, 2), generator=gen, device="cuda") * 2.2 - 1.1).requires_grad_()
+    out = fused_warp.grid_sample(image, grid)
+    if type(out.grad_fn).__name__ != "_GridSampleBackward":
+        raise AssertionError(f"grid_sample on CUDA: grad_fn {out.grad_fn}")
+    before = fused_warp.grid_sample_bwd.launches
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    out.backward(g)
+    if fused_warp.grid_sample_bwd.launches != before + 1:
+        raise AssertionError("grid_sample's backward did not launch the backward kernel")
+    want = fused_warp.grid_sample_plain_vjp(g, image.detach(), grid.detach())
+    res = check_grads("grid_sample autograd", (image.grad, grid.grad), want, F32_REL_TOL)
+    log({"check": "grid_sample autograd on CUDA: grad_fn _GridSampleBackward, backward = "
+         "grid_sample_bwd kernel", **res})
+
+
+def ae_model_and_trainer(cfg, device, seed=0):
+    from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
+    from extdm_tpu_torch.train.ae_trainer import AETrainer, make_optimizer
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = ReconstructionModel(**cfg["model"])
+    return AETrainer(model, make_optimizer(cfg["lr"], cfg["milestones"], cfg["gamma"]),
+                     device_augment=cfg["device_augment"], device=device)
+
+
+def smooth_frames(g, n, px, sigma=4.0):
+    """n seeded (px, px) uint8 gray frames of blurred noise: smooth like
+    video, so that a warp's gradient is not dominated by pixel-to-pixel
+    noise."""
+    r = int(3 * sigma)
+    k = torch.exp(-0.5 * (torch.arange(-r, r + 1) / sigma) ** 2)
+    k = k / k.sum()
+    x = torch.rand((n, 1, px, px), generator=g)
+    x = F.conv2d(F.pad(x, (r, r, 0, 0), mode="circular"), k.view(1, 1, 1, -1))
+    x = F.conv2d(F.pad(x, (0, 0, r, r), mode="circular"), k.view(1, 1, -1, 1))
+    lo, hi = x.amin((2, 3), keepdim=True), x.amax((2, 3), keepdim=True)
+    return ((x - lo) / (hi - lo) * 255).round()[:, 0].to(torch.uint8)
+
+
+def ae_f32_card_vs_cpu(cfg):
+    """One float32 loss and backward at batch 2 with the same weights,
+    augmentation parameters and TPS draw (drawn on the CPU): kernels on the
+    card against the plain versions on the CPU, TF32 off; and the CPU once
+    more on frames moved by one part in 10^7, to measure how rough the
+    gradients are here (see AE_ROUGH_MULT)."""
+    from extdm_tpu_torch.models.lfae.transform import random_tps
+    from extdm_tpu_torch.train.device_augment import prepare_batch, sample_augment
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(13)
+    px = cfg["frame_shape"]
+    frames = smooth_frames(g, 2 * AE_CPU_BATCH, px)
+    batch = {"source": frames[:AE_CPU_BATCH], "driving": frames[AE_CPU_BATCH:]}
+    augment = sample_augment(g, AE_CPU_BATCH, (px, px), **cfg["device_augment"])
+    tps = random_tps(g, AE_CPU_BATCH, **cfg["model"]["transform_params"])
+    moved = {k: v * (1 + AE_ROUGH_EPS * torch.randn(v.shape, generator=g))
+             for k, v in zip(("source", "driving"),
+                             prepare_batch(batch["source"], batch["driving"], augment))}
+    results = {}
+    # the moved frames are augmented already: that run's trainer augments nothing
+    runs = (("card", "cuda", batch, augment, cfg), ("cpu", "cpu", batch, augment, cfg),
+            ("cpu moved", "cpu", moved, None, dict(cfg, device_augment=None)))
+    for run, device, inputs, aug, run_cfg in runs:
+        trainer = ae_model_and_trainer(run_cfg, device, seed=4)
+        t0 = time.perf_counter()
+        total, losses = trainer.loss(None, inputs, tps=tps, augment=aug)
+        total.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        results[run] = ({k: v.item() for k, v in losses.items()} | {"total": total.item()},
+                        {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                         for n, p in trainer.model.named_parameters()},
+                        time.perf_counter() - t0)
+        del trainer
+    (loss_gpu, grads_gpu, _), (loss_cpu, grads_cpu, cpu_s) = results["card"], results["cpu"]
+    grads_moved = results["cpu moved"][1]
+    for name, want in loss_cpu.items():
+        if not abs(loss_gpu[name] - want) <= AE_LOSS_REL_TOL * abs(want):
+            raise AssertionError(f"float32 AE loss {name}: card {loss_gpu[name]} vs cpu {want}")
+    worst, worst_name, plain_worst, zero, failed = 0.0, None, 0.0, [], []
+    floor = AE_GRAD_FLOOR * max(g.abs().max().item() for g in grads_cpu.values())
+    for name, want in grads_cpu.items():
+        got = grads_gpu[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"float32 AE gradient {name}: non-finite on the card")
+        size = want.abs().max().item()
+        if size == 0.0:
+            zero.append(name)
+        err = (got - want).abs().max().item()
+        rough = (grads_moved[name] - want).abs().max().item()
+        tol = AE_GRAD_REL_TOL * size + AE_ROUGH_MULT * rough + floor
+        if err / max(tol, 1e-30) > worst:
+            worst, worst_name = err / max(tol, 1e-30), name
+        plain_worst = max(plain_worst, err / max(size, 1e-30))
+        if err > tol:
+            failed.append(f"{name}: max error {err}, limit {tol} ({AE_GRAD_REL_TOL} of max {size} "
+                          f"+ {AE_ROUGH_MULT} x roughness {rough} + floor {floor})")
+    if failed:
+        raise AssertionError(f"float32 AE gradients, card vs cpu, {len(failed)} beyond their "
+                             f"limits: " + "; ".join(failed[:8]))
+    log({"check": "AE step float32 batch 2, card kernels vs CPU plain", "loss_card": loss_gpu,
+         "loss_cpu": loss_cpu, "loss_tol": AE_LOSS_REL_TOL, "gradients": len(grads_cpu),
+         "worst_err_over_limit": worst, "worst_grad": worst_name,
+         "worst_err_over_max": plain_worst, "zero_gradients": len(zero), "cpu_s": cpu_s})
+
+
+def ae_profile(trainer, gen, batch, median_ms):
+    """torch.profiler over one AE step: the card's kernel time summed, its
+    share of the unprofiled median step (the rest is the card idle, waiting
+    on the host), and the ops that launched the most kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(gen.manual_seed(20), batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in device_events) / 1e3
+    ops = sorted(((a.self_device_time_total / 1e3, a.key) for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU and a.self_device_time_total > 0),
+                 reverse=True)
+    log({"phase": "AE step profile", "kernel_ms": busy_ms, "device_events": len(device_events),
+         "profiled_step_ms": wall_ms,
+         "busy_share_of_median_step": busy_ms / median_ms,
+         "top_ops_kernel_ms": [[name, ms] for ms, name in ops[:12]]})
+
+
+def ae_phase(table, btable, ae_btable, card):
+    """Stage-1 training at full KTH width: warm-up with recording, backward
+    kernel checks, timed steps with launch counts (every kernel of the three
+    tables), float32 card vs CPU."""
+    from extdm_tpu_torch.config import kth_ae_training_config
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, which train_step runs under
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    cfg = kth_ae_training_config()
+    trainer = ae_model_and_trainer(cfg, "cuda")
+    px = cfg["frame_shape"]
+    g = torch.Generator().manual_seed(3)
+    batch = {k: torch.randint(0, 256, (AE_BATCH, px, px), generator=g, dtype=torch.uint8).cuda()
+             for k in ("source", "driving")}
+    gen = torch.Generator(device="cuda")
+    warp = {"grid_sample": table["grid_sample"]}
+
+    record, frecord = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(warp, frecord), recording(ae_btable, record):
+        aux = trainer.train_step(gen.manual_seed(0), batch)
+        torch.cuda.synchronize()
+    log({"phase": "AE warm-up step", "seconds": time.perf_counter() - t0,
+         "losses": {k: v.item() for k, v in aux.items()},
+         "forward_shapes": [str(k) for k in frecord["grid_sample"]],
+         "backward_shapes": [str(k) for k in record["grid_sample_bwd"]]})
+    want = {"grid_sample": 6, "grid_sample_bwd": 5}
+    seen = {n: sum(e["count"] for e in r.values()) for n, r in {**frecord, **record}.items()}
+    if seen != want:
+        raise AssertionError(f"AE warm-up warp calls {seen} != expected {want}")
+
+    summary = ae_backward_phase(ae_btable, record, card)
+    grad_fn_check()
+    del record
+    fwd_ms = 0.0  # the forward warp kernel per step at the AE shapes (timed only)
+    with torch.no_grad():
+        for entry in frecord["grid_sample"].values():
+            fwd_ms += entry["count"] * cuda_ms(
+                lambda: table["grid_sample"]["wrapper"](*entry["args"], **entry["kwargs"]), 5)
+    del frecord
+
+    trainer.train_step(gen.manual_seed(9), batch)  # once more after the checks, untimed
+    torch.cuda.synchronize()
+    counters = {n: k["wrapper"] for n, k in {**table, **btable, **ae_btable}.items()}
+    expected = {n: want.get(n, 0) for n in counters}
+    times = []
+    for i in range(TIMED_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        aux = trainer.train_step(gen.manual_seed(10 + i), batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        losses = {k: v.item() for k, v in aux.items()}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"AE step {i}: losses {losses}")
+        if launches != expected:
+            raise AssertionError(f"AE step {i}: launches {launches} != expected {expected}")
+        log({"phase": "AE step", "step": i, "ms": times[-1] * 1e3, "losses": losses})
+    med = statistics.median(times)
+    bwd_ms = summary["grid_sample_bwd"]["ms"]
+    log({"phase": "AE end to end", "config": "configs/AE/kth.yaml: 64px, 10 regions, VGG19 "
+         "perceptual x3 scales, TPS equivariance, Adam; float32", "batch": AE_BATCH,
+         "ms_per_step": [t * 1e3 for t in times], "median_ms": med * 1e3,
+         "pairs_per_s": AE_BATCH / med, "launches_per_step": launches,
+         "warp_kernels_ms": fwd_ms + bwd_ms, "warp_forward_ms": fwd_ms, "warp_backward_ms": bwd_ms,
+         "rest_ms_by_difference": med * 1e3 - fwd_ms - bwd_ms,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "tf32": tf32, "card": card})
+    ae_profile(trainer, gen, batch, med * 1e3)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    ae_f32_card_vs_cpu(cfg)
+    log({"phase": "AE phase", "seconds": time.perf_counter() - t_phase})
     return summary, launches
 
 
@@ -712,17 +1065,26 @@ def main() -> int:
     del fd, sampler
     torch.cuda.empty_cache()
 
-    # ---- the train path
-    btable = backward_table(table)
-    bsummary, train_launches = train_phase(table, btable, card)
+    # ---- the DM train path
+    btable, ae_btable = backward_table(table), ae_backward_table()
+    bsummary, train_launches = train_phase(table, btable, card, others=ae_btable)
 
+    # ---- the AE (stage-1) train path
+    aesummary, ae_launches = ae_phase(table, btable, ae_btable, card)
+
+    # each kernel's launches: on the sampling path for the forward kernels,
+    # on the DM train path for its backward kernels, on the AE path for the
+    # grid-sample backward; with the DM and AE step counts of every kernel
+    summaries = {**summary, **bsummary, **aesummary}
     kernels = []
-    for name, k in {**table, **btable}.items():
-        s = summary[name] if name in summary else bsummary[name]
+    for name, k in {**table, **btable, **ae_btable}.items():
+        s = summaries[name]
+        path_launches = launches.get(name, train_launches[name] if name in btable else
+                                    ae_launches[name])
         kernels.append({"name": name, "route": "cuda", "source": k["source"],
-                        "replaces": k["replaces"],
-                        "launches": launches[name] if name in launches else train_launches[name],
+                        "replaces": k["replaces"], "launches": path_launches,
                         "train_step_launches": train_launches[name],
+                        "ae_step_launches": ae_launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",

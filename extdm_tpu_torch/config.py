@@ -1,14 +1,18 @@
 """Config loading, same YAML schema as the JAX package (port of
 extdm_tpu/config.py), plus the KTH sampling and training presets that
-``bench.py`` runs."""
+``bench.py`` runs and the stage-1 (AE) settings of configs/AE/kth.yaml."""
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict
 
 import torch
 import yaml
 
 from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusionConfig
+
+# A data file of the repository, read (never imported) by the port.
+KTH_AE_YAML = Path(__file__).resolve().parents[1] / "configs" / "AE" / "kth.yaml"
 
 # --DM_arch / --Unet3D_arch combinations -> config fields.
 ARCH_PRESETS: Dict[str, Dict[str, Any]] = {
@@ -80,3 +84,39 @@ def dm_config_from_yaml(cfg: Dict[str, Any], arch: str = "w_ref_u22/ada_u22",
     kwargs.update(ARCH_PRESETS[arch])
     kwargs.update(overrides)
     return FlowDiffusionConfig(**kwargs)
+
+
+def ae_model_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """kwargs for models.lfae.recon_model.ReconstructionModel from an AE yaml."""
+    flow = cfg["flow_params"]["model_params"]
+    tp = cfg["flow_params"]["train_params"]
+    rp = {k: v for k, v in flow["region_predictor_params"].items() if k != "fast_svd"}
+    return dict(
+        region_predictor_cfg={**rp, "estimate_affine": flow.get("estimate_affine", True)},
+        bg_predictor_cfg=flow["bg_predictor_params"],
+        generator_cfg={**flow["generator_params"],
+                       "revert_axis_swap": flow.get("revert_axis_swap", True)},
+        num_regions=flow["num_regions"],
+        num_channels=flow["num_channels"],
+        scales=tuple(tp.get("scales", (1.0, 0.5, 0.25))),
+        loss_weights={**tp["loss_weights"],
+                      "reconstruction": tp["loss_weights"].get("reconstruction", 10)},
+        transform_params=tp.get("transform_params"),
+    )
+
+
+def kth_ae_training_config() -> Dict[str, Any]:
+    """Stage-1 training settings of the repository's configs/AE/kth.yaml: the
+    ReconstructionModel kwargs (10 regions, 64 px, perceptual weights [10]*5
+    at scales (1, 0.5, 0.25), TPS sigma_affine 0.05 / sigma_tps 0.005 / 5
+    points), Adam's lr (2e-4) and MultiStepLR schedule ([150000] x 0.5), the
+    device augmentation (flip + jitter) and the frame size."""
+    cfg = load_config(str(KTH_AE_YAML))
+    dp = cfg["dataset_params"]
+    tp = cfg["flow_params"]["train_params"]
+    aug = dp.get("augmentation_params") or {}
+    return dict(model=ae_model_kwargs(cfg), lr=tp["lr"],
+                milestones=tuple(tp["scheduler_param"]["milestones"]),
+                gamma=tp["scheduler_param"]["gamma"],
+                device_augment={k: aug[k] for k in ("flip_param", "jitter_param") if k in aug},
+                frame_shape=dp["frame_shape"])

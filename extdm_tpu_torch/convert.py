@@ -2,8 +2,9 @@
 
 Input: the JAX package's variables as a nested dict of numpy arrays (what
 ``flax.core.unfreeze`` + ``np.asarray`` give). Output: PyTorch state dicts
-for ``LFAE`` and ``Unet3D``, whose keys are the reference PyTorch model's, so
-this is the inverse of the JAX package's torch -> flax mapping
+for ``LFAE``, ``ReconstructionModel`` and ``Unet3D``, whose keys are the
+reference PyTorch model's (torchvision's for the VGG19), so this is the
+inverse of the JAX package's torch -> flax mapping
 (``extdm_tpu/convert/torch2jax.py``). The split init conv of the JAX UNet
 (latent part + cond-feature part) is joined back into one conv.
 """
@@ -14,6 +15,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from extdm_tpu_torch.models.lfae.vgg import VGG19_CONV_IDX
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -80,6 +83,22 @@ def lfae_state_dict(variables: Mapping[str, Any]) -> StateDict:
     out = _tensors(sd.items())
     for key in [k for k in out if k.endswith(".running_var")]:
         out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def recon_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``ReconstructionModel`` variables ({"params", "batch_stats"}:
+    region_predictor, bg_predictor, generator, vgg) -> the port's
+    ``ReconstructionModel`` state dict. A gradient tree given as {"params":
+    grads} converts the same way, key by key."""
+    params = dict(variables.get("params", {}))
+    vgg = params.pop("vgg", {})
+    out = lfae_state_dict({"params": params, "batch_stats": variables.get("batch_stats", {})})
+    sd = {}
+    for j, i in enumerate(VGG19_CONV_IDX if vgg else []):
+        sd[f"vgg.features.{i}.weight"] = conv_weight(np.asarray(vgg[f"conv{j}"]["kernel"]))
+        sd[f"vgg.features.{i}.bias"] = vgg[f"conv{j}"]["bias"]
+    out.update(_tensors(sd.items()))
     return out
 
 

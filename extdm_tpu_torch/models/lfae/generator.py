@@ -33,7 +33,7 @@ class Generator(nn.Module):
                  revert_axis_swap: bool = True,
                  pixelwise_flow_predictor_params: Optional[dict] = None):
         super().__init__()
-        self.skips = skips
+        self.skips, self.revert_axis_swap = skips, revert_axis_swap
         self.pixelwise_flow_predictor = None
         if pixelwise_flow_predictor_params is not None:
             self.pixelwise_flow_predictor = PixelwiseFlowPredictor(

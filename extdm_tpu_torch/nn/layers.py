@@ -1,9 +1,9 @@
 """LFAE building blocks (port of extdm_tpu/nn/layers.py), channels-last.
 
-Convolutions and eval-mode BatchNorm (running statistics) take (B, H, W, C)
-tensors and keep PyTorch's parameter layouts and the reference LFAE's
-state-dict names. These convs sit outside every TPU kernel of the JAX
-package, so they stay cuDNN convolutions here.
+Convolutions and BatchNorm take (B, H, W, C) tensors and keep PyTorch's
+parameter layouts and the reference LFAE's state-dict names. These convs
+sit outside every TPU kernel of the JAX package, so they stay cuDNN
+convolutions here.
 """
 from __future__ import annotations
 
@@ -35,12 +35,28 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d that always normalizes with its running statistics (the
-    LFAE is frozen inside the diffusion model), on (B, H, W, C) tensors."""
+    """BatchNorm2d on (B, H, W, C) tensors with flax's statistics update.
+
+    In eval mode (the LFAE frozen inside the diffusion model) it normalizes
+    with the running statistics. In train mode (stage-1 training) it
+    normalizes with the batch's and moves the running statistics by
+    ``momentum`` toward the batch mean and the *biased* batch variance, as
+    flax ``nn.BatchNorm(momentum=0.9)`` does; ``F.batch_norm`` would move
+    them toward the unbiased variance."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.running_mean,
-                         self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        if not self.training:
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+            return y.permute(0, 2, 3, 1)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+        # no running statistics here: autograd would keep them for the
+        # backward, and the module's next call in this step updates them
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.permute(0, 2, 3, 1)
 
 

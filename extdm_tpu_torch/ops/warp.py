@@ -41,8 +41,10 @@ def grid_sample_plain(image: torch.Tensor, grid: torch.Tensor,
     flat = image.reshape(B, H * W, C)
 
     def corner(xi, yi):
-        xc = xi.clamp(0, W - 1).long()
-        yc = yi.clamp(0, H - 1).long()
+        # a NaN coordinate (a non-finite step, which the nan guard skips)
+        # reads pixel 0 and gives a NaN output through its weight
+        xc = xi.nan_to_num(0.0).clamp(0, W - 1).long()
+        yc = yi.nan_to_num(0.0).clamp(0, H - 1).long()
         idx = (yc * W + xc).reshape(B, Ho * Wo, 1).expand(B, Ho * Wo, C)
         vals = torch.gather(flat, 1, idx).reshape(B, Ho, Wo, C).float()
         if padding_mode == "zeros":

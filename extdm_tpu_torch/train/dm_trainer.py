@@ -12,7 +12,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
-from extdm_tpu_torch.train.lr_schedule import multi_step
+from extdm_tpu_torch.train.lr_schedule import ScheduledOptimizer, multi_step
 
 
 def canonicalize_video(video: torch.Tensor) -> torch.Tensor:
@@ -32,61 +32,22 @@ def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
-class DMOptimizer:
-    """AdamW (betas 0.9, 0.999, eps 1e-8, decoupled weight decay on every
-    parameter) with the learning rate multi_step(update count), as optax's
-    adamw(multi_step(...)). optax updates p - lr (m^ / (sqrt(v^) + eps) + wd p),
-    torch's AdamW p (1 - lr wd) - lr m^ / (sqrt(v^) + eps): the same update.
-
-    With nan_guard > 0 (optax.apply_if_finite): a step whose gradients are
-    not all finite is skipped, parameters, moments and update count
-    untouched; after nan_guard consecutive skips the next non-finite step
-    raises instead of applying its update."""
-
-    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, milestones: Sequence[int],
-                 gamma: float, weight_decay: float = 0.01, nan_guard: int = 0):
-        self.params = list(params)
-        self.schedule = multi_step(lr, milestones, gamma)
-        self.opt = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=weight_decay)
-        self.nan_guard = nan_guard
-        self.count = 0  # updates applied
-        self.notfinite_count = 0  # consecutive skipped steps
-
-    def zero_grad(self) -> None:
-        self.opt.zero_grad(set_to_none=True)
-
-    def step(self) -> bool:
-        """Apply one update from the parameters' .grad (zeros where a
-        parameter has none, as optax sees a zero gradient); returns False
-        when the nan guard skipped it."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.nan_guard > 0:
-            finite = bool(torch.stack([torch.isfinite(p.grad).all() for p in self.params]).all())
-            if not finite:
-                self.notfinite_count += 1
-                if self.notfinite_count > self.nan_guard:
-                    raise FloatingPointError(
-                        f"non-finite gradients in {self.notfinite_count} consecutive steps")
-                return False
-            self.notfinite_count = 0
-        for group in self.opt.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.opt.step()
-        self.count += 1
-        return True
-
-
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, milestones: Sequence[int],
-                   gamma: float, weight_decay: float = 0.01, nan_guard: int = 0) -> DMOptimizer:
-    """AdamW(lr, default betas) with MultiStepLR, over `params` (the UNet's)."""
-    return DMOptimizer(params, lr, milestones, gamma, weight_decay, nan_guard)
+                   gamma: float, weight_decay: float = 0.01,
+                   nan_guard: int = 0) -> ScheduledOptimizer:
+    """AdamW (betas 0.9, 0.999, eps 1e-8, decoupled weight decay on every
+    parameter) over `params` (the UNet's) with the learning rate
+    multi_step(update count), as optax's adamw(multi_step(...)). optax
+    updates p - lr (m^ / (sqrt(v^) + eps) + wd p), torch's AdamW
+    p (1 - lr wd) - lr m^ / (sqrt(v^) + eps): the same update."""
+    schedule = multi_step(lr, milestones, gamma)
+    opt = torch.optim.AdamW(list(params), lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+    return ScheduledOptimizer(opt, schedule, nan_guard)
 
 
 class DMTrainer:
-    def __init__(self, fd: FlowDiffusion, optimizer: DMOptimizer):
+    def __init__(self, fd: FlowDiffusion, optimizer: ScheduledOptimizer):
         self.fd = fd
         self.optimizer = optimizer
 

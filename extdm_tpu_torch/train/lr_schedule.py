@@ -1,7 +1,10 @@
-"""Learning-rate schedules (port of extdm_tpu/train/lr_schedule.py)."""
+"""Learning-rate schedules (port of extdm_tpu/train/lr_schedule.py) and the
+scheduled, nan-guarded optimizer wrapper both trainers use."""
 from __future__ import annotations
 
 from typing import Callable, Sequence
+
+import torch
 
 
 def multi_step(base_lr: float, milestones: Sequence[int], gamma: float) -> Callable[[int], float]:
@@ -18,3 +21,47 @@ def multi_step(base_lr: float, milestones: Sequence[int], gamma: float) -> Calla
         return lr
 
     return schedule
+
+
+class ScheduledOptimizer:
+    """A torch optimizer whose learning rate is schedule(update count), as an
+    optax transformation built on a schedule.
+
+    With nan_guard > 0 (optax.apply_if_finite): a step whose gradients are
+    not all finite is skipped, parameters, moments and update count
+    untouched; after nan_guard consecutive skips the next non-finite step
+    raises instead of applying its update."""
+
+    def __init__(self, opt: torch.optim.Optimizer, schedule: Callable[[int], float],
+                 nan_guard: int = 0):
+        self.opt = opt
+        self.params = [p for group in opt.param_groups for p in group["params"]]
+        self.schedule = schedule
+        self.nan_guard = nan_guard
+        self.count = 0  # updates applied
+        self.notfinite_count = 0  # consecutive skipped steps
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> bool:
+        """Apply one update from the parameters' .grad (zeros where a
+        parameter has none, as optax sees a zero gradient); returns False
+        when the nan guard skipped it."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.nan_guard > 0:
+            finite = bool(torch.stack([torch.isfinite(p.grad).all() for p in self.params]).all())
+            if not finite:
+                self.notfinite_count += 1
+                if self.notfinite_count > self.nan_guard:
+                    raise FloatingPointError(
+                        f"non-finite gradients in {self.notfinite_count} consecutive steps")
+                return False
+            self.notfinite_count = 0
+        for group in self.opt.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.opt.step()
+        self.count += 1
+        return True

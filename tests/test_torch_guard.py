@@ -10,7 +10,10 @@ import torch
 
 from extdm_tpu_torch.config import kth_sampling_config
 from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
 from extdm_tpu_torch.ops import fused_resnet, fused_stw, fused_warp
+from extdm_tpu_torch.train.ae_trainer import AETrainer, make_optimizer
+from torch_port_helpers import tiny_flow_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "extdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -36,6 +39,18 @@ def test_flow_diffusion_needs_a_card_unless_asked_for_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         FlowDiffusion(kth_sampling_config())
+
+
+def test_ae_trainer_needs_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    fp = tiny_flow_params()
+    model = ReconstructionModel(region_predictor_cfg=fp["region_predictor_params"],
+                                bg_predictor_cfg=fp["bg_predictor_params"],
+                                generator_cfg=fp["generator_params"], num_regions=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AETrainer(model, make_optimizer(2e-4, (10,), 0.5))
+    assert AETrainer(model, make_optimizer(2e-4, (10,), 0.5), device="cpu").device.type == "cpu"
 
 
 def test_wrappers_take_plain_path_on_cpu():
@@ -67,7 +82,7 @@ def test_backward_wrappers_take_plain_path_on_cpu_and_refuse_other_devices():
     rng = np.random.default_rng(1)
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
     wrappers = (fused_stw.stw_layer_bwd, fused_stw.temporal_layer_bwd,
-                fused_resnet.resnet_block_bwd)
+                fused_resnet.resnet_block_bwd, fused_warp.grid_sample_bwd)
     before = [f.launches for f in wrappers]
     x, heads, dh = t(1, 4, 4, 4, 16), 2, 8
     cases = [
@@ -80,6 +95,8 @@ def test_backward_wrappers_take_plain_path_on_cpu_and_refuse_other_devices():
         (fused_resnet.resnet_block_bwd, fused_resnet.resnet_block_plain_vjp, t(1, 4, 4, 4, 8),
          (x, t(8, 16, 1, 3, 3), t(8), t(8), t(8), t(1, 16), t(8, 8, 1, 3, 3), t(8), t(8), t(8),
           t(8, 16, 1, 1, 1), t(8)), dict(groups=4)),
+        (fused_warp.grid_sample_bwd, fused_warp.grid_sample_plain_vjp, t(1, 4, 4, 3),
+         (t(1, 8, 8, 3), t(1, 4, 4, 2)), dict(padding_mode="border")),
     ]
     for wrapper, plain, g, args, kw in cases:
         for got, want in zip(wrapper(g, *args, **kw), plain(g, *args, **kw)):
