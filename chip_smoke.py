@@ -42,6 +42,19 @@
    the plain versions on the CPU, with the same weights, augmentation and
    TPS draws; one more step runs under torch.profiler for the card's busy
    share and the ops that take its time.
+8. Evaluation: the KTH sampling configuration in bf16 with the STW layout
+   in "auto" (window-major on the two unshifted 32x32 layers: kernel 9);
+   4 in-memory 64 px gray moving-shapes videos of 50 frames through the
+   port's VideoDataset and DataLoader (raw uint8, pinned, canonicalised on
+   the card), 4 trajectories each (sampler batch 16), 2 autoregressive
+   rounds of 20 frames. A recorded warm-up call gives kernel 9's inputs:
+   kernel 9 is checked against its plain version and against kernel 1 on
+   the same layers (bf16), at a shifted shape with its expanded masks (mode
+   "1") and at one float32 shape, and timed beside kernel 1. Then the
+   counters go to 0 and ``evaluate`` runs (20 kernel-9 and 160 kernel-1
+   launches per sampler call), with PSNR, SSIM, LPIPS and FVD from random
+   networks; PSNR, SSIM, LPIPS and I3D features on the card are checked
+   against the port's CPU versions on the same videos.
 
 Prints one JSON line per kernel and shape, the end-to-end timings, a summary
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -130,6 +143,15 @@ AE_GRAD_REL_TOL = 1e-3
 AE_ROUGH_MULT = 2.0
 AE_ROUGH_EPS = 1e-7
 AE_GRAD_FLOOR = 1e-4
+EVAL_VIDEOS, EVAL_TRAJ, EVAL_FRAMES = 4, 4, 50  # tc 10 + 40 predicted frames
+# Metrics, card vs CPU on the same videos, TF32 off: PSNR and SSIM are
+# float64 (summed in another order): 1e-9 absolute. LPIPS and the I3D
+# features are float32 networks (5 and ~60 layers) whose convolutions sum
+# in another order: LPIPS 1e-4 absolute (distances ~0.1), I3D 1e-3 of the
+# features' max.
+METRIC_F64_TOL = 1e-9
+LPIPS_F32_TOL = 1e-4
+I3D_F32_REL_TOL = 1e-3
 
 
 def log(obj) -> None:
@@ -216,6 +238,11 @@ def kernel_table():
     def stw_residual(x, *a, **k):
         return x
 
+    def stw_plain(*args, window_major="0", **kwargs):
+        # the UNet's calls carry their layout mode; the plain version
+        # computes the same function in either layout
+        return fused_stw.stw_layer_plain(*args, **kwargs)
+
     def temporal_key(x, *a, **k):
         return (tuple(x.shape),)
 
@@ -256,7 +283,7 @@ def kernel_table():
             source="extdm_tpu_torch/csrc/grid_sample.cu",
             replaces="extdm_tpu/ops/pallas_warp.py:195"),
         "stw_layer": dict(
-            wrapper=fused_stw.fused_stw_layer, plain=fused_stw.stw_layer_plain,
+            wrapper=fused_stw.fused_stw_layer, plain=stw_plain,
             sites=[(unet3d, "fused_stw_layer")], key=stw_key, cost=stw_cost,
             residual=stw_residual,
             source="extdm_tpu_torch/csrc/attention.cu", replaces="extdm_tpu/ops/pallas_stw.py:599"),
@@ -917,7 +944,7 @@ def ae_profile(trainer, gen, batch, median_ms):
          "top_ops_kernel_ms": [[name, ms] for ms, name in ops[:12]]})
 
 
-def ae_phase(table, btable, ae_btable, card):
+def ae_phase(table, btable, ae_btable, card, others=None):
     """Stage-1 training at full KTH width: warm-up with recording, backward
     kernel checks, timed steps with launch counts (every kernel of the three
     tables), float32 card vs CPU."""
@@ -964,7 +991,8 @@ def ae_phase(table, btable, ae_btable, card):
 
     trainer.train_step(gen.manual_seed(9), batch)  # once more after the checks, untimed
     torch.cuda.synchronize()
-    counters = {n: k["wrapper"] for n, k in {**table, **btable, **ae_btable}.items()}
+    counters = {n: k["wrapper"] for n, k in {**table, **btable, **ae_btable,
+                                             **(others or {})}.items()}
     expected = {n: want.get(n, 0) for n in counters}
     times = []
     for i in range(TIMED_STEPS):
@@ -996,6 +1024,260 @@ def ae_phase(table, btable, ae_btable, card):
     ae_f32_card_vs_cpu(cfg)
     log({"phase": "AE phase", "seconds": time.perf_counter() - t_phase})
     return summary, launches
+
+
+# ----------------------------------------------------------------- evaluation
+def wm_table(table):
+    """Kernel 9 in the layout of kernel_table. Its wrapper takes pre-windowed
+    tokens; the layers are recorded at the UNet's call site (kernel 1's), so
+    key, cost and residual are kernel 1's on the layer's input x."""
+    from extdm_tpu_torch.ops import fused_stw
+
+    return {"stw_layer_wm": dict(
+        wrapper=fused_stw.fused_stw_layer_wm, plain=fused_stw.stw_layer_wm_plain,
+        sites=table["stw_layer"]["sites"], key=table["stw_layer"]["key"],
+        cost=table["stw_layer"]["cost"], residual=None,
+        source="extdm_tpu_torch/csrc/attention.cu", replaces="extdm_tpu/ops/pallas_stw.py:781")}
+
+
+def wm_inputs(x, gamma, w_qkv, w_proj, b_proj, bias, *, window, shift, heads, dim_head,
+              eps=1e-5, **_):
+    """Kernel 9's operands for one STW layer, as the layer's route makes them."""
+    from extdm_tpu_torch.ops import fused_stw
+
+    xw, masks_exp, _ = fused_stw.wm_operands(x, window, shift)
+    return ((xw, gamma, w_qkv, w_proj, b_proj, bias, masks_exp),
+            dict(heads=heads, dim_head=dim_head, eps=eps))
+
+
+def wm_kernel_phase(table, record, card):
+    """Kernel 9 at every window-major layer the eval records (bf16): against
+    its plain version, and the layer through kernel 9 against the layer
+    through kernel 1 on the same inputs; times of kernel 9, its plain
+    version, the layer through each kernel; then a shifted layer in mode
+    "1" with its expanded masks, and one float32 shape."""
+    from extdm_tpu_torch.ops import fused_stw
+
+    k9 = wm_table(table)["stw_layer_wm"]
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, library_ms=None,
+               max_abs_err=0.0, layer_ms=0.0, kernel1_layer_ms=0.0)
+    shifted_case = None
+    for key, entry in record.items():
+        args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+        x, (window, shift) = args[0], key[1:]
+        _, T, H, W, _ = x.shape
+        _, ph, pw = fused_stw._pads(T, H, W, window)
+        if any(shift) and shifted_case is None and min(H + ph, W + pw) >= 32:
+            shifted_case = (args, kwargs)
+        if not fused_stw.window_major_gate(kwargs["window_major"], any(shift),
+                                           min(H + ph, W + pw)):
+            continue
+        wargs, wkw = wm_inputs(*args, **kwargs)
+        res = check(f"stw_layer_wm{key}", k9["wrapper"](*wargs, **wkw), k9["plain"](*wargs, **wkw),
+                    BF16_REL_TOL, wargs[0])
+        layer = {m: dict(kwargs, window_major=m) for m in ("1", "0")}
+        res_k1 = check(f"stw_layer_wm{key} vs kernel 1",
+                       table["stw_layer"]["wrapper"](*args, **layer["1"]),
+                       table["stw_layer"]["wrapper"](*args, **layer["0"]), BF16_REL_TOL, x)
+        ms = cuda_ms(lambda: k9["wrapper"](*wargs, **wkw), 10)
+        plain_ms = cuda_ms(lambda: k9["plain"](*wargs, **wkw), 10)
+        layer_ms = cuda_ms(lambda: table["stw_layer"]["wrapper"](*args, **layer["1"]), 10)
+        k1_ms = cuda_ms(lambda: table["stw_layer"]["wrapper"](*args, **layer["0"]), 10)
+        byts, flops, op_dtype = k9["cost"](*args, **kwargs)
+        bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
+        log({"kernel": "stw_layer_wm", "shape": list(wargs[0].shape), "layer_shape": list(key[0]),
+             "key": str(key[1:]), "dtype": str(x.dtype).replace("torch.", ""), "per_call": count,
+             "kernel_ms": ms, "plain_ms": plain_ms, "layer_ms_window_major": layer_ms,
+             "layer_ms_kernel1": k1_ms, "library_ms": None,
+             "library_ms_note": "no single PyTorch call computes this layer",
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res,
+             "vs_kernel1_max_abs_err": res_k1["max_abs_err"], "card": card})
+        for name, v in (("ms", ms), ("plain_ms", plain_ms), ("layer_ms", layer_ms),
+                        ("kernel1_layer_ms", k1_ms), ("bound_ms", max(bytes_ms, ops_ms)),
+                        ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            tot[name] += count * v
+        tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
+
+    # mode "1": a shifted layer goes window-major with its expanded masks
+    args, kwargs = shifted_case
+    wargs, wkw = wm_inputs(*args, **kwargs)
+    res = check("stw_layer_wm shifted (masks)", k9["wrapper"](*wargs, **wkw),
+                k9["plain"](*wargs, **wkw), BF16_REL_TOL, wargs[0])
+    res_k1 = check("shifted layer, mode 1 vs kernel 1",
+                   table["stw_layer"]["wrapper"](*args, **dict(kwargs, window_major="1")),
+                   table["stw_layer"]["wrapper"](*args, **dict(kwargs, window_major="0")),
+                   BF16_REL_TOL, args[0])
+    log({"kernel": "stw_layer_wm", "shape": list(wargs[0].shape), "masks": list(wargs[6].shape),
+         "check": "shifted layer in mode 1: kernel vs plain, and vs kernel 1", **res,
+         "vs_kernel1_max_abs_err": res_k1["max_abs_err"]})
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fargs, fkw = next((a, k) for n, a, k in f32_cases(torch.device("cuda")) if n == "stw_layer")
+    for shift in ((2, 2, 2), (0, 0, 0)):
+        wargs, wkw = wm_inputs(*fargs, **dict(fkw, shift=shift))
+        res = check(f"stw_layer_wm float32 shift {shift}", k9["wrapper"](*wargs, **wkw),
+                    k9["plain"](*wargs, **wkw), F32_REL_TOL)
+        log({"kernel": "stw_layer_wm", "shape": list(wargs[0].shape), "dtype": "float32",
+             "shift": list(shift), "check": "kernel vs plain", **res})
+
+    # under autograd the window-major layer's backward is kernel 5, as kernel 1's
+    g = torch.randn(fargs[0].shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                    device="cuda")
+    grads, before = {}, (fused_stw.stw_layer_bwd.launches, fused_stw.fused_stw_layer_wm.launches)
+    for mode in ("1", "0"):
+        x = fargs[0].clone().requires_grad_(True)
+        out = fused_stw.fused_stw_layer(x, *fargs[1:], **dict(fkw, window_major=mode))
+        grads[mode] = (out.detach(), torch.autograd.grad(out, x, g)[0])
+    after = (fused_stw.stw_layer_bwd.launches, fused_stw.fused_stw_layer_wm.launches)
+    if after != (before[0] + 2, before[1] + 1):
+        raise AssertionError(f"autograd through the window-major layer: backward / kernel 9 "
+                             f"launches {before} -> {after}, expected +2 / +1")
+    res = check("window-major layer under autograd: output", grads["1"][0], grads["0"][0],
+                F32_REL_TOL)
+    res_dx = check("window-major layer under autograd: dx", grads["1"][1], grads["0"][1],
+                   F32_REL_TOL)
+    log({"kernel": "stw_layer_wm", "check": "autograd (float32): mode 1 vs mode 0, backward "
+         "through kernel 5", "shape": list(fargs[0].shape), "out": res, "dx": res_dx})
+    return tot
+
+
+def check_metrics_card_vs_cpu(out, i3d, lpips):
+    """PSNR, SSIM (float64), LPIPS and I3D features (float32) of the eval's
+    videos on the card against the port's CPU versions on the same videos
+    (the first two real videos and their trajectories; I3D on their first
+    16 frames), TF32 off."""
+    from extdm_tpu_torch.metrics import I3DExtractor, LPIPSMetric, calculate_psnr3, calculate_ssim3
+
+    n = 2 * EVAL_TRAJ
+    samples = out["samples"][:n]
+    real = out["real"][:2].repeat_interleave(EVAL_TRAJ, dim=0)
+    t0 = time.perf_counter()
+    res = {}
+    tchw = lambda v: v.permute(0, 1, 4, 2, 3)  # noqa: E731
+    for name, fn, tol in (("psnr", calculate_psnr3, METRIC_F64_TOL),
+                          ("ssim", calculate_ssim3, METRIC_F64_TOL)):
+        got, want = fn(tchw(samples), tchw(real)), fn(tchw(samples.cpu()), tchw(real.cpu()))
+        res[name] = float(abs(got - want).max())
+        if not (res[name] <= tol and math.isfinite(res[name])):
+            raise AssertionError(f"{name} card vs cpu: max error {res[name]} > {tol}")
+    lp_cpu = LPIPSMetric(device="cpu")
+    lp_cpu.model.load_state_dict(lpips.model.state_dict())
+    got = lpips.calculate_lpips3(samples, real)
+    want = lp_cpu.calculate_lpips3(samples.cpu(), real.cpu())
+    res["lpips"] = float(abs(got - want).max())
+    if not res["lpips"] <= LPIPS_F32_TOL:
+        raise AssertionError(f"lpips card vs cpu: max error {res['lpips']} > {LPIPS_F32_TOL}")
+    i3d_cpu = I3DExtractor(device="cpu")
+    i3d_cpu.model.load_state_dict(i3d.model.state_dict())
+    clips = out["real"][:2, :16]
+    got, want = i3d.get_feats(clips), i3d_cpu.get_feats(clips.cpu())
+    size = float(abs(want).max())
+    res["i3d"] = float(abs(got - want).max())
+    res["i3d_feature_max"] = size
+    res["i3d_videos_apart"] = float(abs(want[0] - want[1]).max())
+    if not res["i3d"] <= I3D_F32_REL_TOL * size:
+        raise AssertionError(f"i3d features card vs cpu: max error {res['i3d']} > "
+                             f"{I3D_F32_REL_TOL} x {size}")
+    log({"check": "metrics card vs CPU (float64 PSNR/SSIM, float32 LPIPS/I3D, TF32 off)",
+         "max_abs_err": res, "tol": {"psnr": METRIC_F64_TOL, "ssim": METRIC_F64_TOL,
+                                      "lpips": LPIPS_F32_TOL, "i3d_rel": I3D_F32_REL_TOL},
+         "videos": n, "cpu_s": time.perf_counter() - t0})
+
+
+def eval_phase(table, btable, ae_btable, card):
+    """The evaluation path at full KTH width (see the module docstring, 8)."""
+    import numpy as np
+
+    from extdm_tpu_torch.config import kth_sampling_config
+    from extdm_tpu_torch.data import (DataLoader, InMemoryVideoStore, VideoDataset,
+                                      make_moving_shapes_video)
+    from extdm_tpu_torch.eval.valid_dm import evaluate
+    from extdm_tpu_torch.metrics import I3DExtractor, LPIPSMetric
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = False  # the metric networks in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = kth_sampling_config(dtype=torch.bfloat16, stw_window_major="auto")
+    tc, tp, px = cfg.cond_frames, cfg.pred_frames, cfg.frame_shape
+    total_pred = EVAL_FRAMES - tc
+    fd = FlowDiffusion(cfg, device="cuda", seed=0)
+    rng = np.random.RandomState(0)
+    store = InMemoryVideoStore([make_moving_shapes_video(rng, EVAL_FRAMES, px)
+                                for _ in range(EVAL_VIDEOS)], name="synthetic")
+    dataset = VideoDataset(store, type="valid", total_videos=EVAL_VIDEOS, num_frames=EVAL_FRAMES,
+                           image_size=px, random_time=False, raw_uint8=True)
+    wm = wm_table(table)
+    stw = {"stw_layer": table["stw_layer"]}
+
+    # warm-up: one sampler call at the eval's batch, recording the STW layers
+    record = {}
+    cond = torch.rand((EVAL_VIDEOS * EVAL_TRAJ, tc, px, px, 3),
+                      generator=torch.Generator().manual_seed(4)).cuda()
+    for k in {**table, **wm}.values():
+        k["wrapper"].launches = 0
+    t0 = time.perf_counter()
+    with recording(stw, record):
+        fd.make_sampler()(torch.Generator(device="cuda").manual_seed(0), cond)
+        torch.cuda.synchronize()
+    want_call = dict(expected_launches(cfg), stw_layer=160, stw_layer_wm=20)
+    seen = {n: k["wrapper"].launches for n, k in {**table, **wm}.items()}
+    log({"phase": "eval warm-up call", "seconds": time.perf_counter() - t0, "launches": seen})
+    if seen != want_call:
+        raise AssertionError(f"eval warm-up launches {seen} != expected {want_call}")
+    summary = wm_kernel_phase(table, record["stw_layer"], card)
+    del record
+
+    # the main path: counters from 0, the loader and evaluate()
+    i3d, lpips = I3DExtractor(device="cuda"), LPIPSMetric(device="cuda")
+    loader = DataLoader(dataset, EVAL_VIDEOS, shuffle=False, num_workers=4, drop_last=False,
+                        device="cuda")
+    counters = {n: k["wrapper"] for n, k in {**table, **btable, **ae_btable, **wm}.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = evaluate(fd, loader, num_traj=EVAL_TRAJ, total_pred=total_pred, seed=1, i3d=i3d,
+                   lpips=lpips)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    calls = len(out["seconds"]["sampling_per_call"])
+    expected = {n: want_call.get(n, 0) * calls for n in counters}
+    if calls != math.ceil(total_pred / tp) or launches != expected:
+        raise AssertionError(f"eval: {calls} sampler calls, launches {launches} != expected "
+                             f"{expected}")
+    for line in out["lines"]:
+        print(line, flush=True)
+    n = EVAL_VIDEOS * EVAL_TRAJ
+    samples = out["samples"]
+    if tuple(samples.shape) != (n, EVAL_FRAMES, px, px, 3) or not torch.isfinite(samples).all():
+        raise AssertionError(f"eval samples: shape {tuple(samples.shape)} or non-finite")
+    vals = out["values"]
+    for k in ("fvd_best", "psnr2", "ssim2", "lpips2", "sampling_frames_per_sec"):
+        if not math.isfinite(vals[k]):
+            raise AssertionError(f"eval {k} = {vals[k]}")
+    if not all(math.isfinite(v) for v in vals["fvd_traj"]):
+        raise AssertionError(f"eval fvd_traj = {vals['fvd_traj']}")
+    sec = out["seconds"]
+    metric_s = {k: sec[k] for k in ("i3d_real", "i3d_samples", "frechet", "psnr", "ssim", "lpips")}
+    log({"phase": "eval end to end", "config": "KTH 64px tc=10 tp=20 DDIM-10 bf16, STW layout auto",
+         "videos": EVAL_VIDEOS, "trajectories": EVAL_TRAJ, "sampler_batch": n,
+         "sampler_calls": calls, "ms_per_sampler_call": [t * 1e3 for t in sec["sampling_per_call"]],
+         "sampling_frames_per_sec": vals["sampling_frames_per_sec"],
+         "launches": launches, "launches_per_sampler_call": {k: v // calls for k, v in
+                                                             launches.items()},
+         "metrics_s": metric_s, "metrics_total_s": sum(metric_s.values()),
+         "loader_wait_s": sec["loader_wait"], "eval_s": eval_s,
+         "stw_layer_wm_ms_per_call": summary["ms"],
+         "kernel1_same_layers_ms_per_call": summary["kernel1_layer_ms"],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+    check_metrics_card_vs_cpu(out, i3d, lpips)
+    del fd, out, i3d, lpips
+    torch.cuda.empty_cache()
+    log({"phase": "eval phase", "seconds": time.perf_counter() - t_phase})
+    return summary, launches, calls
 
 
 def main() -> int:
@@ -1038,15 +1320,17 @@ def main() -> int:
     summary = kernel_phase(table, record, card)
 
     # ---- the main path: counters from 0, three timed requests
+    wm = wm_table(table)
+    want = dict(want, stw_layer_wm=0)  # layout "0": no window-major layer
     times, launches = [], {}
     for i in range(TIMED_CALLS):
-        for k in table.values():
+        for k in {**table, **wm}.values():
             k["wrapper"].launches = 0
         t0 = time.perf_counter()
         out = sampler(gen.manual_seed(100 + i), cond)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        launches = {n: k["wrapper"].launches for n, k in table.items()}
+        launches = {n: k["wrapper"].launches for n, k in {**table, **wm}.items()}
         if launches != want:
             raise AssertionError(f"request {i}: kernel launches {launches} != expected {want}")
     B, T, tp = BATCH, cfg.cond_frames + cfg.pred_frames, cfg.pred_frames
@@ -1067,28 +1351,35 @@ def main() -> int:
 
     # ---- the DM train path
     btable, ae_btable = backward_table(table), ae_backward_table()
-    bsummary, train_launches = train_phase(table, btable, card, others=ae_btable)
+    bsummary, train_launches = train_phase(table, btable, card, others={**ae_btable, **wm})
 
     # ---- the AE (stage-1) train path
-    aesummary, ae_launches = ae_phase(table, btable, ae_btable, card)
+    aesummary, ae_launches = ae_phase(table, btable, ae_btable, card, others=wm)
+
+    # ---- the evaluation path (kernel 9)
+    wsummary, eval_launches, eval_calls = eval_phase(table, btable, ae_btable, card)
 
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the
-    # grid-sample backward; with the DM and AE step counts of every kernel
-    summaries = {**summary, **bsummary, **aesummary}
+    # grid-sample backward, on the eval path (all its sampler calls) for
+    # kernel 9; with the DM, AE and eval counts of every kernel
+    summaries = {**summary, **bsummary, **aesummary, **{"stw_layer_wm": wsummary}}
     kernels = []
-    for name, k in {**table, **btable, **ae_btable}.items():
+    for name, k in {**table, **btable, **ae_btable, **wm}.items():
         s = summaries[name]
-        path_launches = launches.get(name, train_launches[name] if name in btable else
-                                    ae_launches[name])
+        path_launches = (eval_launches[name] if name in wm else launches.get(
+            name, train_launches[name] if name in btable else ae_launches[name]))
         kernels.append({"name": name, "route": "cuda", "source": k["source"],
                         "replaces": k["replaces"], "launches": path_launches,
                         "train_step_launches": train_launches[name],
                         "ae_step_launches": ae_launches[name],
+                        "eval_launches": eval_launches[name], "eval_sampler_calls": eval_calls,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
-                        "library_ms": s["library_ms"]})
+                        "library_ms": s["library_ms"],
+                        **({"kernel1_same_layers_ms": s["kernel1_layer_ms"],
+                            "layer_ms_with_partition": s["layer_ms"]} if name in wm else {})})
     log({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

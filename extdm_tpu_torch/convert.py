@@ -2,8 +2,9 @@
 
 Input: the JAX package's variables as a nested dict of numpy arrays (what
 ``flax.core.unfreeze`` + ``np.asarray`` give). Output: PyTorch state dicts
-for ``LFAE``, ``ReconstructionModel`` and ``Unet3D``, whose keys are the
-reference PyTorch model's (torchvision's for the VGG19), so this is the
+for ``LFAE``, ``ReconstructionModel``, ``Unet3D`` and the metrics' LPIPS and
+I3D, whose keys are the reference PyTorch model's (torchvision's for the
+VGG19, the lpips package's and pytorch_i3d's for the metrics), so this is the
 inverse of the JAX package's torch -> flax mapping
 (``extdm_tpu/convert/torch2jax.py``). The split init conv of the JAX UNet
 (latent part + cond-feature part) is joined back into one conv.
@@ -16,6 +17,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
+from extdm_tpu_torch.metrics.lpips import ALEX_CONV_IDX, ScalingLayer
 from extdm_tpu_torch.models.lfae.vgg import VGG19_CONV_IDX
 
 StateDict = Dict[str, torch.Tensor]
@@ -223,3 +225,34 @@ def unet_state_dict(params: Mapping[str, Any]) -> StateDict:
     b.resnet("occlusion_block", "occlusion_map.0")
     b.conv("occlusion_conv", "occlusion_map.1")
     return _tensors(b.sd.items())
+
+
+# --------------------------------------------------------------------- metrics
+def lpips_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``LPIPS`` variables ({"params": {"net": {"conv<j>"}, "lin<j>"}}) ->
+    the port's ``LPIPS`` state dict (the lpips package's names)."""
+    p = variables["params"]
+    sd = {}
+    for j, i in enumerate(ALEX_CONV_IDX):
+        conv = p["net"][f"conv{j}"]
+        sd[f"net.slice{j + 1}.{i}.weight"] = conv_weight(np.asarray(conv["kernel"]))
+        sd[f"net.slice{j + 1}.{i}.bias"] = conv["bias"]
+        lin = np.asarray(p[f"lin{j}"])  # (C, 1)
+        sd[f"lin{j}.model.1.weight"] = lin.T.reshape(1, -1, 1, 1)
+    out = _tensors(sd.items())
+    out.update({f"scaling_layer.{k}": v for k, v in ScalingLayer().state_dict().items()})
+    return out
+
+
+def i3d_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``InceptionI3d`` variables ({"params", "batch_stats"}) -> the port's
+    ``InceptionI3d`` state dict (pytorch_i3d's names: the flax module paths)."""
+    sd = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(collection, {})):
+            path, value = _leaf(path, value)
+            sd[path.replace("/", ".")] = value
+    out = _tensors(sd.items())
+    for key in [k for k in out if k.endswith(".running_var")]:
+        out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return out

@@ -6,6 +6,10 @@
 //                   (_fused_padded -> _make_kernel): x + proj(softmax(
 //                   rope(q) rope(k)^T + bias + mask) v) with qkv = ChanLN(x) Wqkv,
 //                   over 3-D windows of a padded, rolled (B, T, H, W, C) tensor.
+//   stw_layer_wm    replaces pallas_stw.py _fused_padded_wm (_make_kernel_wm):
+//                   the same layer over pre-windowed (B, nW, N, C) tokens, with
+//                   the per-window expanded shift masks (nW, N, N); the
+//                   partition and its reverse are copies outside the kernel.
 //   temporal_layer  replaces pallas_stw.py fused_temporal_layer
 //                   (_temporal_impl -> _make_temporal_kernel): x + a + proj(
 //                   attn(LN(a))) with a = ChanLN(x), attention over T per pixel.
@@ -32,6 +36,11 @@
 // grid, and one warp per query row for the attention. Weights stay in
 // PyTorch's Linear layout (out, in) and are transposed while staged.
 //
+// The window-major layer runs the same body: only the token addresses
+// differ (window w's tokens are rows w*N .. w*N+N-1, contiguous), so loads
+// and stores are whole contiguous rows of the block's slab, and its mask is
+// row w % nW of the expanded masks instead of a deduplicated mask by id.
+//
 // Limits (the wrapper checks them): rows <= 64, dh <= 32, C <= 256, and in
 // bf16 C a multiple of 32.
 #include <type_traits>
@@ -53,10 +62,10 @@ struct LayerArgs {
   const float* bproj;     // (C) or null
   const float* bias;      // (heads, L, L)
   const float* masks;     // (n_unique, L, L) or null
-  const int* mask_ids;    // (n_windows) or null
+  const int* mask_ids;    // (n_windows) or null; window-major: null, masks are (nW, N, N)
   const float* cos_t;     // (L, rot)
   const float* sin_t;     // (L, rot)
-  int D1, D2, D3;         // stw: padded T, H, W; temporal: T, H*W, 1
+  int D1, D2, D3;         // stw: padded T, H, W; temporal: T, H*W, 1; window-major: nW, 1, 1
   int wd, wh, ww;         // stw window; temporal: (T, 1, 1)
   int G, nseq;            // sequences per block, sequences in all (temporal; stw: 1, -)
   int C, heads, dh, rot;
@@ -93,7 +102,8 @@ struct Layout {
   }
 };
 
-// MODE 0: shifted-window layer; MODE 1: temporal layer. OJ >= C / 16 sizes
+// MODE 0: shifted-window layer; MODE 1: temporal layer; MODE 2: window-major
+// shifted-window layer (one block per pre-windowed window). OJ >= C / 16 sizes
 // the output tile each thread keeps across heads (4 * OJ floats): the FMA
 // path's columns tx + 16j, or the tensor-core path's n8 tiles of one
 // column half. A narrow OJ frees registers for more resident blocks.
@@ -134,6 +144,9 @@ __global__ void __launch_bounds__(NT, OJ <= 8 ? 3 : 2)
       rowoff[n] = (((b * (long long)a.D1 + t) * a.D2 + h) * a.D3 + w) * C;
     }
     if (a.masks != nullptr) mask_row = a.mask_ids[wi];
+  } else if (MODE == 2) {
+    for (int n = tid; n < N; n += NT) rowoff[n] = ((long long)blockIdx.x * N + n) * C;
+    if (a.masks != nullptr) mask_row = blockIdx.x % a.D1;
   } else {
     for (int n = tid; n < N; n += NT) {
       const int seq = blockIdx.x * a.G + n / L, b = seq / a.D2, m = seq % a.D2;
@@ -509,7 +522,7 @@ __global__ void __launch_bounds__(NT, OJ <= 8 ? 3 : 2)
     if (r >= N || c >= C || rowoff[r] < 0) continue;
     const float xv = to_f(x[rowoff[r] + c]);
     float res;
-    if (MODE == 0) {
+    if (MODE != 1) {
       res = xv + round_to<T>(acc_o[idx] + a.bproj[c]);
     } else {
       const float av = round_to<T>((xv - rowstat[2 * r]) * rowstat[2 * r + 1] * a.gamma[c]);
@@ -555,6 +568,19 @@ extern "C" int stw_layer(int dtype, const void* x, void* out, const float* gamma
   const int blocks = B * (Tp / wd) * (Hp / wh) * (Wp / ww);
   if (blocks == 0) return 0;
   DISPATCH_DTYPE(dtype, return launch<T, 0>(x, out, wqkv, wproj, a, blocks, (cudaStream_t)stream));
+  return 0;
+}
+
+extern "C" int stw_layer_wm(int dtype, const void* xw, void* out, const float* gamma,
+                            const void* wqkv, const void* wproj, const float* bproj,
+                            const float* bias, const float* masks, const float* cos_t,
+                            const float* sin_t, int B, int nW, int N, int C, int heads, int dh,
+                            int rot, float eps, void* stream) {
+  LayerArgs a{gamma, nullptr, nullptr, bproj, bias, masks, nullptr, cos_t, sin_t,
+              nW, 1, 1, N, 1, 1, 1, 0, C, heads, dh, rot, eps};
+  const int blocks = B * nW;
+  if (blocks == 0) return 0;
+  DISPATCH_DTYPE(dtype, return launch<T, 2>(xw, out, wqkv, wproj, a, blocks, (cudaStream_t)stream));
   return 0;
 }
 

@@ -118,6 +118,10 @@ class FlowDiffusionConfig:
     with_rec_losses: bool = False  # loss() also reports no-grad reconstruction monitors
     remat: bool = True  # UNet: MotionAdaptors under torch.utils.checkpoint when training
     dtype: Any = None  # compute dtype (and the frozen LFAE's storage dtype); None -> float32
+    # STW layout: "0" padded windows (kernel 1), "1" window-major (kernel 9),
+    # "auto" window-major on unshifted layers at spatial >= 32; the JAX
+    # package reads it from EXTDM_STW_WINDOW_MAJOR (pallas_stw._window_major)
+    stw_window_major: str = "0"
 
     @property
     def bottleneck_dim(self) -> int:
@@ -132,7 +136,8 @@ class FlowDiffusionConfig:
                       cond_num=self.cond_frames, pred_num=self.pred_frames,
                       use_ref_features=self.use_ref_features, conditioning=self.conditioning,
                       down_adaptor_from_level=self.down_adaptor_from_level, path=self.path,
-                      remat=self.remat, dtype=self.dtype)
+                      remat=self.remat, dtype=self.dtype,
+                      stw_window_major=self.stw_window_major)
 
     def make_lfae(self) -> LFAE:
         return LFAE(self.flow_params)

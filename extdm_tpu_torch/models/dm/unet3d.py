@@ -32,7 +32,8 @@ from extdm_tpu_torch.nn.attention import (RelativePositionBias, RelativePosition
                                           TemporalAttentionLayer, WindowAttention3D,
                                           get_window_size)
 from extdm_tpu_torch.ops.fused_resnet import fused_resnet_block
-from extdm_tpu_torch.ops.fused_stw import fused_stw_layer, fused_temporal_layer
+from extdm_tpu_torch.ops.fused_stw import (WINDOW_MAJOR_MODES, fused_stw_layer,
+                                           fused_temporal_layer)
 from extdm_tpu_torch.ops.resize import interpolate_bilinear
 
 
@@ -136,10 +137,11 @@ class PreNormSTW(nn.Module):
     """Residual(PreNorm(STWAttentionLayer)); runs as ``fused_stw_layer``."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int, int],
-                 shift_size: Tuple[int, int, int], heads: int, dim_head: int):
+                 shift_size: Tuple[int, int, int], heads: int, dim_head: int,
+                 window_major: str = "0"):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.window_major = heads, dim_head, window_major
         self.fn = PreNorm(dim, STWAttentionLayer(dim, window_size, heads, dim_head))
 
     def forward(self, x):
@@ -148,7 +150,8 @@ class PreNormSTW(nn.Module):
         bias = attn.bias_hnn(window[0] * window[1] * window[2])
         return fused_stw_layer(x, self.fn.norm.gamma.reshape(-1), attn.qkv.weight,
                                attn.proj.weight, attn.proj.bias, bias, window=window,
-                               shift=shift, heads=self.heads, dim_head=self.dim_head)
+                               shift=shift, heads=self.heads, dim_head=self.dim_head,
+                               window_major=self.window_major)
 
 
 class _Rearranged(nn.Module):
@@ -191,10 +194,14 @@ class Unet3D(nn.Module):
                  init_kernel_size: int = 7, resnet_groups: int = 8, cond_num: int = 0,
                  pred_num: int = 0, use_ref_features: bool = True,
                  conditioning: str = "adaptor", down_adaptor_from_level: int = 0,
-                 path: int = 0, remat: bool = True, dtype=None):
+                 path: int = 0, remat: bool = True, dtype=None, stw_window_major: str = "0"):
         super().__init__()
         if conditioning not in ("adaptor", "none"):
             raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
+        if stw_window_major not in WINDOW_MAJOR_MODES:
+            raise ValueError(f"stw_window_major is one of {WINDOW_MAJOR_MODES}, "
+                             f"got {stw_window_major!r}")
+        wm = stw_window_major
         self.channels, self.path, self.remat = channels, path, remat
         self.compute_dtype = dt = dtype or torch.float32
         self.cond_num, self.pred_num = cond_num, pred_num
@@ -229,9 +236,9 @@ class Unet3D(nn.Module):
         def level(d_in, d_out, adaptor, resample):
             return nn.ModuleList([
                 ResnetBlock3d(d_in, d_out, time_dim, resnet_groups, dt),
-                PreNormSTW(d_out, window_size, shift, heads, dh),
+                PreNormSTW(d_out, window_size, shift, heads, dh, wm),
                 ResnetBlock3d(d_out, d_out, time_dim, resnet_groups, dt),
-                PreNormSTW(d_out, window_size, (0, 0, 0), heads, dh),
+                PreNormSTW(d_out, window_size, (0, 0, 0), heads, dh, wm),
                 MotionAdaptor(d_out, cond_num, pred_num, dt) if adaptor else nn.Identity(),
                 PreNormTemporalAttn(d_out, heads, dh),
                 resample(d_out, dt) if resample is not None else nn.Identity(),
@@ -244,9 +251,9 @@ class Unet3D(nn.Module):
             for i, (d_in, d_out) in enumerate(in_out))
         mid = dims[-1]
         self.mid_block1 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt)
-        self.mid_attn1 = PreNormSTW(mid, window_size, shift, heads, dh)
+        self.mid_attn1 = PreNormSTW(mid, window_size, shift, heads, dh, wm)
         self.mid_block2 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt)
-        self.mid_attn2 = PreNormSTW(mid, window_size, (0, 0, 0), heads, dh)
+        self.mid_attn2 = PreNormSTW(mid, window_size, (0, 0, 0), heads, dh, wm)
         self.mid_adaptor = MotionAdaptor(mid, cond_num, pred_num, dt) if ada else nn.Identity()
         self.ups = nn.ModuleList(
             level(d_out * 2, d_in, ada and i > 1, Upsample if i < n - 1 else None)

@@ -1,5 +1,5 @@
-"""Kernels 1 and 2 (``csrc/attention.cu``) and their backward kernels 5 and 6
-(``csrc/attention_bwd.cu``): whole attention layers.
+"""Kernels 1, 2 and 9 (``csrc/attention.cu``) and the backward kernels 5 and
+6 (``csrc/attention_bwd.cu``): whole attention layers.
 
 ``fused_stw_layer`` replaces ``extdm_tpu/ops/pallas_stw.py``
 ``fused_stw_layer`` (``_fused_padded`` -> ``_make_kernel``): the whole
@@ -20,10 +20,21 @@ each query row takes its own max. Pad and roll of the shifted
 layers stay outside the kernel, as in the JAX package; pad tokens are not
 masked as keys, which matches the JAX semantics (their k is LN(0) W = 0).
 
+``fused_stw_layer_wm`` replaces ``pallas_stw._fused_padded_wm``
+(``_make_kernel_wm``): the same layer over pre-windowed (B, nW, N, C) tokens
+(kernel 9). ``fused_stw_layer`` routes a layer through it when its
+``window_major`` mode says so (``window_major_gate``, the gate of
+``pallas_stw._window_major``: "0" never, "1" always, "auto" on unshifted
+layers at a padded spatial size of 32 or more); the partition into windows
+and its reverse are torch copies around the kernel, as in the JAX package.
+Kernel 9 runs kernel 1's body on contiguous window rows, so it is bound by
+operations as kernel 1 is. Under autograd the layer's backward is kernel 5
+whatever the forward's layout, as JAX's ``custom_vjp``.
+
 Each wrapper runs its kernel for CUDA tensors and its plain version
-(``stw_layer_plain``, ``temporal_layer_plain``) for CPU tensors, and counts
-launches in ``<wrapper>.launches``. Weights are in torch Linear layout
-(out, in).
+(``stw_layer_plain``, ``stw_layer_wm_plain``, ``temporal_layer_plain``) for
+CPU tensors, and counts launches in ``<wrapper>.launches``. Weights are in
+torch Linear layout (out, in).
 
 Training: when an operand needs a gradient, the CUDA path runs as a
 ``torch.autograd.Function`` that saves the layer's inputs only (as the JAX
@@ -46,6 +57,7 @@ import torch.nn.functional as F
 
 from extdm_tpu_torch import _build
 from extdm_tpu_torch.nn.attention import (
+    apply_rotary,
     rotary_tables,
     shifted_window_mask,
     temporal_attention,
@@ -56,6 +68,7 @@ from extdm_tpu_torch.nn.attention import (
 from extdm_tpu_torch.nn.layers import chan_layer_norm
 
 __all__ = ["fused_stw_layer", "stw_layer_plain", "stw_layer_bwd", "stw_layer_plain_vjp",
+           "WINDOW_MAJOR_MODES", "window_major_gate", "fused_stw_layer_wm", "stw_layer_wm_plain",
            "fused_temporal_layer", "temporal_layer_plain", "temporal_layer_bwd",
            "temporal_layer_plain_vjp"]
 
@@ -162,10 +175,10 @@ def _splits(rows: int, m: int, k: int, device) -> int:
     return max(1, min(-(-rows // 256), -(-4 * _sm_count(device) // tiles)))
 
 
-def _stw_prepare(x, window, shift, heads, dim_head):
-    """Pad and roll x as the kernels take it, with the mask and rope tables."""
+def _pad_roll(x, window, shift):
+    """Pad and roll x as the kernels take it, with the deduplicated shift
+    masks and each window's id (None, None when unshifted)."""
     B, T, H, W, C = x.shape
-    N = window[0] * window[1] * window[2]
     pd, ph, pw = _pads(T, H, W, window)
     xp = F.pad(x, (0, 0, 0, pw, 0, ph, 0, pd))
     shifted = any(s > 0 for s in shift)
@@ -175,8 +188,14 @@ def _stw_prepare(x, window, shift, heads, dim_head):
     masks = ids = None
     if shifted:
         masks, ids = _mask_tables(*xp.shape[1:4], tuple(window), tuple(shift), x.device)
+    return xp, masks, ids
+
+
+def _stw_prepare(x, window, shift, heads, dim_head):
+    """``_pad_roll`` and the rope tables."""
+    xp, masks, ids = _pad_roll(x, window, shift)
     rot = min(32, dim_head)
-    cos, sin = _rope_tables(N, rot, x.device)
+    cos, sin = _rope_tables(window[0] * window[1] * window[2], rot, x.device)
     return xp, masks, ids, rot, cos, sin
 
 
@@ -198,7 +217,10 @@ def _stw_checked(what, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
 
 
 def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head,
-                 eps):
+                 eps, wm=False):
+    if wm:
+        return _stw_wm(x.detach(), gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
+                       shift=shift, heads=heads, dim_head=dim_head, eps=eps)
     _stw_checked("fused_stw_layer", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
                  dim_head)
     C = x.shape[-1]
@@ -219,29 +241,151 @@ def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, he
 
 class _STWLayer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kw, x, *params):
+    def forward(ctx, kw, wm, x, *params):
         ctx.kw = kw
         ctx.save_for_backward(x, *params)
-        return _stw_forward(x, *params, **kw)
+        return _stw_forward(x, *params, wm=wm, **kw)
 
     @staticmethod
     def backward(ctx, g):
-        return (None, *stw_layer_bwd(g, *ctx.saved_tensors, **ctx.kw))
+        return (None, None, *stw_layer_bwd(g, *ctx.saved_tensors, **ctx.kw))
 
 
 def fused_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
-                    dim_head, eps=1e-5):
-    """Whole PreNormSTW layer; same arguments and result as ``stw_layer_plain``."""
+                    dim_head, eps=1e-5, window_major="0"):
+    """Whole PreNormSTW layer; same arguments and result as ``stw_layer_plain``.
+    ``window_major`` ("0", "1" or "auto") picks the layout, see
+    ``window_major_gate``."""
     kw = dict(window=tuple(window), shift=tuple(shift), heads=heads, dim_head=dim_head, eps=eps)
     operands = (x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
+    _, T, H, W, _ = x.shape
+    _, ph, pw = _pads(T, H, W, window)
+    wm = window_major_gate(window_major, any(s > 0 for s in shift), min(H + ph, W + pw))
     if x.device.type == "cpu":
-        return stw_layer_plain(*operands, **kw)
+        return _stw_wm(*operands, **kw) if wm else stw_layer_plain(*operands, **kw)
     if _needs_grad(*operands):
-        return _STWLayer.apply(kw, *operands)
-    return _stw_forward(*operands, **kw)
+        return _STWLayer.apply(kw, wm, *operands)
+    return _stw_forward(*operands, wm=wm, **kw)
 
 
 fused_stw_layer.launches = 0
+
+
+# ------------------------------------------------------------- STW, window-major
+WINDOW_MAJOR_MODES = ("0", "1", "auto")
+
+
+def window_major_gate(mode: str, shifted: bool, spatial: int) -> bool:
+    """Whether a layer takes the window-major layout (kernel 9): the gate of
+    ``pallas_stw._window_major`` as a plain function of the layout mode
+    ("0": never, the default; "1": always; "auto": unshifted layers whose
+    padded spatial size min(Hp, Wp) is 32 or more)."""
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    if mode == "auto":
+        return not shifted and spatial >= 32
+    raise ValueError(f"window-major mode is one of {WINDOW_MAJOR_MODES}, got {mode!r}")
+
+
+def _wm_partition(xp, window):
+    """(B, Tp, Hp, Wp, C) -> (B, nW, N, C): tokens (t, h, w) within a window,
+    windows in (t, h, w) order, as ``window_partition``."""
+    B, Tp, Hp, Wp, C = xp.shape
+    wd, wh, ww = window
+    xw = xp.reshape(B, Tp // wd, wd, Hp // wh, wh, Wp // ww, ww, C)
+    return xw.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, -1, wd * wh * ww, C)
+
+
+def _wm_reverse(ow, window, padded_shape):
+    """The inverse of ``_wm_partition``."""
+    B, Tp, Hp, Wp, C = padded_shape
+    wd, wh, ww = window
+    o = ow.reshape(B, Tp // wd, Hp // wh, Wp // ww, wd, wh, ww, C)
+    return o.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, Tp, Hp, Wp, C)
+
+
+def _expand_masks(masks, mask_ids, n_tw, n_hw, n_ww, N):
+    """(M, N, N) unique masks and each window's id -> (n_tw, n_hw, n_ww, N, N)."""
+    return masks.float()[mask_ids.long()].reshape(n_tw, n_hw, n_ww, N, N)
+
+
+def wm_operands(x, window, shift):
+    """Kernel 9's token operands for a layer input x (B, T, H, W, C): x
+    padded and rolled as for kernel 1, partitioned into windows (B, nW, N,
+    C), the expanded shift masks (nW, N, N) or None, and the padded shape."""
+    xp, masks, ids = _pad_roll(x, window, shift)
+    masks_exp = None
+    if masks is not None:
+        _, Tp, Hp, Wp, _ = xp.shape
+        N = window[0] * window[1] * window[2]
+        masks_exp = _expand_masks(masks, ids, Tp // window[0], Hp // window[1],
+                                  Wp // window[2], N).reshape(-1, N, N)
+    return _wm_partition(xp, window), masks_exp, xp.shape
+
+
+def _stw_wm(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head, eps):
+    """The layer through kernel 9 (``pallas_stw._layer_impl``'s window-major
+    branch): pad, roll and partition into windows, run the windows, reverse
+    the partition, roll back and crop."""
+    xw, masks_exp, padded_shape = wm_operands(x, window, shift)
+    ow = fused_stw_layer_wm(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp, heads=heads,
+                            dim_head=dim_head, eps=eps)
+    return _stw_unroll(_wm_reverse(ow, window, padded_shape), x.shape, shift)
+
+
+def stw_layer_wm_plain(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp=None, *, heads,
+                       dim_head, eps=1e-5):
+    """xw + window attention of ChanLN(xw) over pre-windowed tokens, the
+    semantics of ``pallas_stw._make_kernel_wm``. xw (B, nW, N, C); bias_hnn
+    (heads, N, N); masks_exp (nW, N, N) or None; matmuls in xw.dtype,
+    softmax in float32."""
+    dtype = xw.dtype
+    h = chan_layer_norm(xw, gamma, eps)
+    q, k, v = (a.unflatten(-1, (heads, dim_head)).transpose(-3, -2)  # (B, nW, heads, N, dh)
+               for a in (h @ w_qkv.to(dtype).t()).chunk(3, -1))
+    q = apply_rotary(q * dim_head ** -0.5, 32)
+    k = apply_rotary(k, 32)
+    bias = bias_hnn if masks_exp is None else bias_hnn + masks_exp[:, None].to(bias_hnn.dtype)
+    s = q @ k.transpose(-1, -2) + bias.to(dtype)
+    o = torch.softmax(s.float(), dim=-1).to(dtype) @ v
+    o = o.transpose(-3, -2).flatten(-2) @ w_proj.to(dtype).t() + b_proj.to(dtype)
+    return (xw.float() + o.float()).to(dtype)
+
+
+def fused_stw_layer_wm(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp=None, *, heads,
+                       dim_head, eps=1e-5):
+    """Kernel 9: the PreNormSTW layer over pre-windowed tokens; same
+    arguments and result as ``stw_layer_wm_plain``."""
+    if xw.device.type == "cpu":
+        return stw_layer_wm_plain(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp,
+                                  heads=heads, dim_head=dim_head, eps=eps)
+    operands = [gamma, w_qkv, w_proj, b_proj, bias_hnn]
+    _check_cuda(xw, *operands, *([] if masks_exp is None else [masks_exp]))
+    B, nW, N, C = xw.shape
+    hid = heads * dim_head
+    shapes = dict(gamma=(gamma, (C,)), w_qkv=(w_qkv, (3 * hid, C)), w_proj=(w_proj, (C, hid)),
+                  b_proj=(b_proj, (C,)), bias_hnn=(bias_hnn, (heads, N, N)))
+    if masks_exp is not None:
+        shapes["masks_exp"] = (masks_exp, (nW, N, N))
+    _check_operands("fused_stw_layer_wm", xw, N, heads, dim_head, **shapes)
+    xw = xw.detach().contiguous()
+    out = torch.empty_like(xw)
+    rot = min(32, dim_head)
+    cos, sin = _rope_tables(N, rot, xw.device)
+    wq, wp = _weights(xw, w_qkv, w_proj)
+    g, bp, bias = _f32(gamma), _f32(b_proj), _f32(bias_hnn)
+    masks = None if masks_exp is None else _f32(masks_exp)
+    P = _build.ptr
+    _build.launch("attention", "stw_layer_wm", _build.dtype_code(xw.dtype),
+                  P(xw), P(out), P(g), P(wq), P(wp), P(bp), P(bias), P(masks), P(cos), P(sin),
+                  B, nW, N, C, heads, dim_head, rot, eps, _build.stream(xw))
+    fused_stw_layer_wm.launches += 1
+    return out
+
+
+fused_stw_layer_wm.launches = 0
 
 
 def stw_layer_bwd(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,

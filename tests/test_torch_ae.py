@@ -16,8 +16,9 @@ perceptual scales (1, 0.5). The JAX side runs under ``jax.jit``.
   port fed JAX's augmentation and TPS draws: the step-1 losses to 1e-5
   relative; every step-1 gradient against the JAX package's float64
   gradients (the bound is explained in that test); params, loss weights and
-  batch_stats after one and two steps; a third, non-finite step skipped by
-  both.
+  batch_stats after step 1, and after a step 2 that the port takes from
+  JAX's step-1 state (``load_jax_state``); a third, non-finite step skipped
+  by both.
 """
 import jax
 import jax.numpy as jnp
@@ -277,7 +278,9 @@ def ae_runs():
                                 learnable_loss_weights=True, device_augment=FLIP_JITTER,
                                 device="cpu")
     port_aux, port_states, grads, inputs = [], [], None, []
-    for key, batch, (theta, cp, cparams) in zip(keys, batches, draws):
+    for i, (key, batch, (theta, cp, cparams)) in enumerate(zip(keys, batches, draws)):
+        if i == 1:  # step 2 starts from JAX's step-1 state: test_ae_train_steps_match_jax
+            load_jax_state(port, jax_states[0])
         augment = jax_augment_draws(jax.random.split(key)[0], 2, (32, 32), **FLIP_JITTER)
         tps = transform.TPSTransform(t_(theta), t_(cp), t_(cparams))
         inputs.append((device_augment.prepare_batch(t_(batch["source"]), t_(batch["driving"]),
@@ -308,6 +311,28 @@ def ae_runs():
         grads64 = convert.recon_state_dict({"params": jax.tree_util.tree_map(np.asarray, g64)})
     return dict(model=model, port=port, init=init, jax_states=jax_states, jax_aux=jax_aux,
                 port_aux=port_aux, port_states=port_states, grads=grads, grads64=grads64)
+
+
+def load_jax_state(port, jstate):
+    """Put a JAX AETrainState into the port's trainer: parameters, BatchNorm
+    running statistics, loss weights and Adam's moments (optax's mu and nu)."""
+    model = port.model
+    as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    model.load_state_dict(convert.recon_state_dict(
+        {"params": as_np(jstate.params), "batch_stats": as_np(jstate.batch_stats)}))
+    adam = jstate.opt_state.inner_state[0]
+    (mu, mu_lw), (nu, nu_lw) = adam.mu, adam.nu
+    mu, nu = (convert.recon_state_dict({"params": as_np(t)}) for t in (mu, nu))
+    opt = port.optimizer.opt
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            opt.state[p]["exp_avg"].copy_(mu[name])
+            opt.state[p]["exp_avg_sq"].copy_(nu[name])
+        for k, w in port.loss_weights.items():
+            w.fill_(float(jstate.loss_weights[k]))
+            opt.state[w]["exp_avg"].fill_(float(mu_lw[k]))
+            opt.state[w]["exp_avg_sq"].fill_(float(nu_lw[k]))
+    assert all(int(opt.state[p]["step"]) == int(adam.count) for p in port.optimizer.params)
 
 
 def zero_in_exact_arithmetic(name):
@@ -370,19 +395,23 @@ def _jax_stats(state):
 
 
 def test_ae_train_steps_match_jax(ae_runs):
-    """Params, loss weights and batch_stats after one and two steps. Adam's
-    first update is -lr g / (|g| + eps): where |g| is clear of the float32
-    gradients' error (5% of the tensor's max; see the gradient test), both
-    packages move an element by the same lr; elsewhere its sign is noise.
-    With b1 = 0.5 one update is at most 1.054 lr, so after two steps two
-    elements may be 4.2 lr apart."""
+    """Params, loss weights and batch_stats after step 1, and after a step 2
+    that both packages take from JAX's step-1 state. Adam's first update is
+    -lr g / (|g| + eps): where |g| is clear of the float32 gradients' error
+    (5% of the tensor's max; see the gradient test), both packages move an
+    element by the same lr; elsewhere its sign is noise, so after step 1 an
+    element may be 2 lr apart. Carried into step 2, those elements alone
+    moved a BatchNorm running mean past its 1e-4 bound (1.1e-4 on
+    bg_predictor.encoder.down_blocks.1, where train-mode BatchNorm amplifies
+    them), so step 2 starts from one state. With b1 = 0.5 one update is at
+    most 1.054 lr, so after one step two elements may be 2.2 lr apart."""
     want_g = ae_runs["grads64"]
     for i, stats_tol in ((0, 1e-5), (1, 1e-4)):
         sd, lw = ae_runs["port_states"][i]
         jstate = ae_runs["jax_states"][i]
         for name, want in convert.recon_state_dict({"params": jstate.params}).items():
             got, want = sd[name].numpy(), want.numpy()
-            np.testing.assert_allclose(got, want, rtol=0, atol=4.2 * LR, err_msg=name)
+            np.testing.assert_allclose(got, want, rtol=0, atol=2.2 * LR, err_msg=name)
             if i == 0 and not zero_in_exact_arithmetic(name):
                 g, p0 = want_g[name].numpy(), ae_runs["init"][name].numpy()
                 clear = np.abs(g) > 0.05 * np.abs(g).max()

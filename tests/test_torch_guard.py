@@ -121,3 +121,46 @@ def test_kernel_calls_match_their_c_entry_points():
     entries = {(src.stem, name): len(types) for src in (ROOT / "extdm_tpu_torch" / "csrc").glob("*.cu")
                for name, types in _build.entry_points(src.stem).items()}
     assert calls == entries
+
+
+def test_window_major_wrapper_takes_plain_path_on_cpu_and_refuses_other_devices():
+    rng = np.random.default_rng(2)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    counters = (fused_stw.fused_stw_layer_wm, fused_stw.fused_stw_layer)
+    before = [f.launches for f in counters]
+    heads, dh = 2, 8
+    args = (t(2, 3, 64, 16), t(16), t(48, 16), t(16, 16), t(16), t(heads, 64, 64), t(3, 64, 64))
+    kw = dict(heads=heads, dim_head=dh)
+    assert torch.equal(fused_stw.fused_stw_layer_wm(*args, **kw),
+                       fused_stw.stw_layer_wm_plain(*args, **kw))
+    x = t(1, 4, 8, 8, 16)
+    layer = (x, t(16), t(48, 16), t(16, 16), t(16), t(heads, 64, 64))
+    for mode in fused_stw.WINDOW_MAJOR_MODES:
+        fused_stw.fused_stw_layer(*layer, window=(4, 4, 4), shift=(0, 0, 0), window_major=mode,
+                                  **kw)
+    assert [f.launches for f in counters] == before  # no kernel ran
+    with pytest.raises(ValueError):  # neither CPU nor CUDA: no kernel, no fallback
+        fused_stw.fused_stw_layer_wm(*[a.to("meta") for a in args], **kw)
+
+
+def test_metrics_need_a_card_unless_asked_for_cpu():
+    from extdm_tpu_torch.metrics import I3DExtractor, LPIPSMetric
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for make in (LPIPSMetric, I3DExtractor):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert LPIPSMetric(device="cpu").device.type == "cpu"
+
+
+def test_window_major_kernel_call_matches_its_c_entry():
+    """The launch of kernel 9 passes the 20 arguments of ``stw_layer_wm``."""
+    from extdm_tpu_torch import _build
+
+    src = (ROOT / "extdm_tpu_torch" / "ops" / "fused_stw.py").read_text()
+    calls = [node for node in ast.walk(ast.parse(src))
+             if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+             and node.func.attr == "launch" and node.args[1].value == "stw_layer_wm"]
+    assert len(calls) == 1
+    assert len(calls[0].args) - 2 == len(_build.entry_points("attention")["stw_layer_wm"]) == 20

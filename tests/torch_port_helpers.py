@@ -48,3 +48,11 @@ def random_variables(shapes, seed):
 
 def close(a, b, tol):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=tol, atol=tol)
+
+
+def he_scaled(variables):
+    """Conv kernels (4-D and 5-D) of a ``random_variables`` tree scaled by
+    sqrt(6), to He's variance: deep random networks (VGG19, I3D) then keep
+    their signal's size instead of fading to an input-independent output."""
+    return jax.tree_util.tree_map(lambda a: a * np.float32(np.sqrt(6.0)) if a.ndim >= 4 else a,
+                                  variables)
