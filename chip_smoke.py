@@ -54,7 +54,34 @@
    counters go to 0 and ``evaluate`` runs (20 kernel-9 and 160 kernel-1
    launches per sampler call), with PSNR, SSIM, LPIPS and FVD from random
    networks; PSNR, SSIM, LPIPS and I3D features on the card are checked
-   against the port's CPU versions on the same videos.
+   against the port's CPU versions on the same videos. ``evaluate`` returns
+   its samples in host memory; run again at 8 trajectories (2 videos per
+   loader batch, the same sampler batch), its peak device memory must stay
+   within EVAL_PEAK_REL_TOL of the 4-trajectory run's.
+9. multi1248: the KTH sampling configuration with the multi1248/ada UNet
+   (dim_mults (1,2,4,8): 512 channels at the deepest level and in the mid
+   blocks) in bf16. The layers over the whole-layer kernels' 256 channels
+   (``wide_layers``: 4 window layers, 1 temporal layer, 4 resnet blocks)
+   take their routes: the window and temporal layers unfused around kernel
+   12 (window attention), the resnet blocks' backward decomposed into
+   kernels 10 and 11 (the conv and its gradients) and torch GroupNorm math.
+   A recorded warm-up sampler call at batch 4; kernel 12 against its plain
+   version at every recorded shape in bf16 and float32, timed beside its
+   plain version and F.scaled_dot_product_attention; kernel 3 against its
+   plain version at the blocks over 256 output channels and at up level 0's
+   1024 input channels; 3 timed sampler calls with every launch count and
+   the unfused routes checked (``expected_route_launches``), kernels 1, 2
+   never on a layer over 256 channels; the float32 UNet card vs CPU. Then
+   the train step at batch 8 (remat, bf16 compute): a recorded warm-up
+   step, kernels 10-12 against their plain versions at every recorded shape
+   in bf16 and float32 (dW with the backward kernels' limits) and timed
+   beside F.conv3d / aten.convolution_backward, kernels 5-7 never on a
+   layer over 256 channels, 3 timed steps with launch and route counts, and
+   the float32 step card vs CPU.
+
+The train phase also times, at the KTH step's resnet-backward shapes, kernel
+7 against the decomposed backward (``resnet_backward="decomposed"``): an
+A/B, printed only.
 
 Prints one JSON line per kernel and shape, the end-to-end timings, a summary
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -149,6 +176,10 @@ EVAL_VIDEOS, EVAL_TRAJ, EVAL_FRAMES = 4, 4, 50  # tc 10 + 40 predicted frames
 # features are float32 networks (5 and ~60 layers) whose convolutions sum
 # in another order: LPIPS 1e-4 absolute (distances ~0.1), I3D 1e-3 of the
 # features' max.
+# evaluate at 8 trajectories against 4, the same sampler batch: the samples
+# it keeps (39 MB more here) stay in host memory; the card's peak is the
+# sampler's and one metric slab's, which may move by allocator rounding.
+EVAL_PEAK_REL_TOL = 0.02
 METRIC_F64_TOL = 1e-9
 LPIPS_F32_TOL = 1e-4
 I3D_F32_REL_TOL = 1e-3
@@ -269,6 +300,10 @@ def kernel_table():
         byts = (x.numel() + P * Cout + weights) * x.element_size()
         return byts, flops, x.dtype
 
+    def resnet_plain(*args, backward="fused", **kwargs):
+        # the UNet's calls carry their backward mode; the forward is the same
+        return fused_resnet.resnet_block_plain(*args, **kwargs)
+
     def resnet_residual(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, bres=None, **k):
         if wres is None:
             return x
@@ -294,7 +329,7 @@ def kernel_table():
             source="extdm_tpu_torch/csrc/attention.cu",
             replaces="extdm_tpu/ops/pallas_stw.py:1631"),
         "resnet_block": dict(
-            wrapper=fused_resnet.fused_resnet_block, plain=fused_resnet.resnet_block_plain,
+            wrapper=fused_resnet.fused_resnet_block, plain=resnet_plain,
             sites=[(unet3d, "fused_resnet_block")], key=resnet_key, cost=resnet_cost,
             residual=resnet_residual,
             source="extdm_tpu_torch/csrc/resnet.cu",
@@ -666,6 +701,7 @@ def train_phase(table, btable, card, others=None):
         raise AssertionError(f"warm-up backward kernel calls {seen} != expected {want_bwd}")
 
     summary = backward_phase(btable, record, card)
+    resnet_bwd_ab(record["resnet_block_bwd"], card)
     del record
     fwd_ms = 0.0  # forward kernels per step at the training shapes (timed only)
     with torch.no_grad():
@@ -1150,8 +1186,8 @@ def check_metrics_card_vs_cpu(out, i3d, lpips):
     from extdm_tpu_torch.metrics import I3DExtractor, LPIPSMetric, calculate_psnr3, calculate_ssim3
 
     n = 2 * EVAL_TRAJ
-    samples = out["samples"][:n]
-    real = out["real"][:2].repeat_interleave(EVAL_TRAJ, dim=0)
+    samples = out["samples"][:n].cuda()  # evaluate returns them in host memory
+    real = out["real"][:2].repeat_interleave(EVAL_TRAJ, dim=0).cuda()
     t0 = time.perf_counter()
     res = {}
     tchw = lambda v: v.permute(0, 1, 4, 2, 3)  # noqa: E731
@@ -1171,7 +1207,7 @@ def check_metrics_card_vs_cpu(out, i3d, lpips):
     i3d_cpu = I3DExtractor(device="cpu")
     i3d_cpu.model.load_state_dict(i3d.model.state_dict())
     clips = out["real"][:2, :16]
-    got, want = i3d.get_feats(clips), i3d_cpu.get_feats(clips.cpu())
+    got, want = i3d.get_feats(clips.cuda()), i3d_cpu.get_feats(clips)
     size = float(abs(want).max())
     res["i3d"] = float(abs(got - want).max())
     res["i3d_feature_max"] = size
@@ -1237,11 +1273,13 @@ def eval_phase(table, btable, ae_btable, card):
     counters = {n: k["wrapper"] for n, k in {**table, **btable, **ae_btable, **wm}.items()}
     for fn in counters.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = evaluate(fd, loader, num_traj=EVAL_TRAJ, total_pred=total_pred, seed=1, i3d=i3d,
                    lpips=lpips)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
+    peak = {EVAL_TRAJ: torch.cuda.max_memory_allocated()}
     launches = {n: fn.launches for n, fn in counters.items()}
     calls = len(out["seconds"]["sampling_per_call"])
     expected = {n: want_call.get(n, 0) * calls for n in counters}
@@ -1254,6 +1292,8 @@ def eval_phase(table, btable, ae_btable, card):
     samples = out["samples"]
     if tuple(samples.shape) != (n, EVAL_FRAMES, px, px, 3) or not torch.isfinite(samples).all():
         raise AssertionError(f"eval samples: shape {tuple(samples.shape)} or non-finite")
+    if samples.device.type != "cpu" or out["real"].device.type != "cpu":
+        raise AssertionError("evaluate kept its samples on the card")
     vals = out["values"]
     for k in ("fvd_best", "psnr2", "ssim2", "lpips2", "sampling_frames_per_sec"):
         if not math.isfinite(vals[k]):
@@ -1274,10 +1314,371 @@ def eval_phase(table, btable, ae_btable, card):
          "kernel1_same_layers_ms_per_call": summary["kernel1_layer_ms"],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
     check_metrics_card_vs_cpu(out, i3d, lpips)
+    del out
+
+    # twice the trajectories at the same sampler batch (half the videos per
+    # loader batch): the samples stay in host memory, so the card's peak does
+    # not grow with them
+    torch.cuda.empty_cache()
+    loader = DataLoader(dataset, EVAL_VIDEOS * EVAL_TRAJ // (2 * EVAL_TRAJ), shuffle=False,
+                        num_workers=4, drop_last=False, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out = evaluate(fd, loader, num_traj=2 * EVAL_TRAJ, total_pred=total_pred, seed=1, i3d=i3d,
+                   lpips=lpips)
+    torch.cuda.synchronize()
+    peak[2 * EVAL_TRAJ] = torch.cuda.max_memory_allocated()
+    host_gb = {k: out[k].numel() * out[k].element_size() / 2 ** 30 for k in ("real", "samples")}
+    log({"check": "evaluate's peak device memory, num_traj 4 -> 8 at sampler batch 16",
+         "peak_gb": {k: v / 2 ** 30 for k, v in peak.items()}, "host_gb": host_gb,
+         "tol": EVAL_PEAK_REL_TOL})
+    if peak[2 * EVAL_TRAJ] > (1 + EVAL_PEAK_REL_TOL) * peak[EVAL_TRAJ]:
+        raise AssertionError(f"evaluate's peak device memory grew with the trajectories: {peak}")
     del fd, out, i3d, lpips
     torch.cuda.empty_cache()
     log({"phase": "eval phase", "seconds": time.perf_counter() - t_phase})
     return summary, launches, calls
+
+
+# ----------------------------------------------------------------- multi1248
+def route_table():
+    """Kernels 10, 11 and 12 in the layout of kernel_table, with `library`:
+    one PyTorch call that computes the same function (timed only)."""
+    from extdm_tpu_torch.ops import fused_resnet, fused_stw, window_attn
+
+    def conv_key(x, w, *a):
+        return (tuple(x.shape), w.shape[-1])
+
+    def conv_cost(x, w, b=None):
+        B, T, H, W, Cin = x.shape
+        P, Cout = B * T * H * W, w.shape[-1]
+        byts = (x.numel() + w.numel()) * x.element_size() + P * Cout * 4
+        return byts, 2 * P * 9 * Cin * Cout, x.dtype
+
+    def conv_library(x, w, b=None):
+        xn = x.permute(0, 4, 1, 2, 3).contiguous()
+        wn = fused_resnet._conv_weight(w.to(x.dtype)).unsqueeze(2).contiguous()
+        bn = None if b is None else b.to(x.dtype)
+        return lambda: F.conv3d(xn, wn, bn, padding=(0, 1, 1))
+
+    def bwd_key(da, a_in, w):
+        return (tuple(a_in.shape), w.shape[-1])
+
+    def bwd_cost(da, a_in, w):
+        # da, a_in and w read once, din and dW (float32) written once; two
+        # products of the forward's size (input and weight gradients)
+        B, T, H, W, Cin = a_in.shape
+        P, Cout = B * T * H * W, w.shape[-1]
+        byts = (P * (Cin + Cout) + w.numel()) * a_in.element_size() + (P * Cin + w.numel()) * 4
+        return byts, 2 * 2 * P * 9 * Cin * Cout, a_in.dtype
+
+    def bwd_library(da, a_in, w):
+        dan = da.to(a_in.dtype).permute(0, 4, 1, 2, 3).contiguous()
+        an = a_in.permute(0, 4, 1, 2, 3).contiguous()
+        wn = fused_resnet._conv_weight(w.to(a_in.dtype)).unsqueeze(2).contiguous()
+        return lambda: torch.ops.aten.convolution_backward(
+            dan, an, wn, None, [1, 1, 1], [0, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+            [True, True, False])
+
+    def attn_key(q, k, v, bias, mask=None):
+        return (tuple(q.shape), mask is not None)
+
+    def attn_cost(q, k, v, bias, mask=None):
+        BW, H, N, D = q.shape
+        byts = 4 * q.numel() * q.element_size() + bias.numel() * 4
+        if mask is not None:
+            byts += len(window_attn.dedupe_masks(mask)[0]) * N * N * 4
+        return byts, 4 * BW * H * N * N * D, q.dtype
+
+    def attn_library(q, k, v, bias, mask=None):
+        add = bias.float()[None].expand(q.shape[0], -1, -1, -1)
+        if mask is not None:
+            m = torch.as_tensor(mask, device=q.device)
+            add = add + m[torch.arange(q.shape[0], device=q.device) % m.shape[0]][:, None]
+        add = add.to(q.dtype).contiguous()
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add, scale=1.0)
+
+    return {
+        "conv33_fwd": dict(
+            wrapper=fused_resnet.conv33_fwd, plain=fused_resnet.conv33_plain,
+            sites=[(fused_resnet, "conv33_fwd")], key=conv_key, cost=conv_cost,
+            library=conv_library, library_call="F.conv3d (NCDHW-contiguous operands)",
+            source="extdm_tpu_torch/csrc/conv33.cu",
+            replaces="extdm_tpu/ops/pallas_resnet.py:773"),
+        "conv33_bwd": dict(
+            wrapper=fused_resnet.conv33_bwd, plain=fused_resnet.conv33_bwd_plain,
+            sites=[(fused_resnet, "conv33_bwd")], key=bwd_key, cost=bwd_cost,
+            library=bwd_library,
+            library_call="aten.convolution_backward (input and weight, NCDHW-contiguous)",
+            source="extdm_tpu_torch/csrc/conv33.cu",
+            replaces="extdm_tpu/ops/pallas_resnet.py:803"),
+        "window_attention": dict(
+            wrapper=window_attn.fused_window_attention, plain=window_attn.window_attention_plain,
+            sites=[(fused_stw, "fused_window_attention")], key=attn_key, cost=attn_cost,
+            library=attn_library,
+            library_call="F.scaled_dot_product_attention, float mask = bias + shift mask",
+            source="extdm_tpu_torch/csrc/window_attn.cu",
+            replaces="extdm_tpu/ops/pallas_attn.py:137"),
+    }
+
+
+def wide_layers(cfg, limit=256):
+    """Layers of the UNet over the whole-layer kernels' channel limit, by
+    the UNet's widths (unet3d.py: per level 2 resnet blocks, 2 window layers
+    and a temporal layer at the level's width; the mid blocks at the
+    deepest width): the unfused window and temporal layers and the resnet
+    blocks whose backward is decomposed (Cout over the limit)."""
+    dims = [cfg.dim] + [cfg.dim * m for m in cfg.dim_mults]
+    widths = dims[1:] + dims[-2::-1][:len(dims) - 1]  # downs at d_out, ups at d_in
+    n = {"stw": 2 * sum(w > limit for w in widths) + 2 * (dims[-1] > limit),
+         "temporal": sum(w > limit for w in widths),
+         "resnet": 2 * sum(w > limit for w in widths) + 2 * (dims[-1] > limit)}
+    return n
+
+
+def expected_route_launches(cfg):
+    """Launches per sampler call and per train step (remat, bf16) of every
+    kernel, with the wide layers on their routes: kernel 12 once per unfused
+    layer forward (its backward is the plain autograd), kernels 10 and 11
+    twice per decomposed resnet backward (the two convs)."""
+    wide, steps = wide_layers(cfg), cfg.sampling_timesteps
+    call = dict(expected_launches(cfg))
+    call["stw_layer"] -= steps * wide["stw"]
+    call["temporal_layer"] -= steps * wide["temporal"]
+    call.update(window_attention=steps * (wide["stw"] + wide["temporal"]), conv33_fwd=0,
+                conv33_bwd=0)
+    fwd, bwd = expected_train_launches(cfg)
+    step = {**fwd, **bwd}
+    for name, kind in (("stw_layer", "stw"), ("temporal_layer", "temporal")):
+        step[name] -= wide[kind]
+        step[f"{name}_bwd"] -= wide[kind]
+    step["resnet_block_bwd"] -= wide["resnet"]
+    step.update(window_attention=wide["stw"] + wide["temporal"], conv33_fwd=2 * wide["resnet"],
+                conv33_bwd=2 * wide["resnet"])
+    return call, step
+
+
+def narrow_only(name, record, limit=256):
+    """Kernels 1, 2, 5, 6 and 7 never see a layer over their channel limit:
+    every recorded input of `name` has at most `limit` channels (Cout for
+    the resnet backward)."""
+    for key in record:
+        width = key[1] if name == "resnet_block_bwd" else key[0][-1]
+        if width > limit:
+            raise AssertionError(f"{name} launched on a layer of {width} > {limit} channels")
+
+
+def route_kernel_checks(rt, record, card, per):
+    """Kernels 10-12 against their plain versions at every recorded shape,
+    in bf16 and in float32 (the same inputs cast), and CUDA-event times of
+    kernel, plain version and library call; returns per-call (or per-step)
+    totals by kernel. TF32 off: the float32 plain versions in full float32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    summary = {}
+    for name, k in rt.items():
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                   max_abs_err=0.0)
+        if name not in record:
+            continue
+        for key, entry in record[name].items():
+            args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+            res = {}
+            for dtype in (torch.bfloat16, torch.float32):
+                cast = [a.to(dtype) if torch.is_tensor(a) and a.dtype in (torch.bfloat16,
+                                                                           torch.float32)
+                        and a.ndim >= 3 else a for a in args]
+                got, want = k["wrapper"](*cast, **kwargs), k["plain"](*cast, **kwargs)
+                torch.cuda.synchronize()
+                if name == "conv33_bwd":  # din and dW, with the backward kernels' limits
+                    lim = ((BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL) if dtype == torch.bfloat16
+                           else (F32_REL_TOL, F32_REL_TOL))
+                    r = check_grads(f"{name}{key} {dtype}", got, want, *lim)
+                else:
+                    r = check(f"{name}{key} {dtype}", got, want,
+                              BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL)
+                res[str(dtype).replace("torch.", "")] = r
+            ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 10)
+            plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 10)
+            library_ms = cuda_ms(k["library"](*args, **kwargs), 10)
+            byts, flops, op_dtype = k["cost"](*args, **kwargs)
+            bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
+            dt = args[1 if name == "conv33_bwd" else 0].dtype
+            log({"kernel": name, "shape": list(key[0]), "key": str(key[1:]),
+                 "dtype": str(dt).replace("torch.", ""), per: count, "kernel_ms": ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms, "library_call": k["library_call"],
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "checks": res,
+                 "card": card})
+            for field, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                                 ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms),
+                                 ("ops_ms", ops_ms)):
+                tot[field] += count * value
+            tot["max_abs_err"] = max(tot["max_abs_err"], res["bfloat16"]["max_abs_err"],
+                                     res["float32"]["max_abs_err"])
+        summary[name] = tot
+    return summary
+
+
+def multi1248_phase(table, btable, others, card):
+    """The multi1248/ada preset at full KTH width (see the module docstring, 9)."""
+    from extdm_tpu_torch.config import kth_multi1248_config
+    from extdm_tpu_torch.models.dm import unet3d
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.ops import fused_resnet
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
+
+    t_phase = time.perf_counter()
+    rt = route_table()
+    cfg = kth_multi1248_config(dtype=torch.bfloat16)
+    want_call, want_step = expected_route_launches(cfg)
+    wide = wide_layers(cfg)
+    counters = {n: k["wrapper"] for n, k in {**table, **btable, **others, **rt}.items()}
+
+    routes = {"unfused": 0, "decomposed": 0}
+    stw_route, bwd_route = unet3d.stw_route, fused_resnet.resnet_bwd_route
+
+    def counted(fn):
+        def route(*a, **k):
+            r = fn(*a, **k)
+            routes[r] = routes.get(r, 0) + 1
+            return r
+        return route
+
+    @contextlib.contextmanager
+    def counting_routes():
+        unet3d.stw_route, fused_resnet.resnet_bwd_route = counted(stw_route), counted(bwd_route)
+        try:
+            yield
+        finally:
+            unet3d.stw_route, fused_resnet.resnet_bwd_route = stw_route, bwd_route
+
+    def run_counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        routes.update(unfused=0, decomposed=0)
+        t0 = time.perf_counter()
+        with counting_routes():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()}
+
+    # ---- sampling: recorded warm-up, then 3 timed calls
+    fd = FlowDiffusion(cfg, device="cuda", seed=0)
+    sampler = fd.make_sampler()
+    cond = torch.rand((BATCH, cfg.cond_frames, cfg.frame_shape, cfg.frame_shape, 3),
+                      generator=torch.Generator().manual_seed(6)).cuda()
+    gen = torch.Generator(device="cuda")
+    record = {}
+    with recording({**table, **rt}, record):
+        sampler(gen.manual_seed(0), cond)
+        torch.cuda.synchronize()
+    for name in ("stw_layer", "temporal_layer"):
+        narrow_only(name, record[name])
+    wide_keys = [k for k in record["resnet_block"] if k[1] > 256]
+    log({"phase": "multi1248 warm-up call", "window_attention_shapes": [str(k) for k in
+                                                                        record["window_attention"]],
+         "resnet_forward_shapes_over_256": [str(k) for k in wide_keys], "wide_layers": wide})
+    with torch.no_grad():
+        summary = route_kernel_checks(rt, record, card, "per_call")
+    # kernel 3 at the blocks over 256 output channels and at up level 0 (Cin 1024)
+    for key in [k for k in record["resnet_block"] if k[1] > 256 or k[0][-1] > 512]:
+        entry = record["resnet_block"][key]
+        res = check(f"resnet_block{key}", table["resnet_block"]["wrapper"](*entry["args"],
+                                                                         **entry["kwargs"]),
+                    table["resnet_block"]["plain"](*entry["args"], **entry["kwargs"]),
+                    BF16_REL_TOL, table["resnet_block"]["residual"](*entry["args"],
+                                                                    **entry["kwargs"]))
+        log({"kernel": "resnet_block", "shape": list(key[0]), "cout": key[1],
+             "check": "kernel 3 vs plain at a multi1248 shape", **res})
+    del record
+    times = []
+    for i in range(TIMED_CALLS):
+        out, sec, launches = run_counted(lambda: sampler(gen.manual_seed(200 + i), cond))
+        times.append(sec)
+        expected = {n: want_call.get(n, 0) for n in counters}
+        if launches != expected or routes["unfused"] != want_call["window_attention"]:
+            raise AssertionError(f"multi1248 call {i}: launches {launches} != {expected}, or "
+                                 f"routes {routes}")
+        if not torch.isfinite(out["sample_out_vid"]).all():
+            raise AssertionError(f"multi1248 call {i}: non-finite samples")
+    call_launches = launches
+    med = statistics.median(times)
+    log({"phase": "multi1248 sampling", "config": "KTH 64px tc=10 tp=20 DDIM-10 bf16, "
+         "multi1248/ada (dim_mults 1,2,4,8)", "batch": BATCH, "ms_per_call": [t * 1e3 for t in
+                                                                              times],
+         "median_ms": med * 1e3, "predicted_frames_per_s": BATCH * cfg.pred_frames / med,
+         "launches_per_call": launches, "unfused_layers_per_call": routes["unfused"],
+         "window_attention_ms_per_call": summary["window_attention"]["ms"], "card": card})
+    unet_f32_card_vs_cpu(cfg)
+    del fd, sampler, out
+    torch.cuda.empty_cache()
+
+    # ---- training: recorded warm-up step, kernel checks, 3 timed steps
+    tcfg = kth_multi1248_config(dtype=torch.bfloat16, remat=True)
+    fd = FlowDiffusion(tcfg, device="cuda", seed=0)
+    trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), 2e-4, (500000,), 0.5))
+    T, px = tcfg.cond_frames + tcfg.pred_frames, tcfg.frame_shape
+    video = torch.rand((TRAIN_BATCH, T, px, px, 3),
+                       generator=torch.Generator().manual_seed(7)).cuda()
+    record = {}
+    with recording({**btable, **rt}, record):
+        trainer.train_step(gen.manual_seed(0), video)
+        torch.cuda.synchronize()
+    for name in ("stw_layer_bwd", "temporal_layer_bwd", "resnet_block_bwd"):
+        narrow_only(name, record[name])
+    with torch.no_grad():
+        tsummary = route_kernel_checks(rt, record, card, "per_step")
+    del record
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TIMED_STEPS):
+        aux, sec, launches = run_counted(lambda: trainer.train_step(gen.manual_seed(10 + i), video))
+        times.append(sec)
+        expected = {n: want_step.get(n, 0) for n in counters}
+        loss, grad_norm = aux["loss"].item(), aux["grad_norm"].item()
+        if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+            raise AssertionError(f"multi1248 train step {i}: loss {loss}, grad_norm {grad_norm}")
+        if launches != expected or (routes["unfused"], routes["decomposed"]) != (
+                want_step["window_attention"], wide["resnet"]):
+            raise AssertionError(f"multi1248 train step {i}: launches {launches} != {expected}, "
+                                 f"or routes {routes}")
+        log({"phase": "multi1248 train step", "step": i, "ms": sec * 1e3, "loss": loss,
+             "grad_norm": grad_norm})
+    step_launches = launches
+    med = statistics.median(times)
+    log({"phase": "multi1248 train end to end", "config": "KTH 64px tc=10 tp=20, multi1248/ada, "
+         "bf16 compute, float32 master weights, remat", "batch": TRAIN_BATCH,
+         "ms_per_step": [t * 1e3 for t in times], "median_ms": med * 1e3,
+         "train_frames_per_s": TRAIN_BATCH * T / med, "launches_per_step": launches,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "conv33_ms_per_step": tsummary["conv33_fwd"]["ms"] + tsummary["conv33_bwd"]["ms"],
+         "card": card})
+    del trainer, fd, video
+    torch.cuda.empty_cache()
+    train_f32_card_vs_cpu(tcfg)
+    log({"phase": "multi1248 phase", "seconds": time.perf_counter() - t_phase})
+    # kernel 12 per sampler call, kernels 10 and 11 per train step
+    return ({**tsummary, "window_attention": summary["window_attention"]}, call_launches,
+            step_launches)
+
+
+def resnet_bwd_ab(entries, card):
+    """Kernel 7 against the decomposed backward (kernels 10-11 and the torch
+    GroupNorm math) at the KTH train step's resnet-backward shapes: ms per
+    step of each, summed over the shapes' counts. Timed and printed only."""
+    from extdm_tpu_torch.ops import fused_resnet
+
+    fused_ms = decomposed_ms = 0.0
+    for key, entry in entries.items():
+        args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+        f = cuda_ms(lambda: fused_resnet.resnet_block_bwd(*args, **kwargs), 5)
+        d = cuda_ms(lambda: fused_resnet.resnet_block_bwd_decomposed(*args, **kwargs), 5)
+        fused_ms += count * f
+        decomposed_ms += count * d
+        log({"ab": "resnet backward", "shape": list(key[0]), "cout": key[1], "per_step": count,
+             "kernel7_ms": f, "decomposed_ms": d})
+    log({"ab": "resnet backward per KTH train step (batch 8, bf16)", "shapes": len(entries),
+         "kernel7_ms_per_step": fused_ms, "decomposed_ms_per_step": decomposed_ms, "card": card})
 
 
 def main() -> int:
@@ -1320,17 +1721,18 @@ def main() -> int:
     summary = kernel_phase(table, record, card)
 
     # ---- the main path: counters from 0, three timed requests
-    wm = wm_table(table)
-    want = dict(want, stw_layer_wm=0)  # layout "0": no window-major layer
+    wm, rt = wm_table(table), route_table()
+    # layout "0": no window-major layer; every layer within the kernels' widths
+    want = dict(want, stw_layer_wm=0, **{n: 0 for n in rt})
     times, launches = [], {}
     for i in range(TIMED_CALLS):
-        for k in {**table, **wm}.values():
+        for k in {**table, **wm, **rt}.values():
             k["wrapper"].launches = 0
         t0 = time.perf_counter()
         out = sampler(gen.manual_seed(100 + i), cond)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        launches = {n: k["wrapper"].launches for n, k in {**table, **wm}.items()}
+        launches = {n: k["wrapper"].launches for n, k in {**table, **wm, **rt}.items()}
         if launches != want:
             raise AssertionError(f"request {i}: kernel launches {launches} != expected {want}")
     B, T, tp = BATCH, cfg.cond_frames + cfg.pred_frames, cfg.pred_frames
@@ -1351,29 +1753,43 @@ def main() -> int:
 
     # ---- the DM train path
     btable, ae_btable = backward_table(table), ae_backward_table()
-    bsummary, train_launches = train_phase(table, btable, card, others={**ae_btable, **wm})
+    bsummary, train_launches = train_phase(table, btable, card,
+                                           others={**ae_btable, **wm, **rt})
 
     # ---- the AE (stage-1) train path
-    aesummary, ae_launches = ae_phase(table, btable, ae_btable, card, others=wm)
+    aesummary, ae_launches = ae_phase(table, btable, ae_btable, card, others={**wm, **rt})
 
     # ---- the evaluation path (kernel 9)
-    wsummary, eval_launches, eval_calls = eval_phase(table, btable, ae_btable, card)
+    wsummary, eval_launches, eval_calls = eval_phase(table, btable, {**ae_btable, **rt}, card)
+
+    # ---- the multi1248/ada preset (kernels 10-12 on the layers over 256 channels)
+    msummary, m_call, m_step = multi1248_phase(table, btable, {**ae_btable, **wm}, card)
 
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the
     # grid-sample backward, on the eval path (all its sampler calls) for
-    # kernel 9; with the DM, AE and eval counts of every kernel
-    summaries = {**summary, **bsummary, **aesummary, **{"stw_layer_wm": wsummary}}
+    # kernel 9, on the multi1248 path for kernels 10-12 (per train step for
+    # 10 and 11, per sampler call for 12); with the DM, AE, eval and
+    # multi1248 counts of every kernel
+    summaries = {**summary, **bsummary, **aesummary, **{"stw_layer_wm": wsummary}, **msummary}
     kernels = []
-    for name, k in {**table, **btable, **ae_btable, **wm}.items():
+    for name, k in {**table, **btable, **ae_btable, **wm, **rt}.items():
         s = summaries[name]
-        path_launches = (eval_launches[name] if name in wm else launches.get(
-            name, train_launches[name] if name in btable else ae_launches[name]))
+        if name in rt:
+            path_launches = m_step[name] if name.startswith("conv33") else m_call[name]
+        elif name in wm:
+            path_launches = eval_launches[name]
+        else:
+            path_launches = launches.get(
+                name, train_launches[name] if name in btable else ae_launches[name])
         kernels.append({"name": name, "route": "cuda", "source": k["source"],
                         "replaces": k["replaces"], "launches": path_launches,
-                        "train_step_launches": train_launches[name],
-                        "ae_step_launches": ae_launches[name],
-                        "eval_launches": eval_launches[name], "eval_sampler_calls": eval_calls,
+                        "train_step_launches": train_launches.get(name, 0),
+                        "ae_step_launches": ae_launches.get(name, 0),
+                        "eval_launches": eval_launches.get(name, 0),
+                        "eval_sampler_calls": eval_calls,
+                        "multi1248_call_launches": m_call[name],
+                        "multi1248_step_launches": m_step[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",

@@ -1,6 +1,7 @@
 """Config loading, same YAML schema as the JAX package (port of
 extdm_tpu/config.py), plus the KTH sampling and training presets that
-``bench.py`` runs and the stage-1 (AE) settings of configs/AE/kth.yaml."""
+``bench.py`` runs, the KTH preset at the ``multi1248/ada`` widths, and the
+stage-1 (AE) settings of configs/AE/kth.yaml."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -56,6 +57,13 @@ def kth_sampling_config(**overrides) -> FlowDiffusionConfig:
                   attn_heads=8, attn_dim_head=32)
     kwargs.update(overrides)
     return FlowDiffusionConfig(**kwargs)
+
+
+def kth_multi1248_config(**overrides) -> FlowDiffusionConfig:
+    """The KTH sampling preset with the ``multi1248/ada`` UNet (the
+    reference's VideoFlowDiffusion_multi1248): dim_mults (1, 2, 4, 8), so the
+    deepest level and the mid blocks have 512 channels."""
+    return kth_sampling_config(**{**ARCH_PRESETS["multi1248/ada"], **overrides})
 
 
 def kth_training_config(dtype=torch.bfloat16, **overrides) -> FlowDiffusionConfig:

@@ -40,11 +40,16 @@ from extdm_tpu_torch.metrics import (
     LPIPSMetric,
     best_trajectory_by_feature_distance,
     calculate_fvd2,
-    calculate_psnr2,
-    calculate_ssim2,
+    calculate_psnr3,
+    calculate_ssim3,
 )
 
 METRICS = ("fvd", "psnr", "ssim", "lpips")
+# Real videos (with their trajectories) per slab moved to the card for PSNR,
+# SSIM and LPIPS: at the paper's 100 trajectories x 50 frames of 64^2 x 3, a
+# slab of 4 videos' samples is 1 GB in float32 and 2 GB in the metrics'
+# float64.
+SLAB_VIDEOS = 4
 
 
 def metric_stuff(values: np.ndarray):
@@ -91,16 +96,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _best_of(metric3, samples: torch.Tensor, real: torch.Tensor, num_traj: int, device,
+             best) -> float:
+    """The best-of-n value of ``calculate_*2`` from the (video, frame)
+    matrices of `metric3` (``calculate_psnr3``-like), computed over slabs of
+    SLAB_VIDEOS real videos and their trajectories, each moved from host
+    memory to `device` in turn: the real videos are repeated one slab at a
+    time, never as a whole. `best` is torch.max or torch.min over
+    trajectories."""
+    rows = []
+    for i in range(0, real.shape[0], SLAB_VIDEOS):
+        r = real[i:i + SLAB_VIDEOS].to(device)
+        s = samples[i * num_traj:(i + r.shape[0]) * num_traj].to(device)
+        rows.append(metric3(s, r.repeat_interleave(num_traj, dim=0)))
+    per_video = torch.from_numpy(np.concatenate(rows)).mean(dim=1).reshape(-1, num_traj)
+    return float(best(per_video, dim=1).values.mean())
+
+
 def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int = 0,
              metrics: Iterable[str] = METRICS, i3d: Optional[I3DExtractor] = None,
              lpips: Optional[LPIPSMetric] = None,
              init_noise: Optional[Callable[[int, int], Optional[torch.Tensor]]] = None) -> Dict:
     """Sample every batch of `loader` (clips in a stored layout, on any
     device) `num_traj` times and score the trajectories. `init_noise(batch,
-    round)` may give each sampler call's starting noise. Returns the metric
-    ``lines``, their ``values``, the real videos and the samples (float32
-    (N, T, H, W, 3) and (N * num_traj, T, H, W, 3) on fd.device), and
-    ``seconds``: sampling per call, the metrics and the loader's wait."""
+    round)` may give each sampler call's starting noise. Each finished batch
+    goes to host memory; the metrics move SLAB_VIDEOS real videos and their
+    trajectories (I3D: its own chunks) to fd.device at a time, so the card
+    holds one sampler batch and one slab, whatever the number of videos and
+    trajectories. Returns the metric ``lines``, their ``values``, the real
+    videos and the samples (float32 (N, T, H, W, 3) and (N * num_traj, T, H,
+    W, 3) in host memory), and ``seconds``: sampling per call, the metrics
+    and the loader's wait."""
     cfg, dev = fd.cfg, fd.device
     tc, tp = cfg.cond_frames, cfg.pred_frames
     wanted = set(metrics)
@@ -122,12 +148,12 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
             _sync(dev)
             call_s.append(time.perf_counter() - t0)
             pred_frames.append(pred.shape[0] * pred.shape[1])
-            preds.append(pred)
+            preds.append(pred.cpu())
             cond = pred[:, -tc:] if pred.shape[1] >= tc else torch.cat(
                 [cond[:, pred.shape[1]:], pred], dim=1)
         pred_full = torch.cat(preds, dim=1)[:, :total_pred]
-        real_all.append(video)
-        sample_all.append(torch.cat([video_rep[:, :tc], pred_full], dim=1))
+        real_all.append(video.cpu())
+        sample_all.append(torch.cat([video_rep[:, :tc].cpu(), pred_full], dim=1))
     if len(call_s) == 1:  # one call: time a warm one for the rate line
         gen = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + 10 ** 6)
         _sync(dev)
@@ -138,6 +164,7 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
         pred_frames.append(pred_frames[0])
 
     real, samples = torch.cat(real_all), torch.cat(sample_all)
+    del real_all, sample_all
     N = real.shape[0]
     print(f"evaluated {N} videos x {num_traj} trajectories")
     lines, values = [], {}
@@ -170,23 +197,21 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
         lines += [f"fvd_traj mean/std/conf95: {fvd_mean:.3f} / {fvd_std:.3f} / {fvd_conf:.3f}",
                   f"fvd_best: {fvd_best:.3f}", f"i3d_pretrained: {i3d.pretrained}"]
 
-    real_rep = real.repeat_interleave(num_traj, dim=0)
+    def tchw(fn):  # PSNR and SSIM take (B, T, C, H, W)
+        return lambda s, r: fn(s.permute(0, 1, 4, 2, 3), r.permute(0, 1, 4, 2, 3))
 
-    def tchw(v):  # PSNR and SSIM take (B, T, C, H, W)
-        return v.permute(0, 1, 4, 2, 3)
+    def best_of(fn, best):
+        return _best_of(fn, samples, real, num_traj, dev, best)
 
     if "psnr" in wanted:
-        values["psnr2"] = timed("psnr", lambda: calculate_psnr2(tchw(samples), tchw(real_rep),
-                                                                num_traj))
+        values["psnr2"] = timed("psnr", lambda: best_of(tchw(calculate_psnr3), torch.max))
         lines.append(f"psnr2 (best-of-{num_traj}): {values['psnr2']:.3f}")
     if "ssim" in wanted:
-        values["ssim2"] = timed("ssim", lambda: calculate_ssim2(tchw(samples), tchw(real_rep),
-                                                                num_traj))
+        values["ssim2"] = timed("ssim", lambda: best_of(tchw(calculate_ssim3), torch.max))
         lines.append(f"ssim2 (best-of-{num_traj}): {values['ssim2']:.4f}")
     if "lpips" in wanted:
         lpips = lpips or LPIPSMetric(device=dev)
-        values["lpips2"] = timed("lpips", lambda: lpips.calculate_lpips2(samples, real_rep,
-                                                                         num_traj))
+        values["lpips2"] = timed("lpips", lambda: best_of(lpips.calculate_lpips3, torch.min))
         values["lpips_pretrained"] = lpips.pretrained
         lines += [f"lpips2 (best-of-{num_traj}): {values['lpips2']:.4f}",
                   f"lpips_pretrained: {lpips.pretrained}"]

@@ -1,12 +1,16 @@
-"""Gaussian diffusion over video latents, DDIM sampling and the training
-loss (port of extdm_tpu/models/dm/diffusion.py): the fp64 cosine schedule
-cast to float32 buffers, q_sample and the epsilon loss, Imagen dynamic
-thresholding, and the reference's DDIM time grid. Timesteps and noise come
-from an explicit ``torch.Generator``."""
+"""Gaussian diffusion over video latents, DDIM and ancestral sampling and
+the training loss (port of extdm_tpu/models/dm/diffusion.py): the fp64
+cosine schedule cast to float32 buffers, q_sample, q_posterior and the
+epsilon loss, Imagen dynamic thresholding, and the reference's DDIM time
+grid. ``sample`` runs DDIM when it takes fewer steps than the schedule and
+the ancestral ``p_sample_loop`` otherwise (at as many steps as the schedule
+the last DDIM pair is (0, 0), whose sigma is 0/0). Timesteps and noise come
+from an explicit ``torch.Generator``; ``init_noise`` and ``noises`` replace
+the draws (reproducible trajectories, and the JAX draws in the tests)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +105,14 @@ class GaussianDiffusion:
         return (_extract(s.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
                 - _extract(s.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise)
 
+    def q_posterior(self, x_start, x_t, t):
+        """Mean, variance and clipped log variance of q(x_{t-1} | x_t, x_0)."""
+        s = self.schedule
+        mean = (_extract(s.posterior_mean_coef1, t, x_t.ndim) * x_start
+                + _extract(s.posterior_mean_coef2, t, x_t.ndim) * x_t)
+        return (mean, _extract(s.posterior_variance, t, x_t.ndim),
+                _extract(s.posterior_log_variance_clipped, t, x_t.ndim))
+
     def p_losses(self, denoise_fn: "DenoiseFn", generator: torch.Generator, x_cond: torch.Tensor,
                  x_pred: torch.Tensor, cond_fea: Optional[torch.Tensor],
                  t: Optional[torch.Tensor] = None,
@@ -130,21 +142,20 @@ class GaussianDiffusion:
 
     def ddim_sample(self, denoise_fn: DenoiseFn, generator: torch.Generator,
                     x_cond: torch.Tensor, pred_frames: int, cond_fea: Optional[torch.Tensor],
-                    init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    init_noise: Optional[torch.Tensor] = None,
+                    noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """x_cond (B, tc, h, w, C) -> (B, pred_frames, h, w, C) float32 latents.
-        `init_noise` replaces the drawn x_T (reproducible trajectories)."""
+        `init_noise` replaces the drawn x_T (reproducible trajectories);
+        `noises`, one per step, replace the per-step draws."""
         B, _, h, w, C = x_cond.shape
         shape = (B, pred_frames, h, w, C)
         device = x_cond.device
-
-        def normal():
-            return torch.randn(shape, generator=generator, device=generator.device).to(device)
-
+        normal = _normals(generator, shape, device, noises)
         img = normal() if init_noise is None else init_noise.to(device, torch.float32)
         alphas_prev = self.schedule.alphas_cumprod_prev
         eta = np.float32(self.ddim_eta)
-        for time, time_next in ddim_time_pairs(self.schedule.num_timesteps,
-                                               self.sampling_timesteps):
+        for i, (time, time_next) in enumerate(ddim_time_pairs(self.schedule.num_timesteps,
+                                                              self.sampling_timesteps)):
             alpha, alpha_next = alphas_prev[time], alphas_prev[time_next]  # float32 scalars
             t_b = torch.full((B,), int(time), dtype=torch.long, device=device)
             pred_noise = denoise_fn(img, t_b, x_cond, cond_fea)
@@ -153,5 +164,44 @@ class GaussianDiffusion:
             c = np.sqrt(np.maximum((1 - alpha_next) - sigma ** 2, np.float32(0.0)))
             img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
             if time_next > 0 and sigma > 0:
-                img = img + float(sigma) * normal()
+                img = img + float(sigma) * normal(i)
         return img
+
+    def p_sample_loop(self, denoise_fn: DenoiseFn, generator: torch.Generator,
+                      x_cond: torch.Tensor, pred_frames: int, cond_fea: Optional[torch.Tensor],
+                      init_noise: Optional[torch.Tensor] = None,
+                      noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Ancestral sampling over every step of the schedule, t = T-1 .. 0;
+        the same arguments and result as ``ddim_sample``."""
+        B, _, h, w, C = x_cond.shape
+        shape = (B, pred_frames, h, w, C)
+        device = x_cond.device
+        normal = _normals(generator, shape, device, noises)
+        img = normal() if init_noise is None else init_noise.to(device, torch.float32)
+        for i, t in enumerate(range(self.schedule.num_timesteps - 1, -1, -1)):
+            t_b = torch.full((B,), t, dtype=torch.long, device=device)
+            eps = denoise_fn(img, t_b, x_cond, cond_fea)
+            x0 = dynamic_threshold(self.predict_start_from_noise(img, t_b, eps))
+            mean, _, log_var = self.q_posterior(x0, img, t_b)
+            img = mean + torch.exp(0.5 * log_var) * normal(i) if t > 0 else mean
+        return img
+
+    def sample(self, denoise_fn: DenoiseFn, generator: torch.Generator, x_cond: torch.Tensor,
+               pred_frames: int, cond_fea: Optional[torch.Tensor] = None,
+               init_noise: Optional[torch.Tensor] = None,
+               noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """DDIM with fewer steps than the schedule, else the ancestral loop."""
+        run = (self.ddim_sample if self.sampling_timesteps < self.schedule.num_timesteps
+               else self.p_sample_loop)
+        return run(denoise_fn, generator, x_cond, pred_frames, cond_fea, init_noise=init_noise,
+                   noises=noises)
+
+
+def _normals(generator: torch.Generator, shape, device, noises: Optional[Sequence[torch.Tensor]]):
+    """normal() draws x_T; normal(i) step i's noise, taken from `noises`
+    when given, else drawn."""
+    def normal(step: Optional[int] = None) -> torch.Tensor:
+        if step is not None and noises is not None:
+            return noises[step].to(device, torch.float32)
+        return torch.randn(shape, generator=generator, device=generator.device).to(device)
+    return normal

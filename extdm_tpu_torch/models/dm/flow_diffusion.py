@@ -122,6 +122,10 @@ class FlowDiffusionConfig:
     # "auto" window-major on unshifted layers at spatial >= 32; the JAX
     # package reads it from EXTDM_STW_WINDOW_MAJOR (pallas_stw._window_major)
     stw_window_major: str = "0"
+    # resnet backward: "fused" kernel 7 where it takes the block (Cout <= 256),
+    # else kernels 10-11; "decomposed" kernels 10-11 for every block; the JAX
+    # package reads it from EXTDM_PALLAS_RESNET_CHUNKED (pallas_resnet._fused_bwd)
+    resnet_backward: str = "fused"
 
     @property
     def bottleneck_dim(self) -> int:
@@ -137,7 +141,8 @@ class FlowDiffusionConfig:
                       use_ref_features=self.use_ref_features, conditioning=self.conditioning,
                       down_adaptor_from_level=self.down_adaptor_from_level, path=self.path,
                       remat=self.remat, dtype=self.dtype,
-                      stw_window_major=self.stw_window_major)
+                      stw_window_major=self.stw_window_major,
+                      resnet_backward=self.resnet_backward)
 
     def make_lfae(self) -> LFAE:
         return LFAE(self.flow_params)
@@ -266,8 +271,8 @@ class FlowDiffusion:
             x_cond = self.latents_from_encode(enc)
             unet = self.sampling_unet()
             cache = self.cond_cache(x_cond, fea, unet)
-            pred = self.diffusion.ddim_sample(self.denoise_fn(cache, unet), generator, x_cond, tp,
-                                              fea, init_noise=init_noise)
+            pred = self.diffusion.sample(self.denoise_fn(cache, unet), generator, x_cond, tp, fea,
+                                         init_noise=init_noise)
             enc_flow, enc_conf = enc["flow"], enc["conf"]
             sample_flow = torch.cat([enc_flow, self.flow_from_pred(pred)], dim=1)
             sample_conf = None

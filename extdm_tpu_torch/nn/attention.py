@@ -4,7 +4,10 @@ Rotary embedding, T5 relative position biases, the 3-D window helpers, the
 parameter modules of the window and temporal attention, and their plain
 forward math as functions (``window_attention``, ``temporal_attention``).
 The whole-layer kernels in ``ops/fused_stw.py`` replace these functions on
-the card; on the CPU the layers run them. Layouts are channels-last.
+the card; on the CPU the layers run them. The unfused layers (the route for
+layers the whole-layer kernels do not take) run them with the attention core
+``attend`` given: kernel 12, ``ops/window_attn.py``. Layouts are
+channels-last.
 """
 from __future__ import annotations
 
@@ -185,23 +188,33 @@ def _merge_heads(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(-3, -2).flatten(-2)
 
 
+def _rotate(q, k, dim_head: int):
+    """q scaled by dh^-0.5 and rotated, k rotated."""
+    return apply_rotary(q * dim_head ** -0.5, 32), apply_rotary(k, 32)
+
+
 def _attend(q, k, v, bias, dim_head: int):
     """softmax(rope(q * dh^-0.5) rope(k)^T + bias) v, softmax in float32."""
-    q = apply_rotary(q * dim_head ** -0.5, 32)
-    k = apply_rotary(k, 32)
+    q, k = _rotate(q, k, dim_head)
     s = q @ k.transpose(-1, -2) + bias.to(q.dtype)
     return torch.softmax(s.float(), dim=-1).to(q.dtype) @ v
 
 
 def window_attention(windows: torch.Tensor, w_qkv: torch.Tensor, w_proj: torch.Tensor,
-                     b_proj: torch.Tensor, bias_hnn: torch.Tensor, mask: Optional[torch.Tensor],
-                     heads: int, dim_head: int) -> torch.Tensor:
-    """Window attention over (B*nW, N, C) windows; mask (nW, N, N) or None.
-    Weights in torch Linear layout (out, in)."""
+                     b_proj: torch.Tensor, bias_hnn: torch.Tensor, mask, heads: int,
+                     dim_head: int, attend=None) -> torch.Tensor:
+    """Window attention over (B*nW, N, C) windows; mask (nW, N, N) (an array
+    or tensor) or None. Weights in torch Linear layout (out, in). `attend`:
+    the attention core (q, k, v, bias_hnn, mask) -> o on (B*nW, heads, N, dh)
+    with q scaled and rotated; None: the plain math, in the windows' dtype."""
     Bn = windows.shape[0]
     q, k, v = (_split_heads(a, heads, dim_head) for a in (windows @ w_qkv.t()).chunk(3, -1))
+    if attend is not None:
+        o = attend(*_rotate(q, k, dim_head), v, bias_hnn, mask)
+        return _merge_heads(o) @ w_proj.t() + b_proj
     bias = bias_hnn
     if mask is not None:  # windows are batch-major: view as (B, nW, ...) for the mask
+        mask = torch.as_tensor(mask, device=windows.device)
         nW = mask.shape[0]
         q, k, v = (a.unflatten(0, (Bn // nW, nW)) for a in (q, k, v))
         bias = bias + mask[:, None].to(bias.dtype)
@@ -229,7 +242,13 @@ class TemporalAttentionLayer(nn.Module):
 
 
 def temporal_attention(seq: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor,
-                       bias_hnn: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
-    """Attention over the T axis of (B, M, T, C) sequences; bias (heads, T, T)."""
+                       bias_hnn: torch.Tensor, heads: int, dim_head: int,
+                       attend=None) -> torch.Tensor:
+    """Attention over the T axis of (B, M, T, C) sequences; bias (heads, T,
+    T). `attend` as for ``window_attention``, on the B*M sequences."""
     q, k, v = (_split_heads(a, heads, dim_head) for a in (seq @ w_qkv.t()).chunk(3, -1))
+    if attend is not None:
+        q, k = _rotate(q, k, dim_head)
+        o = attend(q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), bias_hnn, None)
+        return _merge_heads(o.unflatten(0, q.shape[:2])) @ w_out.t()
     return _merge_heads(_attend(q, k, v, bias_hnn, dim_head)) @ w_out.t()

@@ -26,9 +26,22 @@ backward launches ``resnet_block_bwd`` (kernel 7, replacing
 ``pallas_resnet._bwd_kernel_impl``), which recomputes the forward and takes
 every gradient (dx, the conv weights per tap and their biases, both
 GroupNorms' scale and bias, dFiLM (B, 2 Cout) and the residual projection's)
-in this file's kernels. The JAX VMEM gate (``pallas_resnet._bwd_supported``)
-has no counterpart: every block takes the kernels. The plain backward is
-``resnet_block_plain_vjp``.
+in this file's kernels. The plain backward is ``resnet_block_plain_vjp``.
+
+Kernel 7 keeps per-channel sums in shared memory and takes Cout <= 256 and
+at most 32 groups. ``resnet_bwd_route`` (the gate of
+``pallas_resnet._fused_bwd``) sends every other block, and every block when
+the caller asks for ``backward="decomposed"`` (JAX's
+``EXTDM_PALLAS_RESNET_CHUNKED``), to ``resnet_block_bwd_decomposed``, the
+counterpart of ``pallas_resnet._chunked_bwd``: it recomputes the two convs
+with ``conv33_fwd`` (kernel 10, replacing ``pallas_resnet._conv33_fwd``)
+and takes each conv's gradients with ``conv33_bwd`` (kernel 11, replacing
+``pallas_resnet._conv33_bwd``); the GroupNorm, FiLM and SiLU chains and the
+per-channel sums around them stay plain torch, as they stay XLA in JAX.
+Kernels 10 and 11 (``csrc/conv33.cu``) are implicit GEMMs over the 9 taps,
+bound by operations; their plain versions are ``conv33_plain`` and
+``conv33_bwd_plain``. On the CPU the decomposed backward runs the plain
+convs.
 """
 from __future__ import annotations
 
@@ -41,7 +54,24 @@ from extdm_tpu_torch import _build
 from extdm_tpu_torch.ops.fused_stw import _needs_grad, _sm_count, plain_vjp
 
 __all__ = ["fused_resnet_block", "resnet_block_plain", "resnet_block_bwd",
-           "resnet_block_plain_vjp"]
+           "resnet_block_plain_vjp", "RESNET_BACKWARDS", "resnet_bwd_route",
+           "resnet_block_bwd_decomposed", "conv33_fwd", "conv33_plain", "conv33_bwd",
+           "conv33_bwd_plain"]
+
+RESNET_BACKWARDS = ("fused", "decomposed")
+BWD_MAX_COUT = 256  # kernel 7 keeps (sum du, sum du yhat) per channel in shared memory
+MAX_GROUPS = 32
+
+
+def resnet_bwd_route(shape, cin: int, cout: int, groups: int, mode: str = "fused") -> str:
+    """The backward a block of input `shape` (B, T, H, W, cin) takes:
+    "fused" (kernel 7) where kernel 7 takes the block and `mode` is "fused",
+    else "decomposed" (kernels 10 and 11 with the GroupNorm math in torch)."""
+    if mode not in RESNET_BACKWARDS:
+        raise ValueError(f"resnet backward is one of {RESNET_BACKWARDS}, got {mode!r}")
+    if mode == "decomposed" or cout > BWD_MAX_COUT or groups > MAX_GROUPS or cout % groups:
+        return "decomposed"
+    return "fused"
 
 
 def _group_norm(y: torch.Tensor, scale, bias, groups: int, eps: float) -> torch.Tensor:
@@ -86,7 +116,7 @@ def _check_block(what, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, 
                          f"{sorted({str(t.device) for t in operands})}")
     B, T, H, W, Cin = x.shape
     Cout = w1.shape[0]
-    if groups > 32 or Cout % groups:
+    if groups > MAX_GROUPS or Cout % groups:
         raise ValueError(f"{what}: {Cout} channels in {groups} groups")
     if (wres is None) != (Cin == Cout):
         raise ValueError(f"{what}: a residual projection is needed iff Cin != Cout")
@@ -135,25 +165,32 @@ def _resnet_forward(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, 
 
 class _ResnetBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kw, x, *params):
-        ctx.kw = kw
+    def forward(ctx, kw, backward, x, *params):
+        ctx.kw, ctx.backward = kw, backward
         ctx.save_for_backward(x, *params)
         return _resnet_forward(x, *params, **kw)
 
     @staticmethod
     def backward(ctx, g):
-        return (None, *resnet_block_bwd(g, *ctx.saved_tensors, **ctx.kw))
+        x, w1 = ctx.saved_tensors[:2]
+        route = resnet_bwd_route(x.shape, x.shape[-1], w1.shape[0], ctx.kw["groups"],
+                                 ctx.backward)
+        bwd = resnet_block_bwd_decomposed if route == "decomposed" else resnet_block_bwd
+        return (None, None, *bwd(g, *ctx.saved_tensors, **ctx.kw))
 
 
 def fused_resnet_block(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2, g2s, g2b,
-                       wres=None, bres=None, *, groups=8, eps=1e-5):
-    """Whole ResnetBlock3d; same arguments and result as ``resnet_block_plain``."""
+                       wres=None, bres=None, *, groups=8, eps=1e-5, backward="fused"):
+    """Whole ResnetBlock3d; same arguments and result as ``resnet_block_plain``.
+    ``backward`` ("fused" or "decomposed") is the mode of ``resnet_bwd_route``."""
     operands = (x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres)
     kw = dict(groups=groups, eps=eps)
+    if backward not in RESNET_BACKWARDS:
+        raise ValueError(f"resnet backward is one of {RESNET_BACKWARDS}, got {backward!r}")
     if x.device.type == "cpu":
         return resnet_block_plain(*operands, **kw)
     if _needs_grad(*[t for t in operands if t is not None]):
-        return _ResnetBlock.apply(kw, *operands)
+        return _ResnetBlock.apply(kw, backward, *operands)
     return _resnet_forward(*operands, **kw)
 
 
@@ -176,6 +213,9 @@ def resnet_block_bwd(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, 
     if x.device.type == "cpu":
         return resnet_block_plain_vjp(g, *operands, groups=groups, eps=eps)
     _check_block("resnet_block_bwd", *operands, groups)
+    if resnet_bwd_route(x.shape, x.shape[-1], w1.shape[0], groups) != "fused":
+        raise ValueError(f"resnet_block_bwd: kernel 7 takes Cout <= {BWD_MAX_COUT} and at most "
+                         f"{MAX_GROUPS} groups; got Cout={w1.shape[0]}, groups={groups}")
     if g.device != x.device or tuple(g.shape) != tuple(x.shape[:4]) + (w1.shape[0],):
         raise ValueError(f"resnet_block_bwd: cotangent {tuple(g.shape)} on {g.device}")
     B, T, H, W, Cin = x.shape
@@ -228,3 +268,201 @@ def resnet_block_plain_vjp(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=
     """The plain version of kernel 7: autograd of ``resnet_block_plain``."""
     return plain_vjp(resnet_block_plain, g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres,
                      bres, **kwargs)
+
+
+# ------------------------------------------------- kernels 10 and 11: the conv
+def _conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """(9, Cin, Cout) taps in (ky, kx) order -> torch Conv2d (Cout, Cin, 3, 3)."""
+    return w.reshape(3, 3, w.shape[1], w.shape[2]).permute(3, 2, 0, 1)
+
+
+def taps(w: torch.Tensor) -> torch.Tensor:
+    """torch Conv3d (Cout, Cin, 1, 3, 3) -> (9, Cin, Cout) taps in (ky, kx) order."""
+    return w[:, :, 0].permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0])
+
+
+def conv33_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The semantics of ``pallas_resnet._conv33_fwd``: x (B, T, H, W, Cin)
+    and w (9, Cin, Cout) in x.dtype, products summed in float32, returns
+    float32 (B, T, H, W, Cout) = conv(1,3,3)(x) + b with zero edges."""
+    B, T, H, W, Cin = x.shape
+    y = F.conv2d(x.reshape(B * T, H, W, Cin).permute(0, 3, 1, 2).float(),
+                 _conv_weight(w.to(x.dtype).float()), None if b is None else b.float(), padding=1)
+    return y.permute(0, 2, 3, 1).reshape(B, T, H, W, -1)
+
+
+def _check_conv(what, a, w, *others):
+    devices = {str(t.device) for t in (w, *others) if t is not None}
+    if not a.is_cuda or devices != {str(a.device)}:
+        raise ValueError(f"{what}: kernel wrappers take CPU or CUDA tensors on one device, got "
+                         f"{a.device} and {sorted(devices)}")
+    if w.ndim != 3 or w.shape[0] != 9 or w.shape[1] != a.shape[-1]:
+        raise ValueError(f"{what}: w has shape {tuple(w.shape)}, expected (9, {a.shape[-1]}, Cout)")
+
+
+def conv33_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel 10; same arguments and result as ``conv33_plain``."""
+    if x.device.type == "cpu":
+        return conv33_plain(x, w, b)
+    _check_conv("conv33_fwd", x, w, b)
+    B, T, H, W, Cin = x.shape
+    Cout = w.shape[-1]
+    if b is not None and tuple(b.shape) != (Cout,):
+        raise ValueError(f"conv33_fwd: b has shape {tuple(b.shape)}, expected ({Cout},)")
+    xc = x.detach().contiguous()
+    wc = w.detach().to(x.dtype).contiguous()
+    bc = None if b is None else b.detach().float().contiguous()
+    out = torch.empty((B, T, H, W, Cout), dtype=torch.float32, device=x.device)
+    P = _build.ptr
+    _build.launch("conv33", "conv33_fwd", _build.dtype_code(x.dtype), P(xc), P(wc), P(bc), P(out),
+                  B * T, H, W, Cin, Cout, _build.stream(x))
+    conv33_fwd.launches += 1
+    return out
+
+
+conv33_fwd.launches = 0
+
+
+def conv33_bwd_plain(da: torch.Tensor, a_in: torch.Tensor, w: torch.Tensor):
+    """The semantics of ``pallas_resnet._conv33_bwd``: da (B, T, H, W, Cout)
+    rounded to a_in's dtype, products in float32; returns float32 din (B, T,
+    H, W, Cin) and dW (9, Cin, Cout)."""
+    with torch.enable_grad():
+        a32 = a_in.detach().float().requires_grad_(True)
+        w32 = w.detach().to(a_in.dtype).float().requires_grad_(True)
+        out = conv33_plain(a32, w32, None)
+        din, dw = torch.autograd.grad(out, (a32, w32), da.detach().to(a_in.dtype).float())
+    return din, dw
+
+
+def _conv_splits(pixels: int, cin: int, cout: int, device) -> int:
+    """Splits over pixels of the dW product, for ~4 blocks per SM."""
+    tiles = 9 * -(-cin // 64) * -(-cout // 64)
+    return max(1, min(-(-pixels // 32), -(-4 * _sm_count(device) // tiles)))
+
+
+def conv33_bwd(da: torch.Tensor, a_in: torch.Tensor, w: torch.Tensor):
+    """Kernel 11; same arguments and results as ``conv33_bwd_plain``."""
+    if a_in.device.type == "cpu":
+        return conv33_bwd_plain(da, a_in, w)
+    _check_conv("conv33_bwd", a_in, w, da)
+    B, T, H, W, Cin = a_in.shape
+    Cout = w.shape[-1]
+    if tuple(da.shape) != (B, T, H, W, Cout):
+        raise ValueError(f"conv33_bwd: da has shape {tuple(da.shape)}, expected "
+                         f"{(B, T, H, W, Cout)}")
+    dac = da.detach().to(a_in.dtype).contiguous()
+    ac = a_in.detach().contiguous()
+    wc = w.detach().to(a_in.dtype).contiguous()
+    splits = _conv_splits(B * T * H * W, Cin, Cout, a_in.device)
+    f32 = dict(dtype=torch.float32, device=a_in.device)
+    din = torch.empty((B, T, H, W, Cin), **f32)
+    part = torch.empty(splits * 9 * Cin * Cout, **f32)
+    dw = torch.empty((9, Cin, Cout), **f32)
+    P = _build.ptr
+    _build.launch("conv33", "conv33_bwd", _build.dtype_code(a_in.dtype), P(dac), P(ac), P(wc),
+                  P(din), P(part), P(dw), B * T, H, W, Cin, Cout, splits, _build.stream(a_in))
+    conv33_bwd.launches += 1
+    return din, dw
+
+
+conv33_bwd.launches = 0
+
+
+# ------------------------------------------------- the decomposed backward
+def _group_stats(a: torch.Tensor, groups: int, eps: float):
+    """Group mean and rstd of a float32 (B, T, H, W, C), broadcast back to
+    channels (``pallas_resnet._gn_stats_xla``)."""
+    B, C = a.shape[0], a.shape[-1]
+    g = a.reshape(B, -1, groups, C // groups)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = ((g - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    return _per_channel(mean, C), _per_channel(torch.rsqrt(var + eps), C)
+
+
+def _per_channel(t: torch.Tensor, C: int) -> torch.Tensor:
+    """(B, 1, groups, 1) -> (B, 1, 1, 1, C), each group's value on its channels."""
+    B, groups = t.shape[0], t.shape[2]
+    return t.reshape(B, groups, 1).expand(B, groups, C // groups).reshape(B, 1, 1, 1, C)
+
+
+def _group_mean(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-(b, group) mean broadcast back to channels (``_gmean_xla``)."""
+    B, C = t.shape[0], t.shape[-1]
+    return _per_channel(t.reshape(B, -1, groups, C // groups).mean(dim=(1, 3), keepdim=True), C)
+
+
+def _dsilu(u: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+    return sig * (1.0 + u * (1.0 - sig))
+
+
+def resnet_block_bwd_decomposed(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None,
+                                bres=None, *, groups=8, eps=1e-5):
+    """The gradients of ``fused_resnet_block`` as ``resnet_block_bwd`` returns
+    them, by ``pallas_resnet._chunked_bwd``: the forward recomputed with
+    kernel 10 (a1, a2 in float32), each conv's gradients by kernel 11, the
+    GroupNorm, FiLM and SiLU chains and the per-channel sums in torch, in
+    float32. On CPU tensors the convs are their plain versions."""
+    f32 = torch.float32
+    dtype = x.dtype
+    Cin, Cout = x.shape[-1], w1.shape[0]
+    w1c, w2c = taps(w1.detach()), taps(w2.detach())
+    x = x.detach()
+    vec = lambda t: t.detach().to(f32)  # noqa: E731
+
+    # ---- the forward again: convs by kernel 10, the rest in torch
+    a1 = conv33_fwd(x, w1c, b1.detach())
+    mean1, rstd1 = _group_stats(a1, groups, eps)
+    n1 = (a1 - mean1) * rstd1
+    y1 = n1 * vec(g1s) + vec(g1b)
+    if film is not None:
+        fs, fb = (t[:, None, None, None, :] for t in vec(film).chunk(2, dim=-1))
+        y1f = y1 * (fs + 1.0) + fb
+    else:
+        y1f = y1
+    sig1 = torch.sigmoid(y1f)
+    h1c = (y1f * sig1).to(dtype)
+    a2 = conv33_fwd(h1c, w2c, b2.detach())
+    mean2, rstd2 = _group_stats(a2, groups, eps)
+    n2 = (a2 - mean2) * rstd2
+    del a1, a2
+
+    # ---- backward
+    gf = g.detach().to(f32)
+    y2 = n2 * vec(g2s) + vec(g2b)
+    dy2 = gf * _dsilu(y2, torch.sigmoid(y2))
+    dims = (0, 1, 2, 3)
+    dg2s, dg2b = (dy2 * n2).sum(dims), dy2.sum(dims)
+    dn2 = dy2 * vec(g2s)
+    da2 = rstd2 * (dn2 - _group_mean(dn2, groups) - n2 * _group_mean(dn2 * n2, groups))
+    db2 = da2.sum(dims)
+    dh1, dw2 = conv33_bwd(da2, h1c, w2c)
+    del da2, dn2, dy2, y2, n2, h1c
+
+    dy1f = dh1 * _dsilu(y1f, sig1)
+    dfilm = None
+    if film is not None:
+        dfilm = torch.cat([(dy1f * y1).sum((1, 2, 3)), dy1f.sum((1, 2, 3))], dim=-1)
+        dy1 = dy1f * (fs + 1.0)
+    else:
+        dy1 = dy1f
+    dg1s, dg1b = (dy1 * n1).sum(dims), dy1.sum(dims)
+    dn1 = dy1 * vec(g1s)
+    da1 = rstd1 * (dn1 - _group_mean(dn1, groups) - n1 * _group_mean(dn1 * n1, groups))
+    db1 = da1.sum(dims)
+    dx, dw1 = conv33_bwd(da1, x, w1c)
+
+    dwres = dbres = None
+    if wres is not None:
+        gc = g.detach().to(dtype)
+        wr = wres.detach().to(dtype).flatten(1)  # (Cout, Cin)
+        dx = dx + (gc @ wr).to(f32)
+        dwres = (gc.reshape(-1, Cout).t() @ x.reshape(-1, Cin)).reshape(Cout, Cin, 1, 1, 1)
+        dbres = gf.sum(dims)
+    else:
+        dx = dx + gf
+    conv_grad = lambda dw: dw.reshape(3, 3, -1, Cout).permute(3, 2, 0, 1).unsqueeze(2)  # noqa: E731
+    grads = (dx, conv_grad(dw1), db1, dg1s, dg1b, dfilm, conv_grad(dw2), db2, dg2s, dg2b, dwres,
+             dbres)
+    operands = (x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres)
+    return tuple(None if t is None else d.to(t.dtype) for d, t in zip(grads, operands))

@@ -31,6 +31,15 @@ Kernel 9 runs kernel 1's body on contiguous window rows, so it is bound by
 operations as kernel 1 is. Under autograd the layer's backward is kernel 5
 whatever the forward's layout, as JAX's ``custom_vjp``.
 
+Kernels 1, 2, 5, 6 and 9 take N <= 64 tokens, dim_head <= 32 and C <= 256
+channels (in bf16 a multiple of 32). ``stw_route`` is that gate as a plain
+function: the UNet's layers it sends "unfused" (the C = 512 layers of the
+multi1248 preset) run ``stw_layer_unfused`` / ``temporal_layer_unfused``,
+JAX's unfused modules (``PreNormSTW`` / ``PreNormTemporalAttn`` with the
+fused layer off): the norms, pad and roll, partition, projections and
+rotary in torch around kernel 12 (``ops/window_attn.py``), whose autograd
+keeps its inputs only; the rest of the layer's autograd is torch's.
+
 Each wrapper runs its kernel for CUDA tensors and its plain version
 (``stw_layer_plain``, ``stw_layer_wm_plain``, ``temporal_layer_plain``) for
 CPU tensors, and counts launches in ``<wrapper>.launches``. Weights are in
@@ -66,11 +75,24 @@ from extdm_tpu_torch.nn.attention import (
     window_reverse,
 )
 from extdm_tpu_torch.nn.layers import chan_layer_norm
+from extdm_tpu_torch.ops.window_attn import fused_window_attention
 
-__all__ = ["fused_stw_layer", "stw_layer_plain", "stw_layer_bwd", "stw_layer_plain_vjp",
+__all__ = ["stw_route", "stw_layer_unfused", "temporal_layer_unfused",
+           "fused_stw_layer", "stw_layer_plain", "stw_layer_bwd", "stw_layer_plain_vjp",
            "WINDOW_MAJOR_MODES", "window_major_gate", "fused_stw_layer_wm", "stw_layer_wm_plain",
            "fused_temporal_layer", "temporal_layer_plain", "temporal_layer_bwd",
            "temporal_layer_plain_vjp"]
+
+
+MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernels 1, 2, 5, 6, 9
+
+
+def stw_route(C: int, N: int, dim_head: int, dtype) -> str:
+    """The route of an STW (N tokens a window) or temporal (N = T) layer of
+    C channels: "fused" (kernels 1, 2, 9 forward, 5, 6 backward) where those
+    kernels take it, else "unfused" (kernel 12 between torch projections)."""
+    fits = N <= MAX_TOKENS and dim_head <= MAX_DIM_HEAD and C <= MAX_CHANNELS
+    return "fused" if fits and (dtype != torch.bfloat16 or C % 32 == 0) else "unfused"
 
 
 def _pads(T: int, H: int, W: int, window) -> Tuple[int, int, int]:
@@ -80,10 +102,11 @@ def _pads(T: int, H: int, W: int, window) -> Tuple[int, int, int]:
 
 # ------------------------------------------------------------------------ STW
 def stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
-                    dim_head, eps=1e-5):
+                    dim_head, eps=1e-5, attend=None):
     """x + window attention of ChanLN(x): the semantics of
     ``pallas_stw.stw_layer_reference``. x: (B, T, H, W, C); bias_hnn
-    (heads, N, N) for the call window; matmuls in x.dtype, softmax in float32."""
+    (heads, N, N) for the call window; matmuls in x.dtype, softmax in float32.
+    `attend`: the attention core of ``window_attention``."""
     B, T, H, W, C = x.shape
     dtype = x.dtype
     h = chan_layer_norm(x, gamma, eps)
@@ -93,12 +116,9 @@ def stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
     if shifted:
         h = torch.roll(h, shifts=(-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
     _, Tp, Hp, Wp, _ = h.shape
-    mask = None
-    if shifted:
-        mask = torch.as_tensor(shifted_window_mask(Tp, Hp, Wp, tuple(window), tuple(shift)),
-                               device=x.device)
+    mask = shifted_window_mask(Tp, Hp, Wp, tuple(window), tuple(shift)) if shifted else None
     o = window_attention(window_partition(h, window), w_qkv.to(dtype), w_proj.to(dtype),
-                         b_proj.to(dtype), bias_hnn, mask, heads, dim_head)
+                         b_proj.to(dtype), bias_hnn, mask, heads, dim_head, attend)
     out = window_reverse(o, window, B, Tp, Hp, Wp)
     if shifted:
         out = torch.roll(out, shifts=tuple(shift), dims=(1, 2, 3))
@@ -131,10 +151,10 @@ def _check_cuda(x, *others):
 def _check_operands(what, x, N, heads, dim_head, **operands):
     """Kernel limits and operand shapes: (name -> (tensor, expected shape))."""
     C = x.shape[-1]
-    if N > 64 or dim_head > 32 or C > 256 or (x.dtype == torch.bfloat16 and C % 32):
-        raise ValueError(f"{what}: the kernel takes N <= 64 tokens, dim_head <= 32 and "
-                         f"C <= 256 (in bf16 a multiple of 32); got N={N}, "
-                         f"dim_head={dim_head}, C={C}")
+    if stw_route(C, N, dim_head, x.dtype) != "fused":
+        raise ValueError(f"{what}: the kernel takes N <= {MAX_TOKENS} tokens, dim_head <= "
+                         f"{MAX_DIM_HEAD} and C <= {MAX_CHANNELS} (in bf16 a multiple of 32); "
+                         f"got N={N}, dim_head={dim_head}, C={C}")
     for name, (t, shape) in operands.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
@@ -441,15 +461,17 @@ def stw_layer_plain_vjp(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, **kwargs):
 
 # ------------------------------------------------------------------- temporal
 def temporal_layer_plain(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
-                         dim_head, eps=1e-5):
+                         dim_head, eps=1e-5, attend=None):
     """x + undo_T(h + attn(LN(h))) with h = T(ChanLN(x)): the semantics of
-    ``pallas_stw.temporal_layer_reference``. x: (B, T, H, W, C); bias (heads, T, T)."""
+    ``pallas_stw.temporal_layer_reference``. x: (B, T, H, W, C); bias (heads,
+    T, T). `attend`: the attention core of ``temporal_attention``."""
     B, T, H, W, C = x.shape
     dtype = x.dtype
     a = chan_layer_norm(x, gamma_cln, eps)
     h = a.permute(0, 2, 3, 1, 4).reshape(B, H * W, T, C)
     hn = F.layer_norm(h.float(), (C,), ln_scale.float(), ln_bias.float(), eps).to(dtype)
-    o = temporal_attention(hn, w_qkv.to(dtype), w_out.to(dtype), bias_hnn, heads, dim_head)
+    o = temporal_attention(hn, w_qkv.to(dtype), w_out.to(dtype), bias_hnn, heads, dim_head,
+                           attend)
     attn = (h.float() + o.float()).reshape(B, H, W, T, C).permute(0, 3, 1, 2, 4)
     return (x.float() + attn).to(dtype)
 
@@ -562,3 +584,25 @@ def temporal_layer_plain_vjp(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, b
     """The plain version of kernel 6: autograd of ``temporal_layer_plain``."""
     return plain_vjp(temporal_layer_plain, g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
                      bias_hnn, **kwargs)
+
+
+# ------------------------------------------------------------------ unfused
+def stw_layer_unfused(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
+                      dim_head, eps=1e-5):
+    """The PreNormSTW layer for the layers ``stw_route`` sends "unfused"
+    (JAX's ``PreNormSTW`` with the fused layer off, ``WindowAttention3D``):
+    ChanLN, pad and roll, window partition, the projections and rotary in
+    torch, kernel 12 for the attention, the output projection, reverse and
+    residual. Same arguments and result as ``stw_layer_plain``."""
+    return stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window, shift=shift,
+                           heads=heads, dim_head=dim_head, eps=eps, attend=fused_window_attention)
+
+
+def temporal_layer_unfused(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
+                           dim_head, eps=1e-5):
+    """The PreNormTemporalAttn layer for the layers ``stw_route`` sends
+    "unfused": ``temporal_layer_plain`` with kernel 12 for the attention over
+    T. Same arguments and result as ``temporal_layer_plain``."""
+    return temporal_layer_plain(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn,
+                                heads=heads, dim_head=dim_head, eps=eps,
+                                attend=fused_window_attention)

@@ -111,6 +111,43 @@ def test_evaluate_matches_jax_loop(capsys):
     assert len(out["seconds"]["sampling_per_call"]) == 2 and got["sampling_frames_per_sec"] > 0
 
 
+def test_evaluate_keeps_samples_in_host_memory_and_lines_unchanged(monkeypatch):
+    """``evaluate`` moves each finished batch to host memory and scores PSNR,
+    SSIM and LPIPS over slabs of real videos and their trajectories: its
+    lines, at one video per slab and at a slab of all, equal the ones the
+    whole-tensor metrics give on the real videos repeated num_traj times
+    (what ``evaluate`` printed when it kept every sample on the device)."""
+    fd = FlowDiffusion(FlowDiffusionConfig(flow_params=tiny_flow_params(), **CFG), device="cpu")
+    tc, tp = CFG["cond_frames"], CFG["pred_frames"]
+    rng = np.random.RandomState(7)
+    clips = [data.make_moving_shapes_video(rng, tc + TOTAL_PRED, 32) for _ in range(N_VIDEOS)]
+    dataset = data.VideoDataset(data.InMemoryVideoStore(clips), type="valid",
+                                total_videos=N_VIDEOS, num_frames=tc + TOTAL_PRED, image_size=32,
+                                random_time=False, raw_uint8=True)
+    lpips = metrics.LPIPSMetric(device="cpu")
+    outs = []
+    for slab in (1, N_VIDEOS):
+        monkeypatch.setattr(valid_dm, "SLAB_VIDEOS", slab)
+        loader = data.DataLoader(dataset, 1, shuffle=False, num_workers=0, drop_last=False,
+                                 device="cpu")
+        outs.append(valid_dm.evaluate(fd, loader, num_traj=N_TRAJ, total_pred=TOTAL_PRED,
+                                      seed=0, metrics=("psnr", "ssim", "lpips"), lpips=lpips))
+    assert valid_dm.SLAB_VIDEOS == N_VIDEOS  # the second run's slabs: every video at once
+    samples, real = outs[0]["samples"], outs[0]["real"]
+    assert samples.device.type == real.device.type == "cpu"
+    real_rep = real.repeat_interleave(N_TRAJ, dim=0)
+    tchw = lambda v: v.permute(0, 1, 4, 2, 3)  # noqa: E731
+    whole = [f"psnr2 (best-of-{N_TRAJ}): "
+             f"{metrics.calculate_psnr2(tchw(samples), tchw(real_rep), N_TRAJ):.3f}",
+             f"ssim2 (best-of-{N_TRAJ}): "
+             f"{metrics.calculate_ssim2(tchw(samples), tchw(real_rep), N_TRAJ):.4f}",
+             f"lpips2 (best-of-{N_TRAJ}): {lpips.calculate_lpips2(samples, real_rep, N_TRAJ):.4f}"]
+    for out in outs:
+        assert torch.equal(out["samples"], samples)
+        assert out["lines"][:3] == whole
+        assert out["lines"][3] == "lpips_pretrained: False"
+
+
 def test_metric_stuff_matches_cli():
     """mean / std / conf95 as scripts/valid_dm.py computes them."""
     import importlib.util
