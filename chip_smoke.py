@@ -67,21 +67,29 @@
    kernels 10 and 11 (the conv and its gradients) and torch GroupNorm math.
    A recorded warm-up sampler call at batch 4; kernel 12 against its plain
    version at every recorded shape in bf16 and float32, timed beside its
-   plain version and F.scaled_dot_product_attention; kernel 3 against its
-   plain version at the blocks over 256 output channels and at up level 0's
-   1024 input channels; 3 timed sampler calls with every launch count and
+   plain version and F.scaled_dot_product_attention (the wrapper call with
+   CUDA events, the kernel's own device time with torch.profiler); kernel 3
+   against its plain version at the blocks over 256 output channels and at
+   up level 0's 1024 input channels, timed; the unfused layers timed whole,
+   as plain layers, and split into kernel 12 and the torch ops around it;
+   3 timed sampler calls with every launch count and
    the unfused routes checked (``expected_route_launches``), kernels 1, 2
    never on a layer over 256 channels; the float32 UNet card vs CPU. Then
    the train step at batch 8 (remat, bf16 compute): a recorded warm-up
-   step, kernels 10-12 against their plain versions at every recorded shape
-   in bf16 and float32 (dW with the backward kernels' limits) and timed
-   beside F.conv3d / aten.convolution_backward, kernels 5-7 never on a
-   layer over 256 channels, 3 timed steps with launch and route counts, and
-   the float32 step card vs CPU.
+   step, kernel 7 against its plain backward at every block it takes there
+   (bf16, batch 8: up level 0's 1024 input channels among them), kernels
+   10-12 against their plain versions at every recorded shape in bf16 and
+   float32 (dW with the backward kernels' limits) and timed beside F.conv3d
+   / aten.convolution_backward, the unfused layers' forward and backward
+   timed and split as above, kernels 5-7 never on a layer over 256
+   channels, 3 timed steps with launch and route counts, and the float32
+   step card vs CPU.
 
-The train phase also times, at the KTH step's resnet-backward shapes, kernel
-7 against the decomposed backward (``resnet_backward="decomposed"``): an
-A/B, printed only.
+The train phase also runs an A/B of the two resnet backward routes: at the
+KTH step's resnet-backward shapes, kernel 7 against the decomposed backward,
+and the whole KTH step with every block's backward decomposed (the gate
+``resnet_bwd_route`` replaced for those steps) against the step as it is,
+in turns, launches checked. Printed only.
 
 Prints one JSON line per kernel and shape, the end-to-end timings, a summary
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -94,10 +102,12 @@ import contextlib
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -212,6 +222,50 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def kernel_symbols(source: str) -> set:
+    """The __global__ functions of a CUDA source of the repo and of the
+    common.cuh it includes."""
+    csrc = Path(__file__).resolve().parent / "extdm_tpu_torch" / "csrc"
+    text = (csrc / Path(source).name).read_text() + (csrc / "common.cuh").read_text()
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
+
+
+def device_ms(fn, reps: int, symbols: set | None = None) -> tuple:
+    """(own, other): device time per fn() call of the kernels named
+    `symbols` (of every device op when None) and of every other device op
+    fn() issues (a wrapper's casts and copies), read by torch.profiler over
+    `reps` calls after two warm-up calls. The host's time between launches
+    is in neither. The profiler may drop an event: each op's time per call
+    is its mean event time times its events per call, rounded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + e.device_time)
+    pattern = re.compile(r"\b(" + "|".join(sorted(symbols)) + r")\b") if symbols else None
+    own = other = 0.0
+    for name, (n, t) in by_name.items():
+        per_call = t / n * round(n / reps) if 2 * n >= reps else t / reps
+        if pattern is None or pattern.search(name):
+            own += per_call
+        else:
+            other += per_call
+    if own == 0.0:
+        raise AssertionError(f"device_ms: the profiler saw no device time of "
+                             f"{sorted(symbols) if symbols else 'any op'}")
+    return own / 1e3, other / 1e3
+
+
 def check(name: str, got: torch.Tensor, want: torch.Tensor, rel: float,
           residual: torch.Tensor | None = None) -> dict:
     """max|got - want| against rel * max(1, max|want|) and, given the
@@ -300,10 +354,6 @@ def kernel_table():
         byts = (x.numel() + P * Cout + weights) * x.element_size()
         return byts, flops, x.dtype
 
-    def resnet_plain(*args, backward="fused", **kwargs):
-        # the UNet's calls carry their backward mode; the forward is the same
-        return fused_resnet.resnet_block_plain(*args, **kwargs)
-
     def resnet_residual(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, bres=None, **k):
         if wres is None:
             return x
@@ -329,7 +379,7 @@ def kernel_table():
             source="extdm_tpu_torch/csrc/attention.cu",
             replaces="extdm_tpu/ops/pallas_stw.py:1631"),
         "resnet_block": dict(
-            wrapper=fused_resnet.fused_resnet_block, plain=resnet_plain,
+            wrapper=fused_resnet.fused_resnet_block, plain=fused_resnet.resnet_block_plain,
             sites=[(unet3d, "fused_resnet_block")], key=resnet_key, cost=resnet_cost,
             residual=resnet_residual,
             source="extdm_tpu_torch/csrc/resnet.cu",
@@ -738,6 +788,8 @@ def train_phase(table, btable, card, others=None):
          "launches_per_step": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
          "forward_kernels_ms": fwd_ms, "backward_kernels_ms": bwd_ms,
          "rest_ms_by_difference": med * 1e3 - fwd_ms - bwd_ms, "card": card})
+    want = {**want_fwd, **want_bwd, **want_others}
+    resnet_backward_step_ab(trainer, video, counters, want, card)
     del trainer, fd
     torch.cuda.empty_cache()
     train_f32_card_vs_cpu(cfg)
@@ -1383,17 +1435,19 @@ def route_table():
         return (tuple(q.shape), mask is not None)
 
     def attn_cost(q, k, v, bias, mask=None):
-        BW, H, N, D = q.shape
+        # q, k, v read and o written once, the bias and the mask tables
         byts = 4 * q.numel() * q.element_size() + bias.numel() * 4
         if mask is not None:
-            byts += len(window_attn.dedupe_masks(mask)[0]) * N * N * 4
+            byts += mask[0].numel() * 4 + mask[1].numel() * 4
+        BW, H, N, D = q.shape
         return byts, 4 * BW * H * N * N * D, q.dtype
 
     def attn_library(q, k, v, bias, mask=None):
         add = bias.float()[None].expand(q.shape[0], -1, -1, -1)
         if mask is not None:
-            m = torch.as_tensor(mask, device=q.device)
-            add = add + m[torch.arange(q.shape[0], device=q.device) % m.shape[0]][:, None]
+            masks, ids = mask
+            seq = ids.long()[torch.arange(q.shape[0], device=q.device) % ids.numel()]
+            add = add + masks[seq][:, None]
         add = add.to(q.dtype).contiguous()
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add, scale=1.0)
 
@@ -1470,13 +1524,16 @@ def narrow_only(name, record, limit=256):
 def route_kernel_checks(rt, record, card, per):
     """Kernels 10-12 against their plain versions at every recorded shape,
     in bf16 and in float32 (the same inputs cast), and CUDA-event times of
-    kernel, plain version and library call; returns per-call (or per-step)
-    totals by kernel. TF32 off: the float32 plain versions in full float32."""
+    the wrapper call (host work included), plain version and library call,
+    and the kernel's own device time (``device_ms``); returns per-call (or
+    per-step) totals by kernel. TF32 off: the float32 plain versions in full
+    float32."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     summary = {}
     for name, k in rt.items():
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, plain_device_ms=0.0, library_ms=0.0,
+                   library_device_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                    max_abs_err=0.0)
         if name not in record:
             continue
@@ -1498,18 +1555,26 @@ def route_kernel_checks(rt, record, card, per):
                               BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL)
                 res[str(dtype).replace("torch.", "")] = r
             ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 10)
+            dev_ms, dev_other_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), 10,
+                                             kernel_symbols(k["source"]))
             plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 10)
+            plain_dev_ms = device_ms(lambda: k["plain"](*args, **kwargs), 10)[0]
             library_ms = cuda_ms(k["library"](*args, **kwargs), 10)
+            library_dev_ms = device_ms(k["library"](*args, **kwargs), 10)[0]
             byts, flops, op_dtype = k["cost"](*args, **kwargs)
             bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
             dt = args[1 if name == "conv33_bwd" else 0].dtype
             log({"kernel": name, "shape": list(key[0]), "key": str(key[1:]),
                  "dtype": str(dt).replace("torch.", ""), per: count, "kernel_ms": ms,
-                 "plain_ms": plain_ms, "library_ms": library_ms, "library_call": k["library_call"],
+                 "kernel_device_ms": dev_ms, "wrapper_other_device_ms": dev_other_ms,
+                 "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms, "library_ms": library_ms,
+                 "library_device_ms": library_dev_ms, "library_call": k["library_call"],
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "checks": res,
                  "card": card})
-            for field, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+            for field, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                                 ("plain_device_ms", plain_dev_ms), ("library_ms", library_ms),
+                                 ("library_device_ms", library_dev_ms),
                                  ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms),
                                  ("ops_ms", ops_ms)):
                 tot[field] += count * value
@@ -1517,6 +1582,59 @@ def route_kernel_checks(rt, record, card, per):
                                      res["float32"]["max_abs_err"])
         summary[name] = tot
     return summary
+
+
+def unfused_table():
+    """The unfused window and temporal layers at their call sites in the
+    UNet, in the layout of kernel_table (recorded and timed only; kernel
+    12 inside them is counted as window_attention)."""
+    from extdm_tpu_torch.models.dm import unet3d
+    from extdm_tpu_torch.ops import fused_stw
+
+    def key(x, *a, **k):
+        return (tuple(x.shape),)
+
+    return {name: dict(wrapper=getattr(fused_stw, name), plain=getattr(fused_stw, plain),
+                       key=key, sites=[(unet3d, name)])
+            for name, plain in (("stw_layer_unfused", "stw_layer_plain"),
+                                ("temporal_layer_unfused", "temporal_layer_plain"))}
+
+
+def unfused_split(utable, record, train: bool) -> dict:
+    """The unfused layers' time, summed over the recorded calls: the whole
+    layer (CUDA events), the plain layer (torch attention in place of
+    kernel 12), and the layer's device time split into kernel 12 and the
+    torch ops around it (``device_ms``). `train`: each layer's forward and
+    backward together (the step calls each layer once, under autograd)."""
+    symbols = kernel_symbols("extdm_tpu_torch/csrc/window_attn.cu")
+    tot = dict(layer_ms=0.0, plain_layer_ms=0.0, kernel12_device_ms=0.0, torch_device_ms=0.0,
+               calls=0)
+    for name, k in utable.items():
+        for key, entry in record[name].items():
+            args = [a.detach() if torch.is_tensor(a) else a for a in entry["args"]]
+            count = entry["count"]
+            if train:
+                args = [a.requires_grad_(True) if torch.is_tensor(a) and a.is_floating_point()
+                        else a for a in args]
+                g = torch.randn_like(args[0])
+
+                def run(fn, args=args, g=g, kwargs=entry["kwargs"]):
+                    fn(*args, **kwargs).backward(g)
+            else:
+                def run(fn, args=args, kwargs=entry["kwargs"]):
+                    with torch.no_grad():
+                        fn(*args, **kwargs)
+            layer_ms = cuda_ms(lambda: run(k["wrapper"]), 5)
+            plain_ms = cuda_ms(lambda: run(k["plain"]), 5)
+            own, other = device_ms(lambda: run(k["wrapper"]), 5, symbols)
+            log({"layer": name, "shape": list(key[0]), "train": train,
+                 ("per_step" if train else "per_call"): count, "layer_ms": layer_ms,
+                 "plain_layer_ms": plain_ms, "kernel12_device_ms": own, "torch_device_ms": other})
+            for field, value in (("layer_ms", layer_ms), ("plain_layer_ms", plain_ms),
+                                 ("kernel12_device_ms", own), ("torch_device_ms", other),
+                                 ("calls", 1)):
+                tot[field] += count * value
+    return tot
 
 
 def multi1248_phase(table, btable, others, card):
@@ -1568,8 +1686,9 @@ def multi1248_phase(table, btable, others, card):
     cond = torch.rand((BATCH, cfg.cond_frames, cfg.frame_shape, cfg.frame_shape, 3),
                       generator=torch.Generator().manual_seed(6)).cuda()
     gen = torch.Generator(device="cuda")
-    record = {}
-    with recording({**table, **rt}, record):
+    record, urecord = {}, {}
+    utable = unfused_table()
+    with recording({**table, **rt}, record), recording(utable, urecord):
         sampler(gen.manual_seed(0), cond)
         torch.cuda.synchronize()
     for name in ("stw_layer", "temporal_layer"):
@@ -1581,16 +1700,19 @@ def multi1248_phase(table, btable, others, card):
     with torch.no_grad():
         summary = route_kernel_checks(rt, record, card, "per_call")
     # kernel 3 at the blocks over 256 output channels and at up level 0 (Cin 1024)
+    k3, k3_wide_ms = table["resnet_block"], 0.0
     for key in [k for k in record["resnet_block"] if k[1] > 256 or k[0][-1] > 512]:
         entry = record["resnet_block"][key]
-        res = check(f"resnet_block{key}", table["resnet_block"]["wrapper"](*entry["args"],
-                                                                         **entry["kwargs"]),
-                    table["resnet_block"]["plain"](*entry["args"], **entry["kwargs"]),
-                    BF16_REL_TOL, table["resnet_block"]["residual"](*entry["args"],
-                                                                    **entry["kwargs"]))
+        args, kwargs = entry["args"], entry["kwargs"]
+        res = check(f"resnet_block{key}", k3["wrapper"](*args, **kwargs),
+                    k3["plain"](*args, **kwargs), BF16_REL_TOL, k3["residual"](*args, **kwargs))
+        ms = cuda_ms(lambda: k3["wrapper"](*args, **kwargs), 5)
+        k3_wide_ms += entry["count"] * ms if key[1] > 256 else 0.0
         log({"kernel": "resnet_block", "shape": list(key[0]), "cout": key[1],
+             "per_call": entry["count"], "kernel_ms": ms,
              "check": "kernel 3 vs plain at a multi1248 shape", **res})
-    del record
+    usplit = unfused_split(utable, urecord, train=False)
+    del record, urecord
     times = []
     for i in range(TIMED_CALLS):
         out, sec, launches = run_counted(lambda: sampler(gen.manual_seed(200 + i), cond))
@@ -1608,7 +1730,13 @@ def multi1248_phase(table, btable, others, card):
                                                                               times],
          "median_ms": med * 1e3, "predicted_frames_per_s": BATCH * cfg.pred_frames / med,
          "launches_per_call": launches, "unfused_layers_per_call": routes["unfused"],
-         "window_attention_ms_per_call": summary["window_attention"]["ms"], "card": card})
+         "window_attention_ms_per_call": summary["window_attention"]["ms"],
+         "window_attention_device_ms_per_call": summary["window_attention"]["device_ms"],
+         "unfused_layers_ms_per_call": usplit["layer_ms"],
+         "unfused_plain_layers_ms_per_call": usplit["plain_layer_ms"],
+         "unfused_kernel12_device_ms_per_call": usplit["kernel12_device_ms"],
+         "unfused_torch_device_ms_per_call": usplit["torch_device_ms"],
+         "kernel3_cout512_ms_per_call": k3_wide_ms, "card": card})
     unet_f32_card_vs_cpu(cfg)
     del fd, sampler, out
     torch.cuda.empty_cache()
@@ -1620,15 +1748,27 @@ def multi1248_phase(table, btable, others, card):
     T, px = tcfg.cond_frames + tcfg.pred_frames, tcfg.frame_shape
     video = torch.rand((TRAIN_BATCH, T, px, px, 3),
                        generator=torch.Generator().manual_seed(7)).cuda()
-    record = {}
-    with recording({**btable, **rt}, record):
+    record, urecord = {}, {}
+    with recording({**btable, **rt}, record), recording(utable, urecord):
         trainer.train_step(gen.manual_seed(0), video)
         torch.cuda.synchronize()
     for name in ("stw_layer_bwd", "temporal_layer_bwd", "resnet_block_bwd"):
         narrow_only(name, record[name])
+    # kernel 7 at every block it takes here, in bf16 at batch 8: up level 0
+    # (Cin 1024) and the other multi1248 shapes the KTH step does not have
+    k7 = btable["resnet_block_bwd"]
+    for key, entry in record["resnet_block_bwd"].items():
+        args, kwargs = entry["args"], entry["kwargs"]
+        res = check_grads(f"resnet_block_bwd{key} multi1248", k7["wrapper"](*args, **kwargs),
+                          k7["plain"](*args, **kwargs), BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        log({"kernel": "resnet_block_bwd", "shape": list(key[0]), "key": str(key[1:]),
+             "per_step": entry["count"],
+             "kernel_ms": cuda_ms(lambda: k7["wrapper"](*args, **kwargs), 5),
+             "check": "kernel 7 vs plain backward at a multi1248 shape", **res})
     with torch.no_grad():
         tsummary = route_kernel_checks(rt, record, card, "per_step")
-    del record
+    tsplit = unfused_split(utable, urecord, train=True)
+    del record, urecord
     times = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TIMED_STEPS):
@@ -1652,7 +1792,12 @@ def multi1248_phase(table, btable, others, card):
          "train_frames_per_s": TRAIN_BATCH * T / med, "launches_per_step": launches,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
          "conv33_ms_per_step": tsummary["conv33_fwd"]["ms"] + tsummary["conv33_bwd"]["ms"],
-         "card": card})
+         "conv33_device_ms_per_step": (tsummary["conv33_fwd"]["device_ms"]
+                                       + tsummary["conv33_bwd"]["device_ms"]),
+         "unfused_layers_fwd_bwd_ms_per_step": tsplit["layer_ms"],
+         "unfused_plain_layers_fwd_bwd_ms_per_step": tsplit["plain_layer_ms"],
+         "unfused_kernel12_device_ms_per_step": tsplit["kernel12_device_ms"],
+         "unfused_torch_device_ms_per_step": tsplit["torch_device_ms"], "card": card})
     del trainer, fd, video
     torch.cuda.empty_cache()
     train_f32_card_vs_cpu(tcfg)
@@ -1679,6 +1824,44 @@ def resnet_bwd_ab(entries, card):
              "kernel7_ms": f, "decomposed_ms": d})
     log({"ab": "resnet backward per KTH train step (batch 8, bf16)", "shapes": len(entries),
          "kernel7_ms_per_step": fused_ms, "decomposed_ms_per_step": decomposed_ms, "card": card})
+
+
+def resnet_backward_step_ab(trainer, video, counters, want, card):
+    """The whole-step A/B of the resnet backward routes: `trainer`'s KTH step
+    with ``resnet_bwd_route`` as it is (kernel 7 on every block) against the
+    same step with the gate sending every block "decomposed" (kernels 10-11
+    and the torch GroupNorm math), in turns, launches checked on both.
+    Printed only."""
+    from extdm_tpu_torch.ops import fused_resnet
+
+    route = fused_resnet.resnet_bwd_route
+    blocks = want["resnet_block_bwd"]
+    wants = {"fused": want, "decomposed": dict(want, resnet_block_bwd=0, conv33_fwd=2 * blocks,
+                                               conv33_bwd=2 * blocks)}
+    gen = torch.Generator(device="cuda")
+    times = {"fused": [], "decomposed": []}
+    try:
+        for i in range(TIMED_STEPS + 1):  # the first pair warms up the decomposed route
+            for mode in ("fused", "decomposed"):
+                fused_resnet.resnet_bwd_route = (route if mode == "fused"
+                                                 else lambda *a: "decomposed")
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                aux = trainer.train_step(gen.manual_seed(30 + i), video)
+                torch.cuda.synchronize()
+                if i:
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+                launches = {n: fn.launches for n, fn in counters.items()}
+                if launches != wants[mode] or not math.isfinite(aux["loss"].item()):
+                    raise AssertionError(f"resnet backward {mode} step {i}: launches {launches} "
+                                         f"!= {wants[mode]}, or loss {aux['loss'].item()}")
+    finally:
+        fused_resnet.resnet_bwd_route = route
+    log({"ab": "resnet backward routes per KTH train step (batch 8, bf16)",
+         "fused_ms": times["fused"], "decomposed_ms": times["decomposed"],
+         "fused_median_ms": statistics.median(times["fused"]),
+         "decomposed_median_ms": statistics.median(times["decomposed"]), "card": card})
 
 
 def main() -> int:
@@ -1794,6 +1977,8 @@ def main() -> int:
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
                         "library_ms": s["library_ms"],
+                        **({f: s[f] for f in ("device_ms", "plain_device_ms",
+                                              "library_device_ms")} if name in rt else {}),
                         **({"kernel1_same_layers_ms": s["kernel1_layer_ms"],
                             "layer_ms_with_partition": s["layer_ms"]} if name in wm else {})})
     log({"phase": "total", "seconds": time.perf_counter() - t_start})

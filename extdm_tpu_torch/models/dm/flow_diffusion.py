@@ -122,10 +122,6 @@ class FlowDiffusionConfig:
     # "auto" window-major on unshifted layers at spatial >= 32; the JAX
     # package reads it from EXTDM_STW_WINDOW_MAJOR (pallas_stw._window_major)
     stw_window_major: str = "0"
-    # resnet backward: "fused" kernel 7 where it takes the block (Cout <= 256),
-    # else kernels 10-11; "decomposed" kernels 10-11 for every block; the JAX
-    # package reads it from EXTDM_PALLAS_RESNET_CHUNKED (pallas_resnet._fused_bwd)
-    resnet_backward: str = "fused"
 
     @property
     def bottleneck_dim(self) -> int:
@@ -141,8 +137,7 @@ class FlowDiffusionConfig:
                       use_ref_features=self.use_ref_features, conditioning=self.conditioning,
                       down_adaptor_from_level=self.down_adaptor_from_level, path=self.path,
                       remat=self.remat, dtype=self.dtype,
-                      stw_window_major=self.stw_window_major,
-                      resnet_backward=self.resnet_backward)
+                      stw_window_major=self.stw_window_major)
 
     def make_lfae(self) -> LFAE:
         return LFAE(self.flow_params)

@@ -8,8 +8,7 @@ kernels (``ops/fused_*.py``); on the CPU as their plain versions. An
 attention layer the whole-layer kernels do not take (``stw_route``: more
 than 256 channels, as at the deepest level of the multi1248 preset) runs
 unfused, its attention core on kernel 12; a resnet block's backward takes
-``resnet_bwd_route``'s route (kernel 7, or kernels 10 and 11 for Cout > 256
-and, with ``resnet_backward="decomposed"``, for every block).
+``resnet_bwd_route``'s route (kernel 7, or kernels 10 and 11 for Cout > 256).
 Parameter names follow the reference denoiser's state dict
 (``downs.{i}.{0..6}``, ``mid_block1``, ``final_conv.0``, ...), so
 ``convert.py`` maps the JAX variables onto them. Layout (B, T, H, W, C).
@@ -36,7 +35,7 @@ from extdm_tpu_torch.models.dm.adaptor import MotionAdaptor, PointwiseConv3d, Pr
 from extdm_tpu_torch.nn.attention import (RelativePositionBias, RelativePositionBiasTHW,
                                           TemporalAttentionLayer, WindowAttention3D,
                                           get_window_size)
-from extdm_tpu_torch.ops.fused_resnet import RESNET_BACKWARDS, fused_resnet_block
+from extdm_tpu_torch.ops.fused_resnet import fused_resnet_block
 from extdm_tpu_torch.ops.fused_stw import (WINDOW_MAJOR_MODES, fused_stw_layer,
                                            fused_temporal_layer, stw_layer_unfused, stw_route,
                                            temporal_layer_unfused)
@@ -81,13 +80,12 @@ class Block3d(nn.Module):
 
 class ResnetBlock3d(nn.Module):
     """Two Block3d with FiLM time conditioning and a residual; runs as
-    ``fused_resnet_block``, its backward in the `backward` mode of
-    ``resnet_bwd_route``."""
+    ``fused_resnet_block``."""
 
     def __init__(self, dim: int, dim_out: int, time_emb_dim: Optional[int] = None,
-                 groups: int = 8, dtype=None, backward: str = "fused"):
+                 groups: int = 8, dtype=None):
         super().__init__()
-        self.groups, self.backward = groups, backward
+        self.groups = groups
         self.compute_dtype = dtype or torch.float32
         self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
                     if time_emb_dim is not None else None)
@@ -106,7 +104,7 @@ class ResnetBlock3d(nn.Module):
             x.to(dt), b1.proj.weight, b1.proj.bias, b1.norm.weight, b1.norm.bias, film,
             b2.proj.weight, b2.proj.bias, b2.norm.weight, b2.norm.bias,
             rc.weight if rc is not None else None, rc.bias if rc is not None else None,
-            groups=self.groups, backward=self.backward)
+            groups=self.groups)
 
 
 class Downsample(nn.Conv3d):
@@ -207,18 +205,14 @@ class Unet3D(nn.Module):
                  init_kernel_size: int = 7, resnet_groups: int = 8, cond_num: int = 0,
                  pred_num: int = 0, use_ref_features: bool = True,
                  conditioning: str = "adaptor", down_adaptor_from_level: int = 0,
-                 path: int = 0, remat: bool = True, dtype=None, stw_window_major: str = "0",
-                 resnet_backward: str = "fused"):
+                 path: int = 0, remat: bool = True, dtype=None, stw_window_major: str = "0"):
         super().__init__()
         if conditioning not in ("adaptor", "none"):
             raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
         if stw_window_major not in WINDOW_MAJOR_MODES:
             raise ValueError(f"stw_window_major is one of {WINDOW_MAJOR_MODES}, "
                              f"got {stw_window_major!r}")
-        if resnet_backward not in RESNET_BACKWARDS:
-            raise ValueError(f"resnet_backward is one of {RESNET_BACKWARDS}, "
-                             f"got {resnet_backward!r}")
-        wm, rb = stw_window_major, resnet_backward
+        wm = stw_window_major
         self.channels, self.path, self.remat = channels, path, remat
         self.compute_dtype = dt = dtype or torch.float32
         self.cond_num, self.pred_num = cond_num, pred_num
@@ -252,9 +246,9 @@ class Unet3D(nn.Module):
 
         def level(d_in, d_out, adaptor, resample):
             return nn.ModuleList([
-                ResnetBlock3d(d_in, d_out, time_dim, resnet_groups, dt, rb),
+                ResnetBlock3d(d_in, d_out, time_dim, resnet_groups, dt),
                 PreNormSTW(d_out, window_size, shift, heads, dh, wm),
-                ResnetBlock3d(d_out, d_out, time_dim, resnet_groups, dt, rb),
+                ResnetBlock3d(d_out, d_out, time_dim, resnet_groups, dt),
                 PreNormSTW(d_out, window_size, (0, 0, 0), heads, dh, wm),
                 MotionAdaptor(d_out, cond_num, pred_num, dt) if adaptor else nn.Identity(),
                 PreNormTemporalAttn(d_out, heads, dh),
@@ -267,18 +261,17 @@ class Unet3D(nn.Module):
                   Downsample if i < n - 1 else None)
             for i, (d_in, d_out) in enumerate(in_out))
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt, rb)
+        self.mid_block1 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt)
         self.mid_attn1 = PreNormSTW(mid, window_size, shift, heads, dh, wm)
-        self.mid_block2 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt, rb)
+        self.mid_block2 = ResnetBlock3d(mid, mid, time_dim, resnet_groups, dt)
         self.mid_attn2 = PreNormSTW(mid, window_size, (0, 0, 0), heads, dh, wm)
         self.mid_adaptor = MotionAdaptor(mid, cond_num, pred_num, dt) if ada else nn.Identity()
         self.ups = nn.ModuleList(
             level(d_out * 2, d_in, ada and i > 1, Upsample if i < n - 1 else None)
             for i, (d_in, d_out) in enumerate(reversed(in_out)))
-        self.final_conv = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt, rb),
+        self.final_conv = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt),
                                         PointwiseConv3d(dim, out_grid_dim, dtype=dt))
-        self.occlusion_map = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt,
-                                                         rb),
+        self.occlusion_map = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt),
                                            PointwiseConv3d(dim, out_conf_dim, dtype=dt))
 
     def _pos_bias(self, T: int, H: int, W: int) -> torch.Tensor:

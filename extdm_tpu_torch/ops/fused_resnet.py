@@ -30,11 +30,10 @@ in this file's kernels. The plain backward is ``resnet_block_plain_vjp``.
 
 Kernel 7 keeps per-channel sums in shared memory and takes Cout <= 256 and
 at most 32 groups. ``resnet_bwd_route`` (the gate of
-``pallas_resnet._fused_bwd``) sends every other block, and every block when
-the caller asks for ``backward="decomposed"`` (JAX's
-``EXTDM_PALLAS_RESNET_CHUNKED``), to ``resnet_block_bwd_decomposed``, the
-counterpart of ``pallas_resnet._chunked_bwd``: it recomputes the two convs
-with ``conv33_fwd`` (kernel 10, replacing ``pallas_resnet._conv33_fwd``)
+``pallas_resnet._fused_bwd``) sends every other block to
+``resnet_block_bwd_decomposed``, the counterpart of
+``pallas_resnet._chunked_bwd``: it recomputes the two convs with
+``conv33_fwd`` (kernel 10, replacing ``pallas_resnet._conv33_fwd``)
 and takes each conv's gradients with ``conv33_bwd`` (kernel 11, replacing
 ``pallas_resnet._conv33_bwd``); the GroupNorm, FiLM and SiLU chains and the
 per-channel sums around them stay plain torch, as they stay XLA in JAX.
@@ -54,22 +53,19 @@ from extdm_tpu_torch import _build
 from extdm_tpu_torch.ops.fused_stw import _needs_grad, _sm_count, plain_vjp
 
 __all__ = ["fused_resnet_block", "resnet_block_plain", "resnet_block_bwd",
-           "resnet_block_plain_vjp", "RESNET_BACKWARDS", "resnet_bwd_route",
+           "resnet_block_plain_vjp", "resnet_bwd_route",
            "resnet_block_bwd_decomposed", "conv33_fwd", "conv33_plain", "conv33_bwd",
            "conv33_bwd_plain"]
 
-RESNET_BACKWARDS = ("fused", "decomposed")
 BWD_MAX_COUT = 256  # kernel 7 keeps (sum du, sum du yhat) per channel in shared memory
 MAX_GROUPS = 32
 
 
-def resnet_bwd_route(shape, cin: int, cout: int, groups: int, mode: str = "fused") -> str:
+def resnet_bwd_route(shape, cin: int, cout: int, groups: int) -> str:
     """The backward a block of input `shape` (B, T, H, W, cin) takes:
-    "fused" (kernel 7) where kernel 7 takes the block and `mode` is "fused",
-    else "decomposed" (kernels 10 and 11 with the GroupNorm math in torch)."""
-    if mode not in RESNET_BACKWARDS:
-        raise ValueError(f"resnet backward is one of {RESNET_BACKWARDS}, got {mode!r}")
-    if mode == "decomposed" or cout > BWD_MAX_COUT or groups > MAX_GROUPS or cout % groups:
+    "fused" (kernel 7) where kernel 7 takes the block, else "decomposed"
+    (kernels 10 and 11 with the GroupNorm math in torch)."""
+    if cout > BWD_MAX_COUT or groups > MAX_GROUPS or cout % groups:
         return "decomposed"
     return "fused"
 
@@ -165,32 +161,28 @@ def _resnet_forward(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, 
 
 class _ResnetBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kw, backward, x, *params):
-        ctx.kw, ctx.backward = kw, backward
+    def forward(ctx, kw, x, *params):
+        ctx.kw = kw
         ctx.save_for_backward(x, *params)
         return _resnet_forward(x, *params, **kw)
 
     @staticmethod
     def backward(ctx, g):
         x, w1 = ctx.saved_tensors[:2]
-        route = resnet_bwd_route(x.shape, x.shape[-1], w1.shape[0], ctx.kw["groups"],
-                                 ctx.backward)
+        route = resnet_bwd_route(x.shape, x.shape[-1], w1.shape[0], ctx.kw["groups"])
         bwd = resnet_block_bwd_decomposed if route == "decomposed" else resnet_block_bwd
-        return (None, None, *bwd(g, *ctx.saved_tensors, **ctx.kw))
+        return (None, *bwd(g, *ctx.saved_tensors, **ctx.kw))
 
 
 def fused_resnet_block(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2, g2s, g2b,
-                       wres=None, bres=None, *, groups=8, eps=1e-5, backward="fused"):
-    """Whole ResnetBlock3d; same arguments and result as ``resnet_block_plain``.
-    ``backward`` ("fused" or "decomposed") is the mode of ``resnet_bwd_route``."""
+                       wres=None, bres=None, *, groups=8, eps=1e-5):
+    """Whole ResnetBlock3d; same arguments and result as ``resnet_block_plain``."""
     operands = (x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres)
     kw = dict(groups=groups, eps=eps)
-    if backward not in RESNET_BACKWARDS:
-        raise ValueError(f"resnet backward is one of {RESNET_BACKWARDS}, got {backward!r}")
     if x.device.type == "cpu":
         return resnet_block_plain(*operands, **kw)
     if _needs_grad(*[t for t in operands if t is not None]):
-        return _ResnetBlock.apply(kw, backward, *operands)
+        return _ResnetBlock.apply(kw, *operands)
     return _resnet_forward(*operands, **kw)
 
 

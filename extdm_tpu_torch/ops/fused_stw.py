@@ -60,7 +60,6 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -75,7 +74,7 @@ from extdm_tpu_torch.nn.attention import (
     window_reverse,
 )
 from extdm_tpu_torch.nn.layers import chan_layer_norm
-from extdm_tpu_torch.ops.window_attn import fused_window_attention
+from extdm_tpu_torch.ops.window_attn import fused_window_attention, mask_tables
 
 __all__ = ["stw_route", "stw_layer_unfused", "temporal_layer_unfused",
            "fused_stw_layer", "stw_layer_plain", "stw_layer_bwd", "stw_layer_plain_vjp",
@@ -106,7 +105,8 @@ def stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
     """x + window attention of ChanLN(x): the semantics of
     ``pallas_stw.stw_layer_reference``. x: (B, T, H, W, C); bias_hnn
     (heads, N, N) for the call window; matmuls in x.dtype, softmax in float32.
-    `attend`: the attention core of ``window_attention``."""
+    `attend`: the attention core of ``window_attention``, given the shift
+    masks as ``window_attn.mask_tables``."""
     B, T, H, W, C = x.shape
     dtype = x.dtype
     h = chan_layer_norm(x, gamma, eps)
@@ -116,22 +116,17 @@ def stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
     if shifted:
         h = torch.roll(h, shifts=(-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
     _, Tp, Hp, Wp, _ = h.shape
-    mask = shifted_window_mask(Tp, Hp, Wp, tuple(window), tuple(shift)) if shifted else None
+    mask = None
+    if shifted and attend is None:
+        mask = shifted_window_mask(Tp, Hp, Wp, tuple(window), tuple(shift))
+    elif shifted:  # an attention core takes the deduplicated tables, made once per volume
+        mask = mask_tables(Tp, Hp, Wp, tuple(window), tuple(shift), x.device)
     o = window_attention(window_partition(h, window), w_qkv.to(dtype), w_proj.to(dtype),
                          b_proj.to(dtype), bias_hnn, mask, heads, dim_head, attend)
     out = window_reverse(o, window, B, Tp, Hp, Wp)
     if shifted:
         out = torch.roll(out, shifts=tuple(shift), dims=(1, 2, 3))
     return (x.float() + out[:, :T, :H, :W].float()).to(dtype)
-
-
-@lru_cache(maxsize=None)
-def _mask_tables(Tp, Hp, Wp, window, shift, device):
-    """Deduplicated shift masks (n_unique, N, N) and each window's row."""
-    m = shifted_window_mask(Tp, Hp, Wp, window, shift)
-    uniq, ids = np.unique(m.reshape(m.shape[0], -1), axis=0, return_inverse=True)
-    return (torch.as_tensor(uniq.reshape(-1, m.shape[1], m.shape[2]), device=device),
-            torch.as_tensor(ids.reshape(-1).astype(np.int32), device=device))
 
 
 @lru_cache(maxsize=None)
@@ -207,7 +202,7 @@ def _pad_roll(x, window, shift):
     xp = xp.contiguous()
     masks = ids = None
     if shifted:
-        masks, ids = _mask_tables(*xp.shape[1:4], tuple(window), tuple(shift), x.device)
+        masks, ids = mask_tables(*xp.shape[1:4], tuple(window), tuple(shift), x.device)
     return xp, masks, ids
 
 

@@ -6,8 +6,10 @@ layers.
 ``fused_window_attention`` (``_attention_pallas`` -> ``_make_kernel``):
 softmax(q k^T + bias + mask) v over (BW, H, N, D) sequences, q already
 scaled and rotated, the (H, N, N) bias and, for shifted windows, the
-(nW, N, N) shift masks, deduplicated (``dedupe_masks``) so that sequence i
-takes mask[i % nW]; the softmax in float32, the output in q's dtype. The
+shift masks as deduplicated tables (masks (M, N, N), ids (nW,)), sequence
+i taking masks[ids[i % nW]] (``dedupe_masks``; ``mask_tables`` makes a
+layer's tables once, by the volume, window and shift); the softmax in
+float32, the output in q's dtype. The
 layers of ``fused_stw.py`` that kernels 1 and 2 do not take
 (``fused_stw.stw_route``) run their projections in torch around it.
 
@@ -28,15 +30,16 @@ tensors, and counts launches in ``fused_window_attention.launches``.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from extdm_tpu_torch import _build
+from extdm_tpu_torch.nn.attention import shifted_window_mask
 
-__all__ = ["fused_window_attention", "window_attention_plain", "dedupe_masks", "MAX_N",
-           "MAX_D"]
+__all__ = ["fused_window_attention", "window_attention_plain", "dedupe_masks", "mask_tables",
+           "MAX_N", "MAX_D"]
 
 MAX_N, MAX_D = 64, 32  # the kernel's shared-memory tiles
 
@@ -49,33 +52,31 @@ def dedupe_masks(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return uniq.reshape(-1, mask.shape[1], mask.shape[2]), ids.reshape(-1).astype(np.int32)
 
 
-@lru_cache(maxsize=16)
-def _device_masks(key: bytes, shape: Tuple[int, int, int], device) -> Tuple[torch.Tensor,
-                                                                             torch.Tensor]:
-    """The deduplicated masks and ids of the (nW, N, N) float32 masks whose
-    bytes are `key`, on `device`: made once per mask, not per launch (the
-    layers pass the same few masks every call)."""
-    uniq, ids = dedupe_masks(np.frombuffer(key, dtype=np.float32).reshape(shape))
+@lru_cache(maxsize=None)
+def mask_tables(Tp: int, Hp: int, Wp: int, window: Tuple[int, int, int],
+                shift: Tuple[int, int, int], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The deduplicated shift masks of a padded (Tp, Hp, Wp) volume
+    (``shifted_window_mask``) on `device`: (masks (M, N, N) float32, ids
+    (nW,) int32). A pure function of its arguments, made once."""
+    uniq, ids = dedupe_masks(shifted_window_mask(Tp, Hp, Wp, window, shift))
     return torch.as_tensor(uniq, device=device), torch.as_tensor(ids, device=device)
-
-
-def _as_mask(mask, device) -> Optional[torch.Tensor]:
-    return None if mask is None else torch.as_tensor(mask, device=device)
 
 
 def window_attention_plain(q, k, v, bias_hnn, mask=None):
     """The semantics of ``pallas_attn._attention_reference``: scores, bias,
     mask, softmax and the product with v in float32, the output in q's
-    dtype. q, k, v (BW, H, N, D); bias_hnn (H, N, N); mask (nW, N, N) or
-    None, sequence i taking mask[i % nW]."""
+    dtype. q, k, v (BW, H, N, D); bias_hnn (H, N, N); mask None or the
+    deduplicated (masks (M, N, N), ids (nW,)) of ``dedupe_masks`` /
+    ``mask_tables`` as tensors, sequence i taking masks[ids[i % nW]]."""
     attn = q.float() @ k.float().transpose(-1, -2) + bias_hnn.float()
     if mask is not None:
-        mask = torch.as_tensor(mask, device=q.device).float()
-        attn = attn + mask[torch.arange(q.shape[0], device=q.device) % mask.shape[0]][:, None]
+        masks, ids = mask
+        seq = ids.long()[torch.arange(q.shape[0], device=q.device) % ids.numel()]
+        attn = attn + masks.float()[seq][:, None]
     return (torch.softmax(attn, dim=-1) @ v.float()).to(q.dtype)
 
 
-def _check(q, k, v, bias_hnn):
+def _check(q, k, v, bias_hnn, mask):
     BW, H, N, D = q.shape
     if not q.is_cuda or any(t.device != q.device for t in (k, v, bias_hnn)):
         raise ValueError(f"fused_window_attention: kernel wrappers take CPU or CUDA tensors on "
@@ -87,21 +88,19 @@ def _check(q, k, v, bias_hnn):
         if tuple(t.shape) != tuple(shape) or (name != "bias_hnn" and t.dtype != q.dtype):
             raise ValueError(f"fused_window_attention: {name} is {t.dtype}{tuple(t.shape)}, "
                              f"q is {q.dtype}{tuple(q.shape)}")
+    if mask is not None:
+        masks, ids = mask
+        if (masks.dtype != torch.float32 or ids.dtype != torch.int32 or masks.ndim != 3
+                or tuple(masks.shape[1:]) != (N, N) or masks.device != q.device
+                or ids.device != q.device or not (masks.is_contiguous() and ids.is_contiguous())):
+            raise ValueError(f"fused_window_attention: mask tables {masks.dtype}"
+                             f"{tuple(masks.shape)} / {ids.dtype} on {masks.device} for N = {N} "
+                             f"on {q.device}")
 
 
-def _mask_tables(mask, N: int, device):
-    """Kernel 12's deduplicated masks and ids on `device` (None, None
-    without a mask)."""
-    if mask is None:
-        return None, None
-    mask = np.ascontiguousarray(mask.cpu() if torch.is_tensor(mask) else mask, dtype=np.float32)
-    if mask.ndim != 3 or mask.shape[1:] != (N, N):
-        raise ValueError(f"fused_window_attention: masks {mask.shape} for N = {N}")
-    return _device_masks(mask.tobytes(), mask.shape, device)
-
-
-def _forward(q, k, v, bias_hnn, masks, ids):
+def _forward(q, k, v, bias_hnn, mask):
     BW, H, N, D = q.shape
+    masks, ids = (None, None) if mask is None else mask
     qc, kc, vc = (t.detach().contiguous() for t in (q, k, v))
     bias = bias_hnn.detach().float().contiguous()
     out = torch.empty_like(qc)
@@ -116,33 +115,30 @@ def _forward(q, k, v, bias_hnn, masks, ids):
 
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tables, q, k, v, bias_hnn):
-        ctx.tables = tables
+    def forward(ctx, mask, q, k, v, bias_hnn):
+        ctx.mask = mask
         ctx.save_for_backward(q, k, v, bias_hnn)
-        return _forward(q, k, v, bias_hnn, *tables)
+        return _forward(q, k, v, bias_hnn, mask)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias_hnn = ctx.saved_tensors
-        masks, ids = ctx.tables
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(t.requires_grad) for t in (q, k, v, bias_hnn)]
-            out = window_attention_plain(*ins, None if masks is None else masks[ids.long()])
+            out = window_attention_plain(*ins, ctx.mask)
             live = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad(out, live, g))
         return (None, *(next(grads) if t.requires_grad else None for t in ins))
 
 
 def fused_window_attention(q, k, v, bias_hnn, mask=None):
-    """Kernel 12; same arguments and result as ``window_attention_plain``,
-    with mask a host array (or tensor) of the (nW, N, N) shift masks."""
+    """Kernel 12; same arguments and result as ``window_attention_plain``."""
     if q.device.type == "cpu":
-        return window_attention_plain(q, k, v, bias_hnn, _as_mask(mask, q.device))
-    _check(q, k, v, bias_hnn)
-    tables = _mask_tables(mask, q.shape[2], q.device)
+        return window_attention_plain(q, k, v, bias_hnn, mask)
+    _check(q, k, v, bias_hnn, mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias_hnn)):
-        return _WindowAttention.apply(tables, q, k, v, bias_hnn)
-    return _forward(q, k, v, bias_hnn, *tables)
+        return _WindowAttention.apply(mask, q, k, v, bias_hnn)
+    return _forward(q, k, v, bias_hnn, mask)
 
 
 fused_window_attention.launches = 0

@@ -123,21 +123,16 @@ def test_decomposed_bwd_matches_jax_chunked_and_plain_vjp(film, res):
         rel_close(gg.numpy(), pp.numpy(), 1e-4)
 
 
-@pytest.mark.parametrize("cin,cout,groups,mode,route", [
-    (128, 256, 8, "fused", "fused"),
-    (256, 512, 8, "fused", "decomposed"),      # Cout > 256: kernel 7's per-channel sums
-    (512, 512, 8, "fused", "decomposed"),
-    (1024, 256, 8, "fused", "fused"),          # up level 0 of multi1248: wide input only
-    (64, 64, 64, "fused", "decomposed"),       # more groups than kernel 7 holds
-    (64, 64, 32, "fused", "fused"),
-    (64, 64, 8, "decomposed", "decomposed"),   # asked for: every block
+@pytest.mark.parametrize("cin,cout,groups,route", [
+    (128, 256, 8, "fused"),
+    (256, 512, 8, "decomposed"),      # Cout > 256: kernel 7's per-channel sums
+    (512, 512, 8, "decomposed"),
+    (1024, 256, 8, "fused"),          # up level 0 of multi1248: wide input only
+    (256, 264, 8, "decomposed"),      # just over the limit
+    (64, 64, 64, "decomposed"),       # more groups than kernel 7 holds
+    (64, 64, 32, "fused"),
+    (64, 60, 8, "decomposed"),        # groups that do not divide Cout
+    (64, 64, 8, "fused"),
 ])
-def test_resnet_bwd_route_table(cin, cout, groups, mode, route):
-    assert fused_resnet.resnet_bwd_route((8, 30, 4, 4, cin), cin, cout, groups, mode) == route
-
-
-def test_resnet_bwd_route_refuses_unknown_modes():
-    with pytest.raises(ValueError):
-        fused_resnet.resnet_bwd_route((1, 1, 4, 4, 8), 8, 8, 4, "chunked")
-    with pytest.raises(ValueError):
-        fused_resnet.fused_resnet_block(*[torch.zeros(1)] * 12, backward="chunked")
+def test_resnet_bwd_route_table(cin, cout, groups, route):
+    assert fused_resnet.resnet_bwd_route((8, 30, 4, 4, cin), cin, cout, groups) == route

@@ -110,9 +110,8 @@ def test_sampler_end_to_end(models):
 @pytest.mark.parametrize("arch", ["w_ref_u22/ada_u22", "multi/wo_ref"])
 def test_config_from_yaml_matches_jax(name, arch):
     """The port's dm_config_from_yaml builds the JAX package's config. The
-    port's STW layout and resnet backward fields, which the JAX package reads
-    from EXTDM_STW_WINDOW_MAJOR and EXTDM_PALLAS_RESNET_CHUNKED, keep those
-    variables' defaults."""
+    port's STW layout field, which the JAX package reads from
+    EXTDM_STW_WINDOW_MAJOR, keeps that variable's default."""
     from extdm_tpu import config as j_config
     from extdm_tpu_torch import config
 
@@ -120,7 +119,6 @@ def test_config_from_yaml_matches_jax(name, arch):
     port = dataclasses.asdict(config.dm_config_from_yaml(raw, arch))
     ref = dataclasses.asdict(j_config.dm_config_from_yaml(raw, arch))
     assert port.pop("stw_window_major") == "0"
-    assert port.pop("resnet_backward") == "fused"
     assert port == {k: v for k, v in ref.items() if k in port}
 
 

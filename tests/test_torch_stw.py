@@ -17,7 +17,7 @@ from extdm_tpu.nn.attention import _relative_position_index, get_window_size
 from extdm_tpu.ops import pallas_stw
 from extdm_tpu_torch import convert
 from extdm_tpu_torch.models.dm import unet3d
-from extdm_tpu_torch.ops import fused_stw
+from extdm_tpu_torch.ops import fused_stw, window_attn
 
 TOL = 2e-4
 
@@ -200,7 +200,7 @@ def test_wm_partition_reverse_and_masks_match_jax():
         fused_stw._wm_reverse(xw, window, xp.shape).numpy(),
         np.asarray(pallas_stw._wm_reverse(jnp.asarray(xw.numpy()), window, xp.shape)))
     np.testing.assert_array_equal(fused_stw._wm_reverse(xw, window, xp.shape).numpy(), xp)
-    masks, ids = fused_stw._mask_tables(8, 8, 12, window, (2, 2, 2), torch.device("cpu"))
+    masks, ids = window_attn.mask_tables(8, 8, 12, window, (2, 2, 2), torch.device("cpu"))
     got = fused_stw._expand_masks(masks, ids, 2, 2, 3, 64)
     want = pallas_stw._expand_masks(jnp.asarray(masks.numpy()), jnp.asarray(ids.numpy()), 2, 2, 3,
                                     64)

@@ -54,11 +54,12 @@ def test_plain_and_gradients_match_jax_interpret(BW, H, N, D, masked):
     want, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v, bias)))
     want_grads = vjp(jnp.asarray(g))
     ins = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v, bias)]
+    tables = None if mask is None else tuple(map(torch.from_numpy,
+                                                 window_attn.dedupe_masks(mask)))
     before = window_attn.fused_window_attention.launches
-    out = window_attn.fused_window_attention(*ins, mask)
+    out = window_attn.fused_window_attention(*ins, tables)
     assert window_attn.fused_window_attention.launches == before  # the CPU: no kernel
-    assert torch.equal(out, window_attn.window_attention_plain(*ins, None if mask is None
-                                                               else torch.from_numpy(mask)))
+    assert torch.equal(out, window_attn.window_attention_plain(*ins, tables))
     out.backward(torch.from_numpy(g))
     close(out.detach(), want)
     for t, w in zip(ins, want_grads):
@@ -69,6 +70,12 @@ def test_dedupe_masks_matches_jax_and_refuses_other_devices():
     mask = _shifted_window_mask(8, 8, 8, (4, 4, 4), (2, 2, 2))
     for got, want in zip(window_attn.dedupe_masks(mask), pallas_attn.dedupe_masks(mask)):
         np.testing.assert_array_equal(got, want)
+    cpu = torch.device("cpu")
+    tables = window_attn.mask_tables(8, 8, 8, (4, 4, 4), (2, 2, 2), cpu)
+    assert window_attn.mask_tables(8, 8, 8, (4, 4, 4), (2, 2, 2), cpu) is tables  # made once
+    masks, ids = tables
+    assert masks.dtype == torch.float32 and ids.dtype == torch.int32
+    np.testing.assert_array_equal(masks[ids.long()].numpy(), mask)
     q, k, v, bias = (torch.from_numpy(a).to("meta") for a in _qkvb(0, 2, 2, 16, 8))
     with pytest.raises(ValueError):
         window_attn.fused_window_attention(q, k, v, bias)
