@@ -80,13 +80,19 @@
    (bf16, batch 8: up level 0's 1024 input channels among them), kernels
    10-12 against their plain versions at every recorded shape in bf16 and
    float32 (dW with the backward kernels' limits) and timed beside F.conv3d
-   / aten.convolution_backward, the unfused layers' forward and backward
+   / aten.convolution_backward (call and device time, device TFLOP/s and
+   share of the bound), kernels 10 and 11 also at three ragged shapes
+   (CONV_RAGGED) and kernel 11 twice on the same inputs (bitwise equal
+   din and dW), the unfused layers' forward and backward
    timed and split as above, kernels 5-7 never on a layer over 256
    channels, 3 timed steps with launch and route counts, and the float32
    step card vs CPU.
 
 The train phase also runs an A/B of the two resnet backward routes: at the
-KTH step's resnet-backward shapes, kernel 7 against the decomposed backward,
+KTH step's resnet-backward shapes (32^2 to 4^2 frames), kernels 10 and 11
+are first checked against their plain versions at every conv shape of the
+decomposed backward (bf16 and float32), timed, and kernel 11 checked to
+repeat bit for bit; then kernel 7 against the decomposed backward,
 and the whole KTH step with every block's backward decomposed (the gate
 ``resnet_bwd_route`` replaced for those steps) against the step as it is,
 in turns, launches checked. Printed only.
@@ -230,40 +236,44 @@ def kernel_symbols(source: str) -> set:
     return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
 
 
-def device_ms(fn, reps: int, symbols: set | None = None) -> tuple:
+def device_ms(fn, reps: int, symbols: set | None = None, attempts: int = 3) -> tuple:
     """(own, other): device time per fn() call of the kernels named
     `symbols` (of every device op when None) and of every other device op
     fn() issues (a wrapper's casts and copies), read by torch.profiler over
     `reps` calls after two warm-up calls. The host's time between launches
     is in neither. The profiler may drop an event: each op's time per call
-    is its mean event time times its events per call, rounded."""
+    is its mean event time times its events per call, rounded. A session
+    may also come back without the kernels' device records though they ran
+    (seen once on the card, late in a run): such a session is run again, up
+    to `attempts` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + e.device_time)
     pattern = re.compile(r"\b(" + "|".join(sorted(symbols)) + r")\b") if symbols else None
-    own = other = 0.0
-    for name, (n, t) in by_name.items():
-        per_call = t / n * round(n / reps) if 2 * n >= reps else t / reps
-        if pattern is None or pattern.search(name):
-            own += per_call
-        else:
-            other += per_call
-    if own == 0.0:
-        raise AssertionError(f"device_ms: the profiler saw no device time of "
-                             f"{sorted(symbols) if symbols else 'any op'}")
-    return own / 1e3, other / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, t = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, t + e.device_time)
+        own = other = 0.0
+        for name, (n, t) in by_name.items():
+            per_call = t / n * round(n / reps) if 2 * n >= reps else t / reps
+            if pattern is None or pattern.search(name):
+                own += per_call
+            else:
+                other += per_call
+        if own > 0.0:
+            return own / 1e3, other / 1e3
+    raise AssertionError(f"device_ms: in {attempts} sessions the profiler saw no device time of "
+                         f"{sorted(symbols) if symbols else 'any op'}; it saw {sorted(by_name)}")
 
 
 def check(name: str, got: torch.Tensor, want: torch.Tensor, rel: float,
@@ -1570,8 +1580,9 @@ def route_kernel_checks(rt, record, card, per):
                  "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms, "library_ms": library_ms,
                  "library_device_ms": library_dev_ms, "library_call": k["library_call"],
                  "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "checks": res,
-                 "card": card})
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "device_tflops": flops / dev_ms / 1e9,
+                 "bound_share": max(bytes_ms, ops_ms) / dev_ms, "checks": res, "card": card})
             for field, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
                                  ("plain_device_ms", plain_dev_ms), ("library_ms", library_ms),
                                  ("library_device_ms", library_dev_ms),
@@ -1767,6 +1778,11 @@ def multi1248_phase(table, btable, others, card):
              "check": "kernel 7 vs plain backward at a multi1248 shape", **res})
     with torch.no_grad():
         tsummary = route_kernel_checks(rt, record, card, "per_step")
+        conv_bwd_repeat_check(record["conv33_bwd"], card)
+        ragged = conv_ragged_record()
+        route_kernel_checks({n: rt[n] for n in ragged}, ragged, card, "ragged")
+        conv_bwd_repeat_check(ragged["conv33_bwd"], card)
+        del ragged
     tsplit = unfused_split(utable, urecord, train=True)
     del record, urecord
     times = []
@@ -1807,12 +1823,60 @@ def multi1248_phase(table, btable, others, card):
             step_launches)
 
 
+# Kernels 10 and 11 at shapes off the model's: channels off the kernels'
+# 16-byte rows (padded), frames smaller than a tile, and pixels not a
+# multiple of the row tile.
+CONV_RAGGED = (((2, 3, 5, 7, 12), 20), ((1, 8, 4, 4, 40), 72), ((3, 7, 6, 5, 64), 96))
+
+
+def conv_ragged_record(seed=11):
+    """Seeded inputs of kernels 10 and 11 at CONV_RAGGED, in the layout of
+    recording(): bf16 activations; float32 weights, bias and output
+    gradient, which the wrappers cast."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    record = {"conv33_fwd": {}, "conv33_bwd": {}}
+    for shape, cout in CONV_RAGGED:
+        x = r(*shape).to(torch.bfloat16)
+        w = r(9, shape[-1], cout, scale=(9 * shape[-1]) ** -0.5)
+        key = (tuple(shape), cout)
+        record["conv33_fwd"][key] = {"args": [x, w, r(cout, scale=0.1)], "kwargs": {}, "count": 1}
+        record["conv33_bwd"][key] = {"args": [r(*shape[:-1], cout), x, w], "kwargs": {},
+                                     "count": 1}
+    return record
+
+
+def conv_bwd_repeat_check(entries, card):
+    """Kernel 11 twice on the same inputs at each recorded shape: din and dW
+    the same bit for bit (per-split partials added in order, no atomics)."""
+    from extdm_tpu_torch.ops import fused_resnet
+
+    for key, entry in entries.items():
+        first = fused_resnet.conv33_bwd(*entry["args"])
+        again = fused_resnet.conv33_bwd(*entry["args"])
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"conv33_bwd{key}: two launches differ")
+        log({"check": "kernel 11 twice on the same inputs: bitwise equal din and dW",
+             "shape": list(key[0]), "cout": key[1], "card": card})
+
+
 def resnet_bwd_ab(entries, card):
     """Kernel 7 against the decomposed backward (kernels 10-11 and the torch
     GroupNorm math) at the KTH train step's resnet-backward shapes: ms per
-    step of each, summed over the shapes' counts. Timed and printed only."""
+    step of each, summed over the shapes' counts. Timed and printed only.
+    First, kernels 10 and 11 at every conv shape of those decomposed
+    backwards: checked against their plain versions (bf16 and float32),
+    timed, and kernel 11 checked to repeat bit for bit."""
     from extdm_tpu_torch.ops import fused_resnet
 
+    rt = {n: k for n, k in route_table().items() if n.startswith("conv33")}
+    conv_record = {}
+    with recording(rt, conv_record), torch.no_grad():
+        for entry in entries.values():
+            fused_resnet.resnet_block_bwd_decomposed(*entry["args"], **entry["kwargs"])
+        route_kernel_checks(rt, conv_record, card, "per_ab_block")
+        conv_bwd_repeat_check(conv_record["conv33_bwd"], card)
+    del conv_record
     fused_ms = decomposed_ms = 0.0
     for key, entry in entries.items():
         args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]

@@ -15,34 +15,67 @@
 // pallas_resnet._chunked_bwd): the route for blocks the whole-block backward
 // kernel does not take (Cout > 256), and an A/B option for every block.
 //
-// Bound on the H100: operations (2 * 9 * Cin * Cout flops per pixel against
-// 2 * (Cin + 2 Cout) bytes). Each is an implicit GEMM over the 9 taps, with
-// no frame staging: the TPU kernel's whole-frame chunks with roll and edge
-// masks are a VMEM workaround. A block owns 64 pixels (rows of the GEMM,
-// consecutive in (frame, y, x) order, so frames of any size fill it) by 64
-// output channels; per tap and 32-channel slice of the reduction it stages
-// the tap's shifted input rows (zero where the tap falls off the frame) and
-// the tap's weights in shared memory. In bf16 the products run on the tensor
-// cores (mma.sync m16n8k16, float accumulators): 8 warps, each 16 rows x 32
-// columns. In float32 (JAX runs float32 convs at HIGHEST precision) each
-// thread accumulates 4 x 4 outputs with FMAs.
+// Bound on the H100: operations. A forward at 512 -> 512 channels over
+// P = 3,840 pixels is 2 * 9 * Cin * Cout * P = 18.1 GFLOP (18 us at 989
+// TFLOP/s) against 16.5 MB (4.9 us at 3.35 TB/s); the backward is two such
+// products. Each product is an implicit GEMM with no frame staging: the TPU
+// kernel's whole-frame chunks with roll and edge masks are a VMEM
+// workaround.
 //
-// din is the same product with the taps mirrored and the weights transposed
-// (K = Cout, N = Cin). dW is a product over pixels: a block owns one tap and
-// a 64 x 64 (Cin, Cout) tile over one split of the pixels, writes its
-// partial, and sum_parts adds the splits in order: no float atomics, the
-// result does not depend on the order in which blocks ran.
-#include <type_traits>
-
+// bf16 (the main path): wgmma fed by a ring of STAGES shared-memory stages,
+// 256 threads = two warpgroups, a 128 x 128 float32 tile in registers
+// (64 rows per warpgroup, m64n128k16), a reduction step of 64 bf16 (one
+// 128-byte swizzle row).
+//   Forward and din (conv_tile<MIRROR>): rows M = pixels in (frame, y, x)
+//     order, so frames of any size fill a tile; N = output channels; K = 9
+//     taps x input channels. A tap's shifted pixel rows arrive by 16-byte
+//     cp.async with zero-fill (source size 0) where the tap leaves the row's
+//     own frame: the test is per row, on the (y, x) each thread computes
+//     once per block in 32-bit integers, so a 128-row tile of eight 4 x 4
+//     frames masks each frame's edges. cp.async rather than TMA's im2col
+//     mode: the rows are 128 contiguous bytes each, a per-row mask costs one
+//     predicate, and the same copy serves dW's pixel-major tiles. The
+//     weights are plain boxes and arrive by TMA (a 3-D map of w, (Cout, Cin,
+//     9) innermost first, 64 x 64 boxes, 128-byte swizzle) completing on the
+//     stage's mbarrier: the forward reads w[tap] as (K = Cin) x (N = Cout),
+//     N-contiguous (MN-major, transpose bit set); din reads w[8 - tap] as
+//     (N = Cin) rows of (K = Cout) (K-major). No copy of the weights is made.
+//   dW (wgrad_tile): one GEMM per tap, M = Cin, N = Cout, K = pixels. Both
+//     operands are channel-contiguous: the tap-shifted a_in rows (cp.async,
+//     zero-filled as above) and the da rows (TMA, 2-D map) land as MN-major
+//     tiles, which wgmma reads through its transpose bits. The pixel range
+//     may be split (plan: fused_resnet.conv33_plan) so that few tiles still
+//     fill the SMs; each split writes its partial and sum_parts adds them in
+//     a fixed order: no float atomics, dW is the same bit for bit from run
+//     to run.
+//   Kernel 10 is conv_wgmma_kernel; kernel 11 is bwd_wgmma_kernel, din's
+//   and dW's tiles in one launch: at multi1248's 512 channels dW alone has
+//   144 blocks of 60 steps (two waves on 132 SMs, the second nearly
+//   empty) and din 120 of 72; together they pack into the SMs.
+//   Pipeline, per reduction step i: wait for this thread's copies of stage
+//   i (cp.async.wait_group) and the stage's TMA bytes (mbarrier), fence the
+//   generic proxy's writes to the async proxy that wgmma reads through,
+//   __syncthreads, issue the copies of step i + STAGES - 2 into the stage
+//   that step i - 2's products have left (every warpgroup waited for it),
+//   then issue step i's four wgmmas and wait until only they are in flight:
+//   copies run under the products and the products under the next step's
+//   barrier.
+//   The bf16 kernels take channel counts that are multiples of 8 (16-byte
+//   rows); the wrapper pads others with zeros (conv33_plan).
+//
+// float32 (the check path; JAX runs float32 convs at HIGHEST precision): a
+// block owns 64 pixels by 64 output channels, stages each tap's shifted rows
+// and weights in shared memory, each thread accumulates 4 x 4 outputs with
+// FMAs; dW by the same per-split partials.
 #include "common.cuh"
 
 namespace {
 
+// ---------------------------------------------------------------- float32
 constexpr int NT = 256;
 constexpr int BM = 64;      // GEMM rows per block
 constexpr int BN = 64;      // GEMM columns per block
 constexpr int BK = 32;      // reduction slice staged per step
-constexpr int KS = BK + 8;  // bf16 row stride of a staged [row][k] tile: spreads banks
 constexpr int FS = BN + 1;  // float row stride of a staged FMA tile
 
 // Pixel p = (frame, y, x) shifted by tap (dy, dx) = (tap / 3 - 1, tap % 3 - 1):
@@ -61,70 +94,6 @@ __device__ __forceinline__ long long tap_pixel(long long p, int tap, long long P
 template <bool MIRROR, typename T>
 __device__ __forceinline__ T weight(const T* w, int tap, int k, int n, int K, int N) {
   return MIRROR ? w[((long long)(8 - tap) * N + n) * K + k] : w[((long long)tap * K + k) * N + n];
-}
-
-// out[p][n] = sum over taps and k of in[tap_pixel(p)][k] W(tap, k, n) (+ bias[n]).
-// Grid: (ceil(P / BM), ceil(N / BN)).
-template <bool MIRROR>
-__global__ void __launch_bounds__(NT) conv_mma_kernel(const bf16* __restrict__ in,
-                                                     const bf16* __restrict__ w,
-                                                     const float* __restrict__ bias,
-                                                     float* __restrict__ out, long long P, int H,
-                                                     int W, int K, int N) {
-  __shared__ __align__(16) bf16 as[BM * KS];  // [pixel][k]
-  __shared__ __align__(16) bf16 bs[BN * KS];  // [n][k]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mt = warp & 3, ng = warp >> 2;  // 16-row tile, 32-column half
-  const long long p0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int tap = 0; tap < 9; ++tap) {
-    long long src[BM * BK / NT];  // this thread's staged rows: pixel warp + 8 i, k = lane
-#pragma unroll
-    for (int i = 0; i < BM * BK / NT; ++i) src[i] = tap_pixel(p0 + warp + 8 * i, tap, P, H, W);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      __syncthreads();
-      const int k = k0 + lane;
-#pragma unroll
-      for (int i = 0; i < BM * BK / NT; ++i)
-        as[(warp + 8 * i) * KS + lane] =
-            (src[i] >= 0 && k < K) ? in[src[i] * K + k] : __float2bfloat16(0.f);
-      for (int e = tid; e < BN * BK; e += NT) {
-        // lanes along the weights' contiguous axis: n forward, k mirrored
-        const int n = MIRROR ? e / BK : e % BN, kk = MIRROR ? e % BK : e / BN;
-        bs[n * KS + kk] = (k0 + kk < K && n0 + n < N)
-                              ? weight<MIRROR>(w, tap, k0 + kk, n0 + n, K, N)
-                              : __float2bfloat16(0.f);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        const bf16* a_lo = as + (16 * mt + g) * KS + kk + 2 * t4;
-        const bf16* a_hi = a_lo + 8 * KS;
-        const uint32_t a0 = ld2(a_lo), a1 = ld2(a_hi), a2 = ld2(a_lo + 8), a3 = ld2(a_hi + 8);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bf16* bp = bs + (32 * ng + 8 * j + g) * KS + kk + 2 * t4;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld2(bp), ld2(bp + 8));
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long p = p0 + 16 * mt + g + 8 * (e >> 1);
-      const int n = n0 + 32 * ng + 8 * j + 2 * t4 + (e & 1);
-      if (p < P && n < N) out[p * N + n] = acc[j][e] + (bias != nullptr ? bias[n] : 0.f);
-    }
 }
 
 // The float32 product: each thread 4 pixels (ty + 16 i) x 4 columns (tx + 16 j).
@@ -190,59 +159,6 @@ __global__ void __launch_bounds__(NT) conv_fma_kernel(const float* __restrict__ 
 // a_in[tap_pixel(p)][ci] da[p][co]. Grid: (ceil(Cin / 64), ceil(Cout / 64),
 // 9 * splits), z = blockIdx.z / 9, tap = blockIdx.z % 9; a split is `per`
 // consecutive slices of BK pixels.
-__global__ void __launch_bounds__(NT) wgrad_mma_kernel(const bf16* __restrict__ a_in,
-                                                      const bf16* __restrict__ da,
-                                                      float* __restrict__ part, long long P,
-                                                      int H, int W, int Cin, int Cout, int per) {
-  __shared__ __align__(16) bf16 as[BM * KS];  // [ci][pixel]
-  __shared__ __align__(16) bf16 bs[BN * KS];  // [co][pixel]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mt = warp & 3, ng = warp >> 2;
-  const int ci0 = blockIdx.x * BM, co0 = blockIdx.y * BN;
-  const int z = blockIdx.z / 9, tap = blockIdx.z % 9;
-  const long long begin = (long long)z * per * BK;
-  const long long end = min(P, begin + (long long)per * BK);
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (long long q0 = begin; q0 < end; q0 += BK) {
-    __syncthreads();
-    for (int e = tid; e < BM * BK; e += NT) {  // lanes along channels: coalesced reads
-      const int c = e % BM, px = e / BM;
-      const long long p = q0 + px;
-      const long long s = p < end ? tap_pixel(p, tap, P, H, W) : -1;
-      const bf16 zero = __float2bfloat16(0.f);
-      as[c * KS + px] = (s >= 0 && ci0 + c < Cin) ? a_in[s * Cin + ci0 + c] : zero;
-      bs[c * KS + px] = (p < end && co0 + c < Cout) ? da[p * Cout + co0 + c] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      const bf16* a_lo = as + (16 * mt + g) * KS + kk + 2 * t4;
-      const bf16* a_hi = a_lo + 8 * KS;
-      const uint32_t a0 = ld2(a_lo), a1 = ld2(a_hi), a2 = ld2(a_lo + 8), a3 = ld2(a_hi + 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* bp = bs + (32 * ng + 8 * j + g) * KS + kk + 2 * t4;
-        mma_bf16(acc[j], a0, a1, a2, a3, ld2(bp), ld2(bp + 8));
-      }
-    }
-  }
-  float* out = part + ((long long)z * 9 + tap) * Cin * Cout;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ci = ci0 + 16 * mt + g + 8 * (e >> 1);
-      const int co = co0 + 32 * ng + 8 * j + 2 * t4 + (e & 1);
-      if (ci < Cin && co < Cout) out[(long long)ci * Cout + co] = acc[j][e];
-    }
-}
-
 __global__ void __launch_bounds__(NT) wgrad_fma_kernel(const float* __restrict__ a_in,
                                                       const float* __restrict__ da,
                                                       float* __restrict__ part, long long P,
@@ -293,55 +209,442 @@ __global__ void __launch_bounds__(NT) wgrad_fma_kernel(const float* __restrict__
     }
 }
 
-template <typename T, bool MIRROR>
-cudaError_t conv(const T* in, const T* w, const float* bias, float* out, long long P, int H, int W,
-                 int K, int N, cudaStream_t stream) {
+// ---------------------------------------------------------------- bf16
+constexpr int GT = 256;                 // threads: two warpgroups
+constexpr int GM = 128;                 // GEMM rows per block (64 per warpgroup)
+constexpr int GN = 128;                 // GEMM columns per block
+constexpr int GK = 64;                  // reduction step: 64 bf16 = one 128-byte row
+constexpr int STAGES = 5;               // ring depth
+constexpr int TILE = GM * GK * 2;       // bytes of one operand's tile in a stage (GN == GM)
+constexpr int ATOM = 64 * 128;          // bytes of 64 rows of 128 bytes
+constexpr int SMEM = 2 * STAGES * TILE + 8 * STAGES + 1024;  // A, B, barriers, alignment
+static_assert(GN == GM && GM == 2 * 64 && GK == 64, "tiles as the copies and wgmmas assume");
+static_assert(SMEM <= 232448, "the ring must fit a block's shared memory");
+
+// The ring in dynamic shared memory, 1024-byte aligned for the swizzle
+// atoms: A tiles of every stage, then B tiles, then one mbarrier a stage.
+struct Ring {
+  uint32_t a, b, bar;
+  __device__ __forceinline__ explicit Ring(const void* raw) {
+    a = (smem_addr(raw) + 1023u) & ~1023u;
+    b = a + STAGES * TILE;
+    bar = b + STAGES * TILE;
+  }
+};
+
+// Runs `steps` reduction steps through the ring into acc (zeros when there
+// are none). ld.issue(j) starts the copies of step j into stage j % STAGES
+// (A by cp.async, B by TMA on the stage's mbarrier, TILE bytes) and commits
+// a cp.async group, an empty one past the last step; mma(s, acc, first)
+// issues stage s's four k16 products, the first of step 0 overwriting acc
+// (no instruction but a wgmma defines the accumulators in the loop). Per
+// step i: wait for this thread's copies and the stage's TMA bytes, fence,
+// barrier, refill the stage step i - 2 has left, multiply, and wait until
+// only this step's products are in flight.
+template <class Loader, class Mma>
+__device__ __forceinline__ void run_ring(const Ring& ring, int steps, float (&acc)[64],
+                                         Loader& ld, const Mma& mma) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(ring.bar + 8 * s, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < STAGES - 2; ++j) ld.issue(j);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<STAGES - 3>();
+    mbar_wait(ring.bar + 8 * s, phase);
+    fence_proxy_async();
+    __syncthreads();
+    ld.issue(i + STAGES - 2);
+    fence_regs(acc);
+    wgmma_fence();
+    mma(s, acc, i == 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (steps == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  }
+}
+
+// Stage s's mbarrier: armed by thread 0 for TILE bytes of TMA boxes.
+__device__ __forceinline__ uint32_t stage_bar(const Ring& ring, int s) { return ring.bar + 8 * s; }
+
+// The forward / din loader: A = the tap-shifted pixel rows of `in`
+// (K-major, GM rows of 64 channels), B = the tap's weights by TMA.
+template <bool MIRROR>
+struct ConvLoader {
+  const Ring& ring;
+  const CUtensorMap* wmap;
+  const bf16* in;
+  int H, W, K, p0, n0, steps, nk;
+  int c, r0;           // this thread's 16-byte chunk and first row
+  uint32_t a_off;      // its swizzled offset in the A tile
+  int ry[4], rx[4];    // (y, x) of rows r0 + 32 i; y = -2 (off every tap) past the last pixel
+  int tap = 0, kc = 0; // the next step to issue
+
+  __device__ __forceinline__ ConvLoader(const Ring& ring_, const CUtensorMap* wmap_,
+                                        const bf16* in_, int P, int H_, int W_, int K_, int p0_,
+                                        int n0_)
+      : ring(ring_), wmap(wmap_), in(in_), H(H_), W(W_), K(K_), p0(p0_), n0(n0_) {
+    nk = (K + GK - 1) / GK;
+    steps = 9 * nk;
+    c = threadIdx.x & 7;
+    r0 = threadIdx.x >> 3;
+    a_off = sw128(r0, c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // once per block, 32-bit
+      const int p = p0 + r0 + 32 * i;
+      rx[i] = p < P ? p % W : 0;
+      ry[i] = p < P ? (p / W) % H : -2;
+    }
+  }
+
+  __device__ __forceinline__ void issue(int j) {
+    if (j < steps) {
+      const int s = j % STAGES, dy = tap / 3 - 1, dx = tap % 3 - 1, k0 = kc * GK;
+      const bool k_ok = k0 + 8 * c < K;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = ry[i] + dy, x = rx[i] + dx;
+        const bool ok = k_ok && y >= 0 && y < H && x >= 0 && x < W;
+        const bf16* src =
+            ok ? in + (long long)(p0 + r0 + 32 * i + dy * W + dx) * K + k0 + 8 * c : in;
+        cp_async16(ring.a + s * TILE + a_off + i * 32 * 128, src, ok);
+      }
+      if (threadIdx.x == 0) {
+        const uint32_t bar = stage_bar(ring, s), dst = ring.b + s * TILE;
+        mbar_expect_tx(bar, TILE);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (MIRROR)  // w[8 - tap] rows n (Cin) of 64 k (Cout)
+            tma_load_3d(dst + h * ATOM, wmap, bar, k0, n0 + 64 * h, 8 - tap);
+          else  // w[tap] rows k (Cin) of 64 n (Cout)
+            tma_load_3d(dst + h * ATOM, wmap, bar, n0 + 64 * h, k0, tap);
+        }
+      }
+      if (++kc == nk) {
+        kc = 0;
+        ++tap;
+      }
+    }
+    cp_async_commit();
+  }
+};
+
+template <bool MIRROR>
+struct ConvMma {
+  const Ring& ring;
+  int wg;
+  __device__ __forceinline__ void operator()(int s, float (&acc)[64], bool first) const {
+    const uint32_t a = ring.a + s * TILE + wg * ATOM, b = ring.b + s * TILE;
+#pragma unroll
+    for (int k = 0; k < GK / 16; ++k) {
+      const uint64_t da = wgmma_desc(a + 32 * k, 16, 1024);  // pixel rows: K-major
+      if (MIRROR)  // Cin rows of 64 Cout values: K-major
+        wgmma_m64n128k16<0, 0>(acc, da, wgmma_desc(b + 32 * k, 16, 1024), k > 0 || !first);
+      else  // Cin rows of 64 Cout values: N-contiguous, MN-major, two atoms
+        wgmma_m64n128k16<0, 1>(acc, da, wgmma_desc(b + 2048 * k, ATOM, 1024), k > 0 || !first);
+    }
+  }
+};
+
+// Stores a warpgroup's 64 x 128 float32 tile: rows row0 + (16 w + g + 8 h)
+// (below `rows`) and columns col0 + 8 j + 2 t (+1) (below `cols`, a multiple
+// of 8, so a pair is in or out together), + bias[col] when given.
+__device__ __forceinline__ void store_tile(const float (&acc)[64], float* __restrict__ out,
+                                           const float* __restrict__ bias, int row0, int rows,
+                                           int col0, int cols) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = col0 + 8 * j + 2 * t;
+    if (n < cols) {
+      const float b0 = bias != nullptr ? bias[n] : 0.f, b1 = bias != nullptr ? bias[n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * warp + g + 8 * h;
+        if (r < rows)
+          *reinterpret_cast<float2*>(out + (long long)r * cols + n) =
+              make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+      }
+    }
+  }
+}
+
+// The block's tile of out at rows p0.., columns n0..: out[p][n] (+ bias[n])
+// = sum over taps t and k of in[p shifted by t][k] B_t[k][n], B_t = w[t]
+// (forward: K = Cin, N = Cout) or w[8 - t] transposed (MIRROR, din: K =
+// Cout, N = Cin); `wmap` is the 3-D map of w (Cout, Cin, 9). K and N are
+// multiples of 8.
+template <bool MIRROR>
+__device__ __forceinline__ void conv_tile(const Ring& ring, const CUtensorMap* wmap,
+                                          const bf16* __restrict__ in,
+                                          const float* __restrict__ bias,
+                                          float* __restrict__ out, int P, int H, int W, int K,
+                                          int N, int p0, int n0) {
+  ConvLoader<MIRROR> ld(ring, wmap, in, P, H, W, K, p0, n0);
+  const ConvMma<MIRROR> mma{ring, (int)(threadIdx.x >> 7)};
+  float acc[64];
+  run_ring(ring, ld.steps, acc, ld, mma);
+  store_tile(acc, out, bias, p0 + 64 * mma.wg, P, n0, N);
+}
+
+// Kernel 10. Grid: (ceil(P / GM), ceil(N / GN)).
+__global__ void __launch_bounds__(GT, 1)
+    conv_wgmma_kernel(__grid_constant__ const CUtensorMap wmap, const bf16* __restrict__ in,
+                      const float* __restrict__ bias, float* __restrict__ out, int P, int H,
+                      int W, int K, int N) {
+  extern __shared__ uint8_t smem[];
+  const Ring ring(smem);
+  conv_tile<false>(ring, &wmap, in, bias, out, P, H, W, K, N, blockIdx.x * GM, blockIdx.y * GN);
+}
+
+// The dW loader of one tap and one split of the pixels: A = the
+// tap-shifted a_in rows of 64 pixels, two 64-channel atoms (MN-major, Cin
+// contiguous), B = the da rows by TMA (MN-major, Cout contiguous).
+struct WgradLoader {
+  const Ring& ring;
+  const CUtensorMap* damap;
+  const bf16* a_in;
+  int H, W, Cin, ci0, co0, dy, dx, begin, end, steps;
+  int c, r0;          // this thread's 16-byte chunk of its atom, first row
+  uint32_t a_off;     // its swizzled offset in the A tile
+  bool c_ok;          // its channels are below Cin
+  int ry[4], rx[4];   // (y, x) of pixels q + r0 + 16 i of the next step q
+  int sx, sy;         // GK pixels as a step in (y, x)
+  int q;              // first pixel of the next step
+
+  __device__ __forceinline__ WgradLoader(const Ring& ring_, const CUtensorMap* damap_,
+                                         const bf16* a_in_, int P, int H_, int W_, int Cin_,
+                                         int per, int ci0_, int co0_, int z, int tap)
+      : ring(ring_), damap(damap_), a_in(a_in_), H(H_), W(W_), Cin(Cin_), ci0(ci0_),
+        co0(co0_) {
+    dy = tap / 3 - 1;
+    dx = tap % 3 - 1;
+    begin = z * per * GK;
+    end = min(P, begin + per * GK);
+    steps = end > begin ? (end - begin + GK - 1) / GK : 0;
+    const int cc = threadIdx.x & 15;  // atom cc / 8, chunk cc % 8
+    c = cc & 7;
+    r0 = threadIdx.x >> 4;
+    a_off = (cc >> 3) * ATOM + sw128(r0, c);
+    c_ok = ci0 + 8 * cc < Cin;
+    q = begin;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // once per block, 32-bit
+      const int p = begin + r0 + 16 * i;
+      rx[i] = p % W;
+      ry[i] = (p / W) % H;
+    }
+    sx = GK % W;
+    sy = (GK / W) % H;
+  }
+
+  __device__ __forceinline__ void issue(int j) {
+    if (j < steps) {
+      const int s = j % STAGES;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = q + r0 + 16 * i, y = ry[i] + dy, x = rx[i] + dx;
+        const bool ok = c_ok && p < end && y >= 0 && y < H && x >= 0 && x < W;
+        const bf16* src =
+            ok ? a_in + (long long)(p + dy * W + dx) * Cin + ci0 + 8 * (threadIdx.x & 15)
+               : a_in;
+        cp_async16(ring.a + s * TILE + a_off + i * 16 * 128, src, ok);
+        rx[i] += sx;  // the same row of the next step: GK pixels on, no division
+        ry[i] += sy;
+        if (rx[i] >= W) {
+          rx[i] -= W;
+          ++ry[i];
+        }
+        if (ry[i] >= H) ry[i] -= H;
+      }
+      if (threadIdx.x == 0) {
+        const uint32_t bar = stage_bar(ring, s), dst = ring.b + s * TILE;
+        mbar_expect_tx(bar, TILE);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) tma_load_2d(dst + h * ATOM, damap, bar, co0 + 64 * h, q);
+      }
+      q += GK;
+    }
+    cp_async_commit();
+  }
+};
+
+struct WgradMma {
+  const Ring& ring;
+  int wg;
+  __device__ __forceinline__ void operator()(int s, float (&acc)[64], bool first) const {
+    const uint32_t a = ring.a + s * TILE + wg * ATOM, b = ring.b + s * TILE;
+#pragma unroll
+    for (int k = 0; k < GK / 16; ++k)  // both pixel rows of channels: MN-major
+      wgmma_m64n128k16<1, 1>(acc, wgmma_desc(a + 2048 * k, ATOM, 1024),
+                             wgmma_desc(b + 2048 * k, ATOM, 1024), k > 0 || !first);
+  }
+};
+
+// The block's tile of part[z][tap] at rows ci0.., columns co0..:
+// part[z][tap][ci][co] = sum over the pixels p of split z (`per` steps of
+// GK pixels) of a_in[p shifted by tap][ci] da[p][co]; `damap` is the 2-D map
+// of da (Cout, P).
+__device__ __forceinline__ void wgrad_tile(const Ring& ring, const CUtensorMap* damap,
+                                           const bf16* __restrict__ a_in,
+                                           float* __restrict__ part, int P, int H, int W,
+                                           int Cin, int Cout, int per, int ci0, int co0, int z,
+                                           int tap) {
+  WgradLoader ld(ring, damap, a_in, P, H, W, Cin, per, ci0, co0, z, tap);
+  const WgradMma mma{ring, (int)(threadIdx.x >> 7)};
+  float acc[64];
+  run_ring(ring, ld.steps, acc, ld, mma);
+  store_tile(acc, part + (long long)(9 * z + tap) * Cin * Cout, nullptr, ci0 + 64 * mma.wg,
+             Cin, co0, Cout);
+}
+
+// Kernel 11: din and dW in one launch, so that the two products' blocks
+// share the SMs (one launch each leaves most SMs idle in dW's last wave).
+// Blocks [0, din_rows * din_cols): din = the mirrored conv of da, tile
+// (b / din_cols, b % din_cols), first since they are the longer (9 x Cout /
+// GK steps); then dW's tiles, Cin tiles fastest, then Cout tiles, then the
+// 9 x splits (split, tap) pairs. din_cols = ceil(Cin / GN), wgrad_ci =
+// ceil(Cin / GM), wgrad_co = ceil(Cout / GN).
+__global__ void __launch_bounds__(GT, 1)
+    bwd_wgmma_kernel(__grid_constant__ const CUtensorMap wmap,
+                     __grid_constant__ const CUtensorMap damap, const bf16* __restrict__ da,
+                     const bf16* __restrict__ a_in, float* __restrict__ din,
+                     float* __restrict__ part, int P, int H, int W, int Cin, int Cout, int per,
+                     int din_blocks, int din_cols, int wgrad_ci, int wgrad_co) {
+  extern __shared__ uint8_t smem[];
+  const Ring ring(smem);
+  const int b = blockIdx.x;  // 32-bit, once per block
+  if (b < din_blocks) {
+    conv_tile<true>(ring, &wmap, da, nullptr, din, P, H, W, Cout, Cin, b / din_cols * GM,
+                    b % din_cols * GN);
+  } else {
+    const int w = b - din_blocks, tiles = wgrad_ci * wgrad_co, zt = w / tiles, t = w % tiles;
+    wgrad_tile(ring, &damap, a_in, part, P, H, W, Cin, Cout, per, t % wgrad_ci * GM,
+               t / wgrad_ci * GN, zt / 9, zt % 9);
+  }
+}
+
+// ---------------------------------------------------------------- launches
+template <bool MIRROR>
+cudaError_t conv_f32(const float* in, const float* w, const float* bias, float* out, long long P,
+                     int H, int W, int K, int N, cudaStream_t stream) {
   const dim3 grid((unsigned)((P + BM - 1) / BM), (N + BN - 1) / BN);
-  if constexpr (std::is_same<T, bf16>::value)
-    conv_mma_kernel<MIRROR><<<grid, NT, 0, stream>>>(in, w, bias, out, P, H, W, K, N);
-  else
-    conv_fma_kernel<MIRROR><<<grid, NT, 0, stream>>>(in, w, bias, out, P, H, W, K, N);
+  conv_fma_kernel<MIRROR><<<grid, NT, 0, stream>>>(in, w, bias, out, P, H, W, K, N);
   return cudaGetLastError();
 }
 
-template <typename T>
-int bwd(const T* da, const T* a_in, const T* w, float* din, float* part, float* dw, long long P,
-        int H, int W, int Cin, int Cout, int splits, cudaStream_t stream) {
-  cudaError_t err = conv<T, true>(da, w, nullptr, din, P, H, W, Cout, Cin, stream);
+int bwd_f32(const float* da, const float* a_in, const float* w, float* din, float* part,
+            float* dw, long long P, int H, int W, int Cin, int Cout, int splits,
+            cudaStream_t stream) {
+  cudaError_t err = conv_f32<true>(da, w, nullptr, din, P, H, W, Cout, Cin, stream);
   if (err != cudaSuccess) return (int)err;
   const long long slices = (P + BK - 1) / BK;
   const int per = (int)((slices + splits - 1) / splits);
   const dim3 grid((Cin + BM - 1) / BM, (Cout + BN - 1) / BN, 9 * splits);
-  if constexpr (std::is_same<T, bf16>::value)
-    wgrad_mma_kernel<<<grid, NT, 0, stream>>>(a_in, da, part, P, H, W, Cin, Cout, per);
-  else
-    wgrad_fma_kernel<<<grid, NT, 0, stream>>>(a_in, da, part, P, H, W, Cin, Cout, per);
+  wgrad_fma_kernel<<<grid, NT, 0, stream>>>(a_in, da, part, P, H, W, Cin, Cout, per);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)sum_parts(part, splits, 9LL * Cin * Cout, dw, stream);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// What the bf16 kernels take: 16-byte rows (channel counts multiples of 8),
+// 16-byte-aligned operands, pixel indices in 32 bits.
+bool bf16_shapes_ok(long long P, int Cin, int Cout, const void* act, const void* w) {
+  return Cin % 8 == 0 && Cout % 8 == 0 && Cin > 0 && Cout > 0 && P < (1LL << 31) - GM &&
+         aligned16(act) && aligned16(w);
+}
+
+// The 3-D map of w (9, Cin, Cout): dims (Cout, Cin, 9), innermost first.
+int weight_map(CUtensorMap* map, const void* w, int Cin, int Cout) {
+  const cuuint64_t dims[3] = {(cuuint64_t)Cout, (cuuint64_t)Cin, 9};
+  const cuuint64_t strides[2] = {(cuuint64_t)Cout * 2, (cuuint64_t)Cin * Cout * 2};
+  return bf16_tensor_map(map, w, 3, dims, strides);
+}
+
+cudaError_t fwd_bf16(const CUtensorMap& wmap, const bf16* x, const float* bias, float* out, int P,
+                     int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P + GM - 1) / GM, (Cout + GN - 1) / GN);
+  conv_wgmma_kernel<<<grid, GT, SMEM, stream>>>(wmap, x, bias, out, P, H, W, Cin, Cout);
+  return cudaGetLastError();
+}
+
+int bwd_bf16(const bf16* da, const bf16* a_in, const bf16* w, float* din, float* part, float* dw,
+             int P, int H, int W, int Cin, int Cout, int splits, cudaStream_t stream) {
+  CUtensorMap wmap, damap;
+  int code = weight_map(&wmap, w, Cin, Cout);
+  if (code != 0) return code;
+  const cuuint64_t dims[2] = {(cuuint64_t)Cout, (cuuint64_t)P}, strides[1] = {(cuuint64_t)Cout * 2};
+  if ((code = bf16_tensor_map(&damap, da, 2, dims, strides)) != 0) return code;
+  const int steps = (P + GK - 1) / GK, per = (steps + splits - 1) / splits;
+  const int din_cols = (Cin + GN - 1) / GN, din_blocks = (P + GM - 1) / GM * din_cols;
+  const int wgrad_ci = (Cin + GM - 1) / GM, wgrad_co = (Cout + GN - 1) / GN;
+  cudaError_t err = cudaFuncSetAttribute(bwd_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = din_blocks + wgrad_ci * wgrad_co * 9 * splits;
+  bwd_wgmma_kernel<<<blocks, GT, SMEM, stream>>>(wmap, damap, da, a_in, din,
+                                                 splits == 1 ? dw : part, P, H, W, Cin, Cout,
+                                                 per, din_blocks, din_cols, wgrad_ci, wgrad_co);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return (int)err;
   return (int)sum_parts(part, splits, 9LL * Cin * Cout, dw, stream);
 }
 
 }  // namespace
 
 // x (F, H, W, Cin) and w (9, Cin, Cout) in the dtype; bias (Cout) float32 or
-// null; out (F, H, W, Cout) float32.
+// null; out (F, H, W, Cout) float32. bf16: Cin and Cout multiples of 8, x and
+// w 16-byte aligned.
 extern "C" int conv33_fwd(int dtype, const void* x, const void* w, const float* bias, float* out,
                           int F, int H, int W, int Cin, int Cout, void* stream) {
   const long long P = (long long)F * H * W;
   if (P == 0) return 0;
-  DISPATCH_DTYPE(dtype, return (int)conv<T, false>((const T*)x, (const T*)w, bias, out, P, H, W,
-                                                   Cin, Cout, (cudaStream_t)stream));
-  return 0;
+  if (dtype == 0)
+    return (int)conv_f32<false>((const float*)x, (const float*)w, bias, out, P, H, W, Cin, Cout,
+                                (cudaStream_t)stream);
+  if (dtype != 1 || !bf16_shapes_ok(P, Cin, Cout, x, w)) return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  const int code = weight_map(&wmap, w, Cin, Cout);
+  if (code != 0) return code;
+  return (int)fwd_bf16(wmap, (const bf16*)x, bias, out, (int)P, H, W, Cin, Cout,
+                       (cudaStream_t)stream);
 }
 
 // da (F, H, W, Cout), a_in (F, H, W, Cin) and w (9, Cin, Cout) in the dtype;
 // din (F, H, W, Cin) and dw (9, Cin, Cout) float32; part: splits * 9 * Cin *
-// Cout floats of scratch, one partial dW per split.
+// Cout floats of scratch, one partial dW per split (bf16 with one split:
+// unused, may be null). bf16: Cin and Cout multiples of 8, da, a_in and w
+// 16-byte aligned.
 extern "C" int conv33_bwd(int dtype, const void* da, const void* a_in, const void* w, float* din,
                           float* part, float* dw, int F, int H, int W, int Cin, int Cout,
                           int splits, void* stream) {
   const long long P = (long long)F * H * W;
   if (P == 0 || splits < 1) return P == 0 ? 0 : (int)cudaErrorInvalidValue;
-  DISPATCH_DTYPE(dtype, return bwd<T>((const T*)da, (const T*)a_in, (const T*)w, din, part, dw, P,
-                                      H, W, Cin, Cout, splits, (cudaStream_t)stream));
-  return 0;
+  if (dtype == 0)
+    return bwd_f32((const float*)da, (const float*)a_in, (const float*)w, din, part, dw, P, H, W,
+                   Cin, Cout, splits, (cudaStream_t)stream);
+  if (dtype != 1 || !bf16_shapes_ok(P, Cin, Cout, da, w) || !aligned16(a_in) ||
+      (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return bwd_bf16((const bf16*)da, (const bf16*)a_in, (const bf16*)w, din, part, dw, (int)P, H, W,
+                  Cin, Cout, splits, (cudaStream_t)stream);
 }

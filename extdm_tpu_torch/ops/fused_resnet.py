@@ -38,13 +38,20 @@ and takes each conv's gradients with ``conv33_bwd`` (kernel 11, replacing
 ``pallas_resnet._conv33_bwd``); the GroupNorm, FiLM and SiLU chains and the
 per-channel sums around them stay plain torch, as they stay XLA in JAX.
 Kernels 10 and 11 (``csrc/conv33.cu``) are implicit GEMMs over the 9 taps,
-bound by operations; their plain versions are ``conv33_plain`` and
-``conv33_bwd_plain``. On the CPU the decomposed backward runs the plain
+bound by operations; in bf16 they run on ``wgmma`` fed by a ring of
+shared-memory stages (cp.async for the tap-shifted pixel rows, TMA for the
+weights). ``conv33_plan`` (a plain, tested function) gives their grids,
+dW's pixel splits and the channel padding: counts that are not multiples of
+8 are zero-padded by the wrapper (``conv33_fwd_operands`` /
+``conv33_bwd_operands``), which passes operands that are already as the
+kernels read them without a copy. Their plain versions are ``conv33_plain``
+and ``conv33_bwd_plain``. On the CPU the decomposed backward runs the plain
 convs.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +62,7 @@ from extdm_tpu_torch.ops.fused_stw import _needs_grad, _sm_count, plain_vjp
 __all__ = ["fused_resnet_block", "resnet_block_plain", "resnet_block_bwd",
            "resnet_block_plain_vjp", "resnet_bwd_route",
            "resnet_block_bwd_decomposed", "conv33_fwd", "conv33_plain", "conv33_bwd",
-           "conv33_bwd_plain"]
+           "conv33_bwd_plain", "conv33_plan", "ConvPlan"]
 
 BWD_MAX_COUT = 256  # kernel 7 keeps (sum du, sum du yhat) per channel in shared memory
 MAX_GROUPS = 32
@@ -292,6 +299,99 @@ def _check_conv(what, a, w, *others):
         raise ValueError(f"{what}: w has shape {tuple(w.shape)}, expected (9, {a.shape[-1]}, Cout)")
 
 
+# The bf16 kernels' tiles and ring (csrc/conv33.cu GM, GN, GK, STAGES): a
+# block owns a CONV_TILE x CONV_TILE float32 tile; the reduction steps by
+# CONV_STEP bf16 values (one 128-byte swizzle row) through CONV_STAGES stages
+# of shared memory, one A and one B tile each, and an 8-byte mbarrier.
+CONV_TILE = 128
+CONV_STEP = 64
+CONV_STAGES = 5
+CONV_SMEM = 2 * CONV_STAGES * CONV_TILE * CONV_STEP * 2 + 8 * CONV_STAGES + 1024
+CONV_CHANNEL_ALIGN = 8  # 16-byte rows: what cp.async and TMA copy
+SMEM_PER_BLOCK = 232448  # the H100's most dynamic shared memory a block may take
+# The dW split's cost model (conv33_plan): a block's reduction step on an SM
+# of its own (128 x 128 x 64 products, ~0.3 us at the bf16 peak) against
+# HBM bytes of the partials that a split adds.
+STEP_US = 0.4
+HBM_BYTES_PER_US = 3.35e6
+
+
+class ConvPlan(NamedTuple):
+    """How the bf16 kernels 10 and 11 run one conv (``conv33_plan``)."""
+    cin: int                 # channel counts the kernels see: zero-padded up to a
+    cout: int                #   multiple of CONV_CHANNEL_ALIGN
+    fwd_grid: tuple          # kernel 10's blocks: (pixel tiles, Cout tiles)
+    din_grid: tuple          # kernel 11's input gradient: (pixel tiles, Cin tiles)
+    wgrad_grid: tuple        # its dW: (Cin tiles, Cout tiles, 9 taps x splits)
+    splits: int              # dW: the pixels in `splits` ranges of `per` steps of
+    per: int                 #   CONV_STEP pixels, in order; the last may be short
+    smem: int                # dynamic shared memory of a block, bytes
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=512)
+def conv33_plan(pixels: int, cin: int, cout: int, sms: int) -> ConvPlan:
+    """The plan of the bf16 kernels for a conv over `pixels` pixels, cin ->
+    cout channels, on a card of `sms` SMs. Channels that are not a multiple of
+    CONV_CHANNEL_ALIGN are padded with zeros (the wrapper pads, the kernels
+    compute on the zeros, the wrapper slices). dW's pixel splits minimise
+    waves of blocks x steps per block plus the partials' bytes: one split
+    when the 9 x tiles blocks fill the card, more when a few tiles must fill
+    it (KTH's 64-channel levels: 9 tiles over 245,760 pixels)."""
+    cin_p, cout_p = (_ceil(c, CONV_CHANNEL_ALIGN) * CONV_CHANNEL_ALIGN for c in (cin, cout))
+    rows = _ceil(pixels, CONV_TILE)
+    tiles = 9 * _ceil(cin_p, CONV_TILE) * _ceil(cout_p, CONV_TILE)
+    steps = max(1, _ceil(pixels, CONV_STEP))
+    best = None
+    for want in range(1, min(steps, _ceil(4 * sms, tiles)) + 1):
+        per = _ceil(steps, want)
+        splits = _ceil(steps, per)  # no empty split
+        partial_bytes = (2 * splits + 1) * tiles * CONV_TILE * CONV_TILE * 4 if splits > 1 else 0
+        cost = _ceil(tiles * splits, sms) * per * STEP_US + partial_bytes / HBM_BYTES_PER_US
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    _, splits, per = best
+    return ConvPlan(cin_p, cout_p, (rows, _ceil(cout_p, CONV_TILE)), (rows, _ceil(cin_p, CONV_TILE)),
+                    (_ceil(cin_p, CONV_TILE), _ceil(cout_p, CONV_TILE), 9 * splits), splits, per,
+                    CONV_SMEM)
+
+
+def _padded(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """t with its trailing dims zero-padded up to `sizes`, contiguous and
+    16-byte aligned (t itself when it already is)."""
+    pads = []
+    for have, want in zip(reversed(t.shape), reversed(sizes)):
+        pads += [0, want - have]
+    if any(pads):
+        t = F.pad(t, pads)
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def conv33_fwd_operands(x, w, b, plan: ConvPlan):
+    """x (pixels, plan.cin) and w (9, plan.cin, plan.cout) in x.dtype, b
+    float32 (plan.cout) or None: the operands of the bf16 kernel 10, channels
+    zero-padded."""
+    x2 = _padded(x.detach().reshape(-1, x.shape[-1]), plan.cin)
+    wp = _padded(w.detach().to(x.dtype), plan.cin, plan.cout)
+    bp = None if b is None else _padded(b.detach().float(), plan.cout)
+    return x2, wp, bp
+
+
+def conv33_bwd_operands(da, a_in, w, plan: ConvPlan):
+    """da (pixels, plan.cout), a_in (pixels, plan.cin) and w (9, plan.cin,
+    plan.cout), all in a_in.dtype: the operands of the bf16 kernel 11,
+    channels zero-padded."""
+    dt = a_in.dtype
+    dap = _padded(da.detach().to(dt).reshape(-1, da.shape[-1]), plan.cout)
+    ap = _padded(a_in.detach().reshape(-1, a_in.shape[-1]), plan.cin)
+    wp = _padded(w.detach().to(dt), plan.cin, plan.cout)
+    return dap, ap, wp
+
+
 def conv33_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     """Kernel 10; same arguments and result as ``conv33_plain``."""
     if x.device.type == "cpu":
@@ -301,15 +401,21 @@ def conv33_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> t
     Cout = w.shape[-1]
     if b is not None and tuple(b.shape) != (Cout,):
         raise ValueError(f"conv33_fwd: b has shape {tuple(b.shape)}, expected ({Cout},)")
-    xc = x.detach().contiguous()
-    wc = w.detach().to(x.dtype).contiguous()
-    bc = None if b is None else b.detach().float().contiguous()
-    out = torch.empty((B, T, H, W, Cout), dtype=torch.float32, device=x.device)
+    code, dev = _build.dtype_code(x.dtype), x.device
+    if x.dtype == torch.bfloat16:
+        plan = conv33_plan(B * T * H * W, Cin, Cout, _sm_count(dev))
+        xc, wc, bc = conv33_fwd_operands(x, w, b, plan)
+        Cin, Cout = plan.cin, plan.cout
+    else:
+        xc = x.detach().contiguous()
+        wc = w.detach().to(x.dtype).contiguous()
+        bc = None if b is None else b.detach().float().contiguous()
+    out = torch.empty((B, T, H, W, Cout), dtype=torch.float32, device=dev)
     P = _build.ptr
-    _build.launch("conv33", "conv33_fwd", _build.dtype_code(x.dtype), P(xc), P(wc), P(bc), P(out),
-                  B * T, H, W, Cin, Cout, _build.stream(x))
+    _build.launch("conv33", "conv33_fwd", code, P(xc), P(wc), P(bc), P(out), B * T, H, W, Cin,
+                  Cout, _build.stream(x))
     conv33_fwd.launches += 1
-    return out
+    return out if Cout == w.shape[-1] else out[..., :w.shape[-1]].contiguous()
 
 
 conv33_fwd.launches = 0
@@ -328,7 +434,7 @@ def conv33_bwd_plain(da: torch.Tensor, a_in: torch.Tensor, w: torch.Tensor):
 
 
 def _conv_splits(pixels: int, cin: int, cout: int, device) -> int:
-    """Splits over pixels of the dW product, for ~4 blocks per SM."""
+    """Splits over pixels of the float32 dW product, for ~4 blocks per SM."""
     tiles = 9 * -(-cin // 64) * -(-cout // 64)
     return max(1, min(-(-pixels // 32), -(-4 * _sm_count(device) // tiles)))
 
@@ -343,18 +449,27 @@ def conv33_bwd(da: torch.Tensor, a_in: torch.Tensor, w: torch.Tensor):
     if tuple(da.shape) != (B, T, H, W, Cout):
         raise ValueError(f"conv33_bwd: da has shape {tuple(da.shape)}, expected "
                          f"{(B, T, H, W, Cout)}")
-    dac = da.detach().to(a_in.dtype).contiguous()
-    ac = a_in.detach().contiguous()
-    wc = w.detach().to(a_in.dtype).contiguous()
-    splits = _conv_splits(B * T * H * W, Cin, Cout, a_in.device)
     f32 = dict(dtype=torch.float32, device=a_in.device)
+    if a_in.dtype == torch.bfloat16:
+        plan = conv33_plan(B * T * H * W, Cin, Cout, _sm_count(a_in.device))
+        dac, ac, wc = conv33_bwd_operands(da, a_in, w, plan)
+        Cin, Cout, splits = plan.cin, plan.cout, plan.splits
+        part = None if splits == 1 else torch.empty(splits * 9 * Cin * Cout, **f32)
+    else:
+        dac = da.detach().to(a_in.dtype).contiguous()
+        ac = a_in.detach().contiguous()
+        wc = w.detach().to(a_in.dtype).contiguous()
+        splits = _conv_splits(B * T * H * W, Cin, Cout, a_in.device)
+        part = torch.empty(splits * 9 * Cin * Cout, **f32)
     din = torch.empty((B, T, H, W, Cin), **f32)
-    part = torch.empty(splits * 9 * Cin * Cout, **f32)
     dw = torch.empty((9, Cin, Cout), **f32)
     P = _build.ptr
     _build.launch("conv33", "conv33_bwd", _build.dtype_code(a_in.dtype), P(dac), P(ac), P(wc),
                   P(din), P(part), P(dw), B * T, H, W, Cin, Cout, splits, _build.stream(a_in))
     conv33_bwd.launches += 1
+    cin, cout = a_in.shape[-1], w.shape[-1]
+    if (Cin, Cout) != (cin, cout):
+        din, dw = din[..., :cin].contiguous(), dw[:, :cin, :cout].contiguous()
     return din, dw
 
 
@@ -398,7 +513,7 @@ def resnet_block_bwd_decomposed(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, 
     f32 = torch.float32
     dtype = x.dtype
     Cin, Cout = x.shape[-1], w1.shape[0]
-    w1c, w2c = taps(w1.detach()), taps(w2.detach())
+    w1c, w2c = taps(w1.detach()).to(dtype), taps(w2.detach()).to(dtype)  # cast once for both convs
     x = x.detach()
     vec = lambda t: t.detach().to(f32)  # noqa: E731
 

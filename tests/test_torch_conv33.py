@@ -136,3 +136,139 @@ def test_decomposed_bwd_matches_jax_chunked_and_plain_vjp(film, res):
 ])
 def test_resnet_bwd_route_table(cin, cout, groups, route):
     assert fused_resnet.resnet_bwd_route((8, 30, 4, 4, cin), cin, cout, groups) == route
+
+
+# ------------------------------------------------- the bf16 kernels' plan and operands
+SMS = 132  # an H100 SXM's SMs
+PLAN_SHAPES = [
+    (8 * 30 * 4 * 4, 512, 512),     # multi1248's deepest level and mid blocks
+    (8 * 30 * 4 * 4, 256, 512),     #   their first conv
+    (8 * 30 * 32 * 32, 64, 64),     # the KTH step's resnet blocks, 32^2 ... 4^2
+    (8 * 30 * 16 * 16, 64, 128),
+    (8 * 30 * 16 * 16, 128, 128),
+    (8 * 30 * 8 * 8, 128, 256),
+    (8 * 30 * 8 * 8, 256, 256),
+    (8 * 30 * 4 * 4, 256, 256),
+    (8 * 30 * 4 * 4, 512, 256),
+    (2 * 3 * 5 * 7, 12, 20),        # the test shapes: ragged channels and frames
+    (1 * 2 * 4 * 4, 40, 72),
+    (1 * 1 * 1 * 9, 8, 8),
+    (3 * 7 * 6 * 5, 64, 96),        # pixels not a multiple of the row tile
+]
+
+
+def _source_constants():
+    """GM, GN, GK and STAGES as csrc/conv33.cu declares them."""
+    import re
+    from extdm_tpu_torch import _build
+    text = (_build.CSRC / "conv33.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+            for name in ("GM", "GN", "GK", "STAGES")}
+
+
+@pytest.mark.parametrize("pixels,cin,cout", PLAN_SHAPES)
+def test_conv33_plan_covers_the_problem(pixels, cin, cout):
+    """Tiles cover M and N, the dW splits partition the pixels in order,
+    the ring fits a block's shared memory, channels are padded with zeros to
+    16-byte rows only where they need it, and dW's blocks fill the card: the
+    SM with the most steps has at most twice the steps of an even share (or
+    a few steps, where the partials would cost more than they save)."""
+    c = _source_constants()
+    fr = fused_resnet
+    assert (c["GM"], c["GN"], c["GK"], c["STAGES"]) == (fr.CONV_TILE, fr.CONV_TILE, fr.CONV_STEP,
+                                                        fr.CONV_STAGES)
+    plan = fr.conv33_plan(pixels, cin, cout, SMS)
+    for have, padded in ((cin, plan.cin), (cout, plan.cout)):
+        assert padded % fr.CONV_CHANNEL_ALIGN == 0 and have <= padded < have + 8
+        assert (padded == have) == (have % 8 == 0)
+    tile = fr.CONV_TILE
+    for (rows, cols), n in ((plan.fwd_grid, plan.cout), (plan.din_grid, plan.cin)):
+        assert (rows - 1) * tile < pixels <= rows * tile
+        assert (cols - 1) * tile < n <= cols * tile
+    ci, co, z = plan.wgrad_grid
+    assert (ci - 1) * tile < plan.cin <= ci * tile and (co - 1) * tile < plan.cout <= co * tile
+    assert z == 9 * plan.splits
+    step = plan.per * fr.CONV_STEP
+    ranges = [(s * step, min(pixels, (s + 1) * step)) for s in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == pixels
+    assert all(a < b for a, b in ranges) and all(r[1] == n[0] for r, n in zip(ranges, ranges[1:]))
+    assert plan.smem == (2 * c["STAGES"] * c["GM"] * c["GK"] * 2 + 8 * c["STAGES"] + 1024)
+    assert plan.smem <= fr.SMEM_PER_BLOCK
+    steps = -(-pixels // fr.CONV_STEP)
+    blocks = ci * co * z
+    assert (-(-blocks // SMS) * plan.per <= 2 * -(-ci * co * 9 * steps // SMS)
+            or plan.per <= 8)
+
+
+def test_conv33_plan_splits_the_few_tile_cases():
+    """KTH's 64-channel blocks (9 dW tiles over 245,760 pixels) split the
+    pixels to fill the card; multi1248's 144 tiles of 512 x 512 need none."""
+    kth = fused_resnet.conv33_plan(8 * 30 * 32 * 32, 64, 64, SMS)
+    assert kth.splits >= 14 and kth.splits * 9 <= 2 * SMS
+    assert fused_resnet.conv33_plan(8 * 30 * 4 * 4, 512, 512, SMS).splits == 1
+
+
+def _taps_of(x):
+    """(F, H, W, C) -> the 9 tap-shifted copies (ky, kx order), zeros off the frame."""
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    H, W = x.shape[1:3]
+    return [xp[:, ky:ky + H, kx:kx + W] for ky in range(3) for kx in range(3)]
+
+
+def test_conv33_prepared_operands_tap_sums_match_plain_and_jax():
+    """The operands the bf16 kernels read (channels zero-padded 12 -> 16 and
+    20 -> 24), summed tap by tap with einsum, give conv33_plain's and
+    conv33_bwd_plain's results and JAX's interpret-mode _conv33_fwd /
+    _conv33_bwd, to 1e-5 of each output's size."""
+    shape, cout = (2, 3, 5, 7, 12), 20
+    B, T, H, W, cin = shape
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=shape).astype(np.float32)
+    w = (rng.normal(size=(9, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+    b = rng.normal(size=cout).astype(np.float32)
+    da = rng.normal(size=shape[:-1] + (cout,)).astype(np.float32)
+    t = torch.from_numpy
+    plan = fused_resnet.conv33_plan(B * T * H * W, cin, cout, SMS)
+    assert (plan.cin, plan.cout) == (16, 24)
+
+    x2, wp, bp = fused_resnet.conv33_fwd_operands(t(x), t(w), t(b), plan)
+    assert tuple(x2.shape) == (B * T * H * W, 16) and tuple(wp.shape) == (9, 16, 24)
+    assert not x2[:, cin:].any() and not wp[:, cin:].any() and not wp[:, :, cout:].any()
+    xs = _taps_of(x2.reshape(B * T, H, W, 16))
+    out = sum(torch.einsum("fhwc,cn->fhwn", xs[k], wp[k]) for k in range(9)) + bp
+    assert not out[..., cout:].any()
+    out = out[..., :cout].reshape(B, T, H, W, cout)
+    rel_close(out, fused_resnet.conv33_plain(t(x), t(w), t(b)), 1e-5)
+    rel_close(out, pallas_resnet._conv33_fwd(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                             interpret=True), 1e-5)
+
+    dap, ap, wq = fused_resnet.conv33_bwd_operands(t(da), t(x), t(w), plan)
+    assert tuple(dap.shape) == (B * T * H * W, 24) and tuple(ap.shape) == (B * T * H * W, 16)
+    d4, a4 = dap.reshape(B * T, H, W, 24), ap.reshape(B * T, H, W, 16)
+    # din: da shifted back by each tap (the mirrored tap), times that tap's weights transposed
+    ds = _taps_of(d4)
+    din = sum(torch.einsum("fhwn,cn->fhwc", ds[8 - k], wq[k]) for k in range(9))
+    dw = torch.stack([torch.einsum("fhwc,fhwn->cn", s, d4) for s in _taps_of(a4)])
+    assert not din[..., cin:].any() and not dw[:, cin:].any() and not dw[:, :, cout:].any()
+    din, dw = din[..., :cin].reshape(shape), dw[:, :cin, :cout]
+    want_din, want_dw = fused_resnet.conv33_bwd_plain(t(da), t(x), t(w))
+    rel_close(din, want_din, 1e-5)
+    rel_close(dw, want_dw, 1e-5)
+    jdin, jdw = pallas_resnet._conv33_bwd(jnp.asarray(da), jnp.asarray(x), jnp.asarray(w),
+                                          interpret=True)
+    rel_close(din, jdin, 1e-5)
+    rel_close(dw, jdw, 1e-5)
+
+
+def test_conv33_operands_are_not_copied_when_already_as_the_kernel_reads_them():
+    """At channel counts that are multiples of 8 the prepared activations are
+    the caller's own storage: no copy, no cast."""
+    x = torch.randn(2, 3, 4, 4, 64).to(torch.bfloat16)
+    w = torch.randn(9, 64, 32).to(torch.bfloat16)
+    da = torch.randn(2, 3, 4, 4, 32).to(torch.bfloat16)
+    plan = fused_resnet.conv33_plan(96, 64, 32, SMS)
+    x2, wp, _ = fused_resnet.conv33_fwd_operands(x, w, None, plan)
+    assert x2.data_ptr() == x.data_ptr() and wp.data_ptr() == w.data_ptr()
+    dap, ap, wq = fused_resnet.conv33_bwd_operands(da, x, w, plan)
+    assert (dap.data_ptr(), ap.data_ptr(), wq.data_ptr()) == (da.data_ptr(), x.data_ptr(),
+                                                             w.data_ptr())
