@@ -13,7 +13,10 @@
    bf16 (the whole output, and for the UNet kernels also the part that the
    kernel's products compute) and at one small shape in float32, and times
    kernel, plain version and (grid sample only) the PyTorch library call
-   with CUDA events.
+   with CUDA events; kernel 1 also by its own device time (torch.profiler),
+   with its device TFLOP/s and share of the bound, and against its plain
+   version at STW_RAGGED (windows clamped to 16 and 32 tokens, 96, 192 and
+   320 channels).
 5. End to end: sets every launch counter to 0, serves 3 timed requests of
    batch 4 (each ends in torch.cuda.synchronize), checks the launch counts
    per request (180 STW / 91 temporal / 200 resnet / 5 grid-sample layers)
@@ -60,21 +63,25 @@
    within EVAL_PEAK_REL_TOL of the 4-trajectory run's.
 9. multi1248: the KTH sampling configuration with the multi1248/ada UNet
    (dim_mults (1,2,4,8): 512 channels at the deepest level and in the mid
-   blocks) in bf16. The layers over the whole-layer kernels' 256 channels
+   blocks) in bf16. The layers over the narrow kernels' 256 channels
    (``wide_layers``: 4 window layers, 1 temporal layer, 4 resnet blocks)
-   take their routes: the window and temporal layers unfused around kernel
-   12 (window attention), the resnet blocks' backward decomposed into
+   take their routes (``stw_route``): in sampling the window layers run
+   kernel 1 (its bf16 body takes 512 channels) and the temporal layer runs
+   unfused around kernel 12 (window attention); under autograd the window
+   layers run unfused too; the resnet blocks' backward is decomposed into
    kernels 10 and 11 (the conv and its gradients) and torch GroupNorm math.
    A recorded warm-up sampler call at batch 4; kernel 12 against its plain
    version at every recorded shape in bf16 and float32, timed beside its
    plain version and F.scaled_dot_product_attention (the wrapper call with
-   CUDA events, the kernel's own device time with torch.profiler); kernel 3
-   against its plain version at the blocks over 256 output channels and at
-   up level 0's 1024 input channels, timed; the unfused layers timed whole,
-   as plain layers, and split into kernel 12 and the torch ops around it;
-   3 timed sampler calls with every launch count and
-   the unfused routes checked (``expected_route_launches``), kernels 1, 2
-   never on a layer over 256 channels; the float32 UNet card vs CPU. Then
+   CUDA events, the kernel's own device time with torch.profiler); kernel 1
+   against its plain version at the 512-channel window layers, timed (call
+   and device); kernel 3 against its plain version at the blocks over 256
+   output channels and at up level 0's 1024 input channels, timed; the
+   unfused layers timed whole, as plain layers, and split into kernel 12
+   and the torch ops around it; 3 timed sampler calls with every launch
+   count and the unfused routes checked (``expected_route_launches``),
+   kernel 2 never on a layer over 256 channels, kernel 1 on none over 512;
+   the float32 UNet card vs CPU. Then
    the train step at batch 8 (remat, bf16 compute): a recorded warm-up
    step, kernel 7 against its plain backward at every block it takes there
    (bf16, batch 8: up level 0's 1024 input channels among them), kernels
@@ -84,7 +91,7 @@
    share of the bound), kernels 10 and 11 also at three ragged shapes
    (CONV_RAGGED) and kernel 11 twice on the same inputs (bitwise equal
    din and dW), the unfused layers' forward and backward
-   timed and split as above, kernels 5-7 never on a layer over 256
+   timed and split as above, kernels 1, 2 and 5-7 never on a layer over 256
    channels, 3 timed steps with launch and route counts, and the float32
    step card vs CPU.
 
@@ -244,8 +251,16 @@ def device_ms(fn, reps: int, symbols: set | None = None, attempts: int = 3) -> t
     is in neither. The profiler may drop an event: each op's time per call
     is its mean event time times its events per call, rounded. A session
     may also come back without the kernels' device records though they ran
-    (seen once on the card, late in a run): such a session is run again, up
-    to `attempts` times in all."""
+    (seen on the card, late in a run: three empty sessions in a row), with
+    device records of zero duration (seen the same way), or with a named
+    kernel's records not a whole number per call (1 of 10 seen, which read
+    as a tenth of its time; 9 of 10 is common). Such a session is run
+    again, up to `attempts` times in all. The last session in which each
+    named kernel (each op, when `symbols` is None) has a record of nonzero
+    duration for at least half the calls stands; when none has, the
+    reading is ``queued_ms``'s: every op fn() issues, the named kernels and
+    the rest together, as own, and 0.0 as other, and a line says so and
+    what the profiler recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,27 +268,90 @@ def device_ms(fn, reps: int, symbols: set | None = None, attempts: int = 3) -> t
     fn()
     torch.cuda.synchronize()
     pattern = re.compile(r"\b(" + "|".join(sorted(symbols)) + r")\b") if symbols else None
+    reading = None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, empty = {}, set()
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
+                if e.device_time <= 0:
+                    empty.add(e.name)
+                    continue
                 n, t = by_name.get(e.name, (0, 0.0))
                 by_name[e.name] = (n + 1, t + e.device_time)
         own = other = 0.0
+        whole = usable = True
         for name, (n, t) in by_name.items():
             per_call = t / n * round(n / reps) if 2 * n >= reps else t / reps
             if pattern is None or pattern.search(name):
                 own += per_call
+                whole = whole and (pattern is None or n % reps == 0)
+                usable = usable and 2 * n >= reps
             else:
                 other += per_call
-        if own > 0.0:
-            return own / 1e3, other / 1e3
-    raise AssertionError(f"device_ms: in {attempts} sessions the profiler saw no device time of "
-                         f"{sorted(symbols) if symbols else 'any op'}; it saw {sorted(by_name)}")
+        usable = usable and own > 0.0 and not any(
+            pattern is None or pattern.search(name) for name in empty)
+        if usable:
+            reading = (own / 1e3, other / 1e3)
+            if whole:
+                return reading
+    if reading is not None:
+        return reading
+    ms = queued_ms(fn, reps)
+    log({"device_ms": f"torch.profiler gave no usable reading in {attempts} sessions; read by "
+                      "CUDA events with the host queued ahead (queued_ms), all ops as own",
+         "symbols": sorted(symbols) if symbols else None, "ms": ms,
+         "last_session": {name: list(v) for name, v in sorted(by_name.items())},
+         "zero_duration": sorted(empty)})
+    return ms, 0.0
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def queued_ms(fn, reps: int, attempts: int = 3) -> float:
+    """Device time per fn() call by CUDA events, without the host's time
+    between launches: a spin kernel (torch.cuda._sleep) holds the stream
+    while the host issues `reps` calls, so the events span their device
+    work back to back. Every op fn() issues counts. fn() must not wait on
+    the card; a reading whose calls were not all issued before the spin
+    ended is taken again with a longer spin, up to `attempts` times."""
+    def timed(cycles: int) -> tuple:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        issued_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        return start.elapsed_time(end), issued_ms
+
+    if not _SLEEP_CYCLES_PER_MS:  # the spin's rate: cycles per ms of this card
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1 << 24)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append((1 << 24) / start.elapsed_time(end))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    spin_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
+    for _ in range(attempts):
+        ms, issued_ms = timed(int(_SLEEP_CYCLES_PER_MS[0] * spin_ms))
+        if issued_ms < spin_ms:
+            return ms / reps
+        spin_ms = 2.0 * issued_ms + 1.0
+    raise AssertionError(f"queued_ms: in {attempts} readings the host issued {reps} calls only "
+                         f"after the spin ended (last: {issued_ms:.3f} ms)")
 
 
 def check(name: str, got: torch.Tensor, want: torch.Tensor, rel: float,
@@ -381,7 +459,7 @@ def kernel_table():
             wrapper=fused_stw.fused_stw_layer, plain=stw_plain,
             sites=[(unet3d, "fused_stw_layer")], key=stw_key, cost=stw_cost,
             residual=stw_residual,
-            source="extdm_tpu_torch/csrc/attention.cu", replaces="extdm_tpu/ops/pallas_stw.py:599"),
+            source="extdm_tpu_torch/csrc/stw_layer.cu", replaces="extdm_tpu/ops/pallas_stw.py:599"),
         "temporal_layer": dict(
             wrapper=fused_stw.fused_temporal_layer, plain=fused_stw.temporal_layer_plain,
             sites=[(unet3d, "fused_temporal_layer")], key=temporal_key, cost=temporal_cost,
@@ -540,11 +618,47 @@ def f32_cases(dev):
     ]
 
 
+# Kernel 1 at window layers off the KTH sampler's: windows clamped by small
+# volumes (get_window_size: N = 16 and 32 tokens) and widths that are not a
+# multiple of 128 (its output's column rounds and 64-channel blocks ragged).
+STW_RAGGED = (((2, 10, 2, 2, 128), (2, 2, 2)), ((2, 9, 4, 2, 192), (2, 2, 2)),
+              ((1, 6, 8, 8, 320), (2, 2, 2)), ((3, 5, 8, 8, 96), (0, 0, 0)))
+
+
+def stw_ragged_phase(table, card, seed=13):
+    """Kernel 1 (bf16) against its plain version at STW_RAGGED, as the
+    UNet's PreNormSTW calls it (window clamped to the volume); timed."""
+    from extdm_tpu_torch.nn.attention import get_window_size
+
+    k = table["stw_layer"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    heads, dh = 8, 32
+    hid = heads * dh
+    for shape, shift0 in STW_RAGGED:
+        C = shape[-1]
+        window, shift = get_window_size(shape[1:4], (4, 4, 4), shift0)
+        N = math.prod(window)
+        args = [r(*shape).bfloat16(), 1 + r(C, scale=0.1),
+                r(3 * hid, C, scale=C ** -0.5).bfloat16(), r(C, hid, scale=hid ** -0.5).bfloat16(),
+                r(C, scale=0.1).bfloat16(), r(heads, N, N, scale=0.1)]
+        kwargs = dict(window=window, shift=shift, heads=heads, dim_head=dh)
+        with torch.no_grad():
+            res = check(f"stw_layer ragged {shape}", k["wrapper"](*args, **kwargs),
+                        k["plain"](*args, **kwargs), BF16_REL_TOL, args[0])
+            ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 10)
+        log({"kernel": "stw_layer", "shape": list(shape), "window": list(window),
+             "shift": list(shift), "tokens": N, "dtype": "bfloat16", "kernel_ms": ms,
+             "check": "kernel 1 vs plain at a ragged shape", **res, "card": card})
+
+
 def kernel_phase(table, record, card):
     summary = {}
     for name, k in table.items():
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                    library_ms=0.0 if name == "grid_sample" else None, max_abs_err=0.0)
+        if name == "stw_layer":
+            tot.update(device_ms=0.0, flops=0.0)
         for key, entry in record[name].items():
             args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
             out_k = k["wrapper"](*args, **kwargs)
@@ -562,6 +676,13 @@ def kernel_phase(table, record, card):
                     "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res}
+            if name == "stw_layer":  # kernel 1's own device time
+                dev_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), reps,
+                                   kernel_symbols(k["source"]))[0]
+                line.update(kernel_device_ms=dev_ms, device_tflops=flops / dev_ms / 1e9,
+                            bound_share=max(bytes_ms, ops_ms) / dev_ms)
+                tot["device_ms"] += count * dev_ms
+                tot["flops"] += count * flops
             if name == "grid_sample":
                 image = args[0].permute(0, 3, 1, 2)
                 grid = args[1].to(image.dtype)
@@ -581,6 +702,7 @@ def kernel_phase(table, record, card):
             tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
         summary[name] = tot
 
+    stw_ragged_phase(table, card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     for name, args, kwargs in f32_cases(torch.device("cuda")):
@@ -1486,11 +1608,12 @@ def route_table():
 
 
 def wide_layers(cfg, limit=256):
-    """Layers of the UNet over the whole-layer kernels' channel limit, by
-    the UNet's widths (unet3d.py: per level 2 resnet blocks, 2 window layers
+    """Layers of the UNet over the narrow kernels' channel limit, by the
+    UNet's widths (unet3d.py: per level 2 resnet blocks, 2 window layers
     and a temporal layer at the level's width; the mid blocks at the
-    deepest width): the unfused window and temporal layers and the resnet
-    blocks whose backward is decomposed (Cout over the limit)."""
+    deepest width): the window layers (kernel 1 in sampling, unfused under
+    autograd), the temporal layers (unfused) and the resnet blocks whose
+    backward is decomposed (Cout over the limit)."""
     dims = [cfg.dim] + [cfg.dim * m for m in cfg.dim_mults]
     widths = dims[1:] + dims[-2::-1][:len(dims) - 1]  # downs at d_out, ups at d_in
     n = {"stw": 2 * sum(w > limit for w in widths) + 2 * (dims[-1] > limit),
@@ -1501,15 +1624,16 @@ def wide_layers(cfg, limit=256):
 
 def expected_route_launches(cfg):
     """Launches per sampler call and per train step (remat, bf16) of every
-    kernel, with the wide layers on their routes: kernel 12 once per unfused
-    layer forward (its backward is the plain autograd), kernels 10 and 11
-    twice per decomposed resnet backward (the two convs)."""
+    kernel, with the wide layers on their routes: in sampling the wide
+    window layers on kernel 1 (its bf16 body takes 512 channels), kernel 12
+    once per unfused layer forward (the wide temporal layers in sampling,
+    every wide attention layer in training; its backward is the plain
+    autograd), kernels 10 and 11 twice per decomposed resnet backward (the
+    two convs)."""
     wide, steps = wide_layers(cfg), cfg.sampling_timesteps
     call = dict(expected_launches(cfg))
-    call["stw_layer"] -= steps * wide["stw"]
     call["temporal_layer"] -= steps * wide["temporal"]
-    call.update(window_attention=steps * (wide["stw"] + wide["temporal"]), conv33_fwd=0,
-                conv33_bwd=0)
+    call.update(window_attention=steps * wide["temporal"], conv33_fwd=0, conv33_bwd=0)
     fwd, bwd = expected_train_launches(cfg)
     step = {**fwd, **bwd}
     for name, kind in (("stw_layer", "stw"), ("temporal_layer", "temporal")):
@@ -1522,9 +1646,10 @@ def expected_route_launches(cfg):
 
 
 def narrow_only(name, record, limit=256):
-    """Kernels 1, 2, 5, 6 and 7 never see a layer over their channel limit:
-    every recorded input of `name` has at most `limit` channels (Cout for
-    the resnet backward)."""
+    """Kernels 2, 5, 6 and 7, and kernel 1 under autograd, never see a layer
+    over their channel limit (kernel 1 in sampling: 512): every recorded
+    input of `name` has at most `limit` channels (Cout for the resnet
+    backward)."""
     for key in record:
         width = key[1] if name == "resnet_block_bwd" else key[0][-1]
         if width > limit:
@@ -1535,8 +1660,10 @@ def route_kernel_checks(rt, record, card, per):
     """Kernels 10-12 against their plain versions at every recorded shape,
     in bf16 and in float32 (the same inputs cast), and CUDA-event times of
     the wrapper call (host work included), plain version and library call,
-    and the kernel's own device time (``device_ms``); returns per-call (or
-    per-step) totals by kernel. TF32 off: the float32 plain versions in full
+    and the kernel's own device time (``device_ms``), beside the wrapper's
+    device time read by ``queued_ms`` (its kernels and other ops: the
+    reading ``device_ms`` falls back to); returns per-call (or per-step)
+    totals by kernel. TF32 off: the float32 plain versions in full
     float32."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1567,6 +1694,7 @@ def route_kernel_checks(rt, record, card, per):
             ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 10)
             dev_ms, dev_other_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), 10,
                                              kernel_symbols(k["source"]))
+            queued = queued_ms(lambda: k["wrapper"](*args, **kwargs), 10)
             plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 10)
             plain_dev_ms = device_ms(lambda: k["plain"](*args, **kwargs), 10)[0]
             library_ms = cuda_ms(k["library"](*args, **kwargs), 10)
@@ -1577,12 +1705,14 @@ def route_kernel_checks(rt, record, card, per):
             log({"kernel": name, "shape": list(key[0]), "key": str(key[1:]),
                  "dtype": str(dt).replace("torch.", ""), per: count, "kernel_ms": ms,
                  "kernel_device_ms": dev_ms, "wrapper_other_device_ms": dev_other_ms,
+                 "wrapper_queued_ms": queued,
                  "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms, "library_ms": library_ms,
                  "library_device_ms": library_dev_ms, "library_call": k["library_call"],
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                  "device_tflops": flops / dev_ms / 1e9,
-                 "bound_share": max(bytes_ms, ops_ms) / dev_ms, "checks": res, "card": card})
+                 "bound_share": max(bytes_ms, ops_ms) / dev_ms,
+                 "call_minus_device_us": (ms - dev_ms) * 1e3, "checks": res, "card": card})
             for field, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
                                  ("plain_device_ms", plain_dev_ms), ("library_ms", library_ms),
                                  ("library_device_ms", library_dev_ms),
@@ -1702,14 +1832,40 @@ def multi1248_phase(table, btable, others, card):
     with recording({**table, **rt}, record), recording(utable, urecord):
         sampler(gen.manual_seed(0), cond)
         torch.cuda.synchronize()
-    for name in ("stw_layer", "temporal_layer"):
-        narrow_only(name, record[name])
+    narrow_only("temporal_layer", record["temporal_layer"])
+    narrow_only("stw_layer", record["stw_layer"], limit=512)
+    wide_stw = [k for k in record["stw_layer"] if k[0][-1] > 256]
+    if len(wide_stw) == 0 or "window_attention" not in record:
+        raise AssertionError(f"multi1248 sampler: window layers over 256 channels on kernel 1 "
+                             f"{wide_stw}, kernel 12 calls "
+                             f"{list(record.get('window_attention', {}))}")
     wide_keys = [k for k in record["resnet_block"] if k[1] > 256]
     log({"phase": "multi1248 warm-up call", "window_attention_shapes": [str(k) for k in
                                                                         record["window_attention"]],
          "resnet_forward_shapes_over_256": [str(k) for k in wide_keys], "wide_layers": wide})
     with torch.no_grad():
         summary = route_kernel_checks(rt, record, card, "per_call")
+        # kernel 1 at the 512-channel window layers it takes in sampling
+        k1, k1_wide = table["stw_layer"], dict(ms=0.0, device_ms=0.0, bound_ms=0.0, flops=0.0)
+        for key in wide_stw:
+            entry = record["stw_layer"][key]
+            args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+            res = check(f"stw_layer{key} multi1248", k1["wrapper"](*args, **kwargs),
+                        k1["plain"](*args, **kwargs), BF16_REL_TOL, k1["residual"](*args, **kwargs))
+            ms = cuda_ms(lambda: k1["wrapper"](*args, **kwargs), 10)
+            dev_ms = device_ms(lambda: k1["wrapper"](*args, **kwargs), 10,
+                               kernel_symbols(k1["source"]))[0]
+            byts, flops, op_dtype = k1["cost"](*args, **kwargs)
+            bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
+            log({"kernel": "stw_layer", "shape": list(key[0]), "key": str(key[1:]),
+                 "per_call": count, "kernel_ms": ms, "kernel_device_ms": dev_ms,
+                 "bound_ms": bound, "device_tflops": flops / dev_ms / 1e9,
+                 "bound_share": bound / dev_ms,
+                 "check": "kernel 1 vs plain at a multi1248 512-channel window layer", **res,
+                 "card": card})
+            for field, value in (("ms", ms), ("device_ms", dev_ms), ("bound_ms", bound),
+                                 ("flops", flops)):
+                k1_wide[field] += count * value
     # kernel 3 at the blocks over 256 output channels and at up level 0 (Cin 1024)
     k3, k3_wide_ms = table["resnet_block"], 0.0
     for key in [k for k in record["resnet_block"] if k[1] > 256 or k[0][-1] > 512]:
@@ -1747,6 +1903,8 @@ def multi1248_phase(table, btable, others, card):
          "unfused_plain_layers_ms_per_call": usplit["plain_layer_ms"],
          "unfused_kernel12_device_ms_per_call": usplit["kernel12_device_ms"],
          "unfused_torch_device_ms_per_call": usplit["torch_device_ms"],
+         "kernel1_c512_ms_per_call": k1_wide["ms"],
+         "kernel1_c512_device_ms_per_call": k1_wide["device_ms"],
          "kernel3_cout512_ms_per_call": k3_wide_ms, "card": card})
     unet_f32_card_vs_cpu(cfg)
     del fd, sampler, out
@@ -1760,10 +1918,11 @@ def multi1248_phase(table, btable, others, card):
     video = torch.rand((TRAIN_BATCH, T, px, px, 3),
                        generator=torch.Generator().manual_seed(7)).cuda()
     record, urecord = {}, {}
-    with recording({**btable, **rt}, record), recording(utable, urecord):
+    with recording({**table, **btable, **rt}, record), recording(utable, urecord):
         trainer.train_step(gen.manual_seed(0), video)
         torch.cuda.synchronize()
-    for name in ("stw_layer_bwd", "temporal_layer_bwd", "resnet_block_bwd"):
+    for name in ("stw_layer", "temporal_layer", "stw_layer_bwd", "temporal_layer_bwd",
+                 "resnet_block_bwd"):  # kernel 1 under autograd keeps kernel 5's limit
         narrow_only(name, record[name])
     # kernel 7 at every block it takes here, in bf16 at batch 8: up level 0
     # (Cin 1024) and the other multi1248 shapes the KTH step does not have
@@ -2043,6 +2202,10 @@ def main() -> int:
                         "library_ms": s["library_ms"],
                         **({f: s[f] for f in ("device_ms", "plain_device_ms",
                                               "library_device_ms")} if name in rt else {}),
+                        **({"device_ms": s["device_ms"],
+                            "device_tflops": s["flops"] / s["device_ms"] / 1e9,
+                            "bound_share": s["bound_ms"] / s["device_ms"]}
+                           if name == "stw_layer" else {}),
                         **({"kernel1_same_layers_ms": s["kernel1_layer_ms"],
                             "layer_ms_with_partition": s["layer_ms"]} if name in wm else {})})
     log({"phase": "total", "seconds": time.perf_counter() - t_start})

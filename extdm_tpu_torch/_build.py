@@ -103,12 +103,17 @@ def entry_points(source: str) -> Dict[str, List[type]]:
     return entries
 
 
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
 def launch(source: str, name: str, *args) -> None:
     """Call entry point `name` of ``csrc/<source>.cu``; raise on a CUDA error."""
-    fn = getattr(library(source), name)
-    if fn.argtypes is None:
+    fn = _FNS.get((source, name))
+    if fn is None:
+        fn = getattr(library(source), name)
         fn.argtypes = entry_points(source)[name]
         fn.restype = ctypes.c_int
+        _FNS[(source, name)] = fn
     code = fn(*args)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code}")
@@ -129,6 +134,12 @@ def ptr(t) -> Optional[int]:
     return t.data_ptr() if t is not None else None
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream(t) -> int:
-    """PyTorch's current stream on the tensor's device."""
+    """PyTorch's current stream on the tensor's device (its raw handle, read
+    without making a Stream object where this build of torch allows)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream

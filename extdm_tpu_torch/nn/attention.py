@@ -79,7 +79,7 @@ class RelativePositionBias(nn.Module):
         table = self.relative_attention_bias.weight
         buckets = torch.as_tensor(_rel_bucket_matrix(n, self.num_buckets, self.max_distance),
                                   device=table.device)
-        return table[buckets].permute(2, 0, 1)
+        return table.t()[:, buckets]  # (heads, n, n), contiguous
 
     def forward(self, n: int) -> torch.Tensor:
         return self.bias(n)
@@ -176,7 +176,7 @@ class WindowAttention3D(nn.Module):
         table = self.relative_position_bias_table
         idx = torch.as_tensor(relative_position_index(self.window_size)[:N, :N],
                               device=table.device)
-        return table[idx].permute(2, 0, 1)
+        return table.t()[:, idx]  # contiguous: kernels read each head's rows in place
 
 
 def _split_heads(a: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Kernels 1, 2 and 9 (``csrc/attention.cu``) and the backward kernels 5 and
-6 (``csrc/attention_bwd.cu``): whole attention layers.
+"""Kernels 1 (``csrc/stw_layer.cu`` in bf16, ``csrc/attention.cu`` in
+float32), 2 and 9 (``csrc/attention.cu``) and the backward kernels 5 and 6
+(``csrc/attention_bwd.cu``): whole attention layers.
 
 ``fused_stw_layer`` replaces ``extdm_tpu/ops/pallas_stw.py``
 ``fused_stw_layer`` (``_fused_padded`` -> ``_make_kernel``): the whole
@@ -10,8 +11,9 @@ PreNormTemporalAttn layer ``x + a + attn(LN(a))`` with ``a = ChanLN(x)``,
 attention over T.
 
 On the H100 both are bound by operations (the q/k/v and output products),
-not bytes. One thread block owns one window, or the T-frame sequences of
-64 / T pixels: it reads its tokens once, keeps norms, q/k/v, scores and the
+not bytes. In attention.cu one thread block owns one window, or the
+T-frame sequences of 64 / T pixels: it reads its tokens once, keeps norms,
+q/k/v, scores and the
 per-head outputs in shared memory and registers, and writes the layer
 output once; in bf16 every product runs on the tensor cores. The TPU
 kernel's workarounds (head-pair packing, the block-scalar softmax max with
@@ -31,14 +33,23 @@ Kernel 9 runs kernel 1's body on contiguous window rows, so it is bound by
 operations as kernel 1 is. Under autograd the layer's backward is kernel 5
 whatever the forward's layout, as JAX's ``custom_vjp``.
 
-Kernels 1, 2, 5, 6 and 9 take N <= 64 tokens, dim_head <= 32 and C <= 256
-channels (in bf16 a multiple of 32). ``stw_route`` is that gate as a plain
-function: the UNet's layers it sends "unfused" (the C = 512 layers of the
-multi1248 preset) run ``stw_layer_unfused`` / ``temporal_layer_unfused``,
-JAX's unfused modules (``PreNormSTW`` / ``PreNormTemporalAttn`` with the
-fused layer off): the norms, pad and roll, partition, projections and
-rotary in torch around kernel 12 (``ops/window_attn.py``), whose autograd
-keeps its inputs only; the rest of the layer's autograd is torch's.
+Kernels 2, 5, 6 and 9, and kernel 1 in float32, take N <= 64 tokens,
+dim_head <= 32 and C <= 256 channels (in bf16 a multiple of 32). Kernel 1 in
+bf16 (``csrc/stw_layer.cu``: both products on wgmma, the weights by TMA, the
+output tiled over channels) takes C <= 512 (a multiple of 32) at dim_head
+32 and 4 or 8 heads; ``stw_plan`` (a plain, cached function) gives its
+shared-memory layout, weight ring and grid. ``stw_route`` is the gate as a
+plain function of shape, dtype and whether a gradient is needed: a window
+layer run without autograd goes to kernel 1 where either body takes it; a
+layer under autograd keeps kernel 5's limit, the temporal layer kernels 2
+and 6's. The layers it sends "unfused" (multi1248's 512-channel layers
+under autograd, its temporal layer) run ``stw_layer_unfused`` /
+``temporal_layer_unfused``, JAX's unfused modules (``PreNormSTW`` /
+``PreNormTemporalAttn`` with the fused layer off): the norms, pad and roll,
+partition, projections and rotary in torch around kernel 12
+(``ops/window_attn.py``), whose autograd keeps its inputs only; the rest of
+the layer's autograd is torch's. Kernel 9 runs attention.cu's narrow body,
+so a window-major layer over 256 channels runs kernel 1.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version
 (``stw_layer_plain``, ``stw_layer_wm_plain``, ``temporal_layer_plain``) for
@@ -58,8 +69,9 @@ return one gradient per tensor argument, each in that argument's dtype.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -76,22 +88,90 @@ from extdm_tpu_torch.nn.attention import (
 from extdm_tpu_torch.nn.layers import chan_layer_norm
 from extdm_tpu_torch.ops.window_attn import fused_window_attention, mask_tables
 
-__all__ = ["stw_route", "stw_layer_unfused", "temporal_layer_unfused",
+__all__ = ["stw_route", "stw_plan", "StwPlan", "stw_layer_unfused", "temporal_layer_unfused",
            "fused_stw_layer", "stw_layer_plain", "stw_layer_bwd", "stw_layer_plain_vjp",
            "WINDOW_MAJOR_MODES", "window_major_gate", "fused_stw_layer_wm", "stw_layer_wm_plain",
            "fused_temporal_layer", "temporal_layer_plain", "temporal_layer_bwd",
            "temporal_layer_plain_vjp"]
 
 
-MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernels 1, 2, 5, 6, 9
+MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernels 2, 5, 6, 9; 1 in float32
+MAX_WIDE_CHANNELS = 512  # kernel 1 in bf16 (csrc/stw_layer.cu)
 
 
-def stw_route(C: int, N: int, dim_head: int, dtype) -> str:
-    """The route of an STW (N tokens a window) or temporal (N = T) layer of
-    C channels: "fused" (kernels 1, 2, 9 forward, 5, 6 backward) where those
-    kernels take it, else "unfused" (kernel 12 between torch projections)."""
+def _narrow(C: int, N: int, dim_head: int, dtype) -> bool:
+    """Whether kernels 2, 5, 6 and 9 (and kernel 1 in float32) take a layer."""
     fits = N <= MAX_TOKENS and dim_head <= MAX_DIM_HEAD and C <= MAX_CHANNELS
-    return "fused" if fits and (dtype != torch.bfloat16 or C % 32 == 0) else "unfused"
+    return fits and (dtype != torch.bfloat16 or C % 32 == 0)
+
+
+def _wide(C: int, N: int, heads: int, dim_head: int, dtype) -> bool:
+    """Whether kernel 1's bf16 body (``csrc/stw_layer.cu``) takes a window layer."""
+    return (dtype == torch.bfloat16 and N <= MAX_TOKENS and dim_head == 32 and heads in (4, 8)
+            and C % 32 == 0 and C <= MAX_WIDE_CHANNELS)
+
+
+def stw_route(C: int, N: int, dim_head: int, dtype, *, heads: int = 8, temporal: bool = False,
+              grad: bool = False) -> str:
+    """The route of an STW (N tokens a window) or temporal (N = T) layer of
+    C channels: "fused" where its kernels take it, else "unfused" (kernel 12
+    between torch projections). A window layer run without autograd is
+    kernel 1 alone (bf16: C <= 512); a layer whose operands need gradients
+    also needs kernel 5 (or, temporal, kernels 2 and 6: C <= 256)."""
+    wide = not temporal and not grad and _wide(C, N, heads, dim_head, dtype)
+    return "fused" if _narrow(C, N, dim_head, dtype) or wide else "unfused"
+
+
+STW_BOX = 64 * 128             # bytes of a 64 x 64 bf16 TMA box / swizzled tile
+STW_QKV_STEP = 6 * STW_BOX     # a q/k/v step: two head pairs' q, k and v boxes
+STW_SMEM_MAX = 232448          # shared memory of one block on the H100
+STW_MAX_STAGES = 4
+
+
+class StwPlan(NamedTuple):
+    """How kernel 1's bf16 body runs a layer (``stw_plan``)."""
+    cw: int            # output columns per warpgroup and round (64 or 128)
+    rounds: int        # rounds of 2 cw output columns
+    steps: int         # weight steps per window: q/k/v (head groups x 64-channel blocks), output
+    resident: bool     # all weights stay in shared memory across a block's windows
+    stages: int        # else: ring stages of STW_QKV_STEP bytes
+    a_bufs: int        # x tiles: 2 prefetches the next window's rows
+    smem: int          # dynamic shared memory of a block, bytes
+    blocks: int        # persistent blocks at most (one per SM)
+
+
+def _stw_smem(nkp: int, hk: int, a_bufs: int, wbytes: int, bars: int) -> int:
+    """Bytes of csrc/stw_layer.cu's layout: x tiles, O, k, v^T, weights,
+    mbarriers, row offsets, and 1024 for aligning the base."""
+    return (a_bufs * nkp + hk + 4) * STW_BOX + wbytes + 8 * bars + 64 * 8 + 1024
+
+
+@lru_cache(maxsize=256)
+def stw_plan(C: int, N: int, heads: int, dim_head: int, sms: int) -> StwPlan:
+    """The plan of kernel 1's bf16 body for a window layer of C channels, N
+    tokens a window, `heads` x `dim_head` on a card of `sms` SMs: resident
+    weights where they fit with everything else (C = 64: 128 KB), else a
+    ring of the deepest stages that fits, two x tiles where they fit."""
+    if not _wide(C, N, heads, dim_head, torch.bfloat16):
+        raise ValueError(f"stw_plan: kernel 1's bf16 body takes N <= {MAX_TOKENS}, dim_head 32, "
+                         f"4 or 8 heads and C <= {MAX_WIDE_CHANNELS} (a multiple of 32); got "
+                         f"C={C}, N={N}, heads={heads}, dim_head={dim_head}")
+    nkp, hk = -(-C // 64), heads * dim_head // 64
+    cw = 64 if C <= 128 else 128
+    rounds = -(-C // (2 * cw))
+    qkv_steps = heads // 4 * nkp
+    steps = qkv_steps + rounds * hk
+    resident_bytes = qkv_steps * STW_QKV_STEP + rounds * hk * min(2 * cw // 64, nkp) * STW_BOX
+    for a_bufs in (2, 1):
+        smem = _stw_smem(nkp, hk, a_bufs, resident_bytes, 1)
+        if smem <= STW_SMEM_MAX:
+            return StwPlan(cw, rounds, steps, True, 0, a_bufs, smem, sms)
+    for a_bufs in (2, 1):
+        for stages in range(STW_MAX_STAGES, 1, -1):
+            smem = _stw_smem(nkp, hk, a_bufs, stages * STW_QKV_STEP, stages)
+            if smem <= STW_SMEM_MAX:
+                return StwPlan(cw, rounds, steps, False, stages, a_bufs, smem, sms)
+    raise ValueError(f"stw_plan: no layout of C={C} fits {STW_SMEM_MAX} bytes")
 
 
 def _pads(T: int, H: int, W: int, window) -> Tuple[int, int, int]:
@@ -135,6 +215,28 @@ def _rope_tables(n, rot, device):
     return torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device)
 
 
+@lru_cache(maxsize=None)
+def _rope_pairs(n, rot, device):
+    """The rope tables of kernel 1's bf16 body: (n, rot / 2, 4) float32, the
+    cos and sin of dims 2 i and 2 i + 1 side by side."""
+    cos, sin = rotary_tables(n, rot)
+    pairs = np.stack([cos[:, 0::2], sin[:, 0::2], cos[:, 1::2], sin[:, 1::2]], axis=-1)
+    return torch.as_tensor(np.ascontiguousarray(pairs), device=device)
+
+
+def bias_mask_table(bias, masks=None):
+    """Kernel 1's bf16 body reads bias and shift mask as one table: (M,
+    heads, 64, 64) bf16 of bias + masks[m] (M = 1, the bias alone, when
+    unshifted), -inf past N: padding keys and rows then need no test in the
+    kernel. The reference adds the two and casts to the compute dtype before
+    adding them to the scores, so the table holds the values it adds."""
+    b = bias[None] if masks is None else bias[None] + masks[:, None]  # summed in float32
+    N = b.shape[-1]
+    if N < MAX_TOKENS:
+        b = F.pad(b.float(), (0, MAX_TOKENS - N, 0, MAX_TOKENS - N), value=float("-inf"))
+    return b.to(torch.bfloat16).contiguous()
+
+
 def _check_cuda(x, *others):
     if not x.is_cuda:
         raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
@@ -143,13 +245,16 @@ def _check_cuda(x, *others):
             raise ValueError(f"operand on {t.device}, activation on {x.device}")
 
 
-def _check_operands(what, x, N, heads, dim_head, **operands):
-    """Kernel limits and operand shapes: (name -> (tensor, expected shape))."""
+def _check_operands(what, x, N, heads, dim_head, wide=False, **operands):
+    """Kernel limits and operand shapes: (name -> (tensor, expected shape)).
+    `wide`: kernel 1's bf16 body may take the layer (a window layer's
+    forward)."""
     C = x.shape[-1]
-    if stw_route(C, N, dim_head, x.dtype) != "fused":
+    if not (_narrow(C, N, dim_head, x.dtype) or wide and _wide(C, N, heads, dim_head, x.dtype)):
         raise ValueError(f"{what}: the kernel takes N <= {MAX_TOKENS} tokens, dim_head <= "
-                         f"{MAX_DIM_HEAD} and C <= {MAX_CHANNELS} (in bf16 a multiple of 32); "
-                         f"got N={N}, dim_head={dim_head}, C={C}")
+                         f"{MAX_DIM_HEAD} and C <= {MAX_CHANNELS} (in bf16 a multiple of 32; a "
+                         f"window layer's bf16 forward at dim_head 32 and 4 or 8 heads C <= "
+                         f"{MAX_WIDE_CHANNELS}); got N={N}, dim_head={dim_head}, C={C}")
     for name, (t, shape) in operands.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
@@ -221,34 +326,55 @@ def _stw_unroll(out, x_shape, shift):
     return out[:, :T, :H, :W]
 
 
-def _stw_checked(what, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads, dim_head):
+def _stw_checked(what, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads, dim_head,
+                 wide=False):
     _check_cuda(x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
     C = x.shape[-1]
     N = window[0] * window[1] * window[2]
     hid = heads * dim_head
-    _check_operands(what, x, N, heads, dim_head, gamma=(gamma, (C,)),
+    _check_operands(what, x, N, heads, dim_head, wide, gamma=(gamma, (C,)),
                     w_qkv=(w_qkv, (3 * hid, C)), w_proj=(w_proj, (C, hid)),
                     b_proj=(b_proj, (C,)), bias_hnn=(bias_hnn, (heads, N, N)))
 
 
 def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head,
-                 eps, wm=False):
+                 eps, wm=False, grad=False):
     if wm:
         return _stw_wm(x.detach(), gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
                        shift=shift, heads=heads, dim_head=dim_head, eps=eps)
     _stw_checked("fused_stw_layer", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
-                 dim_head)
-    C = x.shape[-1]
-    xp, masks, ids, rot, cos, sin = _stw_prepare(x.detach(), window, shift, heads, dim_head)
-    B, Tp, Hp, Wp, _ = xp.shape
+                 dim_head, wide=not grad)
+    B, T, H, W, C = x.shape
     wd, wh, ww = window
-    out = torch.empty_like(xp)
+    N = wd * wh * ww
     wq, wp = _weights(x, w_qkv, w_proj)
-    g, bp, bias = _f32(gamma), _f32(b_proj), _f32(bias_hnn)
+    g, bp = _f32(gamma), _f32(b_proj)
     P = _build.ptr
+    if _wide(C, N, heads, dim_head, x.dtype):  # pad and roll read in place by the kernel
+        x = x.detach().contiguous()
+        pd, ph, pw = _pads(T, H, W, window)
+        masks = ids = None
+        if any(sh > 0 for sh in shift):
+            masks, ids = mask_tables(T + pd, H + ph, W + pw, tuple(window), tuple(shift),
+                                     x.device)
+        plan = stw_plan(C, N, heads, dim_head, _sm_count(x.device))
+        bm = bias_mask_table(bias_hnn.detach(), masks)
+        rot = min(32, dim_head)
+        out = torch.empty_like(x)
+        _build.launch("stw_layer", "stw_layer_wgmma", P(x), P(out), P(g), P(wq), P(wp), P(bp),
+                      P(bm), P(ids), P(_rope_pairs(N, rot, x.device)), B, T, H, W, C, wd, wh,
+                      ww, shift[0], shift[1], shift[2], heads, rot, eps, plan.cw,
+                      int(plan.resident), plan.stages, plan.a_bufs, plan.smem, plan.blocks,
+                      _build.stream(x))
+        fused_stw_layer.launches += 1
+        return out
+    xp, masks, ids, rot, cos, sin = _stw_prepare(x.detach(), window, shift, heads, dim_head)
+    _, Tp, Hp, Wp, _ = xp.shape
+    out = torch.empty_like(xp)
+    bias = _f32(bias_hnn)
     _build.launch("attention", "stw_layer", _build.dtype_code(x.dtype),
-                  P(xp), P(out), P(g), P(wq), P(wp), P(bp), P(bias), P(masks), P(ids), P(cos),
-                  P(sin), B, Tp, Hp, Wp, C, wd, wh, ww, heads, dim_head, rot, eps,
+                  P(xp), P(out), P(g), P(wq), P(wp), P(bp), P(bias), P(masks), P(ids),
+                  P(cos), P(sin), B, Tp, Hp, Wp, C, wd, wh, ww, heads, dim_head, rot, eps,
                   _build.stream(x))
     fused_stw_layer.launches += 1
     return _stw_unroll(out, x.shape, shift)
@@ -259,7 +385,7 @@ class _STWLayer(torch.autograd.Function):
     def forward(ctx, kw, wm, x, *params):
         ctx.kw = kw
         ctx.save_for_backward(x, *params)
-        return _stw_forward(x, *params, wm=wm, **kw)
+        return _stw_forward(x, *params, wm=wm, grad=True, **kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -273,9 +399,10 @@ def fused_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
     ``window_major_gate``."""
     kw = dict(window=tuple(window), shift=tuple(shift), heads=heads, dim_head=dim_head, eps=eps)
     operands = (x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
-    _, T, H, W, _ = x.shape
+    _, T, H, W, C = x.shape
     _, ph, pw = _pads(T, H, W, window)
-    wm = window_major_gate(window_major, any(s > 0 for s in shift), min(H + ph, W + pw))
+    wm = (window_major_gate(window_major, any(s > 0 for s in shift), min(H + ph, W + pw))
+          and C <= MAX_CHANNELS)  # kernel 9 keeps the narrow body
     if x.device.type == "cpu":
         return _stw_wm(*operands, **kw) if wm else stw_layer_plain(*operands, **kw)
     if _needs_grad(*operands):

@@ -53,7 +53,7 @@ def test_multi1248_unet_forward_matches_jax(monkeypatch):
     routes = []
     route = unet3d.stw_route
     monkeypatch.setattr(unet3d, "stw_route",
-                        lambda C, *a: routes.append((C, route(C, *a))) or routes[-1][1])
+                        lambda C, *a, **k: routes.append((C, route(C, *a, **k))) or routes[-1][1])
     with torch.no_grad():
         out = fd.unet(*(torch.from_numpy(a) for a in (x, t, cond, fea)))
     close(out, ref, 2e-4)

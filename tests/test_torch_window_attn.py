@@ -83,7 +83,7 @@ def test_dedupe_masks_matches_jax_and_refuses_other_devices():
 
 @pytest.mark.parametrize("C,N,dim_head,dtype,route", [
     (256, 64, 32, torch.bfloat16, "fused"),
-    (512, 64, 32, torch.bfloat16, "unfused"),   # the deepest level of multi1248
+    (512, 64, 32, torch.bfloat16, "fused"),     # the deepest level of multi1248, a forward
     (512, 30, 32, torch.float32, "unfused"),    # its temporal layer
     (256, 65, 32, torch.float32, "unfused"),
     (256, 30, 33, torch.float32, "unfused"),
@@ -94,20 +94,41 @@ def test_stw_route_table(C, N, dim_head, dtype, route):
     assert fused_stw.stw_route(C, N, dim_head, dtype) == route
 
 
+@pytest.mark.parametrize("C,N,dim_head,dtype,kw,route", [
+    (512, 64, 32, torch.bfloat16, dict(grad=True), "unfused"),      # multi1248's training
+    (512, 30, 32, torch.bfloat16, dict(temporal=True), "unfused"),  # its temporal layer
+    (256, 30, 32, torch.bfloat16, dict(temporal=True, grad=True), "fused"),
+    (256, 64, 32, torch.bfloat16, dict(grad=True), "fused"),
+    (320, 64, 32, torch.bfloat16, {}, "fused"),                     # not a multiple of 128
+    (320, 16, 32, torch.bfloat16, {}, "fused"),                     # a clamped window
+    (544, 64, 32, torch.bfloat16, {}, "unfused"),
+    (512, 64, 32, torch.float32, {}, "unfused"),                    # float32: C <= 256
+    (512, 64, 16, torch.bfloat16, {}, "unfused"),                   # the wide body: dim_head 32
+    (512, 64, 32, torch.bfloat16, dict(heads=2), "unfused"),        # ... and 4 or 8 heads
+    (496, 64, 32, torch.bfloat16, {}, "unfused"),
+])
+def test_stw_route_by_kind_and_gradient(C, N, dim_head, dtype, kw, route):
+    assert fused_stw.stw_route(C, N, dim_head, dtype, **kw) == route
+
+
 def test_stw_route_is_the_kernels_gate():
     """``stw_route`` says "fused" exactly where the kernels' operand check
-    passes."""
-    for C in (32, 64, 240, 256, 288, 512):
+    passes: kernel 1's for a window layer's forward (``wide``), the
+    narrow kernels' under autograd and for the temporal layer."""
+    for C in (32, 64, 240, 256, 288, 512, 544):
         for N in (30, 64, 65):
             for dh in (8, 32, 33):
                 for dtype in (torch.float32, torch.bfloat16):
-                    x = torch.empty((1, 1, 1, 1, C), dtype=dtype)
-                    try:
-                        fused_stw._check_operands("k", x, N, 8, dh)
-                        ok = "fused"
-                    except ValueError:
-                        ok = "unfused"
-                    assert fused_stw.stw_route(C, N, dh, dtype) == ok
+                    for temporal, grad in ((False, False), (False, True), (True, False)):
+                        x = torch.empty((1, 1, 1, 1, C), dtype=dtype)
+                        try:
+                            fused_stw._check_operands("k", x, N, 8, dh,
+                                                      not (temporal or grad))
+                            ok = "fused"
+                        except ValueError:
+                            ok = "unfused"
+                        assert fused_stw.stw_route(C, N, dh, dtype, heads=8, temporal=temporal,
+                                                   grad=grad) == ok
 
 
 def _convert_module(kind, params):
