@@ -13,10 +13,13 @@
    bf16 (the whole output, and for the UNet kernels also the part that the
    kernel's products compute) and at one small shape in float32, and times
    kernel, plain version and (grid sample only) the PyTorch library call
-   with CUDA events; kernel 1 also by its own device time (torch.profiler),
-   with its device TFLOP/s and share of the bound, and against its plain
-   version at STW_RAGGED (windows clamped to 16 and 32 tokens, 96, 192 and
-   320 channels).
+   with CUDA events; kernels 1 and 3 also by their own device time
+   (torch.profiler), with their device TFLOP/s and share of the bound;
+   kernel 1 against its plain version at STW_RAGGED (windows clamped to 16
+   and 32 tokens, 96, 192 and 320 channels), kernel 3 at RESNET_RAGGED
+   (6 x 6 and 5 x 7 frames, Cin != Cout, channels off multiples of 64) and
+   at SCRATCH_BLOCK (an evaluation batch of 100 trajectories, whose scratch
+   passes 2 GiB).
 5. End to end: sets every launch counter to 0, serves 3 timed requests of
    batch 4 (each ends in torch.cuda.synchronize), checks the launch counts
    per request (180 STW / 91 temporal / 200 resnet / 5 grid-sample layers)
@@ -27,7 +30,9 @@
    recording the inputs and incoming cotangent of each backward kernel at
    every distinct shape; checks each backward kernel against its plain
    version (the autograd of the plain forward) there in bf16 and at one small
-   shape in float32, and times both; takes 3 timed steps with the counters
+   shape in float32, and times both (kernel 5 also by its device time, and
+   against its plain version at STW_RAGGED; its plan at every width it
+   takes); takes 3 timed steps with the counters
    from 0 (18 STW / 10 temporal / 20 resnet layers forward and backward, 1
    grid sample per step); and compares one float32 loss and every UNet
    gradient at batch 1, kernels on the card against the plain versions on
@@ -65,25 +70,28 @@
    (dim_mults (1,2,4,8): 512 channels at the deepest level and in the mid
    blocks) in bf16. The layers over the narrow kernels' 256 channels
    (``wide_layers``: 4 window layers, 1 temporal layer, 4 resnet blocks)
-   take their routes (``stw_route``): in sampling the window layers run
-   kernel 1 (its bf16 body takes 512 channels) and the temporal layer runs
-   unfused around kernel 12 (window attention); under autograd the window
-   layers run unfused too; the resnet blocks' backward is decomposed into
-   kernels 10 and 11 (the conv and its gradients) and torch GroupNorm math.
+   take their routes (``stw_route``): the window layers run kernel 1
+   forward and kernel 5 backward (their bf16 bodies take 512 channels) and
+   the temporal layer runs unfused around kernel 12 (window attention); the
+   resnet blocks' backward is decomposed into kernels 10 and 11 (the conv
+   and its gradients) and torch GroupNorm math.
    A recorded warm-up sampler call at batch 4; kernel 12 against its plain
    version at every recorded shape in bf16 and float32, timed beside its
    plain version and F.scaled_dot_product_attention (the wrapper call with
    CUDA events, the kernel's own device time with torch.profiler); kernel 1
    against its plain version at the 512-channel window layers, timed (call
-   and device); kernel 3 against its plain version at the blocks over 256
-   output channels and at up level 0's 1024 input channels, timed; the
+   and device); kernel 3 against its plain version at every block (512
+   output channels and up level 0's 1024 input channels among them), timed
+   (call and device); the
    unfused layers timed whole, as plain layers, and split into kernel 12
    and the torch ops around it; 3 timed sampler calls with every launch
    count and the unfused routes checked (``expected_route_launches``),
    kernel 2 never on a layer over 256 channels, kernel 1 on none over 512;
    the float32 UNet card vs CPU. Then
    the train step at batch 8 (remat, bf16 compute): a recorded warm-up
-   step, kernel 7 against its plain backward at every block it takes there
+   step, kernel 5 against its plain backward at the 512-channel window
+   layers (call and device time), kernel 7 against its plain backward at
+   every block it takes there
    (bf16, batch 8: up level 0's 1024 input channels among them), kernels
    10-12 against their plain versions at every recorded shape in bf16 and
    float32 (dW with the backward kernels' limits) and timed beside F.conv3d
@@ -91,9 +99,10 @@
    share of the bound), kernels 10 and 11 also at three ragged shapes
    (CONV_RAGGED) and kernel 11 twice on the same inputs (bitwise equal
    din and dW), the unfused layers' forward and backward
-   timed and split as above, kernels 1, 2 and 5-7 never on a layer over 256
-   channels, 3 timed steps with launch and route counts, and the float32
-   step card vs CPU.
+   timed and split as above, kernels 2, 6 and 7 never on a layer over 256
+   channels (1 and 5 never over 512), 3 timed steps with launch and route
+   counts (no window layer unfused, kernel 12 once a step: a line prints
+   them), and the float32 step card vs CPU.
 
 The train phase also runs an A/B of the two resnet backward routes: at the
 KTH step's resnet-backward shapes (32^2 to 4^2 frames), kernels 10 and 11
@@ -206,6 +215,11 @@ EVAL_PEAK_REL_TOL = 0.02
 METRIC_F64_TOL = 1e-9
 LPIPS_F32_TOL = 1e-4
 I3D_F32_REL_TOL = 1e-3
+
+
+# Kernels whose lines carry their own device time (torch.profiler), device
+# TFLOP/s and share of the bound: 1, 3 and 5, the redesigned main-path ones.
+DEVICE_TIMED = ("stw_layer", "resnet_block", "stw_layer_bwd")
 
 
 def log(obj) -> None:
@@ -490,17 +504,23 @@ def backward_table(forward):
         def cost(g, x, *a, **k):
             # only the inputs: one recompute of the forward's products and
             # two products (input and weight gradients) per forward product;
-            # bytes: x, g and dx once each, the weights and their float32
-            # gradients, and the bias table and its gradient.
+            # an attention layer's output projection is not recomputed (its
+            # output goes nowhere but the residual sum, so dO = g Wproj^T and
+            # dWproj = o^T g are its only products): 2 n hid C fewer. Bytes:
+            # x, g and dx once each, the weights and their float32 gradients,
+            # and the bias table and its gradient.
             byts, flops, dtype = fwd_cost(x, *a, **k)
+            flops *= 3
+            if name in ("stw_layer", "temporal_layer"):
+                flops -= 2 * (x.numel() // x.shape[-1]) * k["heads"] * k["dim_head"] * x.shape[-1]
             weights = [t for t in a if torch.is_tensor(t) and t.ndim >= 2]
             extra = x.numel() * x.element_size() + sum(t.numel() * 4 for t in weights)
-            return byts + extra, 3 * flops, dtype
+            return byts + extra, flops, dtype
         return cost
 
     entries = {
         "stw_layer_bwd": (fused_stw.stw_layer_bwd, fused_stw.stw_layer_plain_vjp, fused_stw,
-                          "stw_layer", "extdm_tpu_torch/csrc/attention_bwd.cu",
+                          "stw_layer", "extdm_tpu_torch/csrc/stw_layer_bwd.cu",
                           "extdm_tpu/ops/pallas_stw.py:1123"),
         "temporal_layer_bwd": (fused_stw.temporal_layer_bwd, fused_stw.temporal_layer_plain_vjp,
                                fused_stw, "temporal_layer", "extdm_tpu_torch/csrc/attention_bwd.cu",
@@ -652,12 +672,144 @@ def stw_ragged_phase(table, card, seed=13):
              "check": "kernel 1 vs plain at a ragged shape", **res, "card": card})
 
 
+# Kernel 3 at blocks off the KTH sampler's: frames that are not a multiple
+# of the 128-row tile and smaller than it (6 x 6, 5 x 7), Cin != Cout with the
+# residual projection, channels not a multiple of 64 and, with 4 groups, not
+# a multiple of 8 (padded to the kernels' 16-byte rows). (shape, Cout, groups)
+RESNET_RAGGED = (((2, 3, 6, 6, 40), 96, 8), ((1, 4, 5, 7, 64), 64, 8),
+                 ((2, 5, 5, 7, 96), 160, 8), ((2, 3, 6, 6, 20), 20, 4))
+
+
+def resnet_ragged_phase(table, card, seed=17):
+    """Kernel 3 (bf16) against its plain version at RESNET_RAGGED, the
+    branch check included; timed."""
+    k = table["resnet_block"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    for shape, cout, groups in RESNET_RAGGED:
+        B, C = shape[0], shape[-1]
+        args = [r(*shape).bfloat16(), r(cout, C, 1, 3, 3, scale=(9 * C) ** -0.5),
+                r(cout, scale=0.1), 1 + r(cout, scale=0.1), r(cout, scale=0.1),
+                r(B, 2 * cout, scale=0.3), r(cout, cout, 1, 3, 3, scale=(9 * cout) ** -0.5),
+                r(cout, scale=0.1), 1 + r(cout, scale=0.1), r(cout, scale=0.1)]
+        args += [r(cout, C, 1, 1, 1, scale=C ** -0.5), r(cout, scale=0.1)] if C != cout else [
+            None, None]
+        kwargs = dict(groups=groups)
+        with torch.no_grad():
+            res = check(f"resnet_block ragged {shape} -> {cout}", k["wrapper"](*args, **kwargs),
+                        k["plain"](*args, **kwargs), BF16_REL_TOL,
+                        k["residual"](*args, **kwargs))
+            ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 10)
+        log({"kernel": "resnet_block", "shape": list(shape), "cout": cout, "groups": groups,
+             "dtype": "bfloat16", "kernel_ms": ms, "check": "kernel 3 vs plain at a ragged shape",
+             **res, "card": card})
+
+
+# Kernel 3 where its scratch passes 2 GiB: KTH's up block at the 64-channel
+# level (128 -> 64 channels, the residual projection, FiLM) at the batch of
+# one evaluation call of the paper's 100 trajectories of a video. GroupNorm
+# and FiLM are per sample, so samples of the batch are held against the plain
+# block run on those samples alone.
+SCRATCH_BLOCK = ((100, 30, 32, 32, 128), 64, 8)
+
+
+def resnet_large_batch_phase(table, card, seed=23):
+    """Kernel 3 (bf16) at SCRATCH_BLOCK: its scratch over 2 GiB, its first
+    and last samples against the plain version, the branch check included."""
+    from extdm_tpu_torch import _build
+    from extdm_tpu_torch.ops import fused_resnet
+
+    k = table["resnet_block"]
+    (B, T, H, W, C), cout, groups = SCRATCH_BLOCK
+    plan = fused_resnet.resnet_plan(B * T * H * W, C, cout, True,
+                                    torch.cuda.get_device_properties(0).multi_processor_count)
+    nbytes = _build.query("resnet", "resnet_scratch_bytes", B, B * T * H * W, plan.cin, plan.cout,
+                          cout, groups, 1, 1)
+    if nbytes < 2 ** 31:
+        raise AssertionError(f"SCRATCH_BLOCK's scratch is {nbytes} bytes: not past 2 GiB")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    x = r(B, T, H, W, C).bfloat16()
+    params = [r(cout, C, 1, 3, 3, scale=(9 * C) ** -0.5), r(cout, scale=0.1),
+              1 + r(cout, scale=0.1), r(cout, scale=0.1), r(B, 2 * cout, scale=0.3),
+              r(cout, cout, 1, 3, 3, scale=(9 * cout) ** -0.5), r(cout, scale=0.1),
+              1 + r(cout, scale=0.1), r(cout, scale=0.1), r(cout, C, 1, 1, 1, scale=C ** -0.5),
+              r(cout, scale=0.1)]
+    kwargs = dict(groups=groups)
+    with torch.no_grad():
+        before = k["wrapper"].launches
+        out = k["wrapper"](x, *params, **kwargs)
+        torch.cuda.synchronize()
+        if k["wrapper"].launches != before + 1:
+            raise AssertionError("kernel 3 did not launch at SCRATCH_BLOCK")
+        worst = {}
+        for i in (0, B - 1):
+            args = [x[i:i + 1], *params]
+            args[5] = params[4][i:i + 1]  # this sample's FiLM
+            res = check(f"resnet_block {SCRATCH_BLOCK} sample {i}", out[i:i + 1],
+                        k["plain"](*args, **kwargs), BF16_REL_TOL,
+                        k["residual"](*args, **kwargs))
+            worst = max(worst, res, key=lambda d: d.get("max_abs_err", -1.0))
+        ms = cuda_ms(lambda: k["wrapper"](x, *params, **kwargs), 3)
+    log({"kernel": "resnet_block", "shape": [B, T, H, W, C], "cout": cout, "groups": groups,
+         "dtype": "bfloat16", "scratch_bytes": nbytes, "kernel_ms": ms,
+         "check": "kernel 3 with a scratch over 2 GiB, samples 0 and B-1 vs plain", **worst,
+         "card": card})
+    del x, out
+    torch.cuda.empty_cache()
+
+
+def stw_bwd_plan_phase():
+    """Kernel 5's plan at every width its bf16 body takes: the source's
+    layout (the stw_bwd_smem query) fits one block with a ring of two or
+    more stages."""
+    from extdm_tpu_torch.ops import fused_stw
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {}
+    for C in range(32, fused_stw.MAX_WIDE_CHANNELS + 1, 32):
+        for heads in (4, 8):
+            plan = fused_stw.stw_bwd_plan(C, 64, heads, 32, sms)
+            if not (2 <= plan.stages and plan.smem <= fused_stw.STW_SMEM_MAX):
+                raise AssertionError(f"stw_bwd_plan({C}, heads={heads}): {plan}")
+            plans[f"{C}/{heads}"] = [plan.stages, plan.smem]
+    log({"check": "kernel 5's plan fits at every width (C/heads: [stages, smem])",
+         "plans": plans})
+
+
+def stw_bwd_ragged_phase(btable, card, seed=19):
+    """Kernel 5 (bf16) against its plain backward at STW_RAGGED (96, 128,
+    192 and 320 channels, windows clamped to 16 and 32 tokens, shifted and
+    unshifted), with the backward limits; timed."""
+    from extdm_tpu_torch.nn.attention import get_window_size
+
+    k = btable["stw_layer_bwd"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    heads, dh = 8, 32
+    hid = heads * dh
+    for shape, shift0 in STW_RAGGED:
+        C = shape[-1]
+        window, shift = get_window_size(shape[1:4], (4, 4, 4), shift0)
+        N = math.prod(window)
+        args = [r(*shape).bfloat16(), r(*shape).bfloat16(), 1 + r(C, scale=0.1),
+                r(3 * hid, C, scale=C ** -0.5).bfloat16(), r(C, hid, scale=hid ** -0.5).bfloat16(),
+                r(C, scale=0.1).bfloat16(), r(heads, N, N, scale=0.1)]
+        kwargs = dict(window=window, shift=shift, heads=heads, dim_head=dh)
+        res = check_grads(f"stw_layer_bwd ragged {shape}", k["wrapper"](*args, **kwargs),
+                          k["plain"](*args, **kwargs), BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 5)
+        log({"kernel": "stw_layer_bwd", "shape": list(shape), "window": list(window),
+             "shift": list(shift), "tokens": N, "dtype": "bfloat16", "kernel_ms": ms,
+             "check": "kernel 5 vs plain backward at a ragged shape", **res, "card": card})
+
+
 def kernel_phase(table, record, card):
     summary = {}
     for name, k in table.items():
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                    library_ms=0.0 if name == "grid_sample" else None, max_abs_err=0.0)
-        if name == "stw_layer":
+        if name in DEVICE_TIMED:
             tot.update(device_ms=0.0, flops=0.0)
         for key, entry in record[name].items():
             args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
@@ -676,7 +828,7 @@ def kernel_phase(table, record, card):
                     "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res}
-            if name == "stw_layer":  # kernel 1's own device time
+            if name in DEVICE_TIMED:  # the kernel's own device time
                 dev_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), reps,
                                    kernel_symbols(k["source"]))[0]
                 line.update(kernel_device_ms=dev_ms, device_tflops=flops / dev_ms / 1e9,
@@ -703,6 +855,8 @@ def kernel_phase(table, record, card):
         summary[name] = tot
 
     stw_ragged_phase(table, card)
+    resnet_ragged_phase(table, card)
+    resnet_large_batch_phase(table, card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     for name, args, kwargs in f32_cases(torch.device("cuda")):
@@ -754,6 +908,8 @@ def backward_phase(table, record, card):
     for name, k in table.items():
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                    library_ms=None, max_abs_err=0.0)
+        if name in DEVICE_TIMED:
+            tot.update(device_ms=0.0, flops=0.0)
         for key, entry in record[name].items():
             args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
             got = k["wrapper"](*args, **kwargs)
@@ -764,13 +920,21 @@ def backward_phase(table, record, card):
             plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 5)
             byts, flops, op_dtype = k["cost"](*args, **kwargs)
             bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
-            log({"kernel": name, "shape": list(key[0]), "key": str(key[1:]),
-                 "dtype": str(args[1].dtype).replace("torch.", ""), "per_step": count,
-                 "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                 "library_ms_note": "no single PyTorch call computes this layer's gradients",
-                 "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res,
-                 "card": card})
+            line = {"kernel": name, "shape": list(key[0]), "key": str(key[1:]),
+                    "dtype": str(args[1].dtype).replace("torch.", ""), "per_step": count,
+                    "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "library_ms_note": "no single PyTorch call computes this layer's gradients",
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res,
+                    "card": card}
+            if name in DEVICE_TIMED:  # the kernel's own device time
+                dev_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), 5,
+                                   kernel_symbols(k["source"]))[0]
+                line.update(kernel_device_ms=dev_ms, device_tflops=flops / dev_ms / 1e9,
+                            bound_share=max(bytes_ms, ops_ms) / dev_ms)
+                tot["device_ms"] += count * dev_ms
+                tot["flops"] += count * flops
+            log(line)
             tot["ms"] += count * ms
             tot["plain_ms"] += count * plain_ms
             tot["bound_ms"] += count * max(bytes_ms, ops_ms)
@@ -779,6 +943,8 @@ def backward_phase(table, record, card):
             tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
         summary[name] = tot
 
+    stw_bwd_plan_phase()
+    stw_bwd_ragged_phase(table, card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1624,32 +1790,29 @@ def wide_layers(cfg, limit=256):
 
 def expected_route_launches(cfg):
     """Launches per sampler call and per train step (remat, bf16) of every
-    kernel, with the wide layers on their routes: in sampling the wide
-    window layers on kernel 1 (its bf16 body takes 512 channels), kernel 12
-    once per unfused layer forward (the wide temporal layers in sampling,
-    every wide attention layer in training; its backward is the plain
-    autograd), kernels 10 and 11 twice per decomposed resnet backward (the
-    two convs)."""
+    kernel, with the wide layers on their routes: the wide window layers on
+    kernel 1 (its bf16 body takes 512 channels) and, in training, kernel 5
+    (its bf16 body too); kernel 12 once per unfused layer forward (the wide
+    temporal layers; its backward is the plain autograd), kernels 10 and 11
+    twice per decomposed resnet backward (the two convs)."""
     wide, steps = wide_layers(cfg), cfg.sampling_timesteps
     call = dict(expected_launches(cfg))
     call["temporal_layer"] -= steps * wide["temporal"]
     call.update(window_attention=steps * wide["temporal"], conv33_fwd=0, conv33_bwd=0)
     fwd, bwd = expected_train_launches(cfg)
     step = {**fwd, **bwd}
-    for name, kind in (("stw_layer", "stw"), ("temporal_layer", "temporal")):
-        step[name] -= wide[kind]
-        step[f"{name}_bwd"] -= wide[kind]
+    step["temporal_layer"] -= wide["temporal"]
+    step["temporal_layer_bwd"] -= wide["temporal"]
     step["resnet_block_bwd"] -= wide["resnet"]
-    step.update(window_attention=wide["stw"] + wide["temporal"], conv33_fwd=2 * wide["resnet"],
+    step.update(window_attention=wide["temporal"], conv33_fwd=2 * wide["resnet"],
                 conv33_bwd=2 * wide["resnet"])
     return call, step
 
 
 def narrow_only(name, record, limit=256):
-    """Kernels 2, 5, 6 and 7, and kernel 1 under autograd, never see a layer
-    over their channel limit (kernel 1 in sampling: 512): every recorded
-    input of `name` has at most `limit` channels (Cout for the resnet
-    backward)."""
+    """Kernels 2, 6 and 7 never see a layer over their channel limit
+    (kernels 1 and 5: 512): every recorded input of `name` has at most
+    `limit` channels (Cout for the resnet backward)."""
     for key in record:
         width = key[1] if name == "resnet_block_bwd" else key[0][-1]
         if width > limit:
@@ -1793,13 +1956,15 @@ def multi1248_phase(table, btable, others, card):
     wide = wide_layers(cfg)
     counters = {n: k["wrapper"] for n, k in {**table, **btable, **others, **rt}.items()}
 
-    routes = {"unfused": 0, "decomposed": 0}
+    routes = {"unfused": 0, "decomposed": 0, "unfused_window": 0}
     stw_route, bwd_route = unet3d.stw_route, fused_resnet.resnet_bwd_route
 
     def counted(fn):
         def route(*a, **k):
             r = fn(*a, **k)
             routes[r] = routes.get(r, 0) + 1
+            if fn is stw_route and r == "unfused" and not k.get("temporal", False):
+                routes["unfused_window"] += 1
             return r
         return route
 
@@ -1814,7 +1979,7 @@ def multi1248_phase(table, btable, others, card):
     def run_counted(fn):
         for c in counters.values():
             c.launches = 0
-        routes.update(unfused=0, decomposed=0)
+        routes.update(unfused=0, decomposed=0, unfused_window=0)
         t0 = time.perf_counter()
         with counting_routes():
             out = fn()
@@ -1866,18 +2031,28 @@ def multi1248_phase(table, btable, others, card):
             for field, value in (("ms", ms), ("device_ms", dev_ms), ("bound_ms", bound),
                                  ("flops", flops)):
                 k1_wide[field] += count * value
-    # kernel 3 at the blocks over 256 output channels and at up level 0 (Cin 1024)
-    k3, k3_wide_ms = table["resnet_block"], 0.0
-    for key in [k for k in record["resnet_block"] if k[1] > 256 or k[0][-1] > 512]:
-        entry = record["resnet_block"][key]
+    # kernel 3 at every block of the multi1248 sampler (512 output channels
+    # and up level 0's 1024 input channels among them)
+    k3, k3_wide_ms, k3_ms, k3_dev_ms = table["resnet_block"], 0.0, 0.0, 0.0
+    for key, entry in record["resnet_block"].items():
         args, kwargs = entry["args"], entry["kwargs"]
-        res = check(f"resnet_block{key}", k3["wrapper"](*args, **kwargs),
-                    k3["plain"](*args, **kwargs), BF16_REL_TOL, k3["residual"](*args, **kwargs))
-        ms = cuda_ms(lambda: k3["wrapper"](*args, **kwargs), 5)
+        with torch.no_grad():
+            res = check(f"resnet_block{key}", k3["wrapper"](*args, **kwargs),
+                        k3["plain"](*args, **kwargs), BF16_REL_TOL,
+                        k3["residual"](*args, **kwargs))
+            ms = cuda_ms(lambda: k3["wrapper"](*args, **kwargs), 5)
+            dev_ms = device_ms(lambda: k3["wrapper"](*args, **kwargs), 5,
+                               kernel_symbols(k3["source"]))[0]
+        byts, flops, op_dtype = k3["cost"](*args, **kwargs)
+        bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
         k3_wide_ms += entry["count"] * ms if key[1] > 256 else 0.0
+        k3_ms += entry["count"] * ms
+        k3_dev_ms += entry["count"] * dev_ms
         log({"kernel": "resnet_block", "shape": list(key[0]), "cout": key[1],
-             "per_call": entry["count"], "kernel_ms": ms,
-             "check": "kernel 3 vs plain at a multi1248 shape", **res})
+             "per_call": entry["count"], "kernel_ms": ms, "kernel_device_ms": dev_ms,
+             "bound_ms": bound, "device_tflops": flops / dev_ms / 1e9,
+             "bound_share": bound / dev_ms,
+             "check": "kernel 3 vs plain at a multi1248 shape", **res, "card": card})
     usplit = unfused_split(utable, urecord, train=False)
     del record, urecord
     times = []
@@ -1905,7 +2080,8 @@ def multi1248_phase(table, btable, others, card):
          "unfused_torch_device_ms_per_call": usplit["torch_device_ms"],
          "kernel1_c512_ms_per_call": k1_wide["ms"],
          "kernel1_c512_device_ms_per_call": k1_wide["device_ms"],
-         "kernel3_cout512_ms_per_call": k3_wide_ms, "card": card})
+         "kernel3_cout512_ms_per_call": k3_wide_ms, "kernel3_ms_per_call": k3_ms,
+         "kernel3_device_ms_per_call": k3_dev_ms, "card": card})
     unet_f32_card_vs_cpu(cfg)
     del fd, sampler, out
     torch.cuda.empty_cache()
@@ -1921,9 +2097,33 @@ def multi1248_phase(table, btable, others, card):
     with recording({**table, **btable, **rt}, record), recording(utable, urecord):
         trainer.train_step(gen.manual_seed(0), video)
         torch.cuda.synchronize()
-    for name in ("stw_layer", "temporal_layer", "stw_layer_bwd", "temporal_layer_bwd",
-                 "resnet_block_bwd"):  # kernel 1 under autograd keeps kernel 5's limit
+    for name in ("temporal_layer", "temporal_layer_bwd", "resnet_block_bwd"):
         narrow_only(name, record[name])
+    for name in ("stw_layer", "stw_layer_bwd"):  # kernels 1 and 5 take 512 channels
+        narrow_only(name, record[name], limit=512)
+    # kernel 5 at the 512-channel window layers it now takes under autograd
+    k5, k5_wide = btable["stw_layer_bwd"], dict(ms=0.0, device_ms=0.0, bound_ms=0.0, flops=0.0)
+    wide_bwd = [k for k in record["stw_layer_bwd"] if k[0][-1] > 256]
+    if len(wide_bwd) == 0:
+        raise AssertionError("multi1248 train step: no window layer over 256 channels on kernel 5")
+    for key in wide_bwd:
+        entry = record["stw_layer_bwd"][key]
+        args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+        res = check_grads(f"stw_layer_bwd{key} multi1248", k5["wrapper"](*args, **kwargs),
+                          k5["plain"](*args, **kwargs), BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        ms = cuda_ms(lambda: k5["wrapper"](*args, **kwargs), 5)
+        dev_ms = device_ms(lambda: k5["wrapper"](*args, **kwargs), 5,
+                           kernel_symbols(k5["source"]))[0]
+        byts, flops, op_dtype = k5["cost"](*args, **kwargs)
+        bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
+        log({"kernel": "stw_layer_bwd", "shape": list(key[0]), "key": str(key[1:]),
+             "per_step": count, "kernel_ms": ms, "kernel_device_ms": dev_ms, "bound_ms": bound,
+             "device_tflops": flops / dev_ms / 1e9, "bound_share": bound / dev_ms,
+             "check": "kernel 5 vs plain backward at a multi1248 512-channel window layer",
+             **res, "card": card})
+        for field, value in (("ms", ms), ("device_ms", dev_ms), ("bound_ms", bound),
+                             ("flops", flops)):
+            k5_wide[field] += count * value
     # kernel 7 at every block it takes here, in bf16 at batch 8: up level 0
     # (Cin 1024) and the other multi1248 shapes the KTH step does not have
     k7 = btable["resnet_block_bwd"]
@@ -1953,8 +2153,9 @@ def multi1248_phase(table, btable, others, card):
         loss, grad_norm = aux["loss"].item(), aux["grad_norm"].item()
         if not (math.isfinite(loss) and math.isfinite(grad_norm)):
             raise AssertionError(f"multi1248 train step {i}: loss {loss}, grad_norm {grad_norm}")
-        if launches != expected or (routes["unfused"], routes["decomposed"]) != (
-                want_step["window_attention"], wide["resnet"]):
+        if launches != expected or (routes["unfused"], routes["decomposed"],
+                                    routes["unfused_window"]) != (
+                want_step["window_attention"], wide["resnet"], 0):
             raise AssertionError(f"multi1248 train step {i}: launches {launches} != {expected}, "
                                  f"or routes {routes}")
         log({"phase": "multi1248 train step", "step": i, "ms": sec * 1e3, "loss": loss,
@@ -1972,7 +2173,17 @@ def multi1248_phase(table, btable, others, card):
          "unfused_layers_fwd_bwd_ms_per_step": tsplit["layer_ms"],
          "unfused_plain_layers_fwd_bwd_ms_per_step": tsplit["plain_layer_ms"],
          "unfused_kernel12_device_ms_per_step": tsplit["kernel12_device_ms"],
-         "unfused_torch_device_ms_per_step": tsplit["torch_device_ms"], "card": card})
+         "unfused_torch_device_ms_per_step": tsplit["torch_device_ms"],
+         "kernel5_c512_ms_per_step": k5_wide["ms"],
+         "kernel5_c512_device_ms_per_step": k5_wide["device_ms"], "card": card})
+    log({"check": "multi1248 train step routes: every window layer fused (kernels 1 and 5), "
+                  "the temporal layer unfused around kernel 12",
+         "unfused_window_layers_per_step": routes["unfused_window"],
+         "unfused_layers_per_step": routes["unfused"],
+         "kernel12_launches_per_step": launches["window_attention"],
+         "kernel1_launches_per_step": launches["stw_layer"],
+         "kernel5_launches_per_step": launches["stw_layer_bwd"],
+         "decomposed_resnet_backwards_per_step": routes["decomposed"], "card": card})
     del trainer, fd, video
     torch.cuda.empty_cache()
     train_f32_card_vs_cpu(tcfg)
@@ -2205,7 +2416,7 @@ def main() -> int:
                         **({"device_ms": s["device_ms"],
                             "device_tflops": s["flops"] / s["device_ms"] / 1e9,
                             "bound_share": s["bound_ms"] / s["device_ms"]}
-                           if name == "stw_layer" else {}),
+                           if name in DEVICE_TIMED else {}),
                         **({"kernel1_same_layers_ms": s["kernel1_layer_ms"],
                             "layer_ms_with_partition": s["layer_ms"]} if name in wm else {})})
     log({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -10,6 +10,9 @@ Each C entry point (``extern "C" int name(...)``) takes a dtype code,
 device pointers, sizes and the stream, and returns ``cudaGetLastError()``.
 :func:`launch` reads the entry's parameter types from its declaration in
 the source, declares them to ctypes, calls it and raises on a non-zero code.
+A size query (``extern "C" long long name(...)``) returns the bytes a layout
+of the source takes, or -1 for a shape it refuses; :func:`query` calls it,
+so that a layout is written once, in the source that uses it.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shar
          "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+_ENTRY = re.compile(r'extern "C" (int|long long) (\w+)\(([^)]*)\)')
+_CTYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 
 def _nvcc() -> str:
@@ -89,34 +93,58 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry_points(source: str) -> Dict[str, List[type]]:
-    """ctypes parameter types of each ``extern "C"`` entry in ``csrc/<source>.cu``."""
+def _declarations(source: str) -> Dict[str, tuple]:
+    """name -> (ctypes result type, parameter types) of each ``extern "C"``
+    function in ``csrc/<source>.cu``."""
     text = (CSRC / f"{source}.cu").read_text()
-    entries = {}
-    for name, params in _ENTRY.findall(text):
-        types = []
-        for param in params.split(","):
-            ptype = param.strip().rsplit(None, 1)[0]
-            types.append(ctypes.c_void_p if "*" in param
-                         else {"int": ctypes.c_int, "float": ctypes.c_float}[ptype])
-        entries[name] = types
-    return entries
+    decls = {}
+    for result, name, params in _ENTRY.findall(text):
+        types = [ctypes.c_void_p if "*" in param else _CTYPES[param.strip().rsplit(None, 1)[0]]
+                 for param in params.split(",")]
+        decls[name] = (_CTYPES[result], types)
+    return decls
+
+
+def entry_points(source: str) -> Dict[str, List[type]]:
+    """ctypes parameter types of each ``extern "C" int`` entry (a launch) in
+    ``csrc/<source>.cu``."""
+    return {name: types for name, (result, types) in _declarations(source).items()
+            if result is ctypes.c_int}
+
+
+def size_queries(source: str) -> Dict[str, List[type]]:
+    """ctypes parameter types of each ``extern "C" long long`` size query in
+    ``csrc/<source>.cu``."""
+    return {name: types for name, (result, types) in _declarations(source).items()
+            if result is ctypes.c_longlong}
 
 
 _FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
-def launch(source: str, name: str, *args) -> None:
-    """Call entry point `name` of ``csrc/<source>.cu``; raise on a CUDA error."""
+def _function(source: str, name: str):
     fn = _FNS.get((source, name))
     if fn is None:
         fn = getattr(library(source), name)
-        fn.argtypes = entry_points(source)[name]
-        fn.restype = ctypes.c_int
+        fn.restype, fn.argtypes = _declarations(source)[name]
         _FNS[(source, name)] = fn
-    code = fn(*args)
+    return fn
+
+
+def launch(source: str, name: str, *args) -> None:
+    """Call entry point `name` of ``csrc/<source>.cu``; raise on a CUDA error."""
+    code = _function(source, name)(*args)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code}")
+
+
+def query(source: str, name: str, *args) -> int:
+    """The value of size query `name` of ``csrc/<source>.cu``; raise where
+    it refuses the shape (-1)."""
+    value = _function(source, name)(*args)
+    if value < 0:
+        raise ValueError(f"{name}{args}: refused by csrc/{source}.cu")
+    return value
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -22,7 +22,8 @@
 // kernel's whole-frame chunks with roll and edge masks are a VMEM
 // workaround.
 //
-// bf16 (the main path): wgmma fed by a ring of STAGES shared-memory stages,
+// bf16 (the main path; the engine is conv_ring.cuh, shared with kernel 3
+// and kernel 5's products): wgmma fed by a ring of STAGES shared-memory stages,
 // 256 threads = two warpgroups, a 128 x 128 float32 tile in registers
 // (64 rows per warpgroup, m64n128k16), a reduction step of 64 bf16 (one
 // 128-byte swizzle row).
@@ -67,7 +68,7 @@
 // block owns 64 pixels by 64 output channels, stages each tap's shifted rows
 // and weights in shared memory, each thread accumulates 4 x 4 outputs with
 // FMAs; dW by the same per-split partials.
-#include "common.cuh"
+#include "conv_ring.cuh"
 
 namespace {
 
@@ -210,308 +211,14 @@ __global__ void __launch_bounds__(NT) wgrad_fma_kernel(const float* __restrict__
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int GT = 256;                 // threads: two warpgroups
-constexpr int GM = 128;                 // GEMM rows per block (64 per warpgroup)
-constexpr int GN = 128;                 // GEMM columns per block
-constexpr int GK = 64;                  // reduction step: 64 bf16 = one 128-byte row
-constexpr int STAGES = 5;               // ring depth
-constexpr int TILE = GM * GK * 2;       // bytes of one operand's tile in a stage (GN == GM)
-constexpr int ATOM = 64 * 128;          // bytes of 64 rows of 128 bytes
-constexpr int SMEM = 2 * STAGES * TILE + 8 * STAGES + 1024;  // A, B, barriers, alignment
-static_assert(GN == GM && GM == 2 * 64 && GK == 64, "tiles as the copies and wgmmas assume");
-static_assert(SMEM <= 232448, "the ring must fit a block's shared memory");
-
-// The ring in dynamic shared memory, 1024-byte aligned for the swizzle
-// atoms: A tiles of every stage, then B tiles, then one mbarrier a stage.
-struct Ring {
-  uint32_t a, b, bar;
-  __device__ __forceinline__ explicit Ring(const void* raw) {
-    a = (smem_addr(raw) + 1023u) & ~1023u;
-    b = a + STAGES * TILE;
-    bar = b + STAGES * TILE;
-  }
-};
-
-// Runs `steps` reduction steps through the ring into acc (zeros when there
-// are none). ld.issue(j) starts the copies of step j into stage j % STAGES
-// (A by cp.async, B by TMA on the stage's mbarrier, TILE bytes) and commits
-// a cp.async group, an empty one past the last step; mma(s, acc, first)
-// issues stage s's four k16 products, the first of step 0 overwriting acc
-// (no instruction but a wgmma defines the accumulators in the loop). Per
-// step i: wait for this thread's copies and the stage's TMA bytes, fence,
-// barrier, refill the stage step i - 2 has left, multiply, and wait until
-// only this step's products are in flight.
-template <class Loader, class Mma>
-__device__ __forceinline__ void run_ring(const Ring& ring, int steps, float (&acc)[64],
-                                         Loader& ld, const Mma& mma) {
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) mbar_init(ring.bar + 8 * s, 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < STAGES - 2; ++j) ld.issue(j);
-  int s = 0;
-  uint32_t phase = 0;
-  for (int i = 0; i < steps; ++i) {
-    cp_async_wait<STAGES - 3>();
-    mbar_wait(ring.bar + 8 * s, phase);
-    fence_proxy_async();
-    __syncthreads();
-    ld.issue(i + STAGES - 2);
-    fence_regs(acc);
-    wgmma_fence();
-    mma(s, acc, i == 0);
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(acc);
-    if (++s == STAGES) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  if (steps == 0) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  }
-}
-
-// Stage s's mbarrier: armed by thread 0 for TILE bytes of TMA boxes.
-__device__ __forceinline__ uint32_t stage_bar(const Ring& ring, int s) { return ring.bar + 8 * s; }
-
-// The forward / din loader: A = the tap-shifted pixel rows of `in`
-// (K-major, GM rows of 64 channels), B = the tap's weights by TMA.
-template <bool MIRROR>
-struct ConvLoader {
-  const Ring& ring;
-  const CUtensorMap* wmap;
-  const bf16* in;
-  int H, W, K, p0, n0, steps, nk;
-  int c, r0;           // this thread's 16-byte chunk and first row
-  uint32_t a_off;      // its swizzled offset in the A tile
-  int ry[4], rx[4];    // (y, x) of rows r0 + 32 i; y = -2 (off every tap) past the last pixel
-  int tap = 0, kc = 0; // the next step to issue
-
-  __device__ __forceinline__ ConvLoader(const Ring& ring_, const CUtensorMap* wmap_,
-                                        const bf16* in_, int P, int H_, int W_, int K_, int p0_,
-                                        int n0_)
-      : ring(ring_), wmap(wmap_), in(in_), H(H_), W(W_), K(K_), p0(p0_), n0(n0_) {
-    nk = (K + GK - 1) / GK;
-    steps = 9 * nk;
-    c = threadIdx.x & 7;
-    r0 = threadIdx.x >> 3;
-    a_off = sw128(r0, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // once per block, 32-bit
-      const int p = p0 + r0 + 32 * i;
-      rx[i] = p < P ? p % W : 0;
-      ry[i] = p < P ? (p / W) % H : -2;
-    }
-  }
-
-  __device__ __forceinline__ void issue(int j) {
-    if (j < steps) {
-      const int s = j % STAGES, dy = tap / 3 - 1, dx = tap % 3 - 1, k0 = kc * GK;
-      const bool k_ok = k0 + 8 * c < K;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int y = ry[i] + dy, x = rx[i] + dx;
-        const bool ok = k_ok && y >= 0 && y < H && x >= 0 && x < W;
-        const bf16* src =
-            ok ? in + (long long)(p0 + r0 + 32 * i + dy * W + dx) * K + k0 + 8 * c : in;
-        cp_async16(ring.a + s * TILE + a_off + i * 32 * 128, src, ok);
-      }
-      if (threadIdx.x == 0) {
-        const uint32_t bar = stage_bar(ring, s), dst = ring.b + s * TILE;
-        mbar_expect_tx(bar, TILE);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (MIRROR)  // w[8 - tap] rows n (Cin) of 64 k (Cout)
-            tma_load_3d(dst + h * ATOM, wmap, bar, k0, n0 + 64 * h, 8 - tap);
-          else  // w[tap] rows k (Cin) of 64 n (Cout)
-            tma_load_3d(dst + h * ATOM, wmap, bar, n0 + 64 * h, k0, tap);
-        }
-      }
-      if (++kc == nk) {
-        kc = 0;
-        ++tap;
-      }
-    }
-    cp_async_commit();
-  }
-};
-
-template <bool MIRROR>
-struct ConvMma {
-  const Ring& ring;
-  int wg;
-  __device__ __forceinline__ void operator()(int s, float (&acc)[64], bool first) const {
-    const uint32_t a = ring.a + s * TILE + wg * ATOM, b = ring.b + s * TILE;
-#pragma unroll
-    for (int k = 0; k < GK / 16; ++k) {
-      const uint64_t da = wgmma_desc(a + 32 * k, 16, 1024);  // pixel rows: K-major
-      if (MIRROR)  // Cin rows of 64 Cout values: K-major
-        wgmma_m64n128k16<0, 0>(acc, da, wgmma_desc(b + 32 * k, 16, 1024), k > 0 || !first);
-      else  // Cin rows of 64 Cout values: N-contiguous, MN-major, two atoms
-        wgmma_m64n128k16<0, 1>(acc, da, wgmma_desc(b + 2048 * k, ATOM, 1024), k > 0 || !first);
-    }
-  }
-};
-
-// Stores a warpgroup's 64 x 128 float32 tile: rows row0 + (16 w + g + 8 h)
-// (below `rows`) and columns col0 + 8 j + 2 t (+1) (below `cols`, a multiple
-// of 8, so a pair is in or out together), + bias[col] when given.
-__device__ __forceinline__ void store_tile(const float (&acc)[64], float* __restrict__ out,
-                                           const float* __restrict__ bias, int row0, int rows,
-                                           int col0, int cols) {
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int n = col0 + 8 * j + 2 * t;
-    if (n < cols) {
-      const float b0 = bias != nullptr ? bias[n] : 0.f, b1 = bias != nullptr ? bias[n + 1] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 16 * warp + g + 8 * h;
-        if (r < rows)
-          *reinterpret_cast<float2*>(out + (long long)r * cols + n) =
-              make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
-      }
-    }
-  }
-}
-
-// The block's tile of out at rows p0.., columns n0..: out[p][n] (+ bias[n])
-// = sum over taps t and k of in[p shifted by t][k] B_t[k][n], B_t = w[t]
-// (forward: K = Cin, N = Cout) or w[8 - t] transposed (MIRROR, din: K =
-// Cout, N = Cin); `wmap` is the 3-D map of w (Cout, Cin, 9). K and N are
-// multiples of 8.
-template <bool MIRROR>
-__device__ __forceinline__ void conv_tile(const Ring& ring, const CUtensorMap* wmap,
-                                          const bf16* __restrict__ in,
-                                          const float* __restrict__ bias,
-                                          float* __restrict__ out, int P, int H, int W, int K,
-                                          int N, int p0, int n0) {
-  ConvLoader<MIRROR> ld(ring, wmap, in, P, H, W, K, p0, n0);
-  const ConvMma<MIRROR> mma{ring, (int)(threadIdx.x >> 7)};
-  float acc[64];
-  run_ring(ring, ld.steps, acc, ld, mma);
-  store_tile(acc, out, bias, p0 + 64 * mma.wg, P, n0, N);
-}
-
 // Kernel 10. Grid: (ceil(P / GM), ceil(N / GN)).
 __global__ void __launch_bounds__(GT, 1)
     conv_wgmma_kernel(__grid_constant__ const CUtensorMap wmap, const bf16* __restrict__ in,
                       const float* __restrict__ bias, float* __restrict__ out, int P, int H,
                       int W, int K, int N) {
   extern __shared__ uint8_t smem[];
-  const Ring ring(smem);
+  const Ring<> ring(smem);
   conv_tile<false>(ring, &wmap, in, bias, out, P, H, W, K, N, blockIdx.x * GM, blockIdx.y * GN);
-}
-
-// The dW loader of one tap and one split of the pixels: A = the
-// tap-shifted a_in rows of 64 pixels, two 64-channel atoms (MN-major, Cin
-// contiguous), B = the da rows by TMA (MN-major, Cout contiguous).
-struct WgradLoader {
-  const Ring& ring;
-  const CUtensorMap* damap;
-  const bf16* a_in;
-  int H, W, Cin, ci0, co0, dy, dx, begin, end, steps;
-  int c, r0;          // this thread's 16-byte chunk of its atom, first row
-  uint32_t a_off;     // its swizzled offset in the A tile
-  bool c_ok;          // its channels are below Cin
-  int ry[4], rx[4];   // (y, x) of pixels q + r0 + 16 i of the next step q
-  int sx, sy;         // GK pixels as a step in (y, x)
-  int q;              // first pixel of the next step
-
-  __device__ __forceinline__ WgradLoader(const Ring& ring_, const CUtensorMap* damap_,
-                                         const bf16* a_in_, int P, int H_, int W_, int Cin_,
-                                         int per, int ci0_, int co0_, int z, int tap)
-      : ring(ring_), damap(damap_), a_in(a_in_), H(H_), W(W_), Cin(Cin_), ci0(ci0_),
-        co0(co0_) {
-    dy = tap / 3 - 1;
-    dx = tap % 3 - 1;
-    begin = z * per * GK;
-    end = min(P, begin + per * GK);
-    steps = end > begin ? (end - begin + GK - 1) / GK : 0;
-    const int cc = threadIdx.x & 15;  // atom cc / 8, chunk cc % 8
-    c = cc & 7;
-    r0 = threadIdx.x >> 4;
-    a_off = (cc >> 3) * ATOM + sw128(r0, c);
-    c_ok = ci0 + 8 * cc < Cin;
-    q = begin;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // once per block, 32-bit
-      const int p = begin + r0 + 16 * i;
-      rx[i] = p % W;
-      ry[i] = (p / W) % H;
-    }
-    sx = GK % W;
-    sy = (GK / W) % H;
-  }
-
-  __device__ __forceinline__ void issue(int j) {
-    if (j < steps) {
-      const int s = j % STAGES;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = q + r0 + 16 * i, y = ry[i] + dy, x = rx[i] + dx;
-        const bool ok = c_ok && p < end && y >= 0 && y < H && x >= 0 && x < W;
-        const bf16* src =
-            ok ? a_in + (long long)(p + dy * W + dx) * Cin + ci0 + 8 * (threadIdx.x & 15)
-               : a_in;
-        cp_async16(ring.a + s * TILE + a_off + i * 16 * 128, src, ok);
-        rx[i] += sx;  // the same row of the next step: GK pixels on, no division
-        ry[i] += sy;
-        if (rx[i] >= W) {
-          rx[i] -= W;
-          ++ry[i];
-        }
-        if (ry[i] >= H) ry[i] -= H;
-      }
-      if (threadIdx.x == 0) {
-        const uint32_t bar = stage_bar(ring, s), dst = ring.b + s * TILE;
-        mbar_expect_tx(bar, TILE);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) tma_load_2d(dst + h * ATOM, damap, bar, co0 + 64 * h, q);
-      }
-      q += GK;
-    }
-    cp_async_commit();
-  }
-};
-
-struct WgradMma {
-  const Ring& ring;
-  int wg;
-  __device__ __forceinline__ void operator()(int s, float (&acc)[64], bool first) const {
-    const uint32_t a = ring.a + s * TILE + wg * ATOM, b = ring.b + s * TILE;
-#pragma unroll
-    for (int k = 0; k < GK / 16; ++k)  // both pixel rows of channels: MN-major
-      wgmma_m64n128k16<1, 1>(acc, wgmma_desc(a + 2048 * k, ATOM, 1024),
-                             wgmma_desc(b + 2048 * k, ATOM, 1024), k > 0 || !first);
-  }
-};
-
-// The block's tile of part[z][tap] at rows ci0.., columns co0..:
-// part[z][tap][ci][co] = sum over the pixels p of split z (`per` steps of
-// GK pixels) of a_in[p shifted by tap][ci] da[p][co]; `damap` is the 2-D map
-// of da (Cout, P).
-__device__ __forceinline__ void wgrad_tile(const Ring& ring, const CUtensorMap* damap,
-                                           const bf16* __restrict__ a_in,
-                                           float* __restrict__ part, int P, int H, int W,
-                                           int Cin, int Cout, int per, int ci0, int co0, int z,
-                                           int tap) {
-  WgradLoader ld(ring, damap, a_in, P, H, W, Cin, per, ci0, co0, z, tap);
-  const WgradMma mma{ring, (int)(threadIdx.x >> 7)};
-  float acc[64];
-  run_ring(ring, ld.steps, acc, ld, mma);
-  store_tile(acc, part + (long long)(9 * z + tap) * Cin * Cout, nullptr, ci0 + 64 * mma.wg,
-             Cin, co0, Cout);
 }
 
 // Kernel 11: din and dW in one launch, so that the two products' blocks
@@ -528,15 +235,15 @@ __global__ void __launch_bounds__(GT, 1)
                      float* __restrict__ part, int P, int H, int W, int Cin, int Cout, int per,
                      int din_blocks, int din_cols, int wgrad_ci, int wgrad_co) {
   extern __shared__ uint8_t smem[];
-  const Ring ring(smem);
+  const Ring<> ring(smem);
   const int b = blockIdx.x;  // 32-bit, once per block
   if (b < din_blocks) {
     conv_tile<true>(ring, &wmap, da, nullptr, din, P, H, W, Cout, Cin, b / din_cols * GM,
                     b % din_cols * GN);
   } else {
     const int w = b - din_blocks, tiles = wgrad_ci * wgrad_co, zt = w / tiles, t = w % tiles;
-    wgrad_tile(ring, &damap, a_in, part, P, H, W, Cin, Cout, per, t % wgrad_ci * GM,
-               t / wgrad_ci * GN, zt / 9, zt % 9);
+    wgrad_tile(ring, &damap, a_in, part + (long long)zt * Cin * Cout, P, H, W, Cin, Cout, per,
+               t % wgrad_ci * GM, t / wgrad_ci * GN, zt / 9, zt % 9);
   }
 }
 
@@ -562,20 +269,11 @@ int bwd_f32(const float* da, const float* a_in, const float* w, float* din, floa
   return (int)sum_parts(part, splits, 9LL * Cin * Cout, dw, stream);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // What the bf16 kernels take: 16-byte rows (channel counts multiples of 8),
 // 16-byte-aligned operands, pixel indices in 32 bits.
 bool bf16_shapes_ok(long long P, int Cin, int Cout, const void* act, const void* w) {
   return Cin % 8 == 0 && Cout % 8 == 0 && Cin > 0 && Cout > 0 && P < (1LL << 31) - GM &&
          aligned16(act) && aligned16(w);
-}
-
-// The 3-D map of w (9, Cin, Cout): dims (Cout, Cin, 9), innermost first.
-int weight_map(CUtensorMap* map, const void* w, int Cin, int Cout) {
-  const cuuint64_t dims[3] = {(cuuint64_t)Cout, (cuuint64_t)Cin, 9};
-  const cuuint64_t strides[2] = {(cuuint64_t)Cout * 2, (cuuint64_t)Cin * Cout * 2};
-  return bf16_tensor_map(map, w, 3, dims, strides);
 }
 
 cudaError_t fwd_bf16(const CUtensorMap& wmap, const bf16* x, const float* bias, float* out, int P,
@@ -593,8 +291,7 @@ int bwd_bf16(const bf16* da, const bf16* a_in, const bf16* w, float* din, float*
   CUtensorMap wmap, damap;
   int code = weight_map(&wmap, w, Cin, Cout);
   if (code != 0) return code;
-  const cuuint64_t dims[2] = {(cuuint64_t)Cout, (cuuint64_t)P}, strides[1] = {(cuuint64_t)Cout * 2};
-  if ((code = bf16_tensor_map(&damap, da, 2, dims, strides)) != 0) return code;
+  if ((code = rows_map(&damap, da, P, Cout)) != 0) return code;
   const int steps = (P + GK - 1) / GK, per = (steps + splits - 1) / splits;
   const int din_cols = (Cin + GN - 1) / GN, din_blocks = (P + GM - 1) / GM * din_cols;
   const int wgrad_ci = (Cin + GM - 1) / GM, wgrad_co = (Cout + GN - 1) / GN;

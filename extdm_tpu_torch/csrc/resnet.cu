@@ -7,37 +7,54 @@
 // -> _make_kernel), which holds a whole sample in TPU VMEM so GroupNorm's
 // statistics (over all T*H*W*C/G values of a group) need no cross-program
 // reduction. A Hopper SM holds 227 KB, far less than a sample, so the block
-// is a short sequence of this file's kernels on the caller's stream:
-//
-//   1. conv_kernel<3, no transform>: conv1 + b1 -> y1 (T), and each block's
-//      per-group sum / sum of squares added into a float64 (B, G, 2) buffer.
-//   2. conv_kernel<3, transform>: GN1 + FiLM + SiLU are applied to y1 while
-//      it is staged into shared memory (zero padding stays zero), conv2 + b2
-//      -> y2 (T), GN2 statistics likewise.
-//   3. conv_kernel<1> (only with a residual projection): x Wres + bres -> r.
-//   4. gn_silu_add_kernel: out = SiLU(GN2(y2)) + (x or r).
+// is a short sequence of launches on the caller's stream.
 //
 // Bound on the H100: operations for the 3x3 convs (2*9*Cin*Cout flops per
-// pixel against a few bytes), bytes for step 4. The convs are implicit
-// GEMMs: a block computes an 8x8 pixel tile of one frame for 64 output
-// channels, staging a 10x10 input halo and the 3x3 weights for 16 input
-// channels at a time in shared memory. In bf16 the products run on the
-// tensor cores (mma.sync m16n8k16, float accumulators): each of the 8 warps
-// owns 16 pixels x 32 channels and takes one k=16 step per tap. In float32
-// (the tight reference checks) each thread accumulates 4 pixels x 4
-// channels with FMAs. The (1,3,3) kernel never mixes frames, so frames are
-// independent grid rows. Statistics are summed in float within a block and
-// in float64 across blocks, so E[y^2] - E[y]^2 loses nothing that matters
-// at a group size of ~10^6.
-// Weights stay in PyTorch's Conv layout (Cout, Cin, kh, kw).
+// pixel against a few bytes), bytes for the elementwise passes.
+//
+// bf16 (kernel 3 on the main path, resnet_block_wgmma): the convs run on
+// conv_ring.cuh's wgmma implicit GEMM, the engine of kernel 10: rows M =
+// the pixels of every frame flattened, so a 128-row tile of small frames
+// wastes nothing; the tap-shifted rows arrive by cp.async with per-row edge
+// masks, the tap-major weights (9, Cin, Cout) by TMA, through a ring of
+// stages. The launches:
+//   1. conv_gn_kernel: conv1 + b1 -> y1 (float32), each tile's per-(sample,
+//      group) sum and sum of squares added into a float64 (B, G, 2) buffer;
+//      with a residual projection the same launch runs x Wres + bres -> r
+//      (float32) on the same tile with one tap (extra blocks).
+//   2. gn_coef_kernel + gn_act_kernel: a1 = bf16(SiLU(GN1(y1) (scale + 1) +
+//      shift)), one bytes-bound pass, a1 written once. Applying it to the
+//      conv's stages instead would have to keep their zero-filled halo zero
+//      (SiLU(GN(0)) != 0).
+//   3. conv_gn_kernel: conv2 + b2 -> y2 (float32), GN2 statistics likewise.
+//   4. gn_coef_kernel + gn_silu_add_kernel: out = SiLU(GN2(y2)) + (x or r).
+// Rounding: where JAX rounds (pallas_resnet.py _make_kernel): the conv
+// outputs, the GroupNorm chain and the residual stay float32; a1 (conv2's
+// input) and the output are rounded to bf16, once each. Channel counts are
+// multiples of 8 (the wrapper zero-pads; statistics and the output count
+// only the real channels).
+//
+// float32 (the tight reference checks; resnet_block): a block computes an
+// 8x8 pixel tile of one frame for 64 output channels, staging a 10x10 input
+// halo and the 3x3 weights for 16 input channels at a time in shared
+// memory, each thread accumulating 4 pixels x 4 channels with FMAs:
+//   1. conv_kernel<3, no transform>: conv1 + b1 -> y1, GN1 sums as above.
+//   2. conv_kernel<3, transform>: GN1 + FiLM + SiLU applied to y1 while it
+//      is staged (zero padding stays zero), conv2 + b2 -> y2, GN2 sums.
+//   3. conv_kernel<1> (only with a residual projection): x Wres + bres -> r.
+//   4. gn_silu_add_kernel: out = SiLU(GN2(y2)) + (x or r).
+// Statistics are summed in float within a block and in float64 across
+// blocks, so E[y^2] - E[y]^2 loses nothing that matters at a group size of
+// ~10^6. The float32 path and kernel 7 take weights in PyTorch's Conv layout
+// (Cout, Cin, kh, kw); kernel 7's bf16 convs keep the mma.sync conv_kernel_mma.
 #include <type_traits>
 
-#include "common.cuh"
+#include "conv_ring.cuh"
 
 namespace {
 
 constexpr int NT = 256;
-constexpr int TILE = 8;   // output tile is TILE x TILE pixels
+constexpr int PXT = 8;   // output tile is PXT x PXT pixels
 constexpr int CO_T = 64;  // output channels per block
 constexpr int CI_T = 16;  // input channels staged per step
 constexpr int MAXG = 32;  // most GroupNorm groups
@@ -66,15 +83,15 @@ __global__ void __launch_bounds__(NT) conv_kernel(const T* __restrict__ in, cons
                                                  GNIn gn, double* __restrict__ out_stats,
                                                  int out_groups, int F, int H, int W, int Cin,
                                                  int Cout) {
-  constexpr int P = TILE + K - 1;  // staged halo width
+  constexpr int P = PXT + K - 1;  // staged halo width
   __shared__ float patch[P * P * CI_T];
   __shared__ float wbuf[K * K * CI_T * CO_T];
   __shared__ float g_mean[MAXG], g_rstd[MAXG];
   __shared__ float s_sum[MAXG], s_sq[MAXG];
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int tiles_w = (W + TILE - 1) / TILE;
-  const int y0 = (blockIdx.x / tiles_w) * TILE, x0 = (blockIdx.x % tiles_w) * TILE;
+  const int tiles_w = (W + PXT - 1) / PXT;
+  const int y0 = (blockIdx.x / tiles_w) * PXT, x0 = (blockIdx.x % tiles_w) * PXT;
   const int co0 = blockIdx.y * CO_T;
   const int frame = blockIdx.z, b = frame / F;
   const T* in_f = in + (long long)frame * H * W * Cin;
@@ -128,7 +145,7 @@ __global__ void __launch_bounds__(NT) conv_kernel(const T* __restrict__ in, cons
         float av[4], wv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int p = ty + 16 * i, py = p / TILE, px = p % TILE;
+          const int p = ty + 16 * i, py = p / PXT, px = p % PXT;
           av[i] = patch[((py + dy) * P + px + dx) * CI_T + cl];
         }
 #pragma unroll
@@ -149,7 +166,7 @@ __global__ void __launch_bounds__(NT) conv_kernel(const T* __restrict__ in, cons
     float s = 0.f, sq = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * i, gy = y0 + p / TILE, gx = x0 + p % TILE;
+      const int p = ty + 16 * i, gy = y0 + p / PXT, gx = x0 + p % PXT;
       if (gy >= H || gx >= W) continue;
       const float v = round_to<T>(acc[i][j] + (bias != nullptr ? bias[co] : 0.f));
       out[(((long long)frame * H + gy) * W + gx) * Cout + co] = from_f<T>(v);
@@ -181,7 +198,7 @@ __global__ void __launch_bounds__(NT) conv_kernel_mma(const bf16* __restrict__ i
                                                      double* __restrict__ out_stats,
                                                      int out_groups, int F, int H, int W, int Cin,
                                                      int Cout) {
-  constexpr int P = TILE + K - 1;
+  constexpr int P = PXT + K - 1;
   __shared__ __align__(16) bf16 patch[P * P * PS];       // [pixel][input channel]
   __shared__ __align__(16) bf16 wbuf[K * K * CO_T * PS];  // [tap][output channel][input channel]
   __shared__ float g_mean[MAXG], g_rstd[MAXG];
@@ -190,8 +207,8 @@ __global__ void __launch_bounds__(NT) conv_kernel_mma(const bf16* __restrict__ i
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int mt = warp & 3, ng = warp >> 2;  // 16-pixel row block, 32-channel half
-  const int tiles_w = (W + TILE - 1) / TILE;
-  const int y0 = (blockIdx.x / tiles_w) * TILE, x0 = (blockIdx.x % tiles_w) * TILE;
+  const int tiles_w = (W + PXT - 1) / PXT;
+  const int y0 = (blockIdx.x / tiles_w) * PXT, x0 = (blockIdx.x % tiles_w) * PXT;
   const int co0 = blockIdx.y * CO_T;
   const int frame = blockIdx.z, b = frame / F;
   const bf16* in_f = in + (long long)frame * H * W * Cin;
@@ -243,8 +260,8 @@ __global__ void __launch_bounds__(NT) conv_kernel_mma(const bf16* __restrict__ i
 #pragma unroll
     for (int tap = 0; tap < K * K; ++tap) {
       const int dy = tap / K, dx = tap % K;
-      const bf16* a_lo = patch + ((p0 / TILE + dy) * P + p0 % TILE + dx) * PS + 2 * t4;
-      const bf16* a_hi = patch + ((p1 / TILE + dy) * P + p1 % TILE + dx) * PS + 2 * t4;
+      const bf16* a_lo = patch + ((p0 / PXT + dy) * P + p0 % PXT + dx) * PS + 2 * t4;
+      const bf16* a_hi = patch + ((p1 / PXT + dy) * P + p1 % PXT + dx) * PS + 2 * t4;
       const uint32_t a0 = ld2(a_lo), a1 = ld2(a_hi), a2 = ld2(a_lo + 8), a3 = ld2(a_hi + 8);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -263,7 +280,7 @@ __global__ void __launch_bounds__(NT) conv_kernel_mma(const bf16* __restrict__ i
       float s = 0.f, sq = 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = h ? p1 : p0, gy = y0 + p / TILE, gx = x0 + p % TILE;
+        const int p = h ? p1 : p0, gy = y0 + p / PXT, gx = x0 + p % PXT;
         if (gy < H && gx < W && co < Cout) {
           const float v = round_to<bf16>(acc[j][2 * h + e] + (bias != nullptr ? bias[co] : 0.f));
           out[(((long long)frame * H + gy) * W + gx) * Cout + co] = __float2bfloat16(v);
@@ -316,7 +333,7 @@ __global__ void __launch_bounds__(NT) gn_silu_add_kernel(const T* __restrict__ y
 template <typename T, int K, bool XFORM, bool STATS>
 cudaError_t conv(const T* in, const T* w, const float* bias, T* out, GNIn gn, double* out_stats,
                  int groups, int B, int F, int H, int W, int Cin, int Cout, cudaStream_t stream) {
-  const dim3 grid(((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE), (Cout + CO_T - 1) / CO_T, B * F);
+  const dim3 grid(((H + PXT - 1) / PXT) * ((W + PXT - 1) / PXT), (Cout + CO_T - 1) / CO_T, B * F);
   if constexpr (std::is_same<T, bf16>::value) {
     conv_kernel_mma<K, XFORM, STATS><<<grid, NT, 0, stream>>>(in, w, bias, out, gn, out_stats,
                                                               groups, F, H, W, Cin, Cout);
@@ -354,6 +371,359 @@ int block(const T* x, const T* w1, const float* b1, const float* g1s, const floa
   const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
   gn_silu_add_kernel<T><<<blocks, NT, 0, stream>>>(y2, stats2, g2s, g2b, res, out, S, Cout, groups,
                                                    eps, total);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- bf16 on wgmma
+constexpr int SLOTS = 8;  // samples a tile's statistics collect in shared memory
+
+// One conv of the block on the wgmma engine. Blocks (x, y < cols): out =
+// conv(in, w) + bias, float32 (P, N), and the per-(sample, group) sum and
+// sum of squares of the real channels (< C, groups of C / groups) added into
+// stats (B, groups, 2). Blocks y >= cols (with a residual projection):
+// rout = in Wres + rbias on the same tile with one tap, no statistics.
+// S: pixels a sample. Grid: (ceil(P / GM), cols (+ cols)) of tiles BN
+// columns wide. RS ring stages, MINB blocks an SM (fused_resnet.resnet_plan).
+template <int RS, int MINB, int BN>
+__global__ void __launch_bounds__(GT, MINB)
+    conv_gn_kernel(__grid_constant__ const CUtensorMap wmap,
+                   __grid_constant__ const CUtensorMap rmap,
+                   const bf16* __restrict__ in, const float* __restrict__ bias,
+                   float* __restrict__ out, const float* __restrict__ rbias,
+                   float* __restrict__ rout, double* __restrict__ stats, int P, int H, int W, int K,
+                   int N, int C, int groups, int S, int cols) {
+  extern __shared__ uint8_t smem[];
+  __shared__ float s_stat[2 * SLOTS * MAXG];
+  const Ring<RS, BN> ring(smem);
+  const int p0 = blockIdx.x * GM, tid = threadIdx.x;
+  if ((int)blockIdx.y >= cols) {
+    conv_tile<false, 1, RS, BN>(ring, &rmap, in, rbias, rout, P, H, W, K, N, p0,
+                                ((int)blockIdx.y - cols) * BN);
+    return;
+  }
+  const int n0 = blockIdx.y * BN;
+  for (int i = tid; i < 2 * SLOTS * MAXG; i += GT) s_stat[i] = 0.f;  // before the ring's barrier
+  float acc[BN / 2];
+  conv_product<false, 9, RS, BN>(ring, &wmap, in, acc, P, H, W, K, p0, n0);
+
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rw = p0 + 64 * (tid >> 7) + 16 * ((tid >> 5) & 3);  // the warp's first row
+  const int b0 = p0 / S, cg = C / groups;
+  const int r_last = min(rw + 15, P - 1);
+  // the warp's rows all in one sample with a shared-memory slot: shuffles
+  const bool uniform = rw < P && rw / S == r_last / S && rw / S - b0 < SLOTS;
+  const int slot = uniform ? rw / S - b0 : 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int nb = n0 + 8 * j + 2 * t;
+    const bool n_ok = nb < N;  // N a multiple of 8: a pair is in or out together
+    const float bv0 = n_ok ? bias[nb] : 0.f, bv1 = n_ok ? bias[nb + 1] : 0.f;
+    float v[2][2];  // [row half][column]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + g + 8 * h;
+      v[h][0] = acc[4 * j + 2 * h] + bv0;
+      v[h][1] = acc[4 * j + 2 * h + 1] + bv1;
+      if (n_ok && r < P)
+        *reinterpret_cast<float2*>(out + (long long)r * N + nb) = make_float2(v[h][0], v[h][1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = nb + e;
+      if (uniform) {
+        float s = 0.f, sq = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (rw + g + 8 * h < P) {
+            s += v[h][e];
+            sq += v[h][e] * v[h][e];
+          }
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {  // over the 8 row groups g
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+          sq += __shfl_xor_sync(0xffffffffu, sq, o);
+        }
+        if (g == 0 && n < C) {
+          atomicAdd(&s_stat[(slot * MAXG + n / cg) * 2], s);
+          atomicAdd(&s_stat[(slot * MAXG + n / cg) * 2 + 1], sq);
+        }
+      } else if (n < C) {  // a warp across samples (or past the slots): straight to float64
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rw + g + 8 * h;
+          if (r < P) {
+            double* st = stats + ((long long)(r / S) * groups + n / cg) * 2;
+            atomicAdd(st, (double)v[h][e]);
+            atomicAdd(st + 1, (double)v[h][e] * v[h][e]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < SLOTS * groups; i += GT) {
+    const int sl = i / groups, gi = i % groups;
+    if ((long long)(b0 + sl) * S < P && (s_stat[(sl * MAXG + gi) * 2] != 0.f ||
+                                         s_stat[(sl * MAXG + gi) * 2 + 1] != 0.f)) {
+      double* st = stats + ((long long)(b0 + sl) * groups + gi) * 2;
+      atomicAdd(st, (double)s_stat[(sl * MAXG + gi) * 2]);
+      atomicAdd(st + 1, (double)s_stat[(sl * MAXG + gi) * 2 + 1]);
+    }
+  }
+}
+
+// coef[b][c] = (a, d) such that GroupNorm (+ FiLM) of y is y a + d: a = rstd
+// scale (k), d = (bias - mean rstd scale) (k) (+ shift), k = FiLM scale + 1;
+// (0, 0) for the pad channels c >= C of a row of ld.
+__global__ void __launch_bounds__(NT) gn_coef_kernel(GNIn gn, float2* __restrict__ coef, int B,
+                                                    int C, int ld, long long S) {
+  const double n = (double)S * (C / gn.groups);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * ld; i += gridDim.x * blockDim.x) {
+    const int b = i / ld, c = i % ld;
+    float2 v = make_float2(0.f, 0.f);
+    if (c < C) {
+      float mean, rstd;
+      group_moments(gn.stats, b, c / (C / gn.groups), gn.groups, n, gn.eps, &mean, &rstd);
+      v.x = rstd * gn.scale[c];
+      v.y = gn.bias[c] - mean * v.x;
+      if (gn.film != nullptr) {
+        const float* f = gn.film + (long long)b * 2 * C;
+        const float k = f[c] + 1.f;
+        v.x *= k;
+        v.y = v.y * k + f[C + c];
+      }
+    }
+    coef[i] = v;
+  }
+}
+
+// a1 = bf16(SiLU(y a + d)), four channels a thread: y (B S, ld) float32,
+// ld a multiple of 8; pad channels give SiLU(0) = 0.
+__global__ void __launch_bounds__(NT) gn_act_kernel(const float4* __restrict__ y,
+                                                   const float2* __restrict__ coef,
+                                                   uint2* __restrict__ out, int ld, long long S,
+                                                   long long total4) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long e = 4 * i;
+    const int c = (int)(e % ld), b = (int)(e / (S * ld));
+    const float4 v = y[i];
+    const float2* cf = coef + (long long)b * ld + c;
+    const float2 c0 = cf[0], c1 = cf[1], c2 = cf[2], c3 = cf[3];
+    out[i] = make_uint2(pack_bf16(silu(v.x * c0.x + c0.y), silu(v.y * c1.x + c1.y)),
+                        pack_bf16(silu(v.z * c2.x + c2.y), silu(v.w * c3.x + c3.y)));
+  }
+}
+
+// out (B S, C) bf16 = bf16(SiLU(y2 a + d) + res), res = x (bf16) or r
+// (float32), all three of row stride ld; one rounding, as JAX's.
+__global__ void __launch_bounds__(NT) gn_silu_res_kernel(const float* __restrict__ y,
+                                                        const float2* __restrict__ coef,
+                                                        const bf16* __restrict__ x,
+                                                        const float* __restrict__ r,
+                                                        bf16* __restrict__ out, int C, int ld,
+                                                        long long S, long long total) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long p = i / C;
+    const int c = (int)(i - p * C), b = (int)(p / S);
+    const long long at = p * ld + c;
+    const float2 cf = coef[(long long)b * ld + c];
+    const float res = r != nullptr ? r[at] : __bfloat162float(x[at]);
+    out[i] = __float2bfloat16(silu(y[at] * cf.x + cf.y) + res);
+  }
+}
+
+// w (Cout, Cin, taps) in T, PyTorch's Conv layout with (kh, kw) flattened ->
+// out (taps, Kin, N) bf16, zero past Cin and Cout: the tap-major weights TMA
+// reads, in the one copy that converts them to bf16. A 32 x 32 tile
+// transpose of the (Cout) x (Cin taps) matrix through shared memory, so that
+// both the reads and the writes are coalesced. Grid: (ceil(Kin taps / 32),
+// ceil(N / 32)) of 32 x 8 threads.
+template <typename T>
+__global__ void __launch_bounds__(NT) tap_major_kernel(const T* __restrict__ w,
+                                                      bf16* __restrict__ out, int Cout, int Cin,
+                                                      int taps, int Kin, int N) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x;
+  for (int i = threadIdx.y; i < 32; i += 8) {  // rows n of w, k = ci taps + tap along them
+    const int n = n0 + i, k = k0 + tx;
+    tile[i][tx] = n < Cout && k < Cin * taps ? to_f(w[(long long)n * Cin * taps + k]) : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {  // rows (tap, ci) of out, n along them
+    const int k = k0 + i, n = n0 + tx, ci = k / taps, tap = k % taps;
+    if (ci < Kin && n < N)
+      out[((long long)tap * Kin + ci) * N + n] = __float2bfloat16(tile[tx][i]);
+  }
+}
+
+// Kernel 3's per-channel vectors and FiLM as float32: rows of `ld` (row i
+// of v, zero past C or for a null row) and, after them, the B x 2 C FiLM
+// values; each source in its dtype (0 float32, 1 bf16).
+struct Vecs {
+  const void* v[7];  // b1, b2, g1s, g1b, g2s, g2b, bres
+};
+
+__device__ __forceinline__ float load_as_float(const void* p, long long i, int dtype) {
+  return dtype == 0 ? static_cast<const float*>(p)[i]
+                    : __bfloat162float(static_cast<const bf16*>(p)[i]);
+}
+
+__global__ void __launch_bounds__(NT) vec_kernel(Vecs src, int vdtype, const void* film,
+                                                int fdtype, float* __restrict__ out, int C, int ld,
+                                                int filmn) {
+  const int rows = 7 * ld;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < rows + filmn;
+       e += gridDim.x * blockDim.x) {
+    if (e < rows) {
+      const int i = e / ld, c = e % ld;
+      out[e] = c < C && src.v[i] != nullptr ? load_as_float(src.v[i], c, vdtype) : 0.f;
+    } else {
+      out[e] = load_as_float(film, e - rows, fdtype);
+    }
+  }
+}
+
+// w (Cout, Cin, taps) float32 (dtype 0) or bf16 (1) -> out (taps, Kin, N)
+// bf16, zero past Cin and Cout.
+cudaError_t tap_major(int dtype, const void* w, bf16* out, int Cout, int Cin, int taps, int Kin,
+                      int N, cudaStream_t stream) {
+  const dim3 grid((Kin * taps + 31) / 32, (N + 31) / 32), block(32, 8);
+  if (dtype == 0)
+    tap_major_kernel<float><<<grid, block, 0, stream>>>((const float*)w, out, Cout, Cin, taps,
+                                                         Kin, N);
+  else
+    tap_major_kernel<bf16><<<grid, block, 0, stream>>>((const bf16*)w, out, Cout, Cin, taps,
+                                                        Kin, N);
+  return cudaGetLastError();
+}
+
+int grid_of(long long total) {
+  const long long want = (total + NT - 1) / NT;
+  return (int)(want < 132 * 32 ? want : 132 * 32);
+}
+
+// One instantiation of conv_gn_kernel on the stream.
+template <int RS, int MINB, int BN, class... Args>
+cudaError_t conv_gn_launch(dim3 grid, cudaStream_t stream, Args... args) {
+  constexpr int bytes = ring_smem<RS, BN>();
+  cudaError_t err = cudaFuncSetAttribute(conv_gn_kernel<RS, MINB, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  conv_gn_kernel<RS, MINB, BN><<<grid, GT, bytes, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// conv_gn_kernel with a ring of `stages` and tiles `bn` wide: 3 stages let
+// two 128-wide blocks or three 64-wide ones share an SM, 5 one. Grid: (rows,
+// ncols tiles of bn columns, doubled with the residual projection's tiles).
+template <class... Args>
+cudaError_t conv_gn(int stages, int bn, int rows, int ncols, cudaStream_t stream, Args... args) {
+  const dim3 grid(rows, ncols);
+  if (stages == 3 && bn == 64) return conv_gn_launch<3, 3, 64>(grid, stream, args...);
+  if (stages == 3 && bn == GN) return conv_gn_launch<3, 2, GN>(grid, stream, args...);
+  if (stages == STAGES && bn == 64) return conv_gn_launch<STAGES, 1, 64>(grid, stream, args...);
+  if (stages == STAGES && bn == GN) return conv_gn_launch<STAGES, 1, GN>(grid, stream, args...);
+  return cudaErrorInvalidValue;
+}
+
+// Kernel 3's scratch, carved from one buffer in this order, each region
+// 256-byte aligned (its size: the resnet_scratch_bytes query below): the
+// tap-major bf16 weights w1 (9, Kin, N), w2 (9, N, N), wres (1, Kin, N);
+// the float32 vectors (7, N) followed by FiLM (B, 2 Cout); y1, a1 (bf16),
+// y2, r (P, N); the float64 statistics (2, B, G, 2); the float2
+// coefficients (B, N).
+struct Scratch {
+  size_t w1, w2, wr, vec, y1, a1, y2, r, stats, coef, total;
+  Scratch(int B, long long P, int Kin, int N, int C, int groups, bool res, bool has_film) {
+    size_t at = 0;
+    auto take = [&at](size_t bytes) {
+      const size_t off = at;
+      at += (bytes + 255) / 256 * 256;
+      return off;
+    };
+    w1 = take(9ull * Kin * N * 2);
+    w2 = take(9ull * N * N * 2);
+    wr = take(res ? 1ull * Kin * N * 2 : 0);
+    vec = take((7ull * N + (has_film ? 2ull * B * C : 0)) * 4);
+    y1 = take((size_t)P * N * 4);
+    a1 = take((size_t)P * N * 2);
+    y2 = take((size_t)P * N * 4);
+    r = take(res ? (size_t)P * N * 4 : 0);
+    stats = take(4ull * B * groups * 8);
+    coef = take(2ull * B * N * 4);
+    total = at;
+  }
+};
+
+int block_wgmma(const bf16* x, const void* w1raw, const void* w2raw, const void* wresraw,
+                int wdtype, const Vecs& vecs, int vdtype, const void* filmraw, int fdtype,
+                uint8_t* scratch, long long scratch_bytes, bf16* out, int B, int F, int H, int W,
+                int Cin, int Cout, int Kin, int N, int groups, float eps, int stages1, int stages2,
+                int bn, cudaStream_t stream) {
+  const long long S = (long long)F * H * W, Pl = S * B;
+  const bool res = wresraw != nullptr;
+  if (groups > MAXG || Cout % groups || Kin % 8 || N % 8 || Cout > N || Cin > Kin ||
+      Pl >= (1LL << 31) - GM || !aligned16(x) || (!res && Kin != N) ||
+      (wdtype != 0 && wdtype != 1) || (vdtype != 0 && vdtype != 1) ||
+      (filmraw != nullptr && fdtype != 0 && fdtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const Scratch sc(B, Pl, Kin, N, Cout, groups, res, filmraw != nullptr);
+  if ((long long)sc.total != scratch_bytes) return (int)cudaErrorInvalidValue;
+  const int P = (int)Pl;
+  bf16* w1 = reinterpret_cast<bf16*>(scratch + sc.w1);
+  bf16* w2 = reinterpret_cast<bf16*>(scratch + sc.w2);
+  bf16* wres = res ? reinterpret_cast<bf16*>(scratch + sc.wr) : nullptr;
+  float* vec = reinterpret_cast<float*>(scratch + sc.vec);
+  const float* film = filmraw != nullptr ? vec + 7 * N : nullptr;
+  float* y1 = reinterpret_cast<float*>(scratch + sc.y1);
+  bf16* a1 = reinterpret_cast<bf16*>(scratch + sc.a1);
+  float* y2 = reinterpret_cast<float*>(scratch + sc.y2);
+  float* r = res ? reinterpret_cast<float*>(scratch + sc.r) : nullptr;
+  double* stats = reinterpret_cast<double*>(scratch + sc.stats);
+  float2* coef = reinterpret_cast<float2*>(scratch + sc.coef);
+  const float *b1 = vec, *b2 = vec + N, *g1s = vec + 2 * N, *g1b = vec + 3 * N,
+              *g2s = vec + 4 * N, *g2b = vec + 5 * N, *bres = res ? vec + 6 * N : nullptr;
+  // 0. the operands as the convs read them: tap-major bf16 weights, float32
+  // vectors and FiLM (in-place casts of the caller's parameters), zero sums
+  cudaError_t err = tap_major(wdtype, w1raw, w1, Cout, Cin, 9, Kin, N, stream);
+  if (err == cudaSuccess) err = tap_major(wdtype, w2raw, w2, Cout, Cout, 9, N, N, stream);
+  if (err == cudaSuccess && res)
+    err = tap_major(wdtype, wresraw, wres, Cout, Cin, 1, Kin, N, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int filmn = filmraw != nullptr ? 2 * B * Cout : 0;
+  vec_kernel<<<grid_of(7LL * N + filmn), NT, 0, stream>>>(vecs, vdtype, filmraw, fdtype, vec, Cout,
+                                                         N, filmn);
+  if ((err = cudaMemsetAsync(stats, 0, 4ull * B * groups * 8, stream)) != cudaSuccess)
+    return (int)err;
+  CUtensorMap m1, m2, mr;
+  int code = weight_map(&m1, w1, Kin, N);
+  if (code == 0) code = weight_map(&m2, w2, N, N);
+  if (code == 0) code = weight_map(&mr, res ? wres : w1, Kin, N, 1);
+  if (code != 0) return code;
+  double* stats1 = stats;
+  double* stats2 = stats + 2 * B * groups;
+  const int rows = (P + GM - 1) / GM, cols = (N + bn - 1) / bn;
+  // 1. conv1 (+ the residual projection's tiles)
+  err = conv_gn(stages1, bn, rows, cols * (res ? 2 : 1), stream, m1, mr, x, b1, y1, bres, r,
+                stats1, P, H, W, Kin, N, Cout, groups, (int)S, cols);
+  if (err != cudaSuccess) return (int)err;
+  // 2. a1 = SiLU(FiLM(GN1(y1)))
+  const GNIn gn1{stats1, g1s, g1b, film, groups, eps}, gn2{stats2, g2s, g2b, nullptr, groups, eps};
+  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn1, coef, B, Cout, N, S);
+  const long long total4 = Pl * N / 4;
+  gn_act_kernel<<<grid_of(total4), NT, 0, stream>>>(reinterpret_cast<const float4*>(y1), coef,
+                                                    reinterpret_cast<uint2*>(a1), N, S, total4);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 3. conv2
+  err = conv_gn(stages2, bn, rows, cols, stream, m2, m2, a1, b2, y2, nullptr, nullptr, stats2, P,
+                H, W, N, N, Cout, groups, (int)S, cols);
+  if (err != cudaSuccess) return (int)err;
+  // 4. out = SiLU(GN2(y2)) + residual
+  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn2, coef, B, Cout, N, S);
+  gn_silu_res_kernel<<<grid_of(Pl * Cout), NT, 0, stream>>>(y2, coef, x, r, out, Cout, N, S,
+                                                           Pl * Cout);
   return (int)cudaGetLastError();
 }
 
@@ -522,12 +892,12 @@ __global__ void __launch_bounds__(NT) conv_wgrad_kernel(const T* __restrict__ in
                                                        float* __restrict__ part_b, int frames,
                                                        int H, int W, int Cin, int Cout,
                                                        int tiles_per_split) {
-  constexpr int P = TILE + K - 1, DS = CO_T + 1;
+  constexpr int P = PXT + K - 1, DS = CO_T + 1;
   __shared__ float patch[P * P * CI_T];    // [pixel][input channel]
-  __shared__ float dys[TILE * TILE * DS];  // [pixel][output channel]
+  __shared__ float dys[PXT * PXT * DS];  // [pixel][output channel]
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int ci0 = blockIdx.x * CI_T, co0 = blockIdx.y * CO_T, z = blockIdx.z;
-  const int tiles_w = (W + TILE - 1) / TILE, tiles_h = (H + TILE - 1) / TILE;
+  const int tiles_w = (W + PXT - 1) / PXT, tiles_h = (H + PXT - 1) / PXT;
   const int ntiles = frames * tiles_h * tiles_w;
   const int t_begin = z * tiles_per_split, t_end = min(ntiles, t_begin + tiles_per_split);
   float acc[4][K * K], bacc[4];
@@ -539,7 +909,7 @@ __global__ void __launch_bounds__(NT) conv_wgrad_kernel(const T* __restrict__ in
   }
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int frame = tile / (tiles_h * tiles_w), rem = tile % (tiles_h * tiles_w);
-    const int y0 = (rem / tiles_w) * TILE, x0 = (rem % tiles_w) * TILE;
+    const int y0 = (rem / tiles_w) * PXT, x0 = (rem % tiles_w) * PXT;
     const T* in_f = in + (long long)frame * H * W * Cin;
     const T* dy_f = dy + (long long)frame * H * W * Cout;
     __syncthreads();
@@ -549,15 +919,15 @@ __global__ void __launch_bounds__(NT) conv_wgrad_kernel(const T* __restrict__ in
       patch[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < Cin)
                      ? to_f(in_f[((long long)gy * W + gx) * Cin + ci]) : 0.f;
     }
-    for (int e = tid; e < TILE * TILE * CO_T; e += NT) {
+    for (int e = tid; e < PXT * PXT * CO_T; e += NT) {
       const int col = e % CO_T, pix = e / CO_T;
-      const int gy = y0 + pix / TILE, gx = x0 + pix % TILE, co = co0 + col;
+      const int gy = y0 + pix / PXT, gx = x0 + pix % PXT, co = co0 + col;
       dys[pix * DS + col] = (gy < H && gx < W && co < Cout)
                                 ? to_f(dy_f[((long long)gy * W + gx) * Cout + co]) : 0.f;
     }
     __syncthreads();
-    for (int p = 0; p < TILE * TILE; ++p) {
-      const int py = p / TILE, px = p % TILE;
+    for (int p = 0; p < PXT * PXT; ++p) {
+      const int py = p / PXT, px = p % PXT;
       float dv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -601,7 +971,7 @@ int grid_for(long long total) {
 template <typename T, int K>
 cudaError_t wgrad(const T* in, const T* dy, float* part_w, float* part_b, float* dw, float* db,
                   int frames, int H, int W, int Cin, int Cout, int splits, cudaStream_t stream) {
-  const int ntiles = frames * ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+  const int ntiles = frames * ((H + PXT - 1) / PXT) * ((W + PXT - 1) / PXT);
   const int per = (ntiles + splits - 1) / splits;
   const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, splits);
   conv_wgrad_kernel<T, K><<<grid, NT, 0, stream>>>(in, dy, part_w, db != nullptr ? part_b : nullptr,
@@ -685,8 +1055,10 @@ int block_bwd(const T* x, const T* gout, const T* w1, const T* w1f, const float*
 
 }  // namespace
 
-// stats: (2, B, groups, 2) float64, zeroed by the caller. y1, y2, r: scratch
-// of the output's shape (r only with a residual projection).
+// Kernel 3 in float32 (the check path; dtype 0, bf16 takes
+// resnet_block_wgmma). stats: (2, B, groups, 2) float64, zeroed by the caller.
+// y1, y2, r: scratch of the output's shape (r only with a residual
+// projection).
 extern "C" int resnet_block(int dtype, const void* x, const void* w1, const float* b1,
                             const float* g1s, const float* g1b, const float* film, const void* w2,
                             const float* b2, const float* g2s, const float* g2b, const void* wres,
@@ -694,11 +1066,46 @@ extern "C" int resnet_block(int dtype, const void* x, const void* w1, const floa
                             void* out, int B, int F, int H, int W, int Cin, int Cout, int groups,
                             float eps, void* stream) {
   if ((long long)B * F * H * W == 0) return 0;
-  DISPATCH_DTYPE(dtype, return block<T>((const T*)x, (const T*)w1, b1, g1s, g1b, film,
-                                        (const T*)w2, b2, g2s, g2b, (const T*)wres, bres, (T*)y1,
-                                        (T*)y2, (T*)r, stats, (T*)out, B, F, H, W, Cin, Cout,
-                                        groups, eps, (cudaStream_t)stream));
-  return 0;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: resnet_block_wgmma
+  return block<float>((const float*)x, (const float*)w1, b1, g1s, g1b, film, (const float*)w2, b2,
+                      g2s, g2b, (const float*)wres, bres, (float*)y1, (float*)y2, (float*)r, stats,
+                      (float*)out, B, F, H, W, Cin, Cout, groups, eps, (cudaStream_t)stream);
+}
+
+// Kernel 3 in bf16 on the wgmma engine. x (B, F, H, W, Kin) bf16, the
+// channels past Cin zero (Kin = Cin rounded up to a multiple of 8, N the
+// same of Cout); the block's parameters as the caller holds them: w1 (Cout,
+// Cin, 3, 3), w2 (Cout, Cout, 3, 3), wres (Cout, Cin) or null in wdtype (0
+// float32, 1 bf16); b1, g1s, g1b, b2, g2s, g2b, bres (Cout; bres null
+// without wres) in vdtype; film (B, 2 Cout) in fdtype, or null. scratch:
+// scratch_bytes of device memory (resnet_scratch_bytes: the converted
+// operands, y1, a1, y2, r, the statistics and coefficients; it passes 2 GiB
+// at KTH's 64-channel level when an evaluation's trajectories ride the
+// batch). out
+// (B, F, H, W, Cout) bf16. Without wres, Kin == N. stages1, stages2: the
+// ring depth of conv1 and conv2 (3 or 5), bn the tiles' width (64 or
+// 128): fused_resnet.resnet_plan.
+extern "C" int resnet_block_wgmma(const void* x, const void* w1, const void* w2, const void* wres,
+                                  int wdtype, const void* b1, const void* g1s, const void* g1b,
+                                  const void* b2, const void* g2s, const void* g2b,
+                                  const void* bres, int vdtype, const void* film, int fdtype,
+                                  void* scratch, long long scratch_bytes, void* out, int B, int F,
+                                  int H, int W, int Cin, int Cout, int Kin, int N, int groups,
+                                  float eps, int stages1, int stages2, int bn, void* stream) {
+  if ((long long)B * F * H * W == 0) return 0;
+  const Vecs vecs{{b1, b2, g1s, g1b, g2s, g2b, bres}};
+  return block_wgmma((const bf16*)x, w1, w2, wres, wdtype, vecs, vdtype, film, fdtype,
+                     (uint8_t*)scratch, scratch_bytes, (bf16*)out, B, F, H, W, Cin, Cout, Kin, N,
+                     groups, eps, stages1, stages2, bn, (cudaStream_t)stream);
+}
+
+// Bytes of the scratch resnet_block_wgmma takes for B samples of P pixels
+// (B F H W), Kin -> N padded channels (C real output channels), with the
+// residual projection (res) and FiLM (film) or without; -1 for no block.
+extern "C" long long resnet_scratch_bytes(int B, long long P, int Kin, int N, int C, int groups,
+                                          int res, int film) {
+  if (B < 1 || P < 0 || Kin < 1 || N < 1 || C < 1 || C > N || groups < 1) return -1;
+  return (long long)Scratch(B, P, Kin, N, C, groups, res != 0, film != 0).total;
 }
 
 // Gradients of resnet_block given x and the output's cotangent gout. w1f,

@@ -133,29 +133,6 @@ __device__ __forceinline__ long long token_offset(const Args& a, int win, int r)
   return (((b * (long long)a.T + t) * a.H + h) * a.W + w) * a.C;
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ void st_shared_u16(uint32_t addr, unsigned short v) {
-  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The rows of window `win` into the A tile at shared address dst; one cp.async group.
 __device__ __forceinline__ void load_x(const Args& a, const Plan& p, uint32_t dst, int win) {
   const int cpr = p.nkp * 8;  // 16-byte chunks per row
@@ -348,9 +325,10 @@ __global__ void __launch_bounds__(NT, 1)
             for (int lp = 0; lp < 2; ++lp) {
               const int jq = 4 * lp + jd, e = 4 * jq + 2 * hh;
               const uint32_t at = ((jq ^ g8) << 4) + hh * 8 * 128;
-              const float q0 = bf16_round(acc[e]) * qscale, q1 = bf16_round(acc[e + 1]) * qscale;
+              const float q0 = round_to<bf16>(acc[e]) * qscale;
+              const float q1 = round_to<bf16>(acc[e + 1]) * qscale;
               st_shared_u32(qrow + at, pack_bf16(q0 * cs.x - q1 * cs.y, q1 * cs.z + q0 * cs.w));
-              const float k0 = bf16_round(acc[32 + e]), k1 = bf16_round(acc[32 + e + 1]);
+              const float k0 = round_to<bf16>(acc[32 + e]), k1 = round_to<bf16>(acc[32 + e + 1]);
               st_shared_u32(krow + at, pack_bf16(k0 * cs.x - k1 * cs.y, k1 * cs.z + k0 * cs.w));
             }
           }
@@ -535,8 +513,8 @@ __global__ void __launch_bounds__(NT, 1)
             const long long off = hh ? off1 : off0;
             if (off < 0) continue;
             const int e = 4 * j + 2 * hh;
-            const float y0 = __low2float(xv[j][hh]) + bf16_round(acc[e] + bv[j].x);
-            const float y1 = __high2float(xv[j][hh]) + bf16_round(acc[e + 1] + bv[j].y);
+            const float y0 = __low2float(xv[j][hh]) + round_to<bf16>(acc[e] + bv[j].x);
+            const float y1 = __high2float(xv[j][hh]) + round_to<bf16>(acc[e + 1] + bv[j].y);
             *reinterpret_cast<uint32_t*>(a.out + off + c) = pack_bf16(y0, y1);
           }
         }

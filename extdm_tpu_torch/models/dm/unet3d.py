@@ -5,10 +5,10 @@ Per level: two time-conditioned ResnetBlock3d, a shifted and a plain window
 attention layer, a MotionAdaptor and a temporal attention layer. On the card
 the resnet blocks and both attention layers run as this package's CUDA
 kernels (``ops/fused_*.py``); on the CPU as their plain versions. An
-attention layer the whole-layer kernels do not take (``stw_route``: more
-than 256 channels under autograd or in the temporal layer, as at the
-deepest level of the multi1248 preset; a window layer's bf16 forward takes
-512) runs unfused, its attention core on kernel 12; a resnet block's backward takes
+attention layer the whole-layer kernels do not take (``stw_route``: a
+temporal layer of more than 256 channels, as at the deepest level of the
+multi1248 preset; a bf16 window layer takes 512 forward and backward)
+runs unfused, its attention core on kernel 12; a resnet block's backward takes
 ``resnet_bwd_route``'s route (kernel 7, or kernels 10 and 11 for Cout > 256).
 Parameter names follow the reference denoiser's state dict
 (``downs.{i}.{0..6}``, ``mid_block1``, ``final_conv.0``, ...), so
@@ -37,7 +37,7 @@ from extdm_tpu_torch.nn.attention import (RelativePositionBias, RelativePosition
                                           TemporalAttentionLayer, WindowAttention3D,
                                           get_window_size)
 from extdm_tpu_torch.ops.fused_resnet import fused_resnet_block
-from extdm_tpu_torch.ops.fused_stw import (WINDOW_MAJOR_MODES, _needs_grad, fused_stw_layer,
+from extdm_tpu_torch.ops.fused_stw import (WINDOW_MAJOR_MODES, fused_stw_layer,
                                            fused_temporal_layer, stw_layer_unfused, stw_route,
                                            temporal_layer_unfused)
 from extdm_tpu_torch.ops.resize import interpolate_bilinear
@@ -158,8 +158,7 @@ class PreNormSTW(nn.Module):
         args = (x, self.fn.norm.gamma.reshape(-1), attn.qkv.weight, attn.proj.weight,
                 attn.proj.bias, attn.bias_hnn(N))
         kw = dict(window=window, shift=shift, heads=self.heads, dim_head=self.dim_head)
-        route = stw_route(x.shape[-1], N, self.dim_head, x.dtype, heads=self.heads,
-                          grad=_needs_grad(*args))
+        route = stw_route(x.shape[-1], N, self.dim_head, x.dtype, heads=self.heads)
         if route == "unfused":
             return stw_layer_unfused(*args, **kw)
         return fused_stw_layer(*args, window_major=self.window_major, **kw)

@@ -5,14 +5,21 @@ Replaces ``extdm_tpu/ops/pallas_resnet.py`` ``fused_resnet_block``
 ``h (scale + 1) + shift`` -> SiLU -> conv(1,3,3)+b -> GroupNorm -> SiLU ->
 + x, or + a 1x1 residual projection.
 
-On the H100 the two 3x3 convs bound it by operations; in bf16 they run on
-the tensor cores. The JAX kernel holds a whole sample in VMEM so that
-GroupNorm's statistics need no reduction across programs; an SM's shared
-memory holds a small fraction of a sample, so the block runs as a short
-sequence of this repo's kernels: each conv writes its output and adds
-per-group sums into a float64 buffer, the next stage applies GroupNorm
-(+ FiLM + SiLU) while it stages its input, and a last pass adds the
-residual. The JAX VMEM gate (``pallas_resnet.supported``) has no
+On the H100 the two 3x3 convs bound it by operations. The JAX kernel holds
+a whole sample in VMEM so that GroupNorm's statistics need no reduction
+across programs; an SM's shared memory holds a small fraction of a sample,
+so the block runs as a short sequence of launches: each conv writes its
+output and adds per-group sums into a float64 buffer, an elementwise pass
+applies GroupNorm (+ FiLM + SiLU) for the next conv, and a last pass adds
+the residual. In bf16 (``resnet_block_wgmma``) the convs run on kernel 10's
+wgmma engine (``csrc/conv_ring.cuh``): 128-row tiles of pixels across
+frames, weights tap-major by TMA (the bf16 copy of the weights, permuted
+in the same launch; ``tap_major`` is its plain version), the residual
+projection on the same tile with one tap; ``resnet_plan`` (a plain, tested
+function) gives the grids, the channel padding and each conv's ring depth,
+the source's ``resnet_scratch_bytes`` query the one scratch buffer the entry
+carves. In float32 (the check path) the older FMA convs stage GroupNorm
+into their input. The JAX VMEM gate (``pallas_resnet.supported``) has no
 counterpart: every block of the path takes the kernels.
 
 ``fused_resnet_block`` runs the kernels for CUDA tensors and the plain
@@ -57,12 +64,16 @@ import torch
 import torch.nn.functional as F
 
 from extdm_tpu_torch import _build
+from extdm_tpu_torch.ops.conv_engine import (CONV_CHANNEL_ALIGN, CONV_SMEM, CONV_STAGES,
+                                             CONV_STEP, CONV_TILE, ceil_div, ring_smem,
+                                             wgrad_splits)
 from extdm_tpu_torch.ops.fused_stw import _needs_grad, _sm_count, plain_vjp
 
 __all__ = ["fused_resnet_block", "resnet_block_plain", "resnet_block_bwd",
            "resnet_block_plain_vjp", "resnet_bwd_route",
            "resnet_block_bwd_decomposed", "conv33_fwd", "conv33_plain", "conv33_bwd",
-           "conv33_bwd_plain", "conv33_plan", "ConvPlan"]
+           "conv33_bwd_plain", "conv33_plan", "ConvPlan", "resnet_plan", "ResnetPlan",
+           "tap_major"]
 
 BWD_MAX_COUT = 256  # kernel 7 keeps (sum du, sum du yhat) per channel in shared memory
 MAX_GROUPS = 32
@@ -145,6 +156,9 @@ def _converted(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres):
 def _resnet_forward(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, groups, eps):
     _check_block("fused_resnet_block", x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres,
                  groups)
+    if x.dtype == torch.bfloat16:
+        return _resnet_forward_wgmma(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres,
+                                     groups=groups, eps=eps)
     B, T, H, W, Cin = x.shape
     Cout = w1.shape[0]
     dt = x.dtype
@@ -162,6 +176,98 @@ def _resnet_forward(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, 
                   P(x), P(w1c), P(b1c), P(g1sc), P(g1bc), P(filmc), P(w2c), P(b2c), P(g2sc),
                   P(g2bc), P(wresc), P(bresc), P(y1), P(y2), P(r), P(stats), P(out), B, T, H, W,
                   Cin, Cout, groups, eps, _build.stream(x))
+    fused_resnet_block.launches += 1
+    return out
+
+
+class ResnetPlan(NamedTuple):
+    """How the bf16 kernel 3 runs a block on kernel 10's engine (``resnet_plan``)."""
+    cin: int            # channel counts the convs see: zero-padded up to a
+    cout: int           #   multiple of CONV_CHANNEL_ALIGN
+    conv1_grid: tuple   # (pixel tiles, Cout tiles, doubled with a residual projection)
+    conv2_grid: tuple   # (pixel tiles, Cout tiles)
+    stages1: int        # ring stages of conv1 and conv2: CONV_STAGES, or
+    stages2: int        #   FEW_STEP_STAGES (two blocks an SM) for few reduction steps
+    bn: int             # columns of a tile: CONV_TILE, or NARROW_TILE (below)
+    smem1: int          # dynamic shared memory of their blocks, bytes
+    smem2: int
+
+
+# A conv of at most FEW_STEPS reduction steps (9 taps x 64-channel blocks:
+# Cin <= 128) runs a FEW_STEP_STAGES-deep ring, so that two blocks (three
+# with narrow tiles) share an SM and one's filling and draining overlaps the
+# other's products. Tiles are NARROW_TILE columns wide where Cout is no
+# wider (half the products of a 128-wide tile) or where 128-wide tiles would
+# leave half the SMs without a block (twice the blocks: measured ahead at
+# KTH's 4 x 4 blocks, 30 and 60 wide tiles, behind at its 8 x 8, 120).
+FEW_STEPS = 18
+FEW_STEP_STAGES = 3
+NARROW_TILE = 64
+
+
+@functools.lru_cache(maxsize=512)
+def resnet_plan(pixels: int, cin: int, cout: int, residual: bool, sms: int) -> ResnetPlan:
+    """The grids and rings of the bf16 kernel 3 for a block over `pixels`
+    pixels (the frames of every sample flattened into the rows of 128-row
+    tiles), cin -> cout channels, with or without the 1x1 residual
+    projection (its tiles ride conv1's launch); channels padded as
+    ``conv33_plan`` pads them, on a card of `sms` SMs."""
+    cin_p, cout_p = (ceil_div(c, CONV_CHANNEL_ALIGN) * CONV_CHANNEL_ALIGN for c in (cin, cout))
+    rows = ceil_div(pixels, CONV_TILE)
+    narrow = cout_p <= NARROW_TILE or 2 * rows * ceil_div(cout_p, CONV_TILE) < sms
+    bn = NARROW_TILE if narrow else CONV_TILE
+    cols = ceil_div(cout_p, bn)
+    s1, s2 = (FEW_STEP_STAGES if 9 * ceil_div(k, CONV_STEP) <= FEW_STEPS else CONV_STAGES
+              for k in (cin_p, cout_p))
+    return ResnetPlan(cin_p, cout_p, (rows, cols * (2 if residual else 1)), (rows, cols), s1, s2,
+                      bn, ring_smem(s1, bn), ring_smem(s2, bn))
+
+
+def tap_major(w: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """torch Conv3d weights (Cout, Cin, 1, kh, kw) -> (kh kw, cin, cout)
+    bf16, taps in (ky, kx) order, zero past the real channels: the layout
+    kernel 3's TMA reads. The plain version of the conversion the kernel's
+    entry makes on the card (``tap_major_kernel``: cast, permute and pad in
+    one coalesced copy, into its scratch)."""
+    Cout, Cin = w.shape[:2]
+    taps = w.shape[-2] * w.shape[-1]
+    out = torch.zeros((taps, cin, cout), dtype=torch.bfloat16, device=w.device)
+    out[:, :Cin, :Cout] = w.detach()[:, :, 0].permute(2, 3, 1, 0).reshape(taps, Cin, Cout)
+    return out
+
+
+def _code(*ts) -> int:
+    """The kernels' dtype code shared by tensors (``_build.dtype_code``)."""
+    codes = {_build.dtype_code(t.dtype) for t in ts if t is not None}
+    if len(codes) != 1:
+        raise TypeError(f"kernel 3's parameters in one dtype, got {sorted(codes)}")
+    return codes.pop()
+
+
+def _resnet_forward_wgmma(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, groups,
+                          eps):
+    """Kernel 3 in bf16: the convs on kernel 10's wgmma tile (resnet.cu
+    resnet_block_wgmma), which casts the parameters as it needs them into
+    one scratch buffer: two allocations and one launch call from here."""
+    B, T, H, W, Cin = x.shape
+    Cout = w1.shape[0]
+    pixels = B * T * H * W
+    plan = resnet_plan(pixels, Cin, Cout, wres is not None, _sm_count(x.device))
+    xp = _padded(x.detach().reshape(pixels, Cin), plan.cin)
+    w1c, w2c, wrc, b1c, g1sc, g1bc, b2c, g2sc, g2bc, brc, filmc = (
+        None if t is None else t.detach().contiguous()
+        for t in (w1, w2, wres, b1, g1s, g1b, b2, g2s, g2b, bres, film))
+    nbytes = _build.query("resnet", "resnet_scratch_bytes", B, pixels, plan.cin, plan.cout, Cout,
+                          groups, int(wres is not None), int(film is not None))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    out = torch.empty((B, T, H, W, Cout), dtype=torch.bfloat16, device=x.device)
+    P = _build.ptr
+    _build.launch("resnet", "resnet_block_wgmma", P(xp), P(w1c), P(w2c), P(wrc),
+                  _code(w1c, w2c, wrc), P(b1c), P(g1sc), P(g1bc), P(b2c), P(g2sc), P(g2bc),
+                  P(brc), _code(b1c, g1sc, g1bc, b2c, g2sc, g2bc, brc), P(filmc),
+                  0 if film is None else _code(filmc), P(scratch), nbytes, P(out), B, T, H, W,
+                  Cin, Cout, plan.cin, plan.cout, groups, eps, plan.stages1, plan.stages2,
+                  plan.bn, _build.stream(x))
     fused_resnet_block.launches += 1
     return out
 
@@ -299,23 +405,6 @@ def _check_conv(what, a, w, *others):
         raise ValueError(f"{what}: w has shape {tuple(w.shape)}, expected (9, {a.shape[-1]}, Cout)")
 
 
-# The bf16 kernels' tiles and ring (csrc/conv33.cu GM, GN, GK, STAGES): a
-# block owns a CONV_TILE x CONV_TILE float32 tile; the reduction steps by
-# CONV_STEP bf16 values (one 128-byte swizzle row) through CONV_STAGES stages
-# of shared memory, one A and one B tile each, and an 8-byte mbarrier.
-CONV_TILE = 128
-CONV_STEP = 64
-CONV_STAGES = 5
-CONV_SMEM = 2 * CONV_STAGES * CONV_TILE * CONV_STEP * 2 + 8 * CONV_STAGES + 1024
-CONV_CHANNEL_ALIGN = 8  # 16-byte rows: what cp.async and TMA copy
-SMEM_PER_BLOCK = 232448  # the H100's most dynamic shared memory a block may take
-# The dW split's cost model (conv33_plan): a block's reduction step on an SM
-# of its own (128 x 128 x 64 products, ~0.3 us at the bf16 peak) against
-# HBM bytes of the partials that a split adds.
-STEP_US = 0.4
-HBM_BYTES_PER_US = 3.35e6
-
-
 class ConvPlan(NamedTuple):
     """How the bf16 kernels 10 and 11 run one conv (``conv33_plan``)."""
     cin: int                 # channel counts the kernels see: zero-padded up to a
@@ -328,34 +417,19 @@ class ConvPlan(NamedTuple):
     smem: int                # dynamic shared memory of a block, bytes
 
 
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 @functools.lru_cache(maxsize=512)
 def conv33_plan(pixels: int, cin: int, cout: int, sms: int) -> ConvPlan:
     """The plan of the bf16 kernels for a conv over `pixels` pixels, cin ->
     cout channels, on a card of `sms` SMs. Channels that are not a multiple of
     CONV_CHANNEL_ALIGN are padded with zeros (the wrapper pads, the kernels
-    compute on the zeros, the wrapper slices). dW's pixel splits minimise
-    waves of blocks x steps per block plus the partials' bytes: one split
-    when the 9 x tiles blocks fill the card, more when a few tiles must fill
-    it (KTH's 64-channel levels: 9 tiles over 245,760 pixels)."""
-    cin_p, cout_p = (_ceil(c, CONV_CHANNEL_ALIGN) * CONV_CHANNEL_ALIGN for c in (cin, cout))
-    rows = _ceil(pixels, CONV_TILE)
-    tiles = 9 * _ceil(cin_p, CONV_TILE) * _ceil(cout_p, CONV_TILE)
-    steps = max(1, _ceil(pixels, CONV_STEP))
-    best = None
-    for want in range(1, min(steps, _ceil(4 * sms, tiles)) + 1):
-        per = _ceil(steps, want)
-        splits = _ceil(steps, per)  # no empty split
-        partial_bytes = (2 * splits + 1) * tiles * CONV_TILE * CONV_TILE * 4 if splits > 1 else 0
-        cost = _ceil(tiles * splits, sms) * per * STEP_US + partial_bytes / HBM_BYTES_PER_US
-        if best is None or cost < best[0]:
-            best = (cost, splits, per)
-    _, splits, per = best
-    return ConvPlan(cin_p, cout_p, (rows, _ceil(cout_p, CONV_TILE)), (rows, _ceil(cin_p, CONV_TILE)),
-                    (_ceil(cin_p, CONV_TILE), _ceil(cout_p, CONV_TILE), 9 * splits), splits, per,
+    compute on the zeros, the wrapper slices). dW's pixel splits
+    (``wgrad_splits``: KTH's 64-channel levels need many, 9 tiles over
+    245,760 pixels)."""
+    cin_p, cout_p = (ceil_div(c, CONV_CHANNEL_ALIGN) * CONV_CHANNEL_ALIGN for c in (cin, cout))
+    rows = ceil_div(pixels, CONV_TILE)
+    ti, to = ceil_div(cin_p, CONV_TILE), ceil_div(cout_p, CONV_TILE)
+    splits, per = wgrad_splits(pixels, 9 * ti * to, sms)
+    return ConvPlan(cin_p, cout_p, (rows, to), (rows, ti), (ti, to, 9 * splits), splits, per,
                     CONV_SMEM)
 
 

@@ -1,6 +1,7 @@
 """Kernels 1 (``csrc/stw_layer.cu`` in bf16, ``csrc/attention.cu`` in
-float32), 2 and 9 (``csrc/attention.cu``) and the backward kernels 5 and 6
-(``csrc/attention_bwd.cu``): whole attention layers.
+float32), 2 and 9 (``csrc/attention.cu``) and the backward kernels 5
+(``csrc/stw_layer_bwd.cu`` in bf16, ``csrc/attention_bwd.cu`` in float32)
+and 6 (``csrc/attention_bwd.cu``): whole attention layers.
 
 ``fused_stw_layer`` replaces ``extdm_tpu/ops/pallas_stw.py``
 ``fused_stw_layer`` (``_fused_padded`` -> ``_make_kernel``): the whole
@@ -33,23 +34,25 @@ Kernel 9 runs kernel 1's body on contiguous window rows, so it is bound by
 operations as kernel 1 is. Under autograd the layer's backward is kernel 5
 whatever the forward's layout, as JAX's ``custom_vjp``.
 
-Kernels 2, 5, 6 and 9, and kernel 1 in float32, take N <= 64 tokens,
-dim_head <= 32 and C <= 256 channels (in bf16 a multiple of 32). Kernel 1 in
-bf16 (``csrc/stw_layer.cu``: both products on wgmma, the weights by TMA, the
-output tiled over channels) takes C <= 512 (a multiple of 32) at dim_head
-32 and 4 or 8 heads; ``stw_plan`` (a plain, cached function) gives its
-shared-memory layout, weight ring and grid. ``stw_route`` is the gate as a
-plain function of shape, dtype and whether a gradient is needed: a window
-layer run without autograd goes to kernel 1 where either body takes it; a
-layer under autograd keeps kernel 5's limit, the temporal layer kernels 2
-and 6's. The layers it sends "unfused" (multi1248's 512-channel layers
-under autograd, its temporal layer) run ``stw_layer_unfused`` /
-``temporal_layer_unfused``, JAX's unfused modules (``PreNormSTW`` /
-``PreNormTemporalAttn`` with the fused layer off): the norms, pad and roll,
-partition, projections and rotary in torch around kernel 12
-(``ops/window_attn.py``), whose autograd keeps its inputs only; the rest of
-the layer's autograd is torch's. Kernel 9 runs attention.cu's narrow body,
-so a window-major layer over 256 channels runs kernel 1.
+Kernels 2, 6 and 9, and kernels 1 and 5 in float32, take N <= 64 tokens,
+dim_head <= 32 and C <= 256 channels (in bf16 a multiple of 32). Kernels 1
+and 5 in bf16 take C <= 512 (a multiple of 32) at dim_head 32 and 4 or 8
+heads: kernel 1's body (``csrc/stw_layer.cu``: both products on wgmma, the
+weights by TMA, the output tiled over channels; ``stw_plan`` gives its
+shared-memory layout, weight ring and grid) and kernel 5's
+(``csrc/stw_layer_bwd.cu``: the projections on wgmma, the attention's five
+backward products on mma.sync, the weight gradients and dh on kernel 10's
+engine; ``stw_bwd_plan``). ``stw_route`` is the gate as a plain function of
+shape, dtype and kind: a window layer goes to kernels 1 and 5 where their
+bodies take it, with or without autograd; the temporal layer to kernels 2
+and 6. The layers it sends "unfused" (multi1248's 512-channel temporal
+layer) run ``stw_layer_unfused`` / ``temporal_layer_unfused``, JAX's
+unfused modules (``PreNormSTW`` / ``PreNormTemporalAttn`` with the fused
+layer off): the norms, pad and roll, partition, projections and rotary in
+torch around kernel 12 (``ops/window_attn.py``), whose autograd keeps its
+inputs only; the rest of the layer's autograd is torch's. Kernel 9 runs
+attention.cu's narrow body, so a window-major layer over 256 channels runs
+kernel 1.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version
 (``stw_layer_plain``, ``stw_layer_wm_plain``, ``temporal_layer_plain``) for
@@ -59,8 +62,10 @@ torch Linear layout (out, in).
 Training: when an operand needs a gradient, the CUDA path runs as a
 ``torch.autograd.Function`` that saves the layer's inputs only (as the JAX
 ``custom_vjp`` does) and whose backward launches ``stw_layer_bwd`` (kernel 5,
-replacing ``pallas_stw._stw_bwd_padded``) or ``temporal_layer_bwd`` (kernel
-6, replacing ``pallas_stw._temporal_bwd_impl``), each counting its own
+replacing ``pallas_stw._stw_bwd_padded``; in bf16 it reads x and g and
+writes dx in place of the pad and roll, as kernel 1 does) or
+``temporal_layer_bwd`` (kernel 6, replacing
+``pallas_stw._temporal_bwd_impl``), each counting its own
 ``.launches``. Their plain versions are ``stw_layer_plain_vjp`` and
 ``temporal_layer_plain_vjp``, the autograd of the plain forwards. Backward
 functions take the cotangent first, then the forward's arguments, and
@@ -86,17 +91,19 @@ from extdm_tpu_torch.nn.attention import (
     window_reverse,
 )
 from extdm_tpu_torch.nn.layers import chan_layer_norm
+from extdm_tpu_torch.ops.conv_engine import wgrad_splits
 from extdm_tpu_torch.ops.window_attn import fused_window_attention, mask_tables
 
-__all__ = ["stw_route", "stw_plan", "StwPlan", "stw_layer_unfused", "temporal_layer_unfused",
-           "fused_stw_layer", "stw_layer_plain", "stw_layer_bwd", "stw_layer_plain_vjp",
+__all__ = ["stw_route", "stw_plan", "StwPlan", "stw_bwd_plan", "StwBwdPlan", "stw_layer_unfused",
+           "temporal_layer_unfused", "fused_stw_layer", "stw_layer_plain", "stw_layer_bwd",
+           "stw_layer_plain_vjp",
            "WINDOW_MAJOR_MODES", "window_major_gate", "fused_stw_layer_wm", "stw_layer_wm_plain",
            "fused_temporal_layer", "temporal_layer_plain", "temporal_layer_bwd",
            "temporal_layer_plain_vjp"]
 
 
-MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernels 2, 5, 6, 9; 1 in float32
-MAX_WIDE_CHANNELS = 512  # kernel 1 in bf16 (csrc/stw_layer.cu)
+MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernels 2, 6, 9; 1 and 5 in float32
+MAX_WIDE_CHANNELS = 512  # kernels 1 and 5 in bf16 (csrc/stw_layer.cu, csrc/stw_layer_bwd.cu)
 
 
 def _narrow(C: int, N: int, dim_head: int, dtype) -> bool:
@@ -106,19 +113,21 @@ def _narrow(C: int, N: int, dim_head: int, dtype) -> bool:
 
 
 def _wide(C: int, N: int, heads: int, dim_head: int, dtype) -> bool:
-    """Whether kernel 1's bf16 body (``csrc/stw_layer.cu``) takes a window layer."""
+    """Whether kernels 1 and 5's bf16 bodies (``csrc/stw_layer.cu``,
+    ``csrc/stw_layer_bwd.cu``) take a window layer."""
     return (dtype == torch.bfloat16 and N <= MAX_TOKENS and dim_head == 32 and heads in (4, 8)
             and C % 32 == 0 and C <= MAX_WIDE_CHANNELS)
 
 
-def stw_route(C: int, N: int, dim_head: int, dtype, *, heads: int = 8, temporal: bool = False,
-              grad: bool = False) -> str:
+def stw_route(C: int, N: int, dim_head: int, dtype, *, heads: int = 8,
+              temporal: bool = False) -> str:
     """The route of an STW (N tokens a window) or temporal (N = T) layer of
-    C channels: "fused" where its kernels take it, else "unfused" (kernel 12
-    between torch projections). A window layer run without autograd is
-    kernel 1 alone (bf16: C <= 512); a layer whose operands need gradients
-    also needs kernel 5 (or, temporal, kernels 2 and 6: C <= 256)."""
-    wide = not temporal and not grad and _wide(C, N, heads, dim_head, dtype)
+    C channels, with or without autograd: "fused" where its kernels take it,
+    else "unfused" (kernel 12 between torch projections). A window layer is
+    kernel 1 forward and kernel 5 backward: in bf16 both take C <= 512
+    (dim_head 32, 4 or 8 heads), else the narrow limit; a temporal layer
+    needs kernels 2 and 6 (C <= 256)."""
+    wide = not temporal and _wide(C, N, heads, dim_head, dtype)
     return "fused" if _narrow(C, N, dim_head, dtype) or wide else "unfused"
 
 
@@ -172,6 +181,40 @@ def stw_plan(C: int, N: int, heads: int, dim_head: int, sms: int) -> StwPlan:
             if smem <= STW_SMEM_MAX:
                 return StwPlan(cw, rounds, steps, False, stages, a_bufs, smem, sms)
     raise ValueError(f"stw_plan: no layout of C={C} fits {STW_SMEM_MAX} bytes")
+
+
+class StwBwdPlan(NamedTuple):
+    """How kernel 5's bf16 body (``csrc/stw_layer_bwd.cu``) runs a layer
+    (``stw_bwd_plan``)."""
+    stages: int        # weight ring stages (each a head pair's q, k, v boxes)
+    steps: int         # weight steps per window: dO's 64-channel blocks (per 128-column
+                       #   half), then each head pair's
+    smem: int          # dynamic shared memory of the window kernel's block, bytes
+    blocks: int        # persistent window blocks at most (one per SM)
+    ln_blocks: int     # blocks of the ChanLN backward (each one partial of dgamma, dbproj)
+
+
+STW_BWD_MAX_STAGES = 4
+
+
+@lru_cache(maxsize=256)
+def stw_bwd_plan(C: int, N: int, heads: int, dim_head: int, sms: int) -> StwBwdPlan:
+    """The plan of kernel 5's bf16 body for a window layer of C channels, N
+    tokens a window, `heads` x `dim_head`, on a card of `sms` SMs: the
+    deepest weight ring (at most STW_BWD_MAX_STAGES, at least two stages)
+    whose layout fits one block's shared memory. The layout's bytes come
+    from the source (its ``stw_bwd_smem`` query, the ``BwdPlan`` the
+    kernel carves)."""
+    if not _wide(C, N, heads, dim_head, torch.bfloat16):
+        raise ValueError(f"stw_bwd_plan: kernel 5's bf16 body takes N <= {MAX_TOKENS}, dim_head "
+                         f"32, 4 or 8 heads and C <= {MAX_WIDE_CHANNELS} (a multiple of 32); got "
+                         f"C={C}, N={N}, heads={heads}, dim_head={dim_head}")
+    steps = -(-C // 64) * (heads * dim_head // 128 + heads // 2)
+    for stages in range(STW_BWD_MAX_STAGES, 1, -1):
+        smem = _build.query("stw_layer_bwd", "stw_bwd_smem", C, heads, stages)
+        if smem <= STW_SMEM_MAX:
+            return StwBwdPlan(stages, steps, smem, sms, 2 * sms)
+    raise ValueError(f"stw_bwd_plan: no layout of C={C} fits {STW_SMEM_MAX} bytes")
 
 
 def _pads(T: int, H: int, W: int, window) -> Tuple[int, int, int]:
@@ -247,13 +290,13 @@ def _check_cuda(x, *others):
 
 def _check_operands(what, x, N, heads, dim_head, wide=False, **operands):
     """Kernel limits and operand shapes: (name -> (tensor, expected shape)).
-    `wide`: kernel 1's bf16 body may take the layer (a window layer's
-    forward)."""
+    `wide`: kernels 1 and 5's bf16 bodies may take the layer (a window
+    layer)."""
     C = x.shape[-1]
     if not (_narrow(C, N, dim_head, x.dtype) or wide and _wide(C, N, heads, dim_head, x.dtype)):
         raise ValueError(f"{what}: the kernel takes N <= {MAX_TOKENS} tokens, dim_head <= "
                          f"{MAX_DIM_HEAD} and C <= {MAX_CHANNELS} (in bf16 a multiple of 32; a "
-                         f"window layer's bf16 forward at dim_head 32 and 4 or 8 heads C <= "
+                         f"bf16 window layer at dim_head 32 and 4 or 8 heads C <= "
                          f"{MAX_WIDE_CHANNELS}); got N={N}, dim_head={dim_head}, C={C}")
     for name, (t, shape) in operands.items():
         if tuple(t.shape) != shape:
@@ -338,12 +381,12 @@ def _stw_checked(what, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
 
 
 def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head,
-                 eps, wm=False, grad=False):
+                 eps, wm=False):
     if wm:
         return _stw_wm(x.detach(), gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
                        shift=shift, heads=heads, dim_head=dim_head, eps=eps)
     _stw_checked("fused_stw_layer", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
-                 dim_head, wide=not grad)
+                 dim_head, wide=True)
     B, T, H, W, C = x.shape
     wd, wh, ww = window
     N = wd * wh * ww
@@ -385,7 +428,7 @@ class _STWLayer(torch.autograd.Function):
     def forward(ctx, kw, wm, x, *params):
         ctx.kw = kw
         ctx.save_for_backward(x, *params)
-        return _stw_forward(x, *params, wm=wm, grad=True, **kw)
+        return _stw_forward(x, *params, wm=wm, **kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -533,14 +576,82 @@ fused_stw_layer_wm.launches = 0
 def stw_layer_bwd(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
                   dim_head, eps=1e-5):
     """Kernel 5: (dx, dgamma, dw_qkv, dw_proj, db_proj, dbias) of
-    ``fused_stw_layer`` at its inputs for the cotangent g. Pads and rolls g
-    like x (``pallas_stw._stw_bwd_impl``), rolls dx back and crops it."""
+    ``fused_stw_layer`` at its inputs for the cotangent g. In bf16 at the
+    shapes kernel 1's bf16 body takes (C <= 512), ``csrc/stw_layer_bwd.cu``
+    reads x and g and writes dx in place of the pad and roll; otherwise
+    (float32, the check path) ``attention_bwd.cu`` on padded, rolled copies
+    (``pallas_stw._stw_bwd_impl``), dx rolled back and cropped."""
     if x.device.type == "cpu":
         return stw_layer_plain_vjp(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
                                    shift=shift, heads=heads, dim_head=dim_head, eps=eps)
     _stw_checked("stw_layer_bwd", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
-                 dim_head)
+                 dim_head, wide=True)
     _check_cuda(x, g)
+    N = window[0] * window[1] * window[2]
+    if _wide(x.shape[-1], N, heads, dim_head, x.dtype):
+        grads = _stw_bwd_wgmma(g, x, gamma, w_qkv, w_proj, bias_hnn, window=window, shift=shift,
+                               heads=heads, dim_head=dim_head, eps=eps)
+    else:
+        grads = _stw_bwd_narrow(g, x, gamma, w_qkv, w_proj, bias_hnn, window=window,
+                                shift=shift, heads=heads, dim_head=dim_head, eps=eps)
+    stw_layer_bwd.launches += 1
+    dx, dgamma, dwqkv, dwproj, dbproj, dbias = grads
+    return (dx, dgamma.to(gamma.dtype), dwqkv.to(w_qkv.dtype), dwproj.to(w_proj.dtype),
+            dbproj.to(b_proj.dtype), dbias.to(bias_hnn.dtype))
+
+
+def _stw_bwd_wgmma(g, x, gamma, w_qkv, w_proj, bias_hnn, *, window, shift, heads, dim_head, eps):
+    """Kernel 5's bf16 body (``csrc/stw_layer_bwd.cu``): the window kernel,
+    dh = dqkv Wqkv, the ChanLN backward and the weight gradients."""
+    B, T, H, W, C = x.shape
+    wd, wh, ww = window
+    N = wd * wh * ww
+    hid = heads * dim_head
+    dev = x.device
+    sms = _sm_count(dev)
+    plan = stw_bwd_plan(C, N, heads, dim_head, sms)
+    x = x.detach().contiguous()
+    gc = g.detach().to(x.dtype).contiguous()
+    pd, ph, pw = _pads(T, H, W, window)
+    masks = ids = None
+    if any(s > 0 for s in shift):
+        masks, ids = mask_tables(T + pd, H + ph, W + pw, tuple(window), tuple(shift), dev)
+    bm = bias_mask_table(bias_hnn.detach(), masks)
+    bmt = bm.transpose(-1, -2).contiguous()
+    rot = min(32, dim_head)
+    tokens = B * T * H * W
+    nwin = B * -(-T // wd) * -(-H // wh) * -(-W // ww)
+    grid = min(plan.blocks, nwin)
+    wq, wp = _weights(x, w_qkv, w_proj)
+    gm = _f32(gamma)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    h_tok, o_tok = torch.empty((tokens, C), **bf), torch.empty((tokens, hid), **bf)
+    dqkv, dh = torch.empty((tokens, 3 * hid), **bf), torch.empty((tokens, C), **f32)
+    bias_part = torch.empty((grid, heads, N, N), **f32)
+    vec_part = torch.empty((plan.ln_blocks, 2, C), **f32)
+    # token splits of the weight gradients on the conv engine (its cost model)
+    sq = wgrad_splits(tokens, -(-3 * hid // 128) * -(-C // 128), sms)[0]
+    sp = wgrad_splits(tokens, -(-C // 128) * -(-hid // 128), sms)[0]
+    part_q = torch.empty((sq, 3 * hid, C), **f32) if sq > 1 else None
+    part_p = torch.empty((sp, C, hid), **f32) if sp > 1 else None
+    dx = torch.empty_like(x)
+    vec, dbias = torch.empty(2 * C, **f32), torch.empty((heads, N, N), **f32)
+    dwqkv, dwproj = torch.empty((3 * hid, C), **f32), torch.empty((C, hid), **f32)
+    P = _build.ptr
+    _build.launch("stw_layer_bwd", "stw_layer_bwd_wgmma", P(x), P(gc), P(dx), P(wq), P(wp), P(gm),
+                  P(bm), P(bmt), P(ids), P(h_tok), P(o_tok),
+                  P(dqkv), P(dh), P(bias_part), P(vec_part), P(part_q), P(part_p), P(vec),
+                  P(dbias), P(dwqkv), P(dwproj), B, T, H, W, C, wd, wh, ww, shift[0], shift[1],
+                  shift[2], heads, rot, eps, plan.stages, plan.smem, grid, plan.ln_blocks, sq,
+                  sp, _build.stream(x))
+    return dx, vec[:C], dwqkv, dwproj, vec[C:], dbias
+
+
+def _stw_bwd_narrow(g, x, gamma, w_qkv, w_proj, bias_hnn, *, window, shift, heads, dim_head,
+                    eps):
+    """attention_bwd.cu's body (the float32 check path): pads and rolls x and
+    g (``pallas_stw._stw_bwd_impl``), rolls dx back and crops it."""
     C, hid = x.shape[-1], heads * dim_head
     xp, masks, ids, rot, cos, sin = _stw_prepare(x.detach(), window, shift, heads, dim_head)
     gp = _stw_prepare(g.detach().to(x.dtype), window, shift, heads, dim_head)[0]
@@ -567,10 +678,7 @@ def stw_layer_bwd(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift
                   P(cos), P(sin), P(dqkv), P(o_tok), P(vec_part), P(bias_part), P(w_part),
                   P(vec), P(dbias), P(dwqkv), P(dwproj), B, Tp, Hp, Wp, C, wd, wh, ww,
                   heads, dim_head, rot, eps, nblk, sq, sp, _build.stream(x))
-    stw_layer_bwd.launches += 1
-    dx = _stw_unroll(dxp, x.shape, shift)
-    return (dx, vec[:C].to(gamma.dtype), dwqkv.to(w_qkv.dtype), dwproj.to(w_proj.dtype),
-            vec[C:].to(b_proj.dtype), dbias.to(bias_hnn.dtype))
+    return _stw_unroll(dxp, x.shape, shift), vec[:C], dwqkv, dwproj, vec[C:], dbias
 
 
 stw_layer_bwd.launches = 0

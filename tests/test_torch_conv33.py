@@ -17,7 +17,7 @@ import torch
 
 from extdm_tpu.ops import pallas_resnet
 from extdm_tpu_torch import convert
-from extdm_tpu_torch.ops import fused_resnet
+from extdm_tpu_torch.ops import conv_engine, fused_resnet
 
 
 def rel_close(got, want, rel):
@@ -158,10 +158,11 @@ PLAN_SHAPES = [
 
 
 def _source_constants():
-    """GM, GN, GK and STAGES as csrc/conv33.cu declares them."""
+    """GM, GN, GK and STAGES as csrc/conv_ring.cuh (the engine conv33.cu
+    includes) declares them."""
     import re
     from extdm_tpu_torch import _build
-    text = (_build.CSRC / "conv33.cu").read_text()
+    text = (_build.CSRC / "conv_ring.cuh").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
             for name in ("GM", "GN", "GK", "STAGES")}
 
@@ -193,7 +194,7 @@ def test_conv33_plan_covers_the_problem(pixels, cin, cout):
     assert ranges[0][0] == 0 and ranges[-1][1] == pixels
     assert all(a < b for a, b in ranges) and all(r[1] == n[0] for r, n in zip(ranges, ranges[1:]))
     assert plan.smem == (2 * c["STAGES"] * c["GM"] * c["GK"] * 2 + 8 * c["STAGES"] + 1024)
-    assert plan.smem <= fr.SMEM_PER_BLOCK
+    assert plan.smem <= conv_engine.SMEM_PER_BLOCK
     steps = -(-pixels // fr.CONV_STEP)
     blocks = ci * co * z
     assert (-(-blocks // SMS) * plan.per <= 2 * -(-ci * co * 9 * steps // SMS)
