@@ -13,8 +13,10 @@
    bf16 (the whole output, and for the UNet kernels also the part that the
    kernel's products compute) and at one small shape in float32, and times
    kernel, plain version and (grid sample only) the PyTorch library call
-   with CUDA events; kernels 1 and 3 also by their own device time
-   (torch.profiler), with their device TFLOP/s and share of the bound;
+   with CUDA events; kernels 1, 2 and 3 also by their own device time
+   (torch.profiler), with their device TFLOP/s and share of the bound, and
+   kernel 2 beside the device time of the parent's body (attention.cu) on
+   the same inputs;
    kernel 1 against its plain version at STW_RAGGED (windows clamped to 16
    and 32 tokens, 96, 192 and 320 channels), kernel 3 at RESNET_RAGGED
    (6 x 6 and 5 x 7 frames, Cin != Cout, channels off multiples of 64) and
@@ -30,9 +32,12 @@
    recording the inputs and incoming cotangent of each backward kernel at
    every distinct shape; checks each backward kernel against its plain
    version (the autograd of the plain forward) there in bf16 and at one small
-   shape in float32, and times both (kernel 5 also by its device time, and
-   against its plain version at STW_RAGGED; its plan at every width it
-   takes); takes 3 timed steps with the counters
+   shape in float32, and times both (kernels 5 and 6 also by their device
+   time, kernel 6 beside the parent's body, attention_bwd.cu, and twice on
+   the same inputs for bitwise equal gradients; kernel 5 against its plain
+   version at STW_RAGGED, its plan at every width it takes; kernels 2 and 6
+   at TEMPORAL_RAGGED, with the operands their entries write held against
+   their plain version); takes 3 timed steps with the counters
    from 0 (18 STW / 10 temporal / 20 resnet layers forward and backward, 1
    grid sample per step); and compares one float32 loss and every UNet
    gradient at batch 1, kernels on the card against the plain versions on
@@ -71,38 +76,42 @@
    blocks) in bf16. The layers over the narrow kernels' 256 channels
    (``wide_layers``: 4 window layers, 1 temporal layer, 4 resnet blocks)
    take their routes (``stw_route``): the window layers run kernel 1
-   forward and kernel 5 backward (their bf16 bodies take 512 channels) and
-   the temporal layer runs unfused around kernel 12 (window attention); the
-   resnet blocks' backward is decomposed into kernels 10 and 11 (the conv
-   and its gradients) and torch GroupNorm math.
-   A recorded warm-up sampler call at batch 4; kernel 12 against its plain
-   version at every recorded shape in bf16 and float32, timed beside its
-   plain version and F.scaled_dot_product_attention (the wrapper call with
-   CUDA events, the kernel's own device time with torch.profiler); kernel 1
-   against its plain version at the 512-channel window layers, timed (call
-   and device); kernel 3 against its plain version at every block (512
-   output channels and up level 0's 1024 input channels among them), timed
-   (call and device); the
-   unfused layers timed whole, as plain layers, and split into kernel 12
-   and the torch ops around it; 3 timed sampler calls with every launch
-   count and the unfused routes checked (``expected_route_launches``),
-   kernel 2 never on a layer over 256 channels, kernel 1 on none over 512;
-   the float32 UNet card vs CPU. Then
-   the train step at batch 8 (remat, bf16 compute): a recorded warm-up
-   step, kernel 5 against its plain backward at the 512-channel window
-   layers (call and device time), kernel 7 against its plain backward at
-   every block it takes there
-   (bf16, batch 8: up level 0's 1024 input channels among them), kernels
-   10-12 against their plain versions at every recorded shape in bf16 and
-   float32 (dW with the backward kernels' limits) and timed beside F.conv3d
-   / aten.convolution_backward (call and device time, device TFLOP/s and
+   forward and kernel 5 backward, the temporal layer kernel 2 forward and
+   kernel 6 backward (their bf16 bodies take 512 channels), so no layer
+   runs unfused; the resnet blocks' backward is decomposed into kernels 10
+   and 11 (the conv and its gradients) and torch GroupNorm math.
+   A recorded warm-up sampler call at batch 4 (no kernel-12 call, no
+   unfused layer); kernel 12 where it ran before kernels 2 and 6 took the
+   temporal layer (``temporal_layer_unfused`` called on that layer's
+   recorded inputs) against its plain version in bf16 and float32, timed
+   beside its plain version and F.scaled_dot_product_attention (the wrapper
+   call with CUDA events, the kernel's own device time with
+   torch.profiler), the unfused layer there timed whole, as a plain layer,
+   and split into kernel 12 and the torch ops around it; kernels 1 and 2
+   against their plain versions at the 512-channel window and temporal
+   layers, timed (call and device); kernel 3 against its plain version at
+   every block (512 output channels and up level 0's 1024 input channels
+   among them), timed (call and device); 3 timed sampler calls with every
+   launch count and the routes checked (``expected_route_launches``: no
+   unfused layer), kernels 1 and 2 on none over 512 channels; the float32
+   UNet card vs CPU, whose layers over 256 channels take kernel 12 (its
+   launches there are kernel 12's in the summary line). Then the train step
+   at batch 8 (remat, bf16 compute): a recorded warm-up step, kernels 5 and
+   6 against their plain backwards at the 512-channel window and temporal
+   layers (call and device time; kernel 6 twice, bitwise), kernel 7 against
+   its plain backward at every block it takes there (bf16, batch 8: up
+   level 0's 1024 input channels among them), kernels 10-12 against their
+   plain versions at every recorded shape (kernel 12 at the temporal
+   layer's training inputs, as in sampling) in bf16 and float32 (dW with
+   the backward kernels' limits) and timed beside F.conv3d /
+   aten.convolution_backward (call and device time, device TFLOP/s and
    share of the bound), kernels 10 and 11 also at three ragged shapes
-   (CONV_RAGGED) and kernel 11 twice on the same inputs (bitwise equal
-   din and dW), the unfused layers' forward and backward
-   timed and split as above, kernels 2, 6 and 7 never on a layer over 256
-   channels (1 and 5 never over 512), 3 timed steps with launch and route
-   counts (no window layer unfused, kernel 12 once a step: a line prints
-   them), and the float32 step card vs CPU.
+   (CONV_RAGGED) and kernel 11 twice on the same inputs (bitwise equal din
+   and dW), the unfused temporal layer's forward and backward on the same
+   inputs timed and split as above, kernel 7 never on a layer over 256
+   channels (1, 2, 5 and 6 never over 512), 3 timed steps with launch and
+   route counts (no layer unfused, kernel 12 never: a line prints them),
+   and the float32 step card vs CPU.
 
 The train phase also runs an A/B of the two resnet backward routes: at the
 KTH step's resnet-backward shapes (32^2 to 4^2 frames), kernels 10 and 11
@@ -218,8 +227,11 @@ I3D_F32_REL_TOL = 1e-3
 
 
 # Kernels whose lines carry their own device time (torch.profiler), device
-# TFLOP/s and share of the bound: 1, 3 and 5, the redesigned main-path ones.
-DEVICE_TIMED = ("stw_layer", "resnet_block", "stw_layer_bwd")
+# TFLOP/s and share of the bound: 1, 2, 3, 5 and 6, the redesigned main-path
+# ones. Kernels 2 and 6 also carry the device time of the parent's body
+# (attention.cu / attention_bwd.cu, which keeps float32) on the same inputs.
+DEVICE_TIMED = ("stw_layer", "temporal_layer", "resnet_block", "stw_layer_bwd",
+                "temporal_layer_bwd")
 
 
 def log(obj) -> None:
@@ -251,9 +263,16 @@ def cuda_ms(fn, reps: int) -> float:
 
 def kernel_symbols(source: str) -> set:
     """The __global__ functions of a CUDA source of the repo and of the
-    common.cuh it includes."""
+    headers it includes (common.cuh, temporal.cuh, ...)."""
     csrc = Path(__file__).resolve().parent / "extdm_tpu_torch" / "csrc"
-    text = (csrc / Path(source).name).read_text() + (csrc / "common.cuh").read_text()
+    todo, seen, text = [Path(source).name, "common.cuh"], set(), ""
+    while todo:
+        name = todo.pop()
+        if name not in seen:
+            seen.add(name)
+            src = (csrc / name).read_text()
+            text += src
+            todo += re.findall(r'#include "([^"]+)"', src)
     return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
 
 
@@ -443,6 +462,10 @@ def kernel_table():
     def temporal_residual(x, gamma_cln, *a, eps=1e-5, **k):
         return x.float() + chan_layer_norm(x, gamma_cln, eps).float()
 
+    def temporal_parent(x, *a, eps=1e-5, **k):
+        # the parent's body (attention.cu; float32 and refused shapes since)
+        return fused_stw._temporal_narrow(x.contiguous(), *a, eps=eps, **k)
+
     def resnet_key(x, w1, b1, g1s, g1b, film, *a, **k):
         return (tuple(x.shape), w1.shape[0], film is None)
 
@@ -477,8 +500,9 @@ def kernel_table():
         "temporal_layer": dict(
             wrapper=fused_stw.fused_temporal_layer, plain=fused_stw.temporal_layer_plain,
             sites=[(unet3d, "fused_temporal_layer")], key=temporal_key, cost=temporal_cost,
-            residual=temporal_residual,
-            source="extdm_tpu_torch/csrc/attention.cu",
+            residual=temporal_residual, parent=temporal_parent,
+            parent_source="extdm_tpu_torch/csrc/attention.cu",
+            source="extdm_tpu_torch/csrc/stw_layer.cu",
             replaces="extdm_tpu/ops/pallas_stw.py:1631"),
         "resnet_block": dict(
             wrapper=fused_resnet.fused_resnet_block, plain=fused_resnet.resnet_block_plain,
@@ -518,21 +542,29 @@ def backward_table(forward):
             return byts + extra, flops, dtype
         return cost
 
+    def temporal_parent(g, x, *a, eps=1e-5, **k):
+        # the parent's body (attention_bwd.cu; float32 and refused shapes since)
+        return fused_stw._temporal_bwd_narrow(g.to(x.dtype).contiguous(), x.contiguous(), *a,
+                                              eps=eps, **k)
+
     entries = {
         "stw_layer_bwd": (fused_stw.stw_layer_bwd, fused_stw.stw_layer_plain_vjp, fused_stw,
                           "stw_layer", "extdm_tpu_torch/csrc/stw_layer_bwd.cu",
                           "extdm_tpu/ops/pallas_stw.py:1123"),
         "temporal_layer_bwd": (fused_stw.temporal_layer_bwd, fused_stw.temporal_layer_plain_vjp,
-                               fused_stw, "temporal_layer", "extdm_tpu_torch/csrc/attention_bwd.cu",
+                               fused_stw, "temporal_layer", "extdm_tpu_torch/csrc/stw_layer_bwd.cu",
                                "extdm_tpu/ops/pallas_stw.py:2013"),
         "resnet_block_bwd": (fused_resnet.resnet_block_bwd, fused_resnet.resnet_block_plain_vjp,
                              fused_resnet, "resnet_block", "extdm_tpu_torch/csrc/resnet.cu",
                              "extdm_tpu/ops/pallas_resnet.py:594"),
     }
-    return {name: dict(wrapper=wrapper, plain=plain, sites=[(mod, name)],
-                       key=bwd(forward[fwd]["key"]), cost=grad_cost(fwd), source=source,
-                       replaces=replaces)
-            for name, (wrapper, plain, mod, fwd, source, replaces) in entries.items()}
+    table = {name: dict(wrapper=wrapper, plain=plain, sites=[(mod, name)],
+                        key=bwd(forward[fwd]["key"]), cost=grad_cost(fwd), source=source,
+                        replaces=replaces)
+             for name, (wrapper, plain, mod, fwd, source, replaces) in entries.items()}
+    table["temporal_layer_bwd"].update(parent=temporal_parent,
+                                       parent_source="extdm_tpu_torch/csrc/attention_bwd.cu")
+    return table
 
 
 def check_grads(name: str, got, want, max_rel: float, mean_rel: float | None = None) -> dict:
@@ -804,6 +836,84 @@ def stw_bwd_ragged_phase(btable, card, seed=19):
              "check": "kernel 5 vs plain backward at a ragged shape", **res, "card": card})
 
 
+def parent_body_ms(k, args, kwargs, reps):
+    """Device time of the parent's body of kernel 2 or 6 (``parent`` in the
+    table: attention.cu / attention_bwd.cu) on the same inputs, or None where
+    it does not take the layer (over 256 channels)."""
+    from extdm_tpu_torch.ops import fused_stw
+
+    x = args[1] if torch.is_tensor(args[1]) and args[1].ndim == 5 else args[0]
+    if "parent" not in k or x.shape[-1] > fused_stw.MAX_CHANNELS:
+        return None
+    return device_ms(lambda: k["parent"](*args, **kwargs), reps,
+                     kernel_symbols(k["parent_source"]))[0]
+
+
+def repeat_check(name, key, first, again):
+    """A backward kernel twice on the same inputs: every gradient the same
+    bit for bit (partials added in a fixed order, no atomics across threads
+    on one element)."""
+    if not all(torch.equal(a, b) for a, b in zip(first, again) if a is not None):
+        raise AssertionError(f"{name}{key}: two launches on the same inputs differ")
+
+
+# Kernels 2 and 6 (bf16) at temporal layers off the presets': T not filling
+# the tile's 32 frame slots (7, 10, 20: one or two 16-row tiles of a
+# sequence live), widths not a multiple of 128 (96, 192, 320: ragged column
+# rounds and 64-channel blocks), 4 and 8 heads, 3 x 5 and 4 x 4 frames (an
+# odd number of sequences leaves a tile's second sequence empty), batch 1-2.
+# (shape, heads)
+TEMPORAL_RAGGED = (((1, 7, 3, 5, 96), 4), ((2, 10, 4, 4, 192), 8), ((2, 20, 3, 5, 320), 4),
+                   ((1, 20, 4, 4, 320), 8), ((2, 7, 4, 4, 192), 4))
+
+
+def temporal_ragged_phase(card, seed=29):
+    """Kernels 2 and 6 (bf16) against their plain versions at TEMPORAL_RAGGED
+    (the branch check and the backward limits), kernel 6 twice for bitwise
+    equal gradients, timed; and the operands both entries write first
+    (``fused_stw.temporal_operands``, parameters in float32 and in bf16)
+    against their plain version, exactly."""
+    from extdm_tpu_torch.nn.layers import chan_layer_norm
+    from extdm_tpu_torch.ops import fused_stw
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    dh = 32
+    for (shape, heads), pdtype in zip(TEMPORAL_RAGGED, (torch.float32, torch.bfloat16) * 3):
+        B, T, H, W, C = shape
+        hid = heads * dh
+        args = [r(*shape).bfloat16()] + [t.to(pdtype) for t in (
+            1 + r(C, scale=0.1), 1 + r(C, scale=0.1), r(C, scale=0.1),
+            r(3 * hid, C, scale=C ** -0.5), r(C, hid, scale=hid ** -0.5),
+            r(heads, T, T, scale=0.1))]
+        kwargs = dict(heads=heads, dim_head=dh)
+        ops = fused_stw.temporal_operands(*args[4:6], *args[1:4], args[6])
+        want_ops = fused_stw.temporal_operands_plain(*args[4:6], *args[1:4], args[6])
+        if not all(torch.equal(ops[n], want_ops[n]) for n in want_ops):
+            raise AssertionError(f"temporal operands {shape} ({pdtype}): card and plain differ")
+        with torch.no_grad():
+            res = check(f"temporal_layer ragged {shape}", fused_stw.fused_temporal_layer(
+                *args, **kwargs), fused_stw.temporal_layer_plain(*args, **kwargs), BF16_REL_TOL,
+                args[0].float() + chan_layer_norm(args[0], args[1]).float())
+            ms = cuda_ms(lambda: fused_stw.fused_temporal_layer(*args, **kwargs), 10)
+        gg = r(*shape).bfloat16()
+        got = fused_stw.temporal_layer_bwd(gg, *args, **kwargs)
+        repeat_check("temporal_layer_bwd ragged", shape, got,
+                     fused_stw.temporal_layer_bwd(gg, *args, **kwargs))
+        bres = check_grads(f"temporal_layer_bwd ragged {shape}", got,
+                           fused_stw.temporal_layer_plain_vjp(gg, *args, **kwargs),
+                           BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        bms = cuda_ms(lambda: fused_stw.temporal_layer_bwd(gg, *args, **kwargs), 5)
+        log({"kernel": "temporal_layer", "shape": list(shape), "heads": heads,
+             "params": str(pdtype).replace("torch.", ""), "dtype": "bfloat16", "kernel_ms": ms,
+             "check": "kernel 2 vs plain at a ragged shape; its operands card vs plain, exact",
+             **res, "card": card})
+        log({"kernel": "temporal_layer_bwd", "shape": list(shape), "heads": heads,
+             "dtype": "bfloat16", "kernel_ms": bms,
+             "check": "kernel 6 vs plain backward at a ragged shape, bitwise equal on repeat",
+             **bres, "card": card})
+
+
 def kernel_phase(table, record, card):
     summary = {}
     for name, k in table.items():
@@ -811,6 +921,8 @@ def kernel_phase(table, record, card):
                    library_ms=0.0 if name == "grid_sample" else None, max_abs_err=0.0)
         if name in DEVICE_TIMED:
             tot.update(device_ms=0.0, flops=0.0)
+        if "parent" in k:
+            tot.update(parent_device_ms=0.0)
         for key, entry in record[name].items():
             args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
             out_k = k["wrapper"](*args, **kwargs)
@@ -835,6 +947,9 @@ def kernel_phase(table, record, card):
                             bound_share=max(bytes_ms, ops_ms) / dev_ms)
                 tot["device_ms"] += count * dev_ms
                 tot["flops"] += count * flops
+            if "parent" in k:
+                line["parent_body_device_ms"] = parent_body_ms(k, args, kwargs, reps)
+                tot["parent_device_ms"] += count * (line["parent_body_device_ms"] or 0.0)
             if name == "grid_sample":
                 image = args[0].permute(0, 3, 1, 2)
                 grid = args[1].to(image.dtype)
@@ -910,12 +1025,16 @@ def backward_phase(table, record, card):
                    library_ms=None, max_abs_err=0.0)
         if name in DEVICE_TIMED:
             tot.update(device_ms=0.0, flops=0.0)
+        if "parent" in k:
+            tot.update(parent_device_ms=0.0)
         for key, entry in record[name].items():
             args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
             got = k["wrapper"](*args, **kwargs)
             want = k["plain"](*args, **kwargs)
             torch.cuda.synchronize()
             res = check_grads(f"{name}{key}", got, want, BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+            if name == "temporal_layer_bwd":
+                repeat_check(name, key, got, k["wrapper"](*args, **kwargs))
             ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 5)
             plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 5)
             byts, flops, op_dtype = k["cost"](*args, **kwargs)
@@ -934,6 +1053,9 @@ def backward_phase(table, record, card):
                             bound_share=max(bytes_ms, ops_ms) / dev_ms)
                 tot["device_ms"] += count * dev_ms
                 tot["flops"] += count * flops
+            if "parent" in k:
+                line["parent_body_device_ms"] = parent_body_ms(k, args, kwargs, 5)
+                tot["parent_device_ms"] += count * (line["parent_body_device_ms"] or 0.0)
             log(line)
             tot["ms"] += count * ms
             tot["plain_ms"] += count * plain_ms
@@ -945,6 +1067,7 @@ def backward_phase(table, record, card):
 
     stw_bwd_plan_phase()
     stw_bwd_ragged_phase(table, card)
+    temporal_ragged_phase(card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1777,9 +1900,10 @@ def wide_layers(cfg, limit=256):
     """Layers of the UNet over the narrow kernels' channel limit, by the
     UNet's widths (unet3d.py: per level 2 resnet blocks, 2 window layers
     and a temporal layer at the level's width; the mid blocks at the
-    deepest width): the window layers (kernel 1 in sampling, unfused under
-    autograd), the temporal layers (unfused) and the resnet blocks whose
-    backward is decomposed (Cout over the limit)."""
+    deepest width): the window layers (kernels 1 and 5 in bf16), the
+    temporal layers (kernels 2 and 6 in bf16; both unfused around kernel 12
+    in float32) and the resnet blocks whose backward is decomposed (Cout
+    over the limit)."""
     dims = [cfg.dim] + [cfg.dim * m for m in cfg.dim_mults]
     widths = dims[1:] + dims[-2::-1][:len(dims) - 1]  # downs at d_out, ups at d_in
     n = {"stw": 2 * sum(w > limit for w in widths) + 2 * (dims[-1] > limit),
@@ -1790,29 +1914,24 @@ def wide_layers(cfg, limit=256):
 
 def expected_route_launches(cfg):
     """Launches per sampler call and per train step (remat, bf16) of every
-    kernel, with the wide layers on their routes: the wide window layers on
-    kernel 1 (its bf16 body takes 512 channels) and, in training, kernel 5
-    (its bf16 body too); kernel 12 once per unfused layer forward (the wide
-    temporal layers; its backward is the plain autograd), kernels 10 and 11
-    twice per decomposed resnet backward (the two convs)."""
-    wide, steps = wide_layers(cfg), cfg.sampling_timesteps
-    call = dict(expected_launches(cfg))
-    call["temporal_layer"] -= steps * wide["temporal"]
-    call.update(window_attention=steps * wide["temporal"], conv33_fwd=0, conv33_bwd=0)
+    kernel, with the wide layers on their routes: the wide window and
+    temporal layers on kernels 1 and 2 and, in training, 5 and 6 (their bf16
+    bodies take 512 channels), so no layer runs unfused and kernel 12 not
+    at all; kernels 10 and 11 twice per decomposed resnet backward (the two
+    convs)."""
+    wide = wide_layers(cfg)
+    call = dict(expected_launches(cfg), window_attention=0, conv33_fwd=0, conv33_bwd=0)
     fwd, bwd = expected_train_launches(cfg)
     step = {**fwd, **bwd}
-    step["temporal_layer"] -= wide["temporal"]
-    step["temporal_layer_bwd"] -= wide["temporal"]
     step["resnet_block_bwd"] -= wide["resnet"]
-    step.update(window_attention=wide["temporal"], conv33_fwd=2 * wide["resnet"],
-                conv33_bwd=2 * wide["resnet"])
+    step.update(window_attention=0, conv33_fwd=2 * wide["resnet"], conv33_bwd=2 * wide["resnet"])
     return call, step
 
 
 def narrow_only(name, record, limit=256):
-    """Kernels 2, 6 and 7 never see a layer over their channel limit
-    (kernels 1 and 5: 512): every recorded input of `name` has at most
-    `limit` channels (Cout for the resnet backward)."""
+    """Kernel 7 never sees a layer over its channel limit (kernels 1, 2, 5
+    and 6: 512): every recorded input of `name` has at most `limit` channels
+    (Cout for the resnet backward)."""
     for key in record:
         width = key[1] if name == "resnet_block_bwd" else key[0][-1]
         if width > limit:
@@ -1888,10 +2007,64 @@ def route_kernel_checks(rt, record, card, per):
     return summary
 
 
+def wide_checks(k, name, keys, entries, card, per, what, backward=False):
+    """Kernel `name` (1, 2, 5 or 6) against its plain version at the
+    multi1248 layers over 256 channels (`keys` of its recorded `entries`),
+    kernel 6 also twice for bitwise equal gradients; timed (the wrapper call
+    and its device time); returns the totals per call (or step)."""
+    tot = dict(ms=0.0, device_ms=0.0, bound_ms=0.0, flops=0.0)
+    for key in keys:
+        args, kwargs, count = entries[key]["args"], entries[key]["kwargs"], entries[key]["count"]
+        with torch.set_grad_enabled(False):
+            if backward:
+                got = k["wrapper"](*args, **kwargs)
+                res = check_grads(f"{name}{key} multi1248", got, k["plain"](*args, **kwargs),
+                                  BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+                if name == "temporal_layer_bwd":
+                    repeat_check(name, key, got, k["wrapper"](*args, **kwargs))
+            else:
+                res = check(f"{name}{key} multi1248", k["wrapper"](*args, **kwargs),
+                            k["plain"](*args, **kwargs), BF16_REL_TOL,
+                            k["residual"](*args, **kwargs))
+            reps = 5 if backward else 10
+            ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), reps)
+            dev_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), reps,
+                               kernel_symbols(k["source"]))[0]
+        byts, flops, op_dtype = k["cost"](*args, **kwargs)
+        bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
+        log({"kernel": name, "shape": list(key[0]), "key": str(key[1:]), per: count,
+             "kernel_ms": ms, "kernel_device_ms": dev_ms, "bound_ms": bound,
+             "device_tflops": flops / dev_ms / 1e9, "bound_share": bound / dev_ms,
+             "check": what, **res, "card": card})
+        for field, value in (("ms", ms), ("device_ms", dev_ms), ("bound_ms", bound),
+                             ("flops", flops)):
+            tot[field] += count * value
+    return tot
+
+
+def kernel12_record(rt, entries, keys):
+    """Kernel 12's inputs where it ran before kernels 2 and 6 took the
+    512-channel temporal layer: ``temporal_layer_unfused`` (that layer's
+    former route) called on the layer's recorded inputs, in the layout of
+    recording(), each with its layer's count."""
+    from extdm_tpu_torch.ops import fused_stw
+
+    record = {}
+    with recording({"window_attention": rt["window_attention"]}, record), torch.no_grad():
+        for key in keys:
+            before = set(record["window_attention"])
+            fused_stw.temporal_layer_unfused(*entries[key]["args"], **entries[key]["kwargs"])
+            for k12 in set(record["window_attention"]) - before:
+                record["window_attention"][k12]["count"] = entries[key]["count"]
+    return record
+
+
 def unfused_table():
     """The unfused window and temporal layers at their call sites in the
     UNet, in the layout of kernel_table (recorded and timed only; kernel
-    12 inside them is counted as window_attention)."""
+    12 inside them is counted as window_attention). In bf16 no multi1248
+    layer takes them; the wide temporal layers are timed on them as the
+    route kernels 2 and 6 replaced."""
     from extdm_tpu_torch.models.dm import unet3d
     from extdm_tpu_torch.ops import fused_stw
 
@@ -1956,15 +2129,13 @@ def multi1248_phase(table, btable, others, card):
     wide = wide_layers(cfg)
     counters = {n: k["wrapper"] for n, k in {**table, **btable, **others, **rt}.items()}
 
-    routes = {"unfused": 0, "decomposed": 0, "unfused_window": 0}
+    routes = {"unfused": 0, "decomposed": 0}
     stw_route, bwd_route = unet3d.stw_route, fused_resnet.resnet_bwd_route
 
     def counted(fn):
         def route(*a, **k):
             r = fn(*a, **k)
             routes[r] = routes.get(r, 0) + 1
-            if fn is stw_route and r == "unfused" and not k.get("temporal", False):
-                routes["unfused_window"] += 1
             return r
         return route
 
@@ -1979,7 +2150,7 @@ def multi1248_phase(table, btable, others, card):
     def run_counted(fn):
         for c in counters.values():
             c.launches = 0
-        routes.update(unfused=0, decomposed=0, unfused_window=0)
+        routes.update(unfused=0, decomposed=0)
         t0 = time.perf_counter()
         with counting_routes():
             out = fn()
@@ -1997,40 +2168,31 @@ def multi1248_phase(table, btable, others, card):
     with recording({**table, **rt}, record), recording(utable, urecord):
         sampler(gen.manual_seed(0), cond)
         torch.cuda.synchronize()
-    narrow_only("temporal_layer", record["temporal_layer"])
-    narrow_only("stw_layer", record["stw_layer"], limit=512)
+    for name in ("stw_layer", "temporal_layer"):  # kernels 1 and 2 take 512 channels
+        narrow_only(name, record[name], limit=512)
     wide_stw = [k for k in record["stw_layer"] if k[0][-1] > 256]
-    if len(wide_stw) == 0 or "window_attention" not in record:
-        raise AssertionError(f"multi1248 sampler: window layers over 256 channels on kernel 1 "
-                             f"{wide_stw}, kernel 12 calls "
-                             f"{list(record.get('window_attention', {}))}")
+    wide_tmp = [k for k in record["temporal_layer"] if k[0][-1] > 256]
+    if not wide_stw or not wide_tmp or record["window_attention"] or any(urecord.values()):
+        raise AssertionError(f"multi1248 sampler: layers over 256 channels on kernel 1 {wide_stw} "
+                             f"and kernel 2 {wide_tmp}; kernel 12 calls "
+                             f"{list(record.get('window_attention', {}))}, unfused layers "
+                             f"{ {n: list(r) for n, r in urecord.items()} }")
+    # kernel 12 and the unfused layer at the 512-channel temporal layer's
+    # inputs: the route it took before kernels 2 and 6 took it
+    record.update(kernel12_record(rt, record["temporal_layer"], wide_tmp))
+    urecord["temporal_layer_unfused"] = {k: record["temporal_layer"][k] for k in wide_tmp}
     wide_keys = [k for k in record["resnet_block"] if k[1] > 256]
     log({"phase": "multi1248 warm-up call", "window_attention_shapes": [str(k) for k in
                                                                         record["window_attention"]],
          "resnet_forward_shapes_over_256": [str(k) for k in wide_keys], "wide_layers": wide})
     with torch.no_grad():
         summary = route_kernel_checks(rt, record, card, "per_call")
-        # kernel 1 at the 512-channel window layers it takes in sampling
-        k1, k1_wide = table["stw_layer"], dict(ms=0.0, device_ms=0.0, bound_ms=0.0, flops=0.0)
-        for key in wide_stw:
-            entry = record["stw_layer"][key]
-            args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
-            res = check(f"stw_layer{key} multi1248", k1["wrapper"](*args, **kwargs),
-                        k1["plain"](*args, **kwargs), BF16_REL_TOL, k1["residual"](*args, **kwargs))
-            ms = cuda_ms(lambda: k1["wrapper"](*args, **kwargs), 10)
-            dev_ms = device_ms(lambda: k1["wrapper"](*args, **kwargs), 10,
-                               kernel_symbols(k1["source"]))[0]
-            byts, flops, op_dtype = k1["cost"](*args, **kwargs)
-            bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
-            log({"kernel": "stw_layer", "shape": list(key[0]), "key": str(key[1:]),
-                 "per_call": count, "kernel_ms": ms, "kernel_device_ms": dev_ms,
-                 "bound_ms": bound, "device_tflops": flops / dev_ms / 1e9,
-                 "bound_share": bound / dev_ms,
-                 "check": "kernel 1 vs plain at a multi1248 512-channel window layer", **res,
-                 "card": card})
-            for field, value in (("ms", ms), ("device_ms", dev_ms), ("bound_ms", bound),
-                                 ("flops", flops)):
-                k1_wide[field] += count * value
+    # kernels 1 and 2 at the 512-channel layers they take in sampling
+    k1_wide = wide_checks(table["stw_layer"], "stw_layer", wide_stw, record["stw_layer"], card,
+                          "per_call", "kernel 1 vs plain at a multi1248 512-channel window layer")
+    k2_wide = wide_checks(table["temporal_layer"], "temporal_layer", wide_tmp,
+                          record["temporal_layer"], card, "per_call",
+                          "kernel 2 vs plain at the multi1248 512-channel temporal layer")
     # kernel 3 at every block of the multi1248 sampler (512 output channels
     # and up level 0's 1024 input channels among them)
     k3, k3_wide_ms, k3_ms, k3_dev_ms = table["resnet_block"], 0.0, 0.0, 0.0
@@ -2060,7 +2222,7 @@ def multi1248_phase(table, btable, others, card):
         out, sec, launches = run_counted(lambda: sampler(gen.manual_seed(200 + i), cond))
         times.append(sec)
         expected = {n: want_call.get(n, 0) for n in counters}
-        if launches != expected or routes["unfused"] != want_call["window_attention"]:
+        if launches != expected or routes["unfused"] != 0:
             raise AssertionError(f"multi1248 call {i}: launches {launches} != {expected}, or "
                                  f"routes {routes}")
         if not torch.isfinite(out["sample_out_vid"]).all():
@@ -2072,6 +2234,10 @@ def multi1248_phase(table, btable, others, card):
                                                                               times],
          "median_ms": med * 1e3, "predicted_frames_per_s": BATCH * cfg.pred_frames / med,
          "launches_per_call": launches, "unfused_layers_per_call": routes["unfused"],
+         "kernel2_c512_ms_per_call": k2_wide["ms"],
+         "kernel2_c512_device_ms_per_call": k2_wide["device_ms"],
+         "former_route_same_layers": "temporal_layer_unfused (kernel 12) on kernel 2's "
+                                     "512-channel inputs, timed only",
          "window_attention_ms_per_call": summary["window_attention"]["ms"],
          "window_attention_device_ms_per_call": summary["window_attention"]["device_ms"],
          "unfused_layers_ms_per_call": usplit["layer_ms"],
@@ -2082,7 +2248,18 @@ def multi1248_phase(table, btable, others, card):
          "kernel1_c512_device_ms_per_call": k1_wide["device_ms"],
          "kernel3_cout512_ms_per_call": k3_wide_ms, "kernel3_ms_per_call": k3_ms,
          "kernel3_device_ms_per_call": k3_dev_ms, "card": card})
+    # float32: the layers over 256 channels take kernel 12 (the narrow bodies'
+    # limit), counted from 0 over this forward: kernel 12's launches
+    for c in counters.values():
+        c.launches = 0
     unet_f32_card_vs_cpu(cfg)
+    f32_launches = {n: c.launches for n, c in counters.items()}
+    if f32_launches["window_attention"] != wide["stw"] + wide["temporal"]:
+        raise AssertionError(f"multi1248 float32 forward: kernel 12 launched "
+                             f"{f32_launches['window_attention']} times, not once per layer over "
+                             f"256 channels ({wide['stw'] + wide['temporal']})")
+    log({"check": "multi1248 float32 UNet forward at batch 1: every layer over 256 channels "
+                  "unfused around kernel 12", "launches": f32_launches, "card": card})
     del fd, sampler, out
     torch.cuda.empty_cache()
 
@@ -2097,33 +2274,32 @@ def multi1248_phase(table, btable, others, card):
     with recording({**table, **btable, **rt}, record), recording(utable, urecord):
         trainer.train_step(gen.manual_seed(0), video)
         torch.cuda.synchronize()
-    for name in ("temporal_layer", "temporal_layer_bwd", "resnet_block_bwd"):
-        narrow_only(name, record[name])
-    for name in ("stw_layer", "stw_layer_bwd"):  # kernels 1 and 5 take 512 channels
-        narrow_only(name, record[name], limit=512)
-    # kernel 5 at the 512-channel window layers it now takes under autograd
-    k5, k5_wide = btable["stw_layer_bwd"], dict(ms=0.0, device_ms=0.0, bound_ms=0.0, flops=0.0)
-    wide_bwd = [k for k in record["stw_layer_bwd"] if k[0][-1] > 256]
-    if len(wide_bwd) == 0:
-        raise AssertionError("multi1248 train step: no window layer over 256 channels on kernel 5")
-    for key in wide_bwd:
-        entry = record["stw_layer_bwd"][key]
-        args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
-        res = check_grads(f"stw_layer_bwd{key} multi1248", k5["wrapper"](*args, **kwargs),
-                          k5["plain"](*args, **kwargs), BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
-        ms = cuda_ms(lambda: k5["wrapper"](*args, **kwargs), 5)
-        dev_ms = device_ms(lambda: k5["wrapper"](*args, **kwargs), 5,
-                           kernel_symbols(k5["source"]))[0]
-        byts, flops, op_dtype = k5["cost"](*args, **kwargs)
-        bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
-        log({"kernel": "stw_layer_bwd", "shape": list(key[0]), "key": str(key[1:]),
-             "per_step": count, "kernel_ms": ms, "kernel_device_ms": dev_ms, "bound_ms": bound,
-             "device_tflops": flops / dev_ms / 1e9, "bound_share": bound / dev_ms,
-             "check": "kernel 5 vs plain backward at a multi1248 512-channel window layer",
-             **res, "card": card})
-        for field, value in (("ms", ms), ("device_ms", dev_ms), ("bound_ms", bound),
-                             ("flops", flops)):
-            k5_wide[field] += count * value
+    narrow_only("resnet_block_bwd", record["resnet_block_bwd"])
+    for name in ("stw_layer", "stw_layer_bwd", "temporal_layer", "temporal_layer_bwd"):
+        narrow_only(name, record[name], limit=512)  # kernels 1, 2, 5 and 6 take 512 channels
+    if record["window_attention"] or any(urecord.values()):
+        raise AssertionError(f"multi1248 train step: kernel 12 calls "
+                             f"{list(record.get('window_attention', {}))}, unfused layers "
+                             f"{ {n: list(r) for n, r in urecord.items()} }")
+    # kernels 5 and 6 at the 512-channel layers they take under autograd
+    wide_bwd = {n: [k for k in record[n] if k[0][-1] > 256]
+                for n in ("stw_layer_bwd", "temporal_layer_bwd")}
+    if not all(wide_bwd.values()):
+        raise AssertionError(f"multi1248 train step: layers over 256 channels on kernels 5 and "
+                             f"6: {wide_bwd}")
+    k5_wide = wide_checks(btable["stw_layer_bwd"], "stw_layer_bwd", wide_bwd["stw_layer_bwd"],
+                          record["stw_layer_bwd"], card, "per_step",
+                          "kernel 5 vs plain backward at a multi1248 512-channel window layer",
+                          backward=True)
+    k6_wide = wide_checks(btable["temporal_layer_bwd"], "temporal_layer_bwd",
+                          wide_bwd["temporal_layer_bwd"], record["temporal_layer_bwd"], card,
+                          "per_step", "kernel 6 vs plain backward at the multi1248 512-channel "
+                          "temporal layer, bitwise equal on repeat", backward=True)
+    # kernel 12 and the unfused layer (forward and backward) at the
+    # 512-channel temporal layer's training inputs: its former route
+    wide_tmp = [k for k in record["temporal_layer"] if k[0][-1] > 256]
+    record.update(kernel12_record(rt, record["temporal_layer"], wide_tmp))
+    urecord["temporal_layer_unfused"] = {k: record["temporal_layer"][k] for k in wide_tmp}
     # kernel 7 at every block it takes here, in bf16 at batch 8: up level 0
     # (Cin 1024) and the other multi1248 shapes the KTH step does not have
     k7 = btable["resnet_block_bwd"]
@@ -2153,9 +2329,7 @@ def multi1248_phase(table, btable, others, card):
         loss, grad_norm = aux["loss"].item(), aux["grad_norm"].item()
         if not (math.isfinite(loss) and math.isfinite(grad_norm)):
             raise AssertionError(f"multi1248 train step {i}: loss {loss}, grad_norm {grad_norm}")
-        if launches != expected or (routes["unfused"], routes["decomposed"],
-                                    routes["unfused_window"]) != (
-                want_step["window_attention"], wide["resnet"], 0):
+        if launches != expected or (routes["unfused"], routes["decomposed"]) != (0, wide["resnet"]):
             raise AssertionError(f"multi1248 train step {i}: launches {launches} != {expected}, "
                                  f"or routes {routes}")
         log({"phase": "multi1248 train step", "step": i, "ms": sec * 1e3, "loss": loss,
@@ -2170,27 +2344,33 @@ def multi1248_phase(table, btable, others, card):
          "conv33_ms_per_step": tsummary["conv33_fwd"]["ms"] + tsummary["conv33_bwd"]["ms"],
          "conv33_device_ms_per_step": (tsummary["conv33_fwd"]["device_ms"]
                                        + tsummary["conv33_bwd"]["device_ms"]),
+         "former_route_same_layers": "temporal_layer_unfused (kernel 12) forward and backward "
+                                     "on kernel 2's 512-channel inputs, timed only",
          "unfused_layers_fwd_bwd_ms_per_step": tsplit["layer_ms"],
          "unfused_plain_layers_fwd_bwd_ms_per_step": tsplit["plain_layer_ms"],
          "unfused_kernel12_device_ms_per_step": tsplit["kernel12_device_ms"],
          "unfused_torch_device_ms_per_step": tsplit["torch_device_ms"],
          "kernel5_c512_ms_per_step": k5_wide["ms"],
-         "kernel5_c512_device_ms_per_step": k5_wide["device_ms"], "card": card})
-    log({"check": "multi1248 train step routes: every window layer fused (kernels 1 and 5), "
-                  "the temporal layer unfused around kernel 12",
-         "unfused_window_layers_per_step": routes["unfused_window"],
+         "kernel5_c512_device_ms_per_step": k5_wide["device_ms"],
+         "kernel6_c512_ms_per_step": k6_wide["ms"],
+         "kernel6_c512_device_ms_per_step": k6_wide["device_ms"], "card": card})
+    log({"check": "multi1248 train step routes: every window and temporal layer fused "
+                  "(kernels 1, 2, 5 and 6), none unfused, kernel 12 never",
          "unfused_layers_per_step": routes["unfused"],
          "kernel12_launches_per_step": launches["window_attention"],
          "kernel1_launches_per_step": launches["stw_layer"],
+         "kernel2_launches_per_step": launches["temporal_layer"],
          "kernel5_launches_per_step": launches["stw_layer_bwd"],
+         "kernel6_launches_per_step": launches["temporal_layer_bwd"],
          "decomposed_resnet_backwards_per_step": routes["decomposed"], "card": card})
     del trainer, fd, video
     torch.cuda.empty_cache()
     train_f32_card_vs_cpu(tcfg)
     log({"phase": "multi1248 phase", "seconds": time.perf_counter() - t_phase})
-    # kernel 12 per sampler call, kernels 10 and 11 per train step
+    # kernel 12 per sampler call had the wide temporal layer stayed unfused,
+    # kernels 10 and 11 per train step
     return ({**tsummary, "window_attention": summary["window_attention"]}, call_launches,
-            step_launches)
+            step_launches, f32_launches)
 
 
 # Kernels 10 and 11 at shapes off the model's: channels off the kernels'
@@ -2222,10 +2402,8 @@ def conv_bwd_repeat_check(entries, card):
     from extdm_tpu_torch.ops import fused_resnet
 
     for key, entry in entries.items():
-        first = fused_resnet.conv33_bwd(*entry["args"])
-        again = fused_resnet.conv33_bwd(*entry["args"])
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError(f"conv33_bwd{key}: two launches differ")
+        repeat_check("conv33_bwd", key, fused_resnet.conv33_bwd(*entry["args"]),
+                     fused_resnet.conv33_bwd(*entry["args"]))
         log({"check": "kernel 11 twice on the same inputs: bitwise equal din and dW",
              "shape": list(key[0]), "cout": key[1], "card": card})
 
@@ -2380,20 +2558,21 @@ def main() -> int:
     wsummary, eval_launches, eval_calls = eval_phase(table, btable, {**ae_btable, **rt}, card)
 
     # ---- the multi1248/ada preset (kernels 10-12 on the layers over 256 channels)
-    msummary, m_call, m_step = multi1248_phase(table, btable, {**ae_btable, **wm}, card)
+    msummary, m_call, m_step, m_f32 = multi1248_phase(table, btable, {**ae_btable, **wm}, card)
 
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the
     # grid-sample backward, on the eval path (all its sampler calls) for
-    # kernel 9, on the multi1248 path for kernels 10-12 (per train step for
-    # 10 and 11, per sampler call for 12); with the DM, AE, eval and
-    # multi1248 counts of every kernel
+    # kernel 9, on the multi1248 path for kernels 10 and 11 (per train step)
+    # and, for kernel 12, its float32 UNet forward (in bf16 no layer takes
+    # kernel 12 since kernels 2 and 6 took the 512-channel temporal layer);
+    # with the DM, AE, eval and multi1248 counts of every kernel
     summaries = {**summary, **bsummary, **aesummary, **{"stw_layer_wm": wsummary}, **msummary}
     kernels = []
     for name, k in {**table, **btable, **ae_btable, **wm, **rt}.items():
         s = summaries[name]
         if name in rt:
-            path_launches = m_step[name] if name.startswith("conv33") else m_call[name]
+            path_launches = m_step[name] if name.startswith("conv33") else m_f32[name]
         elif name in wm:
             path_launches = eval_launches[name]
         else:
@@ -2407,6 +2586,7 @@ def main() -> int:
                         "eval_sampler_calls": eval_calls,
                         "multi1248_call_launches": m_call[name],
                         "multi1248_step_launches": m_step[name],
+                        "multi1248_f32_forward_launches": m_f32[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
@@ -2417,6 +2597,8 @@ def main() -> int:
                             "device_tflops": s["flops"] / s["device_ms"] / 1e9,
                             "bound_share": s["bound_ms"] / s["device_ms"]}
                            if name in DEVICE_TIMED else {}),
+                        **({"parent_body_device_ms": s["parent_device_ms"]}
+                           if "parent_device_ms" in s else {}),
                         **({"kernel1_same_layers_ms": s["kernel1_layer_ms"],
                             "layer_ms_with_partition": s["layer_ms"]} if name in wm else {})})
     log({"phase": "total", "seconds": time.perf_counter() - t_start})

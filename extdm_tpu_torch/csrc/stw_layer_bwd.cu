@@ -10,6 +10,28 @@
 //                        dWproj, dbproj and dbias (heads, N, N).
 //                        attention_bwd.cu's stw_layer_bwd keeps the float32
 //                        check path.
+//   temporal_layer_bwd_wgmma  kernel 6, the same design for the whole
+//                        PreNormTemporalAttn layer x + h + Wout(attn(LN(h))),
+//                        h = ChanLN(x): replaces pallas_stw.py
+//                        _temporal_bwd_impl (_make_temporal_bwd_kernel) for
+//                        bf16 layers of T <= 32 frames, up to 512 channels (C
+//                        a multiple of 32), dim_head 32, 4 or 8 heads: dx,
+//                        dgamma, dln_scale, dln_bias, dWqkv, dWout and dbias
+//                        (heads, T, T). attention_bwd.cu's temporal_layer_bwd
+//                        keeps float32 and the other shapes.
+//
+// The temporal layer runs the window kernel templated on the layer kind
+// (TP) over tiles of two sequences of 32 frame slots read in place
+// (temporal.cuh): ChanLN and then the inner LayerNorm recomputed in place
+// (hn, not h, is the A operand and goes to h_tok for dWqkv), rope at the
+// frame's position, each row tile against its own sequence's 32 keys (the
+// bias tables (heads, 32, 32), -inf past T), dbias into one slice per block
+// and sequence slot (two row tiles of a block share its elements). The
+// per-token pass (3.) runs the LayerNorm backward (dhn ln_scale, with hn's
+// statistics recomputed from x), adds g for the h residual, then the ChanLN
+// backward, writing dx once; its partials are dgamma, dln_scale, dln_bias.
+// The entry writes the operands from the caller's parameters into its one
+// scratch buffer first (temporal_operands_kernel).
 //
 // Bound on the H100: operations (three times the forward's products) and,
 // at level 0 of the KTH step, the bytes of the per-token intermediates the
@@ -68,6 +90,7 @@
 // algebra float32; h, dqkv and o are cast to bf16 before the weight
 // gradients, so the per-token intermediates are written in bf16.
 #include "conv_ring.cuh"
+#include "temporal.cuh"
 
 namespace {
 
@@ -107,25 +130,32 @@ struct BwdPlan {
 struct Args {
   const bf16* x;
   const bf16* g;
-  bf16* h_tok;            // (tokens, C): h = ChanLN(x), for dWqkv
+  bf16* h_tok;            // (tokens, C): h = ChanLN(x) (temporal: hn = LN(h)), for dWqkv
   bf16* o_tok;            // (tokens, hid): the heads' outputs, for dWproj
   bf16* dqkv;             // (tokens, 3 hid): dq | dk | dv
-  float* bias_part;       // (gridDim, heads, N, N)
+  float* bias_part;       // (gridDim, heads, N, N); temporal: (2 gridDim, heads, T, T)
   const float* gamma;     // (C)
-  const bf16* bm;         // (M, heads, 64, 64): bf16(bias + mask m), -inf past N
+  const float* ln_scale;  // temporal: the inner LayerNorm's (C); window: null
+  const float* ln_bias;
+  const bf16* bm;         // (M, heads, 64, 64): bf16(bias + mask m), -inf past N;
+                          //   temporal: (heads, 32, 32), -inf past T
   const bf16* bmt;        // the same, transposed in its last two dims
   const int* mask_ids;    // (windows of one sample) or null: M = 1
-  int T, H, W;            // x (B, T, H, W, C), unpadded
-  int D1, D2, D3;         // the padded volume: multiples of the window
+  int T, H, W;            // x (B, T, H, W, C), unpadded; temporal: W = 1, H = a frame's pixels
+  int D1, D2, D3;         // the padded volume: multiples of the window (temporal: 1)
   int st, sh, sw;         // the shift (the roll by -shift is read in place)
-  int wd, wh, ww, nwin, C, rot, heads;
+  int wd, wh, ww, nwin, C, rot, heads;  // temporal: window 1, nwin = tiles
+  int nseq;               // temporal: B H sequences
   float eps;
 };
 
 // Token index in x of row r of window `win` of the padded volume rolled by
 // -shift, or -1 for a pad token or past the window's tokens (kernel 1's
-// addressing, stw_layer.cu token_offset, in tokens).
+// addressing, stw_layer.cu token_offset, in tokens). Temporal: of row r of
+// tile `win` (temporal.cuh seq_token).
+template <bool TP>
 __device__ __forceinline__ int token_index(const Args& a, int win, int r) {
+  if constexpr (TP) return (int)seq_token(win, r, a.T, a.H, a.nseq);
   const int N = a.wd * a.wh * a.ww;
   if (r >= N) return -1;
   const int nWh = a.D2 / a.wh, nWw = a.D3 / a.ww, nW = (a.D1 / a.wd) * nWh * nWw;
@@ -208,9 +238,10 @@ __device__ __forceinline__ void mma_trans_b(float (&acc)[4][4], const uint32_t (
   }
 }
 
-// The A fragment of k-step kk from a 16 x 64 float tile in C-fragment
+// The A fragment of k-step kk from a 16 x 8 J float tile in C-fragment
 // layout (columns 8 j + 2 t..): scores times `scale` per row half.
-__device__ __forceinline__ void a_from_c(const float (&c)[8][4], int kk, float s0, float s1,
+template <int J>
+__device__ __forceinline__ void a_from_c(const float (&c)[J][4], int kk, float s0, float s1,
                                          uint32_t (&a)[4]) {
   a[0] = pack_bf16(c[2 * kk][0] * s0, c[2 * kk][1] * s0);
   a[1] = pack_bf16(c[2 * kk][2] * s1, c[2 * kk][3] * s1);
@@ -273,6 +304,7 @@ __device__ __forceinline__ void issue_step(const BwdPlan& p, const CUtensorMap* 
   }
 }
 
+template <bool TP>
 __global__ void __launch_bounds__(GT, 1)
     stw_bwd_window_kernel(__grid_constant__ const CUtensorMap mq,
                           __grid_constant__ const CUtensorMap mp, const Args a, const BwdPlan p) {
@@ -281,7 +313,14 @@ __global__ void __launch_bounds__(GT, 1)
   const uint32_t sb = smem_addr(base);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7, wl = warp & 3;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int N = a.wd * a.wh * a.ww, nt = (N + 15) / 16;
+  // Window: N tokens in nt live 16-row tiles, each against all 2 nt live
+  // 8-row tiles of the other side. Temporal (temporal.cuh): N = T; row tile
+  // rt is sequence rt / 2's and runs against that sequence's nkt 8-row tiles
+  // from kt0 = 4 (rt / 2); dbias goes to one slice per sequence slot.
+  constexpr int NJT = TP ? SEQ / 8 : 8;
+  constexpr int BMS = TP ? SEQ : ROWS;  // row stride of the bias tables
+  const int N = TP ? a.T : a.wd * a.wh * a.ww, nt = (N + 15) / 16;
+  const int nkt = TP ? (N + 7) / 8 : 2 * nt, nkk = TP ? (N + 15) / 16 : nt;
   const int nW = (a.D1 / a.wd) * (a.D2 / a.wh) * (a.D3 / a.ww);
   int* row_tok = reinterpret_cast<int*>(base + p.row);
   float* stat = reinterpret_cast<float*>(base + p.stat);  // [head of pair][row][max, 1/sum, D]
@@ -291,8 +330,9 @@ __global__ void __launch_bounds__(GT, 1)
   const long long total = (long long)my * p.steps;
   const float qscale = rsqrtf((float)HEAD);
   const int hid = p.hid, hid3 = 3 * p.hid;
-  float* bpart = a.bias_part + (long long)blockIdx.x * a.heads * N * N;
-  for (int e = tid; e < a.heads * N * N; e += GT) bpart[e] = 0.f;
+  const int slots = TP ? 2 : 1;  // dbias slices of the block
+  float* bpart = a.bias_part + (long long)blockIdx.x * slots * a.heads * N * N;
+  for (int e = tid; e < slots * a.heads * N * N; e += GT) bpart[e] = 0.f;
 
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) mbar_init(bars + 8 * s, 1);
@@ -321,7 +361,7 @@ __global__ void __launch_bounds__(GT, 1)
   };
 
   for (int win = blockIdx.x; win < a.nwin; win += gridDim.x) {
-    if (tid < ROWS) row_tok[tid] = token_index(a, win, tid);
+    if (tid < ROWS) row_tok[tid] = token_index<TP>(a, win, tid);
     const int mrow = a.mask_ids != nullptr ? a.mask_ids[win % nW] : 0;
     __syncthreads();
     load_rows(a, p, a.x, A, row_tok);
@@ -358,7 +398,8 @@ __global__ void __launch_bounds__(GT, 1)
       var += __shfl_xor_sync(0xffffffffu, var, 1);
       var += __shfl_xor_sync(0xffffffffu, var, 2);
       const float rstd = rsqrtf(var / a.C + a.eps);
-      if (tok >= 0) {  // pad tokens and rows past N stay zero
+      if (TP || tok >= 0) {  // pad tokens and rows past N stay zero
+        float s2 = 0.f;  // temporal: the sum of h, for the inner LayerNorm
         for (int q = q0; q < nq; q += 4) {
           uint4* ptr = reinterpret_cast<uint4*>(Ag + (q >> 3) * BOX + sw128(r, q & 7));
           uint4 v = *ptr;
@@ -367,11 +408,16 @@ __global__ void __launch_bounds__(GT, 1)
           const float4 g1 = __ldg(reinterpret_cast<const float4*>(a.gamma + 8 * q + 4));
           const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < 8; ++i) {
             e[i] = __float2bfloat16((__bfloat162float(e[i]) - mean) * rstd * gm[i]);
+            s2 += __bfloat162float(e[i]);
+          }
           *ptr = v;
-          *reinterpret_cast<uint4*>(a.h_tok + (long long)tok * a.C + 8 * q) = v;
+          if (!TP) *reinterpret_cast<uint4*>(a.h_tok + (long long)tok * a.C + 8 * q) = v;
         }
+        if constexpr (TP)  // hn = LN(h) in place and to h_tok (dWqkv's operand)
+          inner_layer_norm(Ag, r, q0, a.C, s2, a.eps, a.ln_scale, a.ln_bias, tok >= 0,
+                           tok >= 0 ? a.h_tok + (long long)tok * a.C : nullptr);
       }
     }
     fence_proxy_async();
@@ -437,8 +483,9 @@ __global__ void __launch_bounds__(GT, 1)
               v0 *= qscale;
               v1 *= qscale;
             }
-            if (which < 2 && r < N && d < a.rot) {
-              const float4 cs = rope_cs(r, d, a.rot);
+            const int pos = TP ? r % SEQ : r;  // the token's position: its frame
+            if (which < 2 && pos < N && d < a.rot) {
+              const float4 cs = rope_cs(pos, d, a.rot);
               const float w0 = v0 * cs.x - v1 * cs.y, w1 = v1 * cs.z + v0 * cs.w;
               v0 = w0;
               v1 = w1;
@@ -449,33 +496,35 @@ __global__ void __launch_bounds__(GT, 1)
       }
       __syncthreads();
 
-      const int hh = warp >> 2, h = 2 * pr + hh, r0 = 16 * (warp & 3);
+      const int hh = warp >> 2, h = 2 * pr + hh, rt = warp & 3, r0 = 16 * rt;
       const int qc = 32 * hh, oc = 32 * h;  // the head's columns in Q/K/V and in dO
+      const int kt0 = TP ? 4 * (rt >> 1) : 0;  // the first 8-row tile of the other side
+      const bool live = TP ? ((rt & 1) == 0 || N > 16) && 2 * win + (rt >> 1) < a.nseq : r0 < N;
       float* hstat = stat + hh * ROWS * 3;
       // ---- query rows r0..r0+15 of head h
-      if (r0 < N) {
-        const bf16* bmt = a.bm + (long long)(mrow * a.heads + h) * ROWS * ROWS;
-        uint32_t bv[8][2];
+      if (live) {
+        const bf16* bmt = a.bm + (long long)(mrow * a.heads + h) * BMS * BMS;
+        uint32_t bv[NJT][2];
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             bv[jt][e] = __ldg(reinterpret_cast<const unsigned*>(
-                bmt + (r0 + g8 + 8 * e) * ROWS + 8 * jt + 2 * t4));
-        float sc[8][4];
+                bmt + ((r0 + g8 + 8 * e) % BMS) * BMS + 8 * jt + 2 * t4));
+        float sc[NJT][4];
         {
           uint32_t qa[2][4];
           a_frag(Q, r0, qc, g8, t4, qa[0]);
           a_frag(Q, r0, qc + 16, g8, t4, qa[1]);
 #pragma unroll
-          for (int jt = 0; jt < 8; ++jt) {
+          for (int jt = 0; jt < NJT; ++jt) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) sc[jt][e] = 0.f;
-            if (jt < 2 * nt) {
+            if (jt < nkt) {
 #pragma unroll
               for (int ks = 0; ks < 2; ++ks) {
                 uint32_t b0, b1;
-                b_frag(K, 8 * jt, qc + 16 * ks, g8, t4, b0, b1);
+                b_frag(K, 8 * (kt0 + jt), qc + 16 * ks, g8, t4, b0, b1);
                 mma_bf16(sc[jt], qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], b0, b1);
               }
             }
@@ -483,7 +532,7 @@ __global__ void __launch_bounds__(GT, 1)
         }
         float mx[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {  // -inf from the table: a padding key or row
             const uint32_t pair = bv[jt][e >> 1];
@@ -499,7 +548,7 @@ __global__ void __launch_bounds__(GT, 1)
           mx[e] *= LOG2E;
         }
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             sc[jt][e] = ex2(fmaf(sc[jt][e], LOG2E, -mx[e >> 1]));  // exp(s - max)
@@ -512,18 +561,18 @@ __global__ void __launch_bounds__(GT, 1)
           inv[e] = inv[e] > 0.f ? 1.f / inv[e] : 0.f;
         }
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[jt][e] *= inv[e >> 1];  // P, float32
         const int tok0 = row_tok[r0 + g8], tok1 = row_tok[r0 + g8 + 8];
         {  // O = P v -> o_tok
           float oc4[4][4] = {};
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            if (kk >= nt) break;
+          for (int kk = 0; kk < NJT / 2; ++kk) {
+            if (kk >= nkk) break;
             uint32_t pa[4];
             a_from_c(sc, kk, 1.f, 1.f, pa);
-            mma_trans_b(oc4, pa, V, 16 * kk, qc, lane);
+            mma_trans_b(oc4, pa, V, 8 * kt0 + 16 * kk, qc, lane);
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -535,20 +584,20 @@ __global__ void __launch_bounds__(GT, 1)
             store_row32(tok >= 0 ? a.o_tok + (long long)tok * hid + oc : nullptr, v, lane);
           }
         }
-        float dp[8][4];  // dP = dO v^T
+        float dp[NJT][4];  // dP = dO v^T
         {
           uint32_t da[2][4];
           a_frag(O, r0, oc, g8, t4, da[0]);
           a_frag(O, r0, oc + 16, g8, t4, da[1]);
 #pragma unroll
-          for (int jt = 0; jt < 8; ++jt) {
+          for (int jt = 0; jt < NJT; ++jt) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) dp[jt][e] = 0.f;
-            if (jt < 2 * nt) {
+            if (jt < nkt) {
 #pragma unroll
               for (int ks = 0; ks < 2; ++ks) {
                 uint32_t b0, b1;
-                b_frag(V, 8 * jt, qc + 16 * ks, g8, t4, b0, b1);
+                b_frag(V, 8 * (kt0 + jt), qc + 16 * ks, g8, t4, b0, b1);
                 mma_bf16(dp[jt], da[ks][0], da[ks][1], da[ks][2], da[ks][3], b0, b1);
               }
             }
@@ -556,7 +605,7 @@ __global__ void __launch_bounds__(GT, 1)
         }
         float D[2] = {0.f, 0.f};
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) D[e >> 1] += sc[jt][e] * dp[jt][e];
 #pragma unroll
@@ -568,13 +617,13 @@ __global__ void __launch_bounds__(GT, 1)
         // windows: each element of the block's slice is this thread's alone,
         // so the adds (reductions in L2, nothing returned, nothing waited
         // for) land in program order, the same order every run
-        float* bh = bpart + (long long)h * N * N;
+        float* bh = bpart + ((long long)(TP ? r0 / SEQ : 0) * a.heads + h) * N * N;
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             dp[jt][e] = sc[jt][e] * (dp[jt][e] - D[e >> 1]);
-            const int i = r0 + g8 + 8 * (e >> 1), j = 8 * jt + 2 * t4 + (e & 1);
+            const int i = (r0 + g8 + 8 * (e >> 1)) % BMS, j = 8 * jt + 2 * t4 + (e & 1);
             if (i < N && j < N) atomicAdd(bh + i * N + j, dp[jt][e]);
           }
         if (t4 == 0) {
@@ -589,15 +638,15 @@ __global__ void __launch_bounds__(GT, 1)
         {  // dq = dS k, rope undone, scaled -> dqkv
           float dq[4][4] = {};
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            if (kk >= nt) break;
+          for (int kk = 0; kk < NJT / 2; ++kk) {
+            if (kk >= nkk) break;
             uint32_t pa[4];
             a_from_c(dp, kk, 1.f, 1.f, pa);
-            mma_trans_b(dq, pa, K, 16 * kk, qc, lane);
+            mma_trans_b(dq, pa, K, 8 * kt0 + 16 * kk, qc, lane);
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int r = r0 + g8 + 8 * e, tok = e ? tok1 : tok0;
+            const int r = (r0 + g8 + 8 * e) % BMS, tok = e ? tok1 : tok0;
             uint32_t v[4];
 #pragma unroll
             for (int jd = 0; jd < 4; ++jd) {
@@ -619,86 +668,87 @@ __global__ void __launch_bounds__(GT, 1)
 
       // ---- key rows k0..k0+15 of head h: S^T, P^T, dP^T, dS^T; dv, dk
       const int k0 = r0;
-      if (k0 < N) {
-        const bf16* bmt = a.bmt + (long long)(mrow * a.heads + h) * ROWS * ROWS;
-        uint32_t bv[8][2];
+      if (live) {
+        const bf16* bmt = a.bmt + (long long)(mrow * a.heads + h) * BMS * BMS;
+        uint32_t bv[NJT][2];
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             bv[jt][e] = __ldg(reinterpret_cast<const unsigned*>(
-                bmt + (k0 + g8 + 8 * e) * ROWS + 8 * jt + 2 * t4));
+                bmt + ((k0 + g8 + 8 * e) % BMS) * BMS + 8 * jt + 2 * t4));
         // S^T and P^T first, dv from them; then dP^T, dS^T in its place and
         // dk: P^T and dP^T are live together only for dS^T
-        float pt[8][4];
+        float pt[NJT][4];
         {
           uint32_t ka[2][4];
           a_frag(K, k0, qc, g8, t4, ka[0]);
           a_frag(K, k0, qc + 16, g8, t4, ka[1]);
 #pragma unroll
-          for (int jt = 0; jt < 8; ++jt) {
+          for (int jt = 0; jt < NJT; ++jt) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) pt[jt][e] = 0.f;
-            if (jt < 2 * nt) {
+            if (jt < nkt) {
 #pragma unroll
               for (int ks = 0; ks < 2; ++ks) {
                 uint32_t b0, b1;
-                b_frag(Q, 8 * jt, qc + 16 * ks, g8, t4, b0, b1);
+                b_frag(Q, 8 * (kt0 + jt), qc + 16 * ks, g8, t4, b0, b1);
                 mma_bf16(pt[jt], ka[ks][0], ka[ks][1], ka[ks][2], ka[ks][3], b0, b1);
               }
             }
           }
         }
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {  // column = query 8 jt + 2 t + e % 2
-            if (jt >= 2 * nt) break;
+          for (int e = 0; e < 4; ++e) {  // column = query 8 (kt0 + jt) + 2 t + e % 2
+            if (jt >= nkt) break;
             const uint32_t pair = bv[jt][e >> 1];
-            const float* s = hstat + (8 * jt + 2 * t4 + (e & 1)) * 3;
+            const float* s = hstat + (8 * (kt0 + jt) + 2 * t4 + (e & 1)) * 3;
             const float sv = pt[jt][e] + __uint_as_float(e & 1 ? pair & 0xffff0000u : pair << 16);
             pt[jt][e] = ex2(fmaf(sv, LOG2E, -s[0])) * s[1];   // P^T
           }
         float dv[4][4] = {}, dk[4][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (kk >= nt) break;
+        for (int kk = 0; kk < NJT / 2; ++kk) {
+          if (kk >= nkk) break;
           uint32_t pa[4];
           a_from_c(pt, kk, 1.f, 1.f, pa);
-          mma_trans_b(dv, pa, O, 16 * kk, oc, lane);
+          mma_trans_b(dv, pa, O, 8 * kt0 + 16 * kk, oc, lane);
         }
-        float dpt[8][4];
+        float dpt[NJT][4];
         {
           uint32_t va[2][4];
           a_frag(V, k0, qc, g8, t4, va[0]);
           a_frag(V, k0, qc + 16, g8, t4, va[1]);
 #pragma unroll
-          for (int jt = 0; jt < 8; ++jt) {
+          for (int jt = 0; jt < NJT; ++jt) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) dpt[jt][e] = 0.f;
-            if (jt < 2 * nt) {
+            if (jt < nkt) {
 #pragma unroll
               for (int ks = 0; ks < 2; ++ks) {
                 uint32_t b0, b1;
-                b_frag(O, 8 * jt, oc + 16 * ks, g8, t4, b0, b1);
+                b_frag(O, 8 * (kt0 + jt), oc + 16 * ks, g8, t4, b0, b1);
                 mma_bf16(dpt[jt], va[ks][0], va[ks][1], va[ks][2], va[ks][3], b0, b1);
               }
             }
           }
         }
 #pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
+        for (int jt = 0; jt < NJT; ++jt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            if (jt >= 2 * nt) break;
-            dpt[jt][e] = pt[jt][e] * (dpt[jt][e] - hstat[(8 * jt + 2 * t4 + (e & 1)) * 3 + 2]);
+            if (jt >= nkt) break;
+            dpt[jt][e] = pt[jt][e] *
+                         (dpt[jt][e] - hstat[(8 * (kt0 + jt) + 2 * t4 + (e & 1)) * 3 + 2]);
           }
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (kk >= nt) break;
+        for (int kk = 0; kk < NJT / 2; ++kk) {
+          if (kk >= nkk) break;
           uint32_t pa[4];
           a_from_c(dpt, kk, 1.f, 1.f, pa);
-          mma_trans_b(dk, pa, Q, 16 * kk, qc, lane);
+          mma_trans_b(dk, pa, Q, 8 * kt0 + 16 * kk, qc, lane);
         }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -710,7 +760,7 @@ __global__ void __launch_bounds__(GT, 1)
             const int d = 8 * jd + 2 * t4;
             float y0 = dk[jd][2 * e], y1 = dk[jd][2 * e + 1];
             if (d < a.rot) {
-              const float4 cs = rope_cs(r, d, a.rot);
+              const float4 cs = rope_cs(r % BMS, d, a.rot);
               const float w0 = y0 * cs.x + y1 * cs.w, w1 = y1 * cs.z - y0 * cs.y;
               y0 = w0;
               y1 = w1;
@@ -761,27 +811,40 @@ cudaError_t dh_product(const CUtensorMap& wmap, const bf16* dqkv, float* dh, int
 // (dbproj). Lane l of a token's LPR takes channels 4 (l + LPR i) .. + 3,
 // i < CH (C a multiple of 32: a lane's four are in or out together), by 8-
 // and 16-byte loads.
-template <int CH, int LPR>
+// TP, the temporal layer (kernel 6): dh is d(hn) and the pass runs the
+// inner LayerNorm's backward first: h = bf16(xhat gamma) and hhat = LN(h)
+// recomputed, dhhat = dhn ln_scale, dh = rstd2 (dhhat - mean(dhhat) - hhat
+// mean(dhhat hhat)) + g (the h residual), then the ChanLN backward above;
+// part (gridDim, 3, C) = sums of dh xhat (dgamma), dhn hhat (dln_scale) and
+// dhn (dln_bias).
+template <int CH, int LPR, bool TP>
 __global__ void __launch_bounds__(GT) ln_bwd_kernel(const bf16* __restrict__ x,
                                                    const bf16* __restrict__ g,
                                                    const float* __restrict__ dh,
                                                    const float* __restrict__ gamma,
+                                                   const float* __restrict__ ln_scale,
                                                    bf16* __restrict__ dx, float* __restrict__ part,
                                                    int tokens, int C, float eps) {
   constexpr int RPW = 32 / LPR;  // tokens a warp at once
-  __shared__ float red[GT / 32][2][CH * 4 * LPR];
+  constexpr int NV = TP ? 3 : 2;  // the per-channel sums
+  __shared__ float red[GT / 32][CH * 4 * LPR];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, l = lane % LPR;
   auto row_sum = [](float v) {
 #pragma unroll
     for (int o = LPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
   };
-  float sg[CH][4] = {}, sb[CH][4] = {}, gm[CH][4];
+  float sums[NV][CH][4] = {}, gm[CH][4], ls[CH][4];
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
     const int c = 4 * (l + LPR * i);
     const float4 v = c < C ? *reinterpret_cast<const float4*>(gamma + c) : make_float4(0, 0, 0, 0);
     gm[i][0] = v.x, gm[i][1] = v.y, gm[i][2] = v.z, gm[i][3] = v.w;
+    if constexpr (TP) {
+      const float4 w =
+          c < C ? *reinterpret_cast<const float4*>(ln_scale + c) : make_float4(0, 0, 0, 0);
+      ls[i][0] = w.x, ls[i][1] = w.y, ls[i][2] = w.z, ls[i][3] = w.w;
+    }
   }
   const int stride = gridDim.x * (GT / 32) * RPW;
   // every lane runs the same number of iterations (the shuffles): rows past
@@ -814,14 +877,69 @@ __global__ void __launch_bounds__(GT) ln_bwd_kernel(const bf16* __restrict__ x,
         var += d * d;
       }
     const float rstd = rsqrtf(row_sum(var) / C + eps);
+    float gv[CH][4];  // g (zero past C and past the last token)
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = 4 * (l + LPR * i);
+      const uint2 gr =
+          live && c < C ? *reinterpret_cast<const uint2*>(g + row + c) : make_uint2(0, 0);
+      const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gr.x));
+      const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gr.y));
+      gv[i][0] = g01.x, gv[i][1] = g01.y, gv[i][2] = g23.x, gv[i][3] = g23.y;
+    }
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xv[i][e] = (xv[i][e] - mean) * rstd;  // xhat
+    if constexpr (TP) {  // dv: dhn -> dh of h = ChanLN(x), the h residual's g included
+      float hv[CH][4], s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hv[i][e] = round_to<bf16>(xv[i][e] * gm[i][e]);  // h as the forward rounded it; 0 past C
+          s2 += hv[i][e];
+        }
+      const float mean2 = row_sum(s2) / C;
+      float var2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = 4 * (l + LPR * i) < C;
+          hv[i][e] = in ? hv[i][e] - mean2 : 0.f;
+          var2 += hv[i][e] * hv[i][e];
+        }
+      const float rstd2 = rsqrtf(row_sum(var2) / C + eps);
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hv[i][e] *= rstd2;  // hhat; dhn and ln_scale are 0 past C
+          sums[1][i][e] += dv[i][e] * hv[i][e];
+          sums[2][i][e] += dv[i][e];
+          dv[i][e] *= ls[i][e];  // dhhat
+          m1 += dv[i][e];
+          m2 += dv[i][e] * hv[i][e];
+        }
+      m1 = row_sum(m1) / C;
+      m2 = row_sum(m2) / C;
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = 4 * (l + LPR * i) < C;
+          dv[i][e] = in ? rstd2 * (dv[i][e] - m1 - hv[i][e] * m2) + gv[i][e] : 0.f;
+        }
+    }
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
     for (int i = 0; i < CH; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xv[i][e] = (xv[i][e] - mean) * rstd;  // xhat; gamma and dh are 0 past C
-        sg[i][e] += dv[i][e] * xv[i][e];
-        dv[i][e] *= gm[i][e];                  // dxhat
+      for (int e = 0; e < 4; ++e) {  // gamma and dh are 0 past C
+        sums[0][i][e] += dv[i][e] * xv[i][e];
+        dv[i][e] *= gm[i][e];  // dxhat
         m1 += dv[i][e];
         m2 += dv[i][e] * xv[i][e];
       }
@@ -831,41 +949,37 @@ __global__ void __launch_bounds__(GT) ln_bwd_kernel(const bf16* __restrict__ x,
     for (int i = 0; i < CH; ++i) {
       const int c = 4 * (l + LPR * i);
       if (live && c < C) {
-        const uint2 gr = *reinterpret_cast<const uint2*>(g + row + c);
-        const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gr.x));
-        const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gr.y));
-        const float gv[4] = {g01.x, g01.y, g23.x, g23.y};
         float o[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          sb[i][e] += gv[e];
-          o[e] = gv[e] + rstd * (dv[i][e] - m1 - xv[i][e] * m2);
+          if (!TP) sums[1][i][e] += gv[i][e];  // dbproj
+          o[e] = gv[i][e] + rstd * (dv[i][e] - m1 - xv[i][e] * m2);
         }
         *reinterpret_cast<uint2*>(dx + row + c) = make_uint2(pack_bf16(o[0], o[1]),
                                                              pack_bf16(o[2], o[3]));
       }
     }
   }
+  // the warp's token slots own the same channels: add them, then the warps'
+  // sums in order, one vector at a time
 #pragma unroll
-  for (int i = 0; i < CH; ++i)
+  for (int v = 0; v < NV; ++v) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {  // the warp's token slots own the same channels: add them
+    for (int i = 0; i < CH; ++i)
 #pragma unroll
-      for (int o = LPR; o < 32; o <<= 1) {
-        sg[i][e] += __shfl_xor_sync(0xffffffffu, sg[i][e], o);
-        sb[i][e] += __shfl_xor_sync(0xffffffffu, sb[i][e], o);
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int o = LPR; o < 32; o <<= 1)
+          sums[v][i][e] += __shfl_xor_sync(0xffffffffu, sums[v][i][e], o);
+        if (lane < LPR) red[warp][4 * (l + LPR * i) + e] = sums[v][i][e];
       }
-      if (lane < LPR) {
-        red[warp][0][4 * (l + LPR * i) + e] = sg[i][e];
-        red[warp][1][4 * (l + LPR * i) + e] = sb[i][e];
-      }
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += GT) {
+      float s = 0.f;
+      for (int w = 0; w < GT / 32; ++w) s += red[w][c];
+      part[((long long)blockIdx.x * NV + v) * C + c] = s;
     }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 2 * C; e += GT) {
-    const int v = e / C, c = e % C;
-    float s = 0.f;
-    for (int w = 0; w < GT / 32; ++w) s += red[w][v][c];
-    part[(long long)blockIdx.x * 2 * C + e] = s;
+    __syncthreads();
   }
 }
 
@@ -895,12 +1009,112 @@ __global__ void __launch_bounds__(GT, 1)
   }
 }
 
-template <int CH, int LPR>
-cudaError_t ln_bwd(const bf16* x, const bf16* g, const float* dh, const float* gamma, bf16* dx,
-                   float* part, int blocks, int tokens, int C, float eps, cudaStream_t stream) {
-  ln_bwd_kernel<CH, LPR><<<blocks, GT, 0, stream>>>(x, g, dh, gamma, dx, part, tokens, C, eps);
+template <int CH, int LPR, bool TP>
+cudaError_t ln_bwd(const bf16* x, const bf16* g, const float* dh, const float* gamma,
+                   const float* ln_scale, bf16* dx, float* part, int blocks, int tokens, int C,
+                   float eps, cudaStream_t stream) {
+  ln_bwd_kernel<CH, LPR, TP><<<blocks, GT, 0, stream>>>(x, g, dh, gamma, ln_scale, dx, part, tokens,
+                                                        C, eps);
   return cudaGetLastError();
 }
+
+// C = 32 and 64: 8 and 16 lanes a token; else 32 lanes, 1 to 4 chunks of 128
+template <bool TP>
+cudaError_t ln_bwd_any(const bf16* x, const bf16* g, const float* dh, const float* gamma,
+                       const float* ln_scale, bf16* dx, float* part, int blocks, int tokens, int C,
+                       float eps, cudaStream_t s) {
+  const float* ls = ln_scale;
+  return C <= 32    ? ln_bwd<1, 8, TP>(x, g, dh, gamma, ls, dx, part, blocks, tokens, C, eps, s)
+         : C <= 64  ? ln_bwd<1, 16, TP>(x, g, dh, gamma, ls, dx, part, blocks, tokens, C, eps, s)
+         : C <= 128 ? ln_bwd<1, 32, TP>(x, g, dh, gamma, ls, dx, part, blocks, tokens, C, eps, s)
+         : C <= 256 ? ln_bwd<2, 32, TP>(x, g, dh, gamma, ls, dx, part, blocks, tokens, C, eps, s)
+                    : ln_bwd<4, 32, TP>(x, g, dh, gamma, ls, dx, part, blocks, tokens, C, eps, s);
+}
+
+// Launches 2-5 of either layer (the header's list): dh = dqkv Wqkv, the
+// per-token pass (dx and the vectors' partials), dWqkv = dqkv^T h_tok and
+// dWproj = g^T o_tok, and the sums of the partials. wmap: Wqkv as the dh
+// product reads it; hmap, omap: h_tok and o_tok as the weight gradients read them.
+template <bool TP>
+int after_windows(const CUtensorMap& wmap, const CUtensorMap& hmap, const CUtensorMap& omap,
+                  const bf16* x, const bf16* g, bf16* dx, const bf16* dqkv, float* dh,
+                  const float* gamma, const float* ln_scale, float* vec_part, float* part_q,
+                  float* part_p, float* vec_out, float* dwqkv, float* dwproj, int tokens, int C,
+                  int hid, float eps, int ln_blocks, int splits_q, int splits_p, cudaStream_t s) {
+  cudaError_t err;
+  // 2. dh = dqkv Wqkv
+  err = C <= 64 ? dh_product<64>(wmap, dqkv, dh, tokens, 3 * hid, C, s)
+                : dh_product<GN>(wmap, dqkv, dh, tokens, 3 * hid, C, s);
+  if (err != cudaSuccess) return (int)err;
+  // 3. the norms' backward: dx and the vectors' partials
+  err = ln_bwd_any<TP>(x, g, dh, gamma, ln_scale, dx, vec_part, ln_blocks, tokens, C, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = sum_parts(vec_part, ln_blocks, (TP ? 3LL : 2LL) * C, vec_out, s)) != cudaSuccess)
+    return (int)err;
+  // 4. dWqkv and dWproj
+  const int steps = (tokens + GK - 1) / GK;
+  const int per_q = (steps + splits_q - 1) / splits_q, per_p = (steps + splits_p - 1) / splits_p;
+  const int q_blocks = (3 * hid + GM - 1) / GM * ((C + GN - 1) / GN) * splits_q;
+  const int p_blocks = (C + GM - 1) / GM * ((hid + GN - 1) / GN) * splits_p;
+  if ((splits_q > 1 && part_q == nullptr) || (splits_p > 1 && part_p == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((err = cudaFuncSetAttribute(stw_bwd_wgrad_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM)) !=
+      cudaSuccess)
+    return (int)err;
+  stw_bwd_wgrad_kernel<<<q_blocks + p_blocks, GT, SMEM, s>>>(
+      hmap, omap, dqkv, g, splits_q == 1 ? dwqkv : part_q, splits_p == 1 ? dwproj : part_p,
+      tokens, hid, C, per_q, per_p, q_blocks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (splits_q > 1 && (err = sum_parts(part_q, splits_q, 3LL * hid * C, dwqkv, s)) != cudaSuccess)
+    return (int)err;
+  if (splits_p > 1 && (err = sum_parts(part_p, splits_p, (long long)C * hid, dwproj, s)) !=
+                          cudaSuccess)
+    return (int)err;
+  return 0;
+}
+
+template <bool TP>
+int window_kernel(const CUtensorMap& mq, const CUtensorMap& mp, const Args& a, const BwdPlan& p,
+                  int grid, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      stw_bwd_window_kernel<TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.total);
+  if (err != cudaSuccess) return (int)err;
+  stw_bwd_window_kernel<TP><<<grid, GT, p.total, s>>>(mq, mp, a, p);
+  return (int)cudaGetLastError();
+}
+
+// The temporal backward's scratch, carved in this order from the caller's
+// buffer, each region 256-byte aligned (its size: temporal_bwd_scratch_bytes):
+// the operands (temporal.cuh TemporalOperands), hn_tok (tokens, C), o_tok
+// (tokens, hid), dqkv (tokens, 3 hid) bf16;
+// dhn (tokens, C), bias_part (2 grid, heads, T, T), vec_part (ln_blocks, 3,
+// C), part_q (splits_q, 3 hid, C) and part_p (splits_p, C, hid) float32
+// (the last two empty with one split).
+struct TemporalBwdScratch {
+  TemporalOperands ops;
+  size_t hn, o, dqkv, dh, bias, vec, pq, pp, total;
+  TemporalBwdScratch(long long tokens, int C, int heads, int T, int grid, int ln_blocks,
+                     int splits_q, int splits_p)
+      : ops(C, heads) {
+    size_t at = ops.total;
+    auto take = [&at](size_t bytes) {
+      const size_t off = at;
+      at += (bytes + 255) / 256 * 256;
+      return off;
+    };
+    const size_t hid = (size_t)heads * HEAD, n = (size_t)tokens;
+    hn = take(n * C * 2);
+    o = take(n * hid * 2);
+    dqkv = take(n * 3 * hid * 2);
+    dh = take(n * C * 4);
+    bias = take(2ull * grid * heads * T * T * 4);
+    vec = take(3ull * ln_blocks * C * 4);
+    pq = take(splits_q > 1 ? (size_t)splits_q * 3 * hid * C * 4 : 0);
+    pp = take(splits_p > 1 ? (size_t)splits_p * C * hid * 4 : 0);
+    total = at;
+  }
+};
 
 }  // namespace
 
@@ -910,6 +1124,18 @@ cudaError_t ln_bwd(const bf16* x, const bf16* g, const float* dh, const float* g
 extern "C" long long stw_bwd_smem(int C, int heads, int stages) {
   if (C < 32 || C > 512 || C % 32 || heads < 4 || heads > 8 || heads % 4 || stages < 2) return -1;
   return BwdPlan(C, heads, stages).total;
+}
+
+// Bytes of the scratch temporal_layer_bwd_wgmma takes (TemporalBwdScratch);
+// -1 for a layer it refuses.
+extern "C" long long temporal_bwd_scratch_bytes(long long tokens, int C, int heads, int T,
+                                                int grid, int ln_blocks, int splits_q,
+                                                int splits_p) {
+  if (tokens < 0 || C < 32 || C > 512 || C % 32 || heads < 4 || heads > 8 || heads % 4 || T < 1 ||
+      T > SEQ || grid < 1 || ln_blocks < 1 || splits_q < 1 || splits_p < 1)
+    return -1;
+  return (long long)TemporalBwdScratch(tokens, C, heads, T, grid, ln_blocks, splits_q, splits_p)
+      .total;
 }
 
 // x, g, dx (B, T, H, W, C) bf16, contiguous: the layer's input, the output's
@@ -957,52 +1183,78 @@ extern "C" int stw_layer_bwd_wgmma(const void* x, const void* g, void* dx, const
   if (code == 0) code = rows_map(&mo, o_tok, tokens, hid);
   if (code != 0) return code;
   const Args a{(const bf16*)x, (const bf16*)g, (bf16*)h_tok, (bf16*)o_tok, (bf16*)dqkv, bias_part,
-               gamma, (const bf16*)bm, (const bf16*)bmt, mask_ids, T, H, W,
-               Tp, Hp, Wp, st, sh, sw, wd, wh, ww, nwin, C, rot, heads, eps};
+               gamma, nullptr, nullptr, (const bf16*)bm, (const bf16*)bmt, mask_ids, T, H, W,
+               Tp, Hp, Wp, st, sh, sw, wd, wh, ww, nwin, C, rot, heads, 0, eps};
   grid = grid < nwin ? grid : nwin;
-  cudaError_t err;
   // 1. the windows
-  err = cudaFuncSetAttribute(stw_bwd_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)p.total);
+  if ((code = window_kernel<false>(mq, mp, a, p, grid, s)) != 0) return code;
+  const cudaError_t err = sum_parts(bias_part, grid, (long long)heads * N * N, bias_out, s);
   if (err != cudaSuccess) return (int)err;
-  stw_bwd_window_kernel<<<grid, GT, p.total, s>>>(mq, mp, a, p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = sum_parts(bias_part, grid, (long long)heads * N * N, bias_out, s)) != cudaSuccess)
-    return (int)err;
-  // 2. dh = dqkv Wqkv
-  err = C <= 64 ? dh_product<64>(mw, (const bf16*)dqkv, dh, tokens, 3 * hid, C, s)
-                : dh_product<GN>(mw, (const bf16*)dqkv, dh, tokens, 3 * hid, C, s);
-  if (err != cudaSuccess) return (int)err;
-  // 3. the ChanLN backward: dx, dgamma and dbproj partials
-  // C = 32 and 64: 8 and 16 lanes a token; else 32 lanes, 1 to 4 chunks of 128
-  const bf16 *xb = (const bf16*)x, *gb = (const bf16*)g;
-  bf16* dxb = (bf16*)dx;
-  err = C <= 32    ? ln_bwd<1, 8>(xb, gb, dh, gamma, dxb, vec_part, ln_blocks, tokens, C, eps, s)
-        : C <= 64  ? ln_bwd<1, 16>(xb, gb, dh, gamma, dxb, vec_part, ln_blocks, tokens, C, eps, s)
-        : C <= 128 ? ln_bwd<1, 32>(xb, gb, dh, gamma, dxb, vec_part, ln_blocks, tokens, C, eps, s)
-        : C <= 256 ? ln_bwd<2, 32>(xb, gb, dh, gamma, dxb, vec_part, ln_blocks, tokens, C, eps, s)
-                   : ln_bwd<4, 32>(xb, gb, dh, gamma, dxb, vec_part, ln_blocks, tokens, C, eps, s);
-  if (err != cudaSuccess) return (int)err;
-  if ((err = sum_parts(vec_part, ln_blocks, 2LL * C, vec_out, s)) != cudaSuccess) return (int)err;
-  // 4. dWqkv and dWproj
-  const int steps = (tokens + GK - 1) / GK;
-  const int per_q = (steps + splits_q - 1) / splits_q, per_p = (steps + splits_p - 1) / splits_p;
-  const int q_blocks = (3 * hid + GM - 1) / GM * ((C + GN - 1) / GN) * splits_q;
-  const int p_blocks = (C + GM - 1) / GM * ((hid + GN - 1) / GN) * splits_p;
-  if ((splits_q > 1 && part_q == nullptr) || (splits_p > 1 && part_p == nullptr))
+  return after_windows<false>(mw, mh, mo, (const bf16*)x, (const bf16*)g, (bf16*)dx,
+                              (const bf16*)dqkv, dh, gamma, nullptr, vec_part, part_q, part_p,
+                              vec_out, dwqkv, dwproj, tokens, C, hid, eps, ln_blocks, splits_q,
+                              splits_p, s);
+}
+
+// x, g, dx (B, T, H W, C) bf16, contiguous: the temporal layer's input, the
+// output's cotangent and the input's gradient; gamma, ln_scale, ln_bias (C)
+// in vdtype, wqkv (3 hid, C) and wout (C, hid) in Linear layout in wdtype,
+// bias (heads, T, T) in bdtype (0 float32, 1 bf16), contiguous: the
+// parameters as the caller holds them. T <= 32. scratch: scratch_bytes of
+// device memory (temporal_bwd_scratch_bytes). Out, float32: vec_out (dgamma |
+// dln_scale | dln_bias), bias_out (heads, T, T), dwqkv (3 hid, C), dwout (C,
+// hid). stages, smem, grid and ln_blocks come from fused_stw.temporal_bwd_plan,
+// the splits from the conv engine's cost model (conv_engine.wgrad_splits).
+extern "C" int temporal_layer_bwd_wgmma(const void* x, const void* g, void* dx, const void* gamma,
+                                        const void* ln_scale, const void* ln_bias, int vdtype,
+                                        const void* wqkv, const void* wout, int wdtype,
+                                        const void* bias, int bdtype, void* scratch,
+                                        long long scratch_bytes, float* vec_out, float* bias_out,
+                                        float* dwqkv, float* dwout, int B, int T, int HW, int C,
+                                        int heads, int rot, float eps, int stages, int smem,
+                                        int grid, int ln_blocks, int splits_q, int splits_p,
+                                        void* stream) {
+  const long long tokens = (long long)B * T * HW;
+  if (T < 1 || T > SEQ || HW < 1 || heads < 4 || heads > 8 || heads % 4 || C < 32 || C > 512 ||
+      C % 32 || rot % 2 || rot > HEAD || stages < 2 || grid < 1 || ln_blocks < 1 ||
+      splits_q < 1 || splits_p < 1 || (vdtype | wdtype | bdtype) & ~1 ||
+      tokens >= (1LL << 31) - GM)
     return (int)cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute(stw_bwd_wgrad_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM)) !=
-      cudaSuccess)
+  const BwdPlan p(C, heads, stages);
+  if ((int)p.total != smem || p.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int nseq = B * HW, tiles = (nseq + 1) / 2;
+  if (tiles == 0) return 0;
+  grid = grid < tiles ? grid : tiles;
+  const TemporalBwdScratch sc(tokens, C, heads, T, grid, ln_blocks, splits_q, splits_p);
+  if ((long long)sc.total > scratch_bytes) return (int)cudaErrorInvalidValue;
+  const int hid = heads * HEAD;
+  cudaStream_t s = (cudaStream_t)stream;
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  const OperandPtrs d = sc.ops.at(base);
+  cudaError_t err = temporal_operands(wqkv, wout, wdtype, gamma, ln_scale, ln_bias, vdtype, bias,
+                                      bdtype, d, C, heads, T, s);
+  if (err != cudaSuccess) return (int)err;
+  bf16 *wq = d.wq, *wo = d.wo;
+  bf16 *hn = (bf16*)(base + sc.hn), *o = (bf16*)(base + sc.o), *dqkv = (bf16*)(base + sc.dqkv);
+  const float* vec = d.vec;
+  float* bias_part = (float*)(base + sc.bias);
+  CUtensorMap mq, mp, mw, mh, mo;
+  int code = rows_map(&mq, wq, 3 * hid, C);
+  if (code == 0) code = rows_map(&mp, wo, C, hid);
+  if (code == 0) code = weight_map(&mw, wq, 3 * hid, C, 1);
+  if (code == 0) code = rows_map(&mh, hn, tokens, C);
+  if (code == 0) code = rows_map(&mo, o, tokens, hid);
+  if (code != 0) return code;
+  const Args a{(const bf16*)x, (const bf16*)g, hn, o, dqkv, bias_part, vec, vec + C, vec + 2 * C,
+               d.bm, d.bmt, nullptr, T, HW,
+               1, 1, 1, 1, 0, 0, 0, 1, 1, 1, tiles, C, rot, heads, nseq, eps};
+  // 1. the tiles of two sequences
+  if ((code = window_kernel<true>(mq, mp, a, p, grid, s)) != 0) return code;
+  if ((err = sum_parts(bias_part, 2 * grid, (long long)heads * T * T, bias_out, s)) != cudaSuccess)
     return (int)err;
-  stw_bwd_wgrad_kernel<<<q_blocks + p_blocks, GT, SMEM, s>>>(
-      mh, mo, (const bf16*)dqkv, (const bf16*)g, splits_q == 1 ? dwqkv : part_q,
-      splits_p == 1 ? dwproj : part_p, tokens, hid, C, per_q, per_p, q_blocks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (splits_q > 1 && (err = sum_parts(part_q, splits_q, 3LL * hid * C, dwqkv, s)) != cudaSuccess)
-    return (int)err;
-  if (splits_p > 1 && (err = sum_parts(part_p, splits_p, (long long)C * hid, dwproj, s)) !=
-                          cudaSuccess)
-    return (int)err;
-  return 0;
+  return after_windows<true>(mw, mh, mo, (const bf16*)x, (const bf16*)g, (bf16*)dx, dqkv,
+                             (float*)(base + sc.dh), vec, vec + C, (float*)(base + sc.vec),
+                             splits_q > 1 ? (float*)(base + sc.pq) : nullptr,
+                             splits_p > 1 ? (float*)(base + sc.pp) : nullptr, vec_out, dwqkv,
+                             dwout, (int)tokens, C, hid, eps, ln_blocks, splits_q, splits_p, s);
 }

@@ -1,7 +1,7 @@
-"""Kernels 1 (``csrc/stw_layer.cu`` in bf16, ``csrc/attention.cu`` in
-float32), 2 and 9 (``csrc/attention.cu``) and the backward kernels 5
-(``csrc/stw_layer_bwd.cu`` in bf16, ``csrc/attention_bwd.cu`` in float32)
-and 6 (``csrc/attention_bwd.cu``): whole attention layers.
+"""Kernels 1 and 2 (``csrc/stw_layer.cu`` in bf16, ``csrc/attention.cu`` in
+float32), 9 (``csrc/attention.cu``) and the backward kernels 5 and 6
+(``csrc/stw_layer_bwd.cu`` in bf16, ``csrc/attention_bwd.cu`` in float32):
+whole attention layers.
 
 ``fused_stw_layer`` replaces ``extdm_tpu/ops/pallas_stw.py``
 ``fused_stw_layer`` (``_fused_padded`` -> ``_make_kernel``): the whole
@@ -34,7 +34,7 @@ Kernel 9 runs kernel 1's body on contiguous window rows, so it is bound by
 operations as kernel 1 is. Under autograd the layer's backward is kernel 5
 whatever the forward's layout, as JAX's ``custom_vjp``.
 
-Kernels 2, 6 and 9, and kernels 1 and 5 in float32, take N <= 64 tokens,
+Kernel 9, and kernels 1, 2, 5 and 6 in float32, take N <= 64 tokens,
 dim_head <= 32 and C <= 256 channels (in bf16 a multiple of 32). Kernels 1
 and 5 in bf16 take C <= 512 (a multiple of 32) at dim_head 32 and 4 or 8
 heads: kernel 1's body (``csrc/stw_layer.cu``: both products on wgmma, the
@@ -42,17 +42,23 @@ weights by TMA, the output tiled over channels; ``stw_plan`` gives its
 shared-memory layout, weight ring and grid) and kernel 5's
 (``csrc/stw_layer_bwd.cu``: the projections on wgmma, the attention's five
 backward products on mma.sync, the weight gradients and dh on kernel 10's
-engine; ``stw_bwd_plan``). ``stw_route`` is the gate as a plain function of
-shape, dtype and kind: a window layer goes to kernels 1 and 5 where their
-bodies take it, with or without autograd; the temporal layer to kernels 2
-and 6. The layers it sends "unfused" (multi1248's 512-channel temporal
-layer) run ``stw_layer_unfused`` / ``temporal_layer_unfused``, JAX's
+engine; ``stw_bwd_plan``). Kernels 2 and 6 in bf16 run the same two bodies
+templated on the layer kind (``temporal_layer_wgmma``,
+``temporal_layer_bwd_wgmma``; ``temporal_plan``, ``temporal_bwd_plan``) at
+T <= 32 frames, C <= 512 (a multiple of 32), dim_head 32 and 4 or 8 heads:
+a tile holds two pixels' sequences read in place, and each entry first
+writes the operands it reads (bf16 weights, the bias table with -inf past
+T) from the parameters as the caller holds them (``temporal_operands_plain``
+is their plain version). ``stw_route`` is the gate as a plain function of
+shape, dtype and kind: a layer goes to its kernels (1 and 5, or 2 and 6)
+where their bodies take it, with or without autograd. The layers it sends
+"unfused" run ``stw_layer_unfused`` / ``temporal_layer_unfused``, JAX's
 unfused modules (``PreNormSTW`` / ``PreNormTemporalAttn`` with the fused
 layer off): the norms, pad and roll, partition, projections and rotary in
 torch around kernel 12 (``ops/window_attn.py``), whose autograd keeps its
-inputs only; the rest of the layer's autograd is torch's. Kernel 9 runs
-attention.cu's narrow body, so a window-major layer over 256 channels runs
-kernel 1.
+inputs only; the rest of the layer's autograd is torch's: in bf16 no preset
+has such a layer. Kernel 9 runs attention.cu's narrow body, so a
+window-major layer over 256 channels runs kernel 1.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version
 (``stw_layer_plain``, ``stw_layer_wm_plain``, ``temporal_layer_plain``) for
@@ -94,7 +100,9 @@ from extdm_tpu_torch.nn.layers import chan_layer_norm
 from extdm_tpu_torch.ops.conv_engine import wgrad_splits
 from extdm_tpu_torch.ops.window_attn import fused_window_attention, mask_tables
 
-__all__ = ["stw_route", "stw_plan", "StwPlan", "stw_bwd_plan", "StwBwdPlan", "stw_layer_unfused",
+__all__ = ["stw_route", "stw_plan", "StwPlan", "stw_bwd_plan", "StwBwdPlan", "temporal_plan",
+           "TemporalPlan", "temporal_bwd_plan", "temporal_operands", "temporal_operands_plain",
+           "stw_layer_unfused",
            "temporal_layer_unfused", "fused_stw_layer", "stw_layer_plain", "stw_layer_bwd",
            "stw_layer_plain_vjp",
            "WINDOW_MAJOR_MODES", "window_major_gate", "fused_stw_layer_wm", "stw_layer_wm_plain",
@@ -102,8 +110,9 @@ __all__ = ["stw_route", "stw_plan", "StwPlan", "stw_bwd_plan", "StwBwdPlan", "st
            "temporal_layer_plain_vjp"]
 
 
-MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernels 2, 6, 9; 1 and 5 in float32
-MAX_WIDE_CHANNELS = 512  # kernels 1 and 5 in bf16 (csrc/stw_layer.cu, csrc/stw_layer_bwd.cu)
+MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernel 9; 1, 2, 5 and 6 in float32
+MAX_WIDE_CHANNELS = 512  # kernels 1, 2, 5 and 6 in bf16 (csrc/stw_layer.cu, csrc/stw_layer_bwd.cu)
+TEMPORAL_SLOTS = 32  # frames of a sequence in kernels 2 and 6's bf16 tiles (csrc/temporal.cuh SEQ)
 
 
 def _narrow(C: int, N: int, dim_head: int, dtype) -> bool:
@@ -112,10 +121,12 @@ def _narrow(C: int, N: int, dim_head: int, dtype) -> bool:
     return fits and (dtype != torch.bfloat16 or C % 32 == 0)
 
 
-def _wide(C: int, N: int, heads: int, dim_head: int, dtype) -> bool:
-    """Whether kernels 1 and 5's bf16 bodies (``csrc/stw_layer.cu``,
-    ``csrc/stw_layer_bwd.cu``) take a window layer."""
-    return (dtype == torch.bfloat16 and N <= MAX_TOKENS and dim_head == 32 and heads in (4, 8)
+def _wide(C: int, N: int, heads: int, dim_head: int, dtype, temporal: bool = False) -> bool:
+    """Whether the bf16 bodies (``csrc/stw_layer.cu``, ``csrc/stw_layer_bwd.cu``)
+    take a layer: a window layer of N <= 64 tokens (kernels 1 and 5) or a
+    temporal layer of N = T <= 32 frames (kernels 2 and 6)."""
+    most = TEMPORAL_SLOTS if temporal else MAX_TOKENS
+    return (dtype == torch.bfloat16 and N <= most and dim_head == 32 and heads in (4, 8)
             and C % 32 == 0 and C <= MAX_WIDE_CHANNELS)
 
 
@@ -124,10 +135,10 @@ def stw_route(C: int, N: int, dim_head: int, dtype, *, heads: int = 8,
     """The route of an STW (N tokens a window) or temporal (N = T) layer of
     C channels, with or without autograd: "fused" where its kernels take it,
     else "unfused" (kernel 12 between torch projections). A window layer is
-    kernel 1 forward and kernel 5 backward: in bf16 both take C <= 512
-    (dim_head 32, 4 or 8 heads), else the narrow limit; a temporal layer
-    needs kernels 2 and 6 (C <= 256)."""
-    wide = not temporal and _wide(C, N, heads, dim_head, dtype)
+    kernel 1 forward and kernel 5 backward, a temporal layer kernels 2 and 6:
+    in bf16 they take C <= 512 (dim_head 32, 4 or 8 heads; a temporal layer
+    T <= 32), else the narrow limit (C <= 256)."""
+    wide = _wide(C, N, heads, dim_head, dtype, temporal)
     return "fused" if _narrow(C, N, dim_head, dtype) or wide else "unfused"
 
 
@@ -183,6 +194,46 @@ def stw_plan(C: int, N: int, heads: int, dim_head: int, sms: int) -> StwPlan:
     raise ValueError(f"stw_plan: no layout of C={C} fits {STW_SMEM_MAX} bytes")
 
 
+class TemporalPlan(NamedTuple):
+    """How kernel 2's bf16 body (``csrc/stw_layer.cu`` ``temporal_layer_wgmma``)
+    runs a layer (``temporal_plan``)."""
+    cw: int            # output columns per warpgroup and round (64 or 128)
+    rounds: int        # rounds of 2 cw output columns
+    steps: int         # weight steps per tile: q/k/v (head groups x 64-channel blocks), output
+    resident: bool     # all weights stay in shared memory across a block's tiles
+    stages: int        # else: ring stages of STW_QKV_STEP bytes
+    a_bufs: int        # x tiles: 2 prefetches the next tile's rows
+    smem: int          # dynamic shared memory of a block, bytes
+    blocks: int        # persistent blocks at most (one per SM)
+    scratch: int       # bytes of the operands the entry writes (temporal_scratch_bytes)
+
+
+@lru_cache(maxsize=256)
+def temporal_plan(C: int, T: int, heads: int, dim_head: int, sms: int) -> TemporalPlan:
+    """The plan of kernel 2's bf16 body for a temporal layer of C channels,
+    T frames, `heads` x `dim_head` on a card of `sms` SMs: as ``stw_plan``
+    (resident weights where they fit, else the deepest ring, two x tiles
+    where they fit), the layout's bytes from the source's ``temporal_smem``
+    query."""
+    if not _wide(C, T, heads, dim_head, torch.bfloat16, temporal=True):
+        raise ValueError(f"temporal_plan: kernel 2's bf16 body takes T <= {TEMPORAL_SLOTS}, "
+                         f"dim_head 32, 4 or 8 heads and C <= {MAX_WIDE_CHANNELS} (a multiple of "
+                         f"32); got C={C}, T={T}, heads={heads}, dim_head={dim_head}")
+    nkp, hk = -(-C // 64), heads * dim_head // 64
+    cw = 64 if C <= 128 else 128
+    rounds = -(-C // (2 * cw))
+    steps = heads // 4 * nkp + rounds * hk
+    scratch = _build.query("stw_layer", "temporal_scratch_bytes", C, heads)
+    layouts = [(True, 0, a) for a in (2, 1)] + [
+        (False, s, a) for a in (2, 1) for s in range(STW_MAX_STAGES, 1, -1)]
+    for resident, stages, a_bufs in layouts:
+        smem = _build.query("stw_layer", "temporal_smem", C, heads, cw, int(resident), stages,
+                            a_bufs)
+        if smem <= STW_SMEM_MAX:
+            return TemporalPlan(cw, rounds, steps, resident, stages, a_bufs, smem, sms, scratch)
+    raise ValueError(f"temporal_plan: no layout of C={C} fits {STW_SMEM_MAX} bytes")
+
+
 class StwBwdPlan(NamedTuple):
     """How kernel 5's bf16 body (``csrc/stw_layer_bwd.cu``) runs a layer
     (``stw_bwd_plan``)."""
@@ -209,12 +260,36 @@ def stw_bwd_plan(C: int, N: int, heads: int, dim_head: int, sms: int) -> StwBwdP
         raise ValueError(f"stw_bwd_plan: kernel 5's bf16 body takes N <= {MAX_TOKENS}, dim_head "
                          f"32, 4 or 8 heads and C <= {MAX_WIDE_CHANNELS} (a multiple of 32); got "
                          f"C={C}, N={N}, heads={heads}, dim_head={dim_head}")
+    return _bwd_ring("stw_bwd_plan", C, heads, dim_head, sms)
+
+
+@lru_cache(maxsize=256)
+def temporal_bwd_plan(C: int, T: int, heads: int, dim_head: int, sms: int) -> StwBwdPlan:
+    """The plan of kernel 6's bf16 body (``csrc/stw_layer_bwd.cu``
+    ``temporal_layer_bwd_wgmma``): kernel 5's, whose tile kernel it runs on
+    two sequences of T <= 32 frames in place of a window."""
+    if not _wide(C, T, heads, dim_head, torch.bfloat16, temporal=True):
+        raise ValueError(f"temporal_bwd_plan: kernel 6's bf16 body takes T <= {TEMPORAL_SLOTS}, "
+                         f"dim_head 32, 4 or 8 heads and C <= {MAX_WIDE_CHANNELS} (a multiple of "
+                         f"32); got C={C}, T={T}, heads={heads}, dim_head={dim_head}")
+    return _bwd_ring("temporal_bwd_plan", C, heads, dim_head, sms)
+
+
+def _bwd_ring(what: str, C: int, heads: int, dim_head: int, sms: int) -> StwBwdPlan:
+    """The deepest weight ring of kernels 5 and 6's tile kernel that fits."""
     steps = -(-C // 64) * (heads * dim_head // 128 + heads // 2)
     for stages in range(STW_BWD_MAX_STAGES, 1, -1):
         smem = _build.query("stw_layer_bwd", "stw_bwd_smem", C, heads, stages)
         if smem <= STW_SMEM_MAX:
             return StwBwdPlan(stages, steps, smem, sms, 2 * sms)
-    raise ValueError(f"stw_bwd_plan: no layout of C={C} fits {STW_SMEM_MAX} bytes")
+    raise ValueError(f"{what}: no layout of C={C} fits {STW_SMEM_MAX} bytes")
+
+
+@lru_cache(maxsize=256)
+def _temporal_bwd_scratch(tokens: int, C: int, heads: int, T: int, grid: int, ln_blocks: int,
+                          splits_q: int, splits_p: int) -> int:
+    return _build.query("stw_layer_bwd", "temporal_bwd_scratch_bytes", tokens, C, heads, T, grid,
+                        ln_blocks, splits_q, splits_p)
 
 
 def _pads(T: int, H: int, W: int, window) -> Tuple[int, int, int]:
@@ -288,16 +363,18 @@ def _check_cuda(x, *others):
             raise ValueError(f"operand on {t.device}, activation on {x.device}")
 
 
-def _check_operands(what, x, N, heads, dim_head, wide=False, **operands):
+def _check_operands(what, x, N, heads, dim_head, wide=None, **operands):
     """Kernel limits and operand shapes: (name -> (tensor, expected shape)).
-    `wide`: kernels 1 and 5's bf16 bodies may take the layer (a window
-    layer)."""
+    `wide`: the layer kind ("window" or "temporal") whose bf16 body may take
+    the layer (None: the narrow body only)."""
     C = x.shape[-1]
-    if not (_narrow(C, N, dim_head, x.dtype) or wide and _wide(C, N, heads, dim_head, x.dtype)):
+    fits_wide = wide is not None and _wide(C, N, heads, dim_head, x.dtype, wide == "temporal")
+    if not (_narrow(C, N, dim_head, x.dtype) or fits_wide):
         raise ValueError(f"{what}: the kernel takes N <= {MAX_TOKENS} tokens, dim_head <= "
                          f"{MAX_DIM_HEAD} and C <= {MAX_CHANNELS} (in bf16 a multiple of 32; a "
-                         f"bf16 window layer at dim_head 32 and 4 or 8 heads C <= "
-                         f"{MAX_WIDE_CHANNELS}); got N={N}, dim_head={dim_head}, C={C}")
+                         f"bf16 layer at dim_head 32 and 4 or 8 heads C <= {MAX_WIDE_CHANNELS}, "
+                         f"a temporal one at T <= {TEMPORAL_SLOTS}); got N={N}, "
+                         f"dim_head={dim_head}, C={C}")
     for name, (t, shape) in operands.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
@@ -370,7 +447,7 @@ def _stw_unroll(out, x_shape, shift):
 
 
 def _stw_checked(what, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads, dim_head,
-                 wide=False):
+                 wide=None):
     _check_cuda(x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
     C = x.shape[-1]
     N = window[0] * window[1] * window[2]
@@ -386,7 +463,7 @@ def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, he
         return _stw_wm(x.detach(), gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
                        shift=shift, heads=heads, dim_head=dim_head, eps=eps)
     _stw_checked("fused_stw_layer", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
-                 dim_head, wide=True)
+                 dim_head, wide="window")
     B, T, H, W, C = x.shape
     wd, wh, ww = window
     N = wd * wh * ww
@@ -585,7 +662,7 @@ def stw_layer_bwd(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift
         return stw_layer_plain_vjp(g, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
                                    shift=shift, heads=heads, dim_head=dim_head, eps=eps)
     _stw_checked("stw_layer_bwd", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
-                 dim_head, wide=True)
+                 dim_head, wide="window")
     _check_cuda(x, g)
     N = window[0] * window[1] * window[2]
     if _wide(x.shape[-1], N, heads, dim_head, x.dtype):
@@ -711,18 +788,101 @@ def _temporal_checked(what, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_
     _check_cuda(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn)
     B, T, H, W, C = x.shape
     hid = heads * dim_head
-    _check_operands(what, x, T, heads, dim_head, gamma_cln=(gamma_cln, (C,)),
+    _check_operands(what, x, T, heads, dim_head, "temporal", gamma_cln=(gamma_cln, (C,)),
                     ln_scale=(ln_scale, (C,)), ln_bias=(ln_bias, (C,)),
                     w_qkv=(w_qkv, (3 * hid, C)), w_out=(w_out, (C, hid)),
                     bias_hnn=(bias_hnn, (heads, T, T)))
+
+
+def temporal_operands_plain(w_qkv, w_out, gamma_cln, ln_scale, ln_bias, bias_hnn):
+    """The operands kernels 2 and 6's bf16 bodies read, as their entries write
+    them from the caller's parameters (``csrc/temporal.cuh``
+    ``temporal_operands_kernel``): Wqkv and Wout in bf16, gamma_cln |
+    ln_scale | ln_bias (3 C) float32, and the bias table (heads, 32, 32) bf16,
+    bf16(bias) in rows and columns < T and -inf past T, with its transpose in
+    the last two dims."""
+    heads, T, _ = bias_hnn.shape
+    pad = TEMPORAL_SLOTS - T
+    bm = F.pad(bias_hnn.detach().to(torch.bfloat16).float(), (0, pad, 0, pad),
+               value=float("-inf")).to(torch.bfloat16)
+    return dict(wq=w_qkv.detach().to(torch.bfloat16), wo=w_out.detach().to(torch.bfloat16),
+                vec=torch.cat([t.detach().float() for t in (gamma_cln, ln_scale, ln_bias)]),
+                bm=bm, bmt=bm.transpose(-1, -2).contiguous())
+
+
+def _same_dtype(*ts):
+    """The tensors contiguous in one dtype the kernels read (float32 or bf16:
+    the one they share, else float32; as they are where they already are)
+    and its code."""
+    dtype = ts[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != dtype for t in ts):
+        dtype = torch.float32
+    return ([t if t.dtype == dtype and t.is_contiguous() else t.detach().to(dtype).contiguous()
+             for t in ts], _build.dtype_code(dtype))
+
+
+def temporal_operands(w_qkv, w_out, gamma_cln, ln_scale, ln_bias, bias_hnn):
+    """``temporal_operands_plain`` on the card: the first launch of kernels 2
+    and 6's bf16 entries alone (``temporal_operands_only``), for a check."""
+    if w_qkv.device.type == "cpu":
+        return temporal_operands_plain(w_qkv, w_out, gamma_cln, ln_scale, ln_bias, bias_hnn)
+    _check_cuda(w_qkv, w_out, gamma_cln, ln_scale, ln_bias, bias_hnn)
+    (wq, wo), wcode = _same_dtype(w_qkv, w_out)
+    (gm, ls, lb), vcode = _same_dtype(gamma_cln, ln_scale, ln_bias)
+    (bias,), bcode = _same_dtype(bias_hnn)
+    heads, T, _ = bias.shape
+    C = wq.shape[1]
+    bf = dict(dtype=torch.bfloat16, device=wq.device)
+    out = dict(wq=torch.empty_like(wq, **bf), wo=torch.empty_like(wo, **bf),
+               vec=torch.empty(3 * C, dtype=torch.float32, device=wq.device),
+               bm=torch.empty((heads, TEMPORAL_SLOTS, TEMPORAL_SLOTS), **bf),
+               bmt=torch.empty((heads, TEMPORAL_SLOTS, TEMPORAL_SLOTS), **bf))
+    P = _build.ptr
+    _build.launch("stw_layer", "temporal_operands_only", P(wq), P(wo), wcode, P(gm), P(ls), P(lb),
+                  vcode, P(bias), bcode, P(out["wq"]), P(out["wo"]), P(out["vec"]), P(out["bm"]),
+                  P(out["bmt"]), C, heads, T, _build.stream(wq))
+    return out
 
 
 def _temporal_forward(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
                       dim_head, eps):
     _temporal_checked("fused_temporal_layer", x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
                       bias_hnn, heads, dim_head)
-    B, T, H, W, C = x.shape
     x = x.detach().contiguous()
+    body = (_temporal_wgmma if _wide(x.shape[-1], x.shape[1], heads, dim_head, x.dtype,
+                                     temporal=True) else _temporal_narrow)
+    out = body(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, heads=heads,
+               dim_head=dim_head, eps=eps)
+    fused_temporal_layer.launches += 1
+    return out
+
+
+def _temporal_wgmma(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads, dim_head,
+                    eps):
+    """Kernel 2's bf16 body (``csrc/stw_layer.cu`` ``temporal_layer_wgmma``):
+    the operands from the parameters as the caller holds them, then the
+    layer; two allocations and one call from here."""
+    B, T, H, W, C = x.shape
+    plan = temporal_plan(C, T, heads, dim_head, _sm_count(x.device))
+    (wq, wo), wcode = _same_dtype(w_qkv, w_out)
+    (gm, ls, lb), vcode = _same_dtype(gamma_cln, ln_scale, ln_bias)
+    (bias,), bcode = _same_dtype(bias_hnn)
+    out = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=x.device)
+    rot = min(32, dim_head)
+    P = _build.ptr
+    _build.launch("stw_layer", "temporal_layer_wgmma", P(x), P(out), P(gm), P(ls), P(lb), vcode,
+                  P(wq), P(wo), wcode, P(bias), bcode, P(_rope_pairs(T, rot, x.device)),
+                  P(scratch), B, T, H * W, C, heads, rot, eps, plan.cw, int(plan.resident),
+                  plan.stages, plan.a_bufs, plan.smem, plan.blocks, _build.stream(x))
+    return out
+
+
+def _temporal_narrow(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads, dim_head,
+                     eps):
+    """attention.cu's body (float32, and the bf16 shapes kernel 2's bf16 body
+    refuses)."""
+    B, T, H, W, C = x.shape
     rot = min(32, dim_head)
     cos, sin = _rope_tables(T, rot, x.device)
     out = torch.empty_like(x)
@@ -732,7 +892,6 @@ def _temporal_forward(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *
     _build.launch("attention", "temporal_layer", _build.dtype_code(x.dtype),
                   P(x), P(out), P(g), P(s), P(b), P(wq), P(wo), P(bias), P(cos), P(sin), B, T,
                   H * W, C, heads, dim_head, rot, eps, _build.stream(x))
-    fused_temporal_layer.launches += 1
     return out
 
 
@@ -767,17 +926,70 @@ fused_temporal_layer.launches = 0
 def temporal_layer_bwd(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
                        dim_head, eps=1e-5):
     """Kernel 6: (dx, dgamma_cln, dln_scale, dln_bias, dw_qkv, dw_out, dbias)
-    of ``fused_temporal_layer`` at its inputs for the cotangent g."""
+    of ``fused_temporal_layer`` at its inputs for the cotangent g. In bf16 at
+    the shapes kernel 2's bf16 body takes, ``csrc/stw_layer_bwd.cu``
+    (``temporal_layer_bwd_wgmma``); otherwise (float32, the check path)
+    ``attention_bwd.cu``."""
     if x.device.type == "cpu":
         return temporal_layer_plain_vjp(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
                                         bias_hnn, heads=heads, dim_head=dim_head, eps=eps)
     _temporal_checked("temporal_layer_bwd", x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
                       bias_hnn, heads, dim_head)
     _check_cuda(x, g)
-    B, T, H, W, C = x.shape
-    hid = heads * dim_head
     x = x.detach().contiguous()
     gc = g.detach().to(x.dtype).contiguous()
+    if _wide(x.shape[-1], x.shape[1], heads, dim_head, x.dtype, temporal=True):
+        grads = _temporal_bwd_wgmma(gc, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn,
+                                    heads=heads, dim_head=dim_head, eps=eps)
+    else:
+        grads = _temporal_bwd_narrow(gc, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out,
+                                     bias_hnn, heads=heads, dim_head=dim_head, eps=eps)
+    temporal_layer_bwd.launches += 1
+    dx, dg, ds, db, dwqkv, dwout, dbias = grads
+    return (dx, dg.to(gamma_cln.dtype), ds.to(ln_scale.dtype), db.to(ln_bias.dtype),
+            dwqkv.to(w_qkv.dtype), dwout.to(w_out.dtype), dbias.to(bias_hnn.dtype))
+
+
+def _temporal_bwd_wgmma(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
+                        dim_head, eps):
+    """Kernel 6's bf16 body (``csrc/stw_layer_bwd.cu``): the operands, the
+    tiles of two sequences, dhn = dqkv Wqkv, the norms' backward and the
+    weight gradients, from one scratch buffer; three allocations and one
+    call from here."""
+    B, T, H, W, C = x.shape
+    hid = heads * dim_head
+    dev = x.device
+    sms = _sm_count(dev)
+    plan = temporal_bwd_plan(C, T, heads, dim_head, sms)
+    tokens = B * T * H * W
+    grid = min(plan.blocks, -(-(B * H * W) // 2))
+    # token splits of the weight gradients on the conv engine (its cost model)
+    sq = wgrad_splits(tokens, -(-3 * hid // 128) * -(-C // 128), sms)[0]
+    sp = wgrad_splits(tokens, -(-C // 128) * -(-hid // 128), sms)[0]
+    nbytes = _temporal_bwd_scratch(tokens, C, heads, T, grid, plan.ln_blocks, sq, sp)
+    (wq, wo), wcode = _same_dtype(w_qkv, w_out)
+    (gm, ls, lb), vcode = _same_dtype(gamma_cln, ln_scale, ln_bias)
+    (bias,), bcode = _same_dtype(bias_hnn)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dx = torch.empty_like(x)
+    out = torch.empty(3 * C + heads * T * T + 3 * hid * C + C * hid, dtype=torch.float32,
+                      device=dev)
+    vec, dbias, dwqkv, dwout = out.split([3 * C, heads * T * T, 3 * hid * C, C * hid])
+    P = _build.ptr
+    _build.launch("stw_layer_bwd", "temporal_layer_bwd_wgmma", P(x), P(g), P(dx), P(gm), P(ls),
+                  P(lb), vcode, P(wq), P(wo), wcode, P(bias), bcode, P(scratch), nbytes, P(vec),
+                  P(dbias), P(dwqkv), P(dwout), B, T, H * W, C, heads, min(32, dim_head), eps,
+                  plan.stages, plan.smem, grid, plan.ln_blocks, sq, sp, _build.stream(x))
+    return (dx, vec[:C], vec[C:2 * C], vec[2 * C:], dwqkv.view(3 * hid, C), dwout.view(C, hid),
+            dbias.view(heads, T, T))
+
+
+def _temporal_bwd_narrow(gc, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
+                         dim_head, eps):
+    """attention_bwd.cu's body (float32, and the bf16 shapes kernel 6's bf16
+    body refuses)."""
+    B, T, H, W, C = x.shape
+    hid = heads * dim_head
     rot = min(32, dim_head)
     cos, sin = _rope_tables(T, rot, x.device)
     tokens = x.numel() // C
@@ -800,10 +1012,7 @@ def temporal_layer_bwd(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hn
                   P(sin), P(dqkv), P(o_tok), P(vec_part), P(bias_part), P(w_part), P(vec),
                   P(dbias), P(dwqkv), P(dwout), B, T, H * W, C, heads, dim_head, rot, eps, nblk,
                   sq, sp, _build.stream(x))
-    temporal_layer_bwd.launches += 1
-    return (dx, vec[:C].to(gamma_cln.dtype), vec[C:2 * C].to(ln_scale.dtype),
-            vec[2 * C:].to(ln_bias.dtype), dwqkv.to(w_qkv.dtype), dwout.to(w_out.dtype),
-            dbias.to(bias_hnn.dtype))
+    return dx, vec[:C], vec[C:2 * C], vec[2 * C:], dwqkv, dwout, dbias
 
 
 temporal_layer_bwd.launches = 0

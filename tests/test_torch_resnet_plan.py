@@ -126,7 +126,10 @@ def test_size_queries_match_their_declarations():
     queries = {(src.stem, name): len(types) for src in _build.CSRC.glob("*.cu")
                for name, types in _build.size_queries(src.stem).items()}
     assert calls == queries == {("resnet", "resnet_scratch_bytes"): 8,
-                                ("stw_layer_bwd", "stw_bwd_smem"): 3}
+                                ("stw_layer_bwd", "stw_bwd_smem"): 3,
+                                ("stw_layer", "temporal_smem"): 6,
+                                ("stw_layer", "temporal_scratch_bytes"): 2,
+                                ("stw_layer_bwd", "temporal_bwd_scratch_bytes"): 8}
     assert _build.size_queries("resnet")["resnet_scratch_bytes"][1] is ctypes.c_longlong
     params = re.search(r'extern "C" int resnet_block_wgmma\(([^)]*)\)',
                        (_build.CSRC / "resnet.cu").read_text()).group(1).split(",")

@@ -96,7 +96,7 @@ def test_stw_route_table(C, N, dim_head, dtype, route):
 
 @pytest.mark.parametrize("C,N,dim_head,dtype,kw,route", [
     (512, 64, 32, torch.bfloat16, {}, "fused"),                     # multi1248's training too
-    (512, 30, 32, torch.bfloat16, dict(temporal=True), "unfused"),  # its temporal layer
+    (512, 30, 32, torch.bfloat16, dict(temporal=True), "fused"),    # its temporal layer: 2 and 6
     (256, 30, 32, torch.bfloat16, dict(temporal=True), "fused"),
     (256, 64, 32, torch.bfloat16, {}, "fused"),
     (320, 64, 32, torch.bfloat16, {}, "fused"),                     # not a multiple of 128
@@ -113,9 +113,9 @@ def test_stw_route_by_kind_and_gradient(C, N, dim_head, dtype, kw, route):
 
 def test_stw_route_is_the_kernels_gate():
     """``stw_route`` says "fused" exactly where the kernels' operand check
-    passes: kernels 1 and 5's for a window layer (``wide``; with or without
-    autograd, which the route does not depend on), the narrow kernels' for
-    the temporal layer."""
+    passes: kernels 1 and 5's for a window layer, kernels 2 and 6's for the
+    temporal layer (``wide``: the layer kind; with or without autograd,
+    which the route does not depend on)."""
     for C in (32, 64, 240, 256, 288, 512, 544):
         for N in (30, 64, 65):
             for dh in (8, 32, 33):
@@ -123,7 +123,8 @@ def test_stw_route_is_the_kernels_gate():
                     for temporal in (False, True):
                         x = torch.empty((1, 1, 1, 1, C), dtype=dtype)
                         try:
-                            fused_stw._check_operands("k", x, N, 8, dh, not temporal)
+                            fused_stw._check_operands("k", x, N, 8, dh,
+                                                      "temporal" if temporal else "window")
                             ok = "fused"
                         except ValueError:
                             ok = "unfused"
