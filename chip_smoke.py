@@ -32,12 +32,14 @@
    recording the inputs and incoming cotangent of each backward kernel at
    every distinct shape; checks each backward kernel against its plain
    version (the autograd of the plain forward) there in bf16 and at one small
-   shape in float32, and times both (kernels 5 and 6 also by their device
-   time, kernel 6 beside the parent's body, attention_bwd.cu, and twice on
-   the same inputs for bitwise equal gradients; kernel 5 against its plain
-   version at STW_RAGGED, its plan at every width it takes; kernels 2 and 6
-   at TEMPORAL_RAGGED, with the operands their entries write held against
-   their plain version); takes 3 timed steps with the counters
+   shape in float32, and times both (kernels 5, 6 and 7 also by their device
+   time, kernel 6 beside the parent's body, attention_bwd.cu; kernels 6 and
+   7 twice on the same inputs for bitwise equal gradients; kernel 5 against
+   its plain version at STW_RAGGED, its plan at every width it takes; kernel
+   7 at RESNET_RAGGED; kernels 2 and 6 at TEMPORAL_RAGGED, with the operands
+   their entries write held against their plain version; kernel 7's device
+   time split by kernel name beside the decomposed route's,
+   resnet_bwd_split.py); takes 3 timed steps with the counters
    from 0 (18 STW / 10 temporal / 20 resnet layers forward and backward, 1
    grid sample per step); and compares one float32 loss and every UNet
    gradient at batch 1, kernels on the card against the plain versions on
@@ -61,9 +63,12 @@
    port's VideoDataset and DataLoader (raw uint8, pinned, canonicalised on
    the card), 4 trajectories each (sampler batch 16), 2 autoregressive
    rounds of 20 frames. A recorded warm-up call gives kernel 9's inputs:
-   kernel 9 is checked against its plain version and against kernel 1 on
-   the same layers (bf16), at a shifted shape with its expanded masks (mode
-   "1") and at one float32 shape, and timed beside kernel 1. Then the
+   kernel 9 (bf16: kernel 1's body on a window's contiguous rows) is
+   checked against its plain version and against kernel 1 on the same
+   layers, at a shifted shape with its expanded masks (mode "1"), at
+   WM_EXTRA (512 channels, a 32-token window, 144 windows) and at one
+   float32 shape (attention.cu's body), and timed beside kernel 1 (call and
+   device time) and the parent's body (attention.cu). Then the
    counters go to 0 and ``evaluate`` runs (20 kernel-9 and 160 kernel-1
    launches per sampler call), with PSNR, SSIM, LPIPS and FVD from random
    networks; PSNR, SSIM, LPIPS and I3D features on the card are checked
@@ -78,8 +83,8 @@
    take their routes (``stw_route``): the window layers run kernel 1
    forward and kernel 5 backward, the temporal layer kernel 2 forward and
    kernel 6 backward (their bf16 bodies take 512 channels), so no layer
-   runs unfused; the resnet blocks' backward is decomposed into kernels 10
-   and 11 (the conv and its gradients) and torch GroupNorm math.
+   runs unfused; the resnet blocks' backward runs kernel 7 (its bf16 body
+   takes any width).
    A recorded warm-up sampler call at batch 4 (no kernel-12 call, no
    unfused layer); kernel 12 where it ran before kernels 2 and 6 took the
    temporal layer (``temporal_layer_unfused`` called on that layer's
@@ -99,28 +104,33 @@
    at batch 8 (remat, bf16 compute): a recorded warm-up step, kernels 5 and
    6 against their plain backwards at the 512-channel window and temporal
    layers (call and device time; kernel 6 twice, bitwise), kernel 7 against
-   its plain backward at every block it takes there (bf16, batch 8: up
-   level 0's 1024 input channels among them), kernels 10-12 against their
-   plain versions at every recorded shape (kernel 12 at the temporal
-   layer's training inputs, as in sampling) in bf16 and float32 (dW with
-   the backward kernels' limits) and timed beside F.conv3d /
-   aten.convolution_backward (call and device time, device TFLOP/s and
-   share of the bound), kernels 10 and 11 also at three ragged shapes
+   its plain backward at every block of the step (bf16, batch 8: the 512-
+   channel blocks and up level 0's 1024 input channels among them; twice,
+   bitwise; call and device time), kernel 7 against the decomposed route at
+   the blocks over 256 channels (its route before), kernels 10 and 11
+   against their plain versions at that route's conv shapes, kernel 12 at
+   the temporal layer's training inputs (as in sampling), in bf16 and
+   float32 (dW with the backward kernels' limits) and timed beside F.conv3d
+   / aten.convolution_backward / SDPA (call and device time, device TFLOP/s
+   and share of the bound), kernels 10 and 11 also at three ragged shapes
    (CONV_RAGGED) and kernel 11 twice on the same inputs (bitwise equal din
    and dW), the unfused temporal layer's forward and backward on the same
-   inputs timed and split as above, kernel 7 never on a layer over 256
-   channels (1, 2, 5 and 6 never over 512), 3 timed steps with launch and
-   route counts (no layer unfused, kernel 12 never: a line prints them),
-   and the float32 step card vs CPU.
+   inputs timed and split as above, kernels 1, 2, 5 and 6 never over 512
+   channels, 3 timed steps with launch and route counts (no layer unfused,
+   no resnet backward decomposed, kernels 10-12 never: a line prints them),
+   and the float32 step card vs CPU, counted from 0: there every block over
+   256 channels takes the decomposed route (kernel 7's float32 body keeps
+   256), so kernels 10 and 11 run twice each per such block.
 
 The train phase also runs an A/B of the two resnet backward routes: at the
 KTH step's resnet-backward shapes (32^2 to 4^2 frames), kernels 10 and 11
 are first checked against their plain versions at every conv shape of the
 decomposed backward (bf16 and float32), timed, and kernel 11 checked to
-repeat bit for bit; then kernel 7 against the decomposed backward,
-and the whole KTH step with every block's backward decomposed (the gate
-``resnet_bwd_route`` replaced for those steps) against the step as it is,
-in turns, launches checked. Printed only.
+repeat bit for bit; then kernel 7 against the decomposed backward (call
+and device time), and the whole KTH step with every block's backward
+decomposed (the gate ``resnet_bwd_route`` replaced for those steps)
+against the step as it is, in turns, launches checked. Printed only. The
+multi1248 phase runs the per-shape part at its blocks over 256 channels.
 
 Prints one JSON line per kernel and shape, the end-to-end timings, a summary
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -227,11 +237,12 @@ I3D_F32_REL_TOL = 1e-3
 
 
 # Kernels whose lines carry their own device time (torch.profiler), device
-# TFLOP/s and share of the bound: 1, 2, 3, 5 and 6, the redesigned main-path
-# ones. Kernels 2 and 6 also carry the device time of the parent's body
-# (attention.cu / attention_bwd.cu, which keeps float32) on the same inputs.
+# TFLOP/s and share of the bound: 1, 2, 3, 5, 6, 7 and 9, the redesigned
+# main-path ones. Kernels 2, 6 and 9 also carry the device time of the
+# parent's body (attention.cu / attention_bwd.cu, which keeps float32) on
+# the same inputs.
 DEVICE_TIMED = ("stw_layer", "temporal_layer", "resnet_block", "stw_layer_bwd",
-                "temporal_layer_bwd")
+                "temporal_layer_bwd", "resnet_block_bwd", "stw_layer_wm")
 
 
 def log(obj) -> None:
@@ -836,6 +847,36 @@ def stw_bwd_ragged_phase(btable, card, seed=19):
              "check": "kernel 5 vs plain backward at a ragged shape", **res, "card": card})
 
 
+def resnet_bwd_ragged_phase(btable, card, seed=31):
+    """Kernel 7 (bf16) against its plain backward at RESNET_RAGGED (frames
+    off the 128-row tiles, Cin != Cout with the residual projection,
+    channels off 16-byte rows and 4 groups; with and without FiLM), with the
+    backward limits, twice for bitwise equal gradients; timed."""
+    k = btable["resnet_block_bwd"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    for i, (shape, cout, groups) in enumerate(RESNET_RAGGED):
+        B, C = shape[0], shape[-1]
+        args = [r(*shape).bfloat16(), r(cout, C, 1, 3, 3, scale=(9 * C) ** -0.5),
+                r(cout, scale=0.1), 1 + r(cout, scale=0.1), r(cout, scale=0.1),
+                r(B, 2 * cout, scale=0.3) if i % 2 == 0 else None,
+                r(cout, cout, 1, 3, 3, scale=(9 * cout) ** -0.5), r(cout, scale=0.1),
+                1 + r(cout, scale=0.1), r(cout, scale=0.1)]
+        args += [r(cout, C, 1, 1, 1, scale=C ** -0.5), r(cout, scale=0.1)] if C != cout else [
+            None, None]
+        gg = r(*shape[:-1], cout).bfloat16()
+        kwargs = dict(groups=groups)
+        got = k["wrapper"](gg, *args, **kwargs)
+        repeat_check("resnet_block_bwd ragged", shape, got, k["wrapper"](gg, *args, **kwargs))
+        res = check_grads(f"resnet_block_bwd ragged {shape} -> {cout}", got,
+                          k["plain"](gg, *args, **kwargs), BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        ms = cuda_ms(lambda: k["wrapper"](gg, *args, **kwargs), 5)
+        log({"kernel": "resnet_block_bwd", "shape": list(shape), "cout": cout, "groups": groups,
+             "film": args[5] is not None, "dtype": "bfloat16", "kernel_ms": ms,
+             "check": "kernel 7 vs plain backward at a ragged shape, bitwise equal on repeat",
+             **res, "card": card})
+
+
 def parent_body_ms(k, args, kwargs, reps):
     """Device time of the parent's body of kernel 2 or 6 (``parent`` in the
     table: attention.cu / attention_bwd.cu) on the same inputs, or None where
@@ -847,6 +888,10 @@ def parent_body_ms(k, args, kwargs, reps):
         return None
     return device_ms(lambda: k["parent"](*args, **kwargs), reps,
                      kernel_symbols(k["parent_source"]))[0]
+
+
+# Backward kernels checked twice on the same inputs for bitwise equal gradients.
+REPEATS = ("temporal_layer_bwd", "resnet_block_bwd")
 
 
 def repeat_check(name, key, first, again):
@@ -1033,7 +1078,7 @@ def backward_phase(table, record, card):
             want = k["plain"](*args, **kwargs)
             torch.cuda.synchronize()
             res = check_grads(f"{name}{key}", got, want, BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
-            if name == "temporal_layer_bwd":
+            if name in REPEATS:
                 repeat_check(name, key, got, k["wrapper"](*args, **kwargs))
             ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 5)
             plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 5)
@@ -1067,7 +1112,10 @@ def backward_phase(table, record, card):
 
     stw_bwd_plan_phase()
     stw_bwd_ragged_phase(table, card)
+    resnet_bwd_ragged_phase(table, card)
     temporal_ragged_phase(card)
+    from resnet_bwd_split import split_lines
+    split_lines(card)  # kernel 7's device time by kernel name, and the decomposed route's
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1539,14 +1587,17 @@ def ae_phase(table, btable, ae_btable, card, others=None):
 def wm_table(table):
     """Kernel 9 in the layout of kernel_table. Its wrapper takes pre-windowed
     tokens; the layers are recorded at the UNet's call site (kernel 1's), so
-    key, cost and residual are kernel 1's on the layer's input x."""
+    key, cost and residual are kernel 1's on the layer's input x. Its bf16
+    body is kernel 1's (stw_layer.cu); the parent's body is attention.cu's
+    (float32 and the shapes kernel 1's body refuses since)."""
     from extdm_tpu_torch.ops import fused_stw
 
     return {"stw_layer_wm": dict(
         wrapper=fused_stw.fused_stw_layer_wm, plain=fused_stw.stw_layer_wm_plain,
         sites=table["stw_layer"]["sites"], key=table["stw_layer"]["key"],
-        cost=table["stw_layer"]["cost"], residual=None,
-        source="extdm_tpu_torch/csrc/attention.cu", replaces="extdm_tpu/ops/pallas_stw.py:781")}
+        cost=table["stw_layer"]["cost"], residual=None, parent=fused_stw._stw_wm_narrow,
+        parent_source="extdm_tpu_torch/csrc/attention.cu",
+        source="extdm_tpu_torch/csrc/stw_layer.cu", replaces="extdm_tpu/ops/pallas_stw.py:781")}
 
 
 def wm_inputs(x, gamma, w_qkv, w_proj, b_proj, bias, *, window, shift, heads, dim_head,
@@ -1559,17 +1610,69 @@ def wm_inputs(x, gamma, w_qkv, w_proj, b_proj, bias, *, window, shift, heads, di
             dict(heads=heads, dim_head=dim_head, eps=eps))
 
 
+# Kernel 9 (bf16) off the eval's layers: a 512-channel layer, a window of 32
+# tokens (the volume clamps it; shifted, its masks expanded per window, 4
+# heads), and 144 windows of 64 tokens, not a multiple of the persistent
+# blocks (one per SM). (shape, shift asked, heads)
+WM_EXTRA = (((2, 10, 8, 8, 512), (0, 0, 0), 8), ((2, 9, 4, 2, 192), (2, 2, 2), 4),
+            ((3, 10, 16, 16, 96), (0, 0, 0), 8))
+
+
+def wm_case(k9, kernel1, args, kwargs, what, card, count=None):
+    """Kernel 9 on one layer (bf16): against its plain version, and the layer
+    through kernel 9 (mode "1") against the layer through kernel 1 (mode
+    "0"); times of the kernel and its plain version, the layer both ways,
+    the device time of kernel 9, of kernel 1 on the same layer and of the
+    parent's body (attention.cu, where it takes the layer: C <= 256). Logs
+    a line; returns it."""
+    x = args[0]
+    wargs, wkw = wm_inputs(*args, **kwargs)
+    layer = {m: dict(kwargs, window_major=m) for m in ("1", "0")}
+    with torch.no_grad():
+        res = check(f"stw_layer_wm {what}", k9["wrapper"](*wargs, **wkw),
+                    k9["plain"](*wargs, **wkw), BF16_REL_TOL, wargs[0])
+        res_k1 = check(f"stw_layer_wm {what} vs kernel 1", kernel1(*args, **layer["1"]),
+                       kernel1(*args, **layer["0"]), BF16_REL_TOL, x)
+        symbols = kernel_symbols(k9["source"])
+        line = {"kernel": "stw_layer_wm", "shape": list(wargs[0].shape),
+                "layer_shape": list(x.shape), "window": list(kwargs["window"]),
+                "shift": list(kwargs["shift"]), "heads": kwargs["heads"],
+                "dtype": str(x.dtype).replace("torch.", ""), "check": what,
+                "kernel_ms": cuda_ms(lambda: k9["wrapper"](*wargs, **wkw), 10),
+                "plain_ms": cuda_ms(lambda: k9["plain"](*wargs, **wkw), 10),
+                "layer_ms_window_major": cuda_ms(lambda: kernel1(*args, **layer["1"]), 10),
+                "layer_ms_kernel1": cuda_ms(lambda: kernel1(*args, **layer["0"]), 10),
+                "kernel_device_ms": device_ms(lambda: k9["wrapper"](*wargs, **wkw), 10,
+                                              symbols)[0],
+                "kernel1_device_ms": device_ms(lambda: kernel1(*args, **layer["0"]), 10,
+                                               symbols)[0],
+                "parent_body_device_ms": parent_body_ms(k9, wargs, wkw, 10)}
+    byts, flops, op_dtype = k9["cost"](*args, **kwargs)
+    bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
+    line.update(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, flops=flops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                device_tflops=flops / line["kernel_device_ms"] / 1e9,
+                bound_share=max(bytes_ms, ops_ms) / line["kernel_device_ms"], library_ms=None,
+                library_ms_note="no single PyTorch call computes this layer", **res,
+                vs_kernel1_max_abs_err=res_k1["max_abs_err"], card=card)
+    if count is not None:
+        line["per_call"] = count
+    log(line)
+    return line
+
+
 def wm_kernel_phase(table, record, card):
-    """Kernel 9 at every window-major layer the eval records (bf16): against
-    its plain version, and the layer through kernel 9 against the layer
-    through kernel 1 on the same inputs; times of kernel 9, its plain
-    version, the layer through each kernel; then a shifted layer in mode
-    "1" with its expanded masks, and one float32 shape."""
+    """Kernel 9 at every window-major layer the eval records (bf16) and at
+    WM_EXTRA (``wm_case``); then a shifted layer of the eval in mode "1"
+    with its expanded masks, and one float32 shape (attention.cu's body);
+    returns the per-call totals of the recorded layers."""
+    from extdm_tpu_torch.nn.attention import get_window_size
     from extdm_tpu_torch.ops import fused_stw
 
-    k9 = wm_table(table)["stw_layer_wm"]
+    k9, kernel1 = wm_table(table)["stw_layer_wm"], table["stw_layer"]["wrapper"]
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, library_ms=None,
-               max_abs_err=0.0, layer_ms=0.0, kernel1_layer_ms=0.0)
+               max_abs_err=0.0, layer_ms=0.0, kernel1_layer_ms=0.0, device_ms=0.0, flops=0.0,
+               kernel1_device_ms=0.0, parent_device_ms=0.0)
     shifted_case = None
     for key, entry in record.items():
         args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
@@ -1581,45 +1684,34 @@ def wm_kernel_phase(table, record, card):
         if not fused_stw.window_major_gate(kwargs["window_major"], any(shift),
                                            min(H + ph, W + pw)):
             continue
-        wargs, wkw = wm_inputs(*args, **kwargs)
-        res = check(f"stw_layer_wm{key}", k9["wrapper"](*wargs, **wkw), k9["plain"](*wargs, **wkw),
-                    BF16_REL_TOL, wargs[0])
-        layer = {m: dict(kwargs, window_major=m) for m in ("1", "0")}
-        res_k1 = check(f"stw_layer_wm{key} vs kernel 1",
-                       table["stw_layer"]["wrapper"](*args, **layer["1"]),
-                       table["stw_layer"]["wrapper"](*args, **layer["0"]), BF16_REL_TOL, x)
-        ms = cuda_ms(lambda: k9["wrapper"](*wargs, **wkw), 10)
-        plain_ms = cuda_ms(lambda: k9["plain"](*wargs, **wkw), 10)
-        layer_ms = cuda_ms(lambda: table["stw_layer"]["wrapper"](*args, **layer["1"]), 10)
-        k1_ms = cuda_ms(lambda: table["stw_layer"]["wrapper"](*args, **layer["0"]), 10)
-        byts, flops, op_dtype = k9["cost"](*args, **kwargs)
-        bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
-        log({"kernel": "stw_layer_wm", "shape": list(wargs[0].shape), "layer_shape": list(key[0]),
-             "key": str(key[1:]), "dtype": str(x.dtype).replace("torch.", ""), "per_call": count,
-             "kernel_ms": ms, "plain_ms": plain_ms, "layer_ms_window_major": layer_ms,
-             "layer_ms_kernel1": k1_ms, "library_ms": None,
-             "library_ms_note": "no single PyTorch call computes this layer",
-             "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res,
-             "vs_kernel1_max_abs_err": res_k1["max_abs_err"], "card": card})
-        for name, v in (("ms", ms), ("plain_ms", plain_ms), ("layer_ms", layer_ms),
-                        ("kernel1_layer_ms", k1_ms), ("bound_ms", max(bytes_ms, ops_ms)),
-                        ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-            tot[name] += count * v
-        tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
+        line = wm_case(k9, kernel1, args, kwargs, "kernel 9 at an eval layer", card, count)
+        for name, field in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                            ("layer_ms", "layer_ms_window_major"),
+                            ("kernel1_layer_ms", "layer_ms_kernel1"), ("bound_ms", "bound_ms"),
+                            ("bytes_ms", "bytes_ms"), ("ops_ms", "ops_ms"),
+                            ("device_ms", "kernel_device_ms"), ("flops", "flops"),
+                            ("kernel1_device_ms", "kernel1_device_ms"),
+                            ("parent_device_ms", "parent_body_device_ms")):
+            tot[name] += count * (line[field] or 0.0)
+        tot["max_abs_err"] = max(tot["max_abs_err"], line["max_abs_err"])
 
-    # mode "1": a shifted layer goes window-major with its expanded masks
+    # the eval's shifted layer in mode "1": its masks expanded per window
     args, kwargs = shifted_case
-    wargs, wkw = wm_inputs(*args, **kwargs)
-    res = check("stw_layer_wm shifted (masks)", k9["wrapper"](*wargs, **wkw),
-                k9["plain"](*wargs, **wkw), BF16_REL_TOL, wargs[0])
-    res_k1 = check("shifted layer, mode 1 vs kernel 1",
-                   table["stw_layer"]["wrapper"](*args, **dict(kwargs, window_major="1")),
-                   table["stw_layer"]["wrapper"](*args, **dict(kwargs, window_major="0")),
-                   BF16_REL_TOL, args[0])
-    log({"kernel": "stw_layer_wm", "shape": list(wargs[0].shape), "masks": list(wargs[6].shape),
-         "check": "shifted layer in mode 1: kernel vs plain, and vs kernel 1", **res,
-         "vs_kernel1_max_abs_err": res_k1["max_abs_err"]})
+    wm_case(k9, kernel1, args, kwargs, "kernel 9 at a shifted eval layer (mode 1, expanded masks)",
+            card)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    dh = 32
+    for shape, shift0, heads in WM_EXTRA:
+        C = shape[-1]
+        window, shift = get_window_size(shape[1:4], (4, 4, 4), shift0)
+        N, hid = math.prod(window), heads * dh
+        args = [r(*shape).bfloat16(), 1 + r(C, scale=0.1), r(3 * hid, C, scale=C ** -0.5),
+                r(C, hid, scale=hid ** -0.5), r(C, scale=0.1), r(heads, N, N, scale=0.1)]
+        kwargs = dict(window=window, shift=shift, heads=heads, dim_head=dh)
+        wm_case(k9, kernel1, args, kwargs, f"kernel 9 off the eval's layers: {N} tokens, "
+                f"{shape[0] * math.prod(-(-d // w) for d, w in zip(shape[1:4], window))} windows",
+                card)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     fargs, fkw = next((a, k) for n, a, k in f32_cases(torch.device("cuda")) if n == "stw_layer")
@@ -1628,7 +1720,7 @@ def wm_kernel_phase(table, record, card):
         res = check(f"stw_layer_wm float32 shift {shift}", k9["wrapper"](*wargs, **wkw),
                     k9["plain"](*wargs, **wkw), F32_REL_TOL)
         log({"kernel": "stw_layer_wm", "shape": list(wargs[0].shape), "dtype": "float32",
-             "shift": list(shift), "check": "kernel vs plain", **res})
+             "shift": list(shift), "check": "kernel vs plain (attention.cu's body)", **res})
 
     # under autograd the window-major layer's backward is kernel 5, as kernel 1's
     g = torch.randn(fargs[0].shape, generator=torch.Generator(device="cuda").manual_seed(9),
@@ -1784,7 +1876,10 @@ def eval_phase(table, btable, ae_btable, card):
          "metrics_s": metric_s, "metrics_total_s": sum(metric_s.values()),
          "loader_wait_s": sec["loader_wait"], "eval_s": eval_s,
          "stw_layer_wm_ms_per_call": summary["ms"],
+         "stw_layer_wm_device_ms_per_call": summary["device_ms"],
          "kernel1_same_layers_ms_per_call": summary["kernel1_layer_ms"],
+         "kernel1_same_layers_device_ms_per_call": summary["kernel1_device_ms"],
+         "stw_layer_wm_parent_body_device_ms_per_call": summary["parent_device_ms"],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
     check_metrics_card_vs_cpu(out, i3d, lpips)
     del out
@@ -1917,25 +2012,21 @@ def expected_route_launches(cfg):
     kernel, with the wide layers on their routes: the wide window and
     temporal layers on kernels 1 and 2 and, in training, 5 and 6 (their bf16
     bodies take 512 channels), so no layer runs unfused and kernel 12 not
-    at all; kernels 10 and 11 twice per decomposed resnet backward (the two
-    convs)."""
-    wide = wide_layers(cfg)
+    at all; every resnet backward on kernel 7 (its bf16 body takes any
+    width), so kernels 10 and 11 not at all."""
     call = dict(expected_launches(cfg), window_attention=0, conv33_fwd=0, conv33_bwd=0)
     fwd, bwd = expected_train_launches(cfg)
     step = {**fwd, **bwd}
-    step["resnet_block_bwd"] -= wide["resnet"]
-    step.update(window_attention=0, conv33_fwd=2 * wide["resnet"], conv33_bwd=2 * wide["resnet"])
+    step.update(window_attention=0, conv33_fwd=0, conv33_bwd=0)
     return call, step
 
 
-def narrow_only(name, record, limit=256):
-    """Kernel 7 never sees a layer over its channel limit (kernels 1, 2, 5
-    and 6: 512): every recorded input of `name` has at most `limit` channels
-    (Cout for the resnet backward)."""
+def narrow_only(name, record):
+    """Kernels 1, 2, 5 and 6 never see a layer over their bodies' 512
+    channels: every recorded input of `name` has at most 512 channels."""
     for key in record:
-        width = key[1] if name == "resnet_block_bwd" else key[0][-1]
-        if width > limit:
-            raise AssertionError(f"{name} launched on a layer of {width} > {limit} channels")
+        if key[0][-1] > 512:
+            raise AssertionError(f"{name} launched on a layer of {key[0][-1]} > 512 channels")
 
 
 def route_kernel_checks(rt, record, card, per):
@@ -2020,7 +2111,7 @@ def wide_checks(k, name, keys, entries, card, per, what, backward=False):
                 got = k["wrapper"](*args, **kwargs)
                 res = check_grads(f"{name}{key} multi1248", got, k["plain"](*args, **kwargs),
                                   BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
-                if name == "temporal_layer_bwd":
+                if name in REPEATS:
                     repeat_check(name, key, got, k["wrapper"](*args, **kwargs))
             else:
                 res = check(f"{name}{key} multi1248", k["wrapper"](*args, **kwargs),
@@ -2169,7 +2260,7 @@ def multi1248_phase(table, btable, others, card):
         sampler(gen.manual_seed(0), cond)
         torch.cuda.synchronize()
     for name in ("stw_layer", "temporal_layer"):  # kernels 1 and 2 take 512 channels
-        narrow_only(name, record[name], limit=512)
+        narrow_only(name, record[name])
     wide_stw = [k for k in record["stw_layer"] if k[0][-1] > 256]
     wide_tmp = [k for k in record["temporal_layer"] if k[0][-1] > 256]
     if not wide_stw or not wide_tmp or record["window_attention"] or any(urecord.values()):
@@ -2274,9 +2365,12 @@ def multi1248_phase(table, btable, others, card):
     with recording({**table, **btable, **rt}, record), recording(utable, urecord):
         trainer.train_step(gen.manual_seed(0), video)
         torch.cuda.synchronize()
-    narrow_only("resnet_block_bwd", record["resnet_block_bwd"])
     for name in ("stw_layer", "stw_layer_bwd", "temporal_layer", "temporal_layer_bwd"):
-        narrow_only(name, record[name], limit=512)  # kernels 1, 2, 5 and 6 take 512 channels
+        narrow_only(name, record[name])  # kernels 1, 2, 5 and 6 take 512 channels
+    wide_k7 = {k: e for k, e in record["resnet_block_bwd"].items() if k[1] > 256}
+    if sum(e["count"] for e in wide_k7.values()) != wide["resnet"]:
+        raise AssertionError(f"multi1248 train step: kernel 7 on {list(wide_k7)}, not on the "
+                             f"{wide['resnet']} blocks over 256 channels")
     if record["window_attention"] or any(urecord.values()):
         raise AssertionError(f"multi1248 train step: kernel 12 calls "
                              f"{list(record.get('window_attention', {}))}, unfused layers "
@@ -2300,20 +2394,39 @@ def multi1248_phase(table, btable, others, card):
     wide_tmp = [k for k in record["temporal_layer"] if k[0][-1] > 256]
     record.update(kernel12_record(rt, record["temporal_layer"], wide_tmp))
     urecord["temporal_layer_unfused"] = {k: record["temporal_layer"][k] for k in wide_tmp}
-    # kernel 7 at every block it takes here, in bf16 at batch 8: up level 0
-    # (Cin 1024) and the other multi1248 shapes the KTH step does not have
-    k7 = btable["resnet_block_bwd"]
+    # kernel 7 at every block of the step, in bf16 at batch 8: the 512-channel
+    # blocks, up level 0 (Cin 1024) and the other shapes the KTH step does not
+    # have; twice, bitwise
+    k7, k7_wide = btable["resnet_block_bwd"], dict(ms=0.0, device_ms=0.0)
     for key, entry in record["resnet_block_bwd"].items():
         args, kwargs = entry["args"], entry["kwargs"]
-        res = check_grads(f"resnet_block_bwd{key} multi1248", k7["wrapper"](*args, **kwargs),
-                          k7["plain"](*args, **kwargs), BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        got = k7["wrapper"](*args, **kwargs)
+        repeat_check("resnet_block_bwd multi1248", key, got, k7["wrapper"](*args, **kwargs))
+        res = check_grads(f"resnet_block_bwd{key} multi1248", got, k7["plain"](*args, **kwargs),
+                          BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        ms = cuda_ms(lambda: k7["wrapper"](*args, **kwargs), 5)
+        dev_ms = device_ms(lambda: k7["wrapper"](*args, **kwargs), 5,
+                           kernel_symbols(k7["source"]))[0]
+        byts, flops, op_dtype = k7["cost"](*args, **kwargs)
+        bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
+        if key[1] > 256:
+            k7_wide["ms"] += entry["count"] * ms
+            k7_wide["device_ms"] += entry["count"] * dev_ms
         log({"kernel": "resnet_block_bwd", "shape": list(key[0]), "key": str(key[1:]),
-             "per_step": entry["count"],
-             "kernel_ms": cuda_ms(lambda: k7["wrapper"](*args, **kwargs), 5),
-             "check": "kernel 7 vs plain backward at a multi1248 shape", **res})
+             "per_step": entry["count"], "kernel_ms": ms, "kernel_device_ms": dev_ms,
+             "bound_ms": bound, "device_tflops": flops / dev_ms / 1e9,
+             "bound_share": bound / dev_ms,
+             "check": "kernel 7 vs plain backward at a multi1248 shape, bitwise equal on repeat",
+             **res, "card": card})
+    # the decomposed route (kernels 10 and 11) at the blocks over 256 channels,
+    # which it ran before kernel 7 took them: the A/B, and kernels 10 and 11
+    # checked and timed at its conv shapes
+    csummary = resnet_bwd_ab(wide_k7, card, "multi1248 train step (batch 8, bf16), the blocks "
+                                            "over 256 channels")
     with torch.no_grad():
-        tsummary = route_kernel_checks(rt, record, card, "per_step")
-        conv_bwd_repeat_check(record["conv33_bwd"], card)
+        tsummary = route_kernel_checks({"window_attention": rt["window_attention"]}, record, card,
+                                       "per_step")
+        tsummary.update(csummary)
         ragged = conv_ragged_record()
         route_kernel_checks({n: rt[n] for n in ragged}, ragged, card, "ragged")
         conv_bwd_repeat_check(ragged["conv33_bwd"], card)
@@ -2329,7 +2442,7 @@ def multi1248_phase(table, btable, others, card):
         loss, grad_norm = aux["loss"].item(), aux["grad_norm"].item()
         if not (math.isfinite(loss) and math.isfinite(grad_norm)):
             raise AssertionError(f"multi1248 train step {i}: loss {loss}, grad_norm {grad_norm}")
-        if launches != expected or (routes["unfused"], routes["decomposed"]) != (0, wide["resnet"]):
+        if launches != expected or (routes["unfused"], routes["decomposed"]) != (0, 0):
             raise AssertionError(f"multi1248 train step {i}: launches {launches} != {expected}, "
                                  f"or routes {routes}")
         log({"phase": "multi1248 train step", "step": i, "ms": sec * 1e3, "loss": loss,
@@ -2341,9 +2454,9 @@ def multi1248_phase(table, btable, others, card):
          "ms_per_step": [t * 1e3 for t in times], "median_ms": med * 1e3,
          "train_frames_per_s": TRAIN_BATCH * T / med, "launches_per_step": launches,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-         "conv33_ms_per_step": tsummary["conv33_fwd"]["ms"] + tsummary["conv33_bwd"]["ms"],
-         "conv33_device_ms_per_step": (tsummary["conv33_fwd"]["device_ms"]
-                                       + tsummary["conv33_bwd"]["device_ms"]),
+         "kernel7_cout512_ms_per_step": k7_wide["ms"],
+         "kernel7_cout512_device_ms_per_step": k7_wide["device_ms"],
+         "former_route_cout512": "decomposed (kernels 10-11), timed only: the ab lines",
          "former_route_same_layers": "temporal_layer_unfused (kernel 12) forward and backward "
                                      "on kernel 2's 512-channel inputs, timed only",
          "unfused_layers_fwd_bwd_ms_per_step": tsplit["layer_ms"],
@@ -2365,12 +2478,28 @@ def multi1248_phase(table, btable, others, card):
          "decomposed_resnet_backwards_per_step": routes["decomposed"], "card": card})
     del trainer, fd, video
     torch.cuda.empty_cache()
-    train_f32_card_vs_cpu(tcfg)
+    # float32: the blocks over 256 channels take the decomposed route (kernel
+    # 7's float32 body keeps 256), counted from 0 over this step: kernels 10
+    # and 11's launches
+    for c in counters.values():
+        c.launches = 0
+    with counting_routes():
+        routes.update(unfused=0, decomposed=0)
+        train_f32_card_vs_cpu(tcfg)
+    f32_step = {n: c.launches for n, c in counters.items()}
+    if (f32_step["conv33_fwd"], f32_step["conv33_bwd"], routes["decomposed"]) != (
+            2 * wide["resnet"], 2 * wide["resnet"], wide["resnet"]):
+        raise AssertionError(f"multi1248 float32 step: kernels 10 / 11 launched "
+                             f"{f32_step['conv33_fwd']} / {f32_step['conv33_bwd']} times and "
+                             f"{routes['decomposed']} blocks decomposed, not twice / once per "
+                             f"block over 256 channels ({wide['resnet']})")
+    log({"check": "multi1248 float32 train step at batch 1: every resnet backward over 256 "
+                  "channels decomposed (kernels 10 and 11)", "launches": f32_step, "card": card})
     log({"phase": "multi1248 phase", "seconds": time.perf_counter() - t_phase})
     # kernel 12 per sampler call had the wide temporal layer stayed unfused,
-    # kernels 10 and 11 per train step
+    # kernels 10 and 11 per train step at the decomposed route's shapes
     return ({**tsummary, "window_attention": summary["window_attention"]}, call_launches,
-            step_launches, f32_launches)
+            step_launches, f32_launches, f32_step)
 
 
 # Kernels 10 and 11 at shapes off the model's: channels off the kernels'
@@ -2408,21 +2537,24 @@ def conv_bwd_repeat_check(entries, card):
              "shape": list(key[0]), "cout": key[1], "card": card})
 
 
-def resnet_bwd_ab(entries, card):
+def resnet_bwd_ab(entries, card, what="KTH train step (batch 8, bf16)"):
     """Kernel 7 against the decomposed backward (kernels 10-11 and the torch
-    GroupNorm math) at the KTH train step's resnet-backward shapes: ms per
-    step of each, summed over the shapes' counts. Timed and printed only.
+    GroupNorm math) at the recorded resnet-backward `entries` of a step: ms
+    per step of each, summed over the shapes' counts. Timed and printed.
     First, kernels 10 and 11 at every conv shape of those decomposed
-    backwards: checked against their plain versions (bf16 and float32),
-    timed, and kernel 11 checked to repeat bit for bit."""
+    backwards (each block's decomposed backward run as often as the step
+    runs the block): checked against their plain versions (bf16 and
+    float32), timed, and kernel 11 checked to repeat bit for bit; returns
+    their per-step totals (``route_kernel_checks``)."""
     from extdm_tpu_torch.ops import fused_resnet
 
     rt = {n: k for n, k in route_table().items() if n.startswith("conv33")}
     conv_record = {}
     with recording(rt, conv_record), torch.no_grad():
         for entry in entries.values():
-            fused_resnet.resnet_block_bwd_decomposed(*entry["args"], **entry["kwargs"])
-        route_kernel_checks(rt, conv_record, card, "per_ab_block")
+            for _ in range(entry["count"]):
+                fused_resnet.resnet_block_bwd_decomposed(*entry["args"], **entry["kwargs"])
+        summary = route_kernel_checks(rt, conv_record, card, "per_ab_block")
         conv_bwd_repeat_check(conv_record["conv33_bwd"], card)
     del conv_record
     fused_ms = decomposed_ms = 0.0
@@ -2430,12 +2562,17 @@ def resnet_bwd_ab(entries, card):
         args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
         f = cuda_ms(lambda: fused_resnet.resnet_block_bwd(*args, **kwargs), 5)
         d = cuda_ms(lambda: fused_resnet.resnet_block_bwd_decomposed(*args, **kwargs), 5)
+        fd = device_ms(lambda: fused_resnet.resnet_block_bwd(*args, **kwargs), 5,
+                       kernel_symbols("extdm_tpu_torch/csrc/resnet.cu"))[0]
+        dd = device_ms(lambda: fused_resnet.resnet_block_bwd_decomposed(*args, **kwargs), 5)[0]
         fused_ms += count * f
         decomposed_ms += count * d
-        log({"ab": "resnet backward", "shape": list(key[0]), "cout": key[1], "per_step": count,
-             "kernel7_ms": f, "decomposed_ms": d})
-    log({"ab": "resnet backward per KTH train step (batch 8, bf16)", "shapes": len(entries),
+        log({"ab": "resnet backward", "step": what, "shape": list(key[0]), "cout": key[1],
+             "per_step": count, "kernel7_ms": f, "decomposed_ms": d, "kernel7_device_ms": fd,
+             "decomposed_device_ms": dd, "card": card})
+    log({"ab": f"resnet backward per {what}", "shapes": len(entries),
          "kernel7_ms_per_step": fused_ms, "decomposed_ms_per_step": decomposed_ms, "card": card})
+    return summary
 
 
 def resnet_backward_step_ab(trainer, video, counters, want, card):
@@ -2558,21 +2695,23 @@ def main() -> int:
     wsummary, eval_launches, eval_calls = eval_phase(table, btable, {**ae_btable, **rt}, card)
 
     # ---- the multi1248/ada preset (kernels 10-12 on the layers over 256 channels)
-    msummary, m_call, m_step, m_f32 = multi1248_phase(table, btable, {**ae_btable, **wm}, card)
+    msummary, m_call, m_step, m_f32, m_f32_step = multi1248_phase(table, btable,
+                                                                  {**ae_btable, **wm}, card)
 
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the
     # grid-sample backward, on the eval path (all its sampler calls) for
-    # kernel 9, on the multi1248 path for kernels 10 and 11 (per train step)
-    # and, for kernel 12, its float32 UNet forward (in bf16 no layer takes
-    # kernel 12 since kernels 2 and 6 took the 512-channel temporal layer);
-    # with the DM, AE, eval and multi1248 counts of every kernel
+    # kernel 9, on the multi1248 path in float32 for kernels 10 and 11 (its
+    # train step: the blocks over 256 channels, which kernel 7 takes in
+    # bf16) and kernel 12 (its UNet forward: in bf16 no layer takes kernel 12
+    # since kernels 2 and 6 took the 512-channel temporal layer); with the
+    # DM, AE, eval and multi1248 counts of every kernel
     summaries = {**summary, **bsummary, **aesummary, **{"stw_layer_wm": wsummary}, **msummary}
     kernels = []
     for name, k in {**table, **btable, **ae_btable, **wm, **rt}.items():
         s = summaries[name]
         if name in rt:
-            path_launches = m_step[name] if name.startswith("conv33") else m_f32[name]
+            path_launches = m_f32_step[name] if name.startswith("conv33") else m_f32[name]
         elif name in wm:
             path_launches = eval_launches[name]
         else:
@@ -2587,6 +2726,7 @@ def main() -> int:
                         "multi1248_call_launches": m_call[name],
                         "multi1248_step_launches": m_step[name],
                         "multi1248_f32_forward_launches": m_f32[name],
+                        "multi1248_f32_step_launches": m_f32_step[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
@@ -2600,6 +2740,7 @@ def main() -> int:
                         **({"parent_body_device_ms": s["parent_device_ms"]}
                            if "parent_device_ms" in s else {}),
                         **({"kernel1_same_layers_ms": s["kernel1_layer_ms"],
+                            "kernel1_same_layers_device_ms": s["kernel1_device_ms"],
                             "layer_ms_with_partition": s["layer_ms"]} if name in wm else {})})
     log({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The five end-to-end metrics of ``chip_smoke.py``, timed alone, on one NVIDIA GPU.
+"""The end-to-end metrics of ``chip_smoke.py``, timed alone, on one NVIDIA GPU.
 
     python3 e2e_ab.py [--calls N]
 
@@ -13,6 +13,8 @@ ending in ``torch.cuda.synchronize()``) of:
   kth_step_ms        the KTH train step at batch 8 (bf16 compute, remat);
   eval_call_ms       the eval sampler call: the KTH sampler at batch 16
                      (4 videos x 4 trajectories) in layout "auto";
+  eval_call_l0_ms    the same call in layout "0" (kernel 1 on every window
+                     layer): whether the window-major layout pays;
   m1248_sampler_ms   the multi1248/ada sampler at batch 4;
   m1248_step_ms      the multi1248/ada train step at batch 8;
 
@@ -128,6 +130,8 @@ def main() -> int:
         "kth_step_ms": step_metric(kth_training_config(bf16), 2, args.calls),
         "eval_call_ms": sampler_metric(kth_sampling_config(dtype=bf16, stw_window_major="auto"),
                                        EVAL_BATCH, 4, args.calls),
+        "eval_call_l0_ms": sampler_metric(kth_sampling_config(dtype=bf16, stw_window_major="0"),
+                                          EVAL_BATCH, 4, args.calls),
         "m1248_sampler_ms": sampler_metric(kth_multi1248_config(dtype=bf16), BATCH, 6,
                                            args.calls),
         "m1248_step_ms": step_metric(kth_multi1248_config(dtype=bf16, remat=True), 7, args.calls),

@@ -13,7 +13,8 @@
 // They are the convs of the decomposed resnet backward
 // (ops/fused_resnet.py resnet_block_bwd_decomposed, the counterpart of
 // pallas_resnet._chunked_bwd): the route for blocks the whole-block backward
-// kernel does not take (Cout > 256), and an A/B option for every block.
+// kernel does not take (float32 over 256 channels), and an A/B option for
+// every block.
 //
 // Bound on the H100: operations. A forward at 512 -> 512 channels over
 // P = 3,840 pixels is 2 * 9 * Cin * Cout * P = 18.1 GFLOP (18 us at 989
@@ -221,31 +222,8 @@ __global__ void __launch_bounds__(GT, 1)
   conv_tile<false>(ring, &wmap, in, bias, out, P, H, W, K, N, blockIdx.x * GM, blockIdx.y * GN);
 }
 
-// Kernel 11: din and dW in one launch, so that the two products' blocks
-// share the SMs (one launch each leaves most SMs idle in dW's last wave).
-// Blocks [0, din_rows * din_cols): din = the mirrored conv of da, tile
-// (b / din_cols, b % din_cols), first since they are the longer (9 x Cout /
-// GK steps); then dW's tiles, Cin tiles fastest, then Cout tiles, then the
-// 9 x splits (split, tap) pairs. din_cols = ceil(Cin / GN), wgrad_ci =
-// ceil(Cin / GM), wgrad_co = ceil(Cout / GN).
-__global__ void __launch_bounds__(GT, 1)
-    bwd_wgmma_kernel(__grid_constant__ const CUtensorMap wmap,
-                     __grid_constant__ const CUtensorMap damap, const bf16* __restrict__ da,
-                     const bf16* __restrict__ a_in, float* __restrict__ din,
-                     float* __restrict__ part, int P, int H, int W, int Cin, int Cout, int per,
-                     int din_blocks, int din_cols, int wgrad_ci, int wgrad_co) {
-  extern __shared__ uint8_t smem[];
-  const Ring<> ring(smem);
-  const int b = blockIdx.x;  // 32-bit, once per block
-  if (b < din_blocks) {
-    conv_tile<true>(ring, &wmap, da, nullptr, din, P, H, W, Cout, Cin, b / din_cols * GM,
-                    b % din_cols * GN);
-  } else {
-    const int w = b - din_blocks, tiles = wgrad_ci * wgrad_co, zt = w / tiles, t = w % tiles;
-    wgrad_tile(ring, &damap, a_in, part + (long long)zt * Cin * Cout, P, H, W, Cin, Cout, per,
-               t % wgrad_ci * GM, t / wgrad_ci * GN, zt / 9, zt % 9);
-  }
-}
+// Kernel 11 is conv_ring.cuh's bwd_wgmma_kernel<9> (bwd_products), which
+// kernel 7 shares.
 
 // ---------------------------------------------------------------- launches
 template <bool MIRROR>
@@ -288,21 +266,9 @@ cudaError_t fwd_bf16(const CUtensorMap& wmap, const bf16* x, const float* bias, 
 
 int bwd_bf16(const bf16* da, const bf16* a_in, const bf16* w, float* din, float* part, float* dw,
              int P, int H, int W, int Cin, int Cout, int splits, cudaStream_t stream) {
-  CUtensorMap wmap, damap;
-  int code = weight_map(&wmap, w, Cin, Cout);
-  if (code != 0) return code;
-  if ((code = rows_map(&damap, da, P, Cout)) != 0) return code;
-  const int steps = (P + GK - 1) / GK, per = (steps + splits - 1) / splits;
-  const int din_cols = (Cin + GN - 1) / GN, din_blocks = (P + GM - 1) / GM * din_cols;
-  const int wgrad_ci = (Cin + GM - 1) / GM, wgrad_co = (Cout + GN - 1) / GN;
-  cudaError_t err = cudaFuncSetAttribute(bwd_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = din_blocks + wgrad_ci * wgrad_co * 9 * splits;
-  bwd_wgmma_kernel<<<blocks, GT, SMEM, stream>>>(wmap, damap, da, a_in, din,
-                                                 splits == 1 ? dw : part, P, H, W, Cin, Cout,
-                                                 per, din_blocks, din_cols, wgrad_ci, wgrad_co);
-  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return (int)err;
+  const int code = bwd_products<9>(da, a_in, w, din, splits == 1 ? dw : part, P, H, W, Cin, Cout,
+                                   splits, stream);
+  if (code != 0 || splits == 1) return code;
   return (int)sum_parts(part, splits, 9LL * Cin * Cout, dw, stream);
 }
 

@@ -1,8 +1,10 @@
 // The wgmma implicit-GEMM engine of the (1,3,3) convolutions: a ring of
 // shared-memory stages fed by cp.async (the tap-shifted pixel rows, masked
-// per row) and TMA (the weight boxes), and the tiles built on it. Shared by
-// kernels 10 and 11 (conv33.cu), kernel 3 (resnet.cu) and kernel 5's
-// input-gradient and weight-gradient products (stw_layer_bwd.cu).
+// per row) and TMA (the weight boxes), the tiles built on it, and kernel
+// 11's launch of din and dW tiles (bwd_wgmma_kernel). Shared by kernels 10
+// and 11 (conv33.cu), kernels 3 and 7 (resnet.cu; kernel 7's conv
+// gradients run kernel 11's launch) and kernel 5's input-gradient and
+// weight-gradient products (stw_layer_bwd.cu).
 //
 // 256 threads = two warpgroups, a 128 x 128 float32 tile in registers (64
 // rows per warpgroup, m64n128k16), a reduction step of 64 bf16 (one
@@ -367,6 +369,36 @@ __device__ __forceinline__ void wgrad_tile(const Ring<S>& ring, const CUtensorMa
   store_tile<GN>(acc, out, nullptr, ci0 + 64 * mma.wg, Cin, co0, Cout);
 }
 
+// Kernel 11's launch, shared with kernel 7's gradient products: din and dW
+// in one launch, so that the two products' blocks share the SMs (one launch
+// each leaves most SMs idle in dW's last wave). Blocks [0, din_blocks): din
+// = the mirrored conv of da, tile (b / din_cols, b % din_cols), first since
+// they are the longer (TAPS x Cout / GK steps); then dW's tiles, Cin tiles
+// fastest, then Cout tiles, then the TAPS x splits (split, tap) pairs, each
+// writing part[split][tap] (TAPS, Cin, Cout). TAPS = 1: the 1 x 1 products
+// of a residual projection (din = da w^T, dW = a_in^T da; the centre tap).
+// din_cols = ceil(Cin / GN), wgrad_ci = ceil(Cin / GM), wgrad_co = ceil(Cout
+// / GN).
+template <int TAPS>
+__global__ void __launch_bounds__(GT, 1)
+    bwd_wgmma_kernel(__grid_constant__ const CUtensorMap wmap,
+                     __grid_constant__ const CUtensorMap damap, const bf16* __restrict__ da,
+                     const bf16* __restrict__ a_in, float* __restrict__ din,
+                     float* __restrict__ part, int P, int H, int W, int Cin, int Cout, int per,
+                     int din_blocks, int din_cols, int wgrad_ci, int wgrad_co) {
+  extern __shared__ uint8_t smem[];
+  const Ring<> ring(smem);
+  const int b = blockIdx.x;  // 32-bit, once per block
+  if (b < din_blocks) {
+    conv_tile<true, TAPS>(ring, &wmap, da, nullptr, din, P, H, W, Cout, Cin, b / din_cols * GM,
+                          b % din_cols * GN);
+  } else {
+    const int w = b - din_blocks, tiles = wgrad_ci * wgrad_co, zt = w / tiles, t = w % tiles;
+    wgrad_tile(ring, &damap, a_in, part + (long long)zt * Cin * Cout, P, H, W, Cin, Cout, per,
+               t % wgrad_ci * GM, t / wgrad_ci * GN, zt / TAPS, TAPS == 1 ? 4 : zt % 9);
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // The 3-D map of w (taps, K, N) bf16: dims (N, K, taps), innermost first.
@@ -381,6 +413,31 @@ int rows_map(CUtensorMap* map, const void* m, long long rows, int cols) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows},
                    strides[1] = {(cuuint64_t)cols * 2};
   return bf16_tensor_map(map, m, 2, dims, strides);
+}
+
+// bwd_wgmma_kernel<TAPS> on the stream: din (P, Cin) float32 and the dW
+// partials part (splits, TAPS, Cin, Cout) float32 of da (P, Cout) and a_in
+// (P, Cin) bf16 with w (TAPS, Cin, Cout) bf16; dW's pixels in `splits`
+// ranges of equal steps (the last may be short). Channel counts multiples of
+// 8, operands 16-byte aligned.
+template <int TAPS>
+int bwd_products(const bf16* da, const bf16* a_in, const bf16* w, float* din, float* part, int P,
+                 int H, int W, int Cin, int Cout, int splits, cudaStream_t stream) {
+  CUtensorMap wmap, damap;
+  int code = weight_map(&wmap, w, Cin, Cout, TAPS);
+  if (code != 0) return code;
+  if ((code = rows_map(&damap, da, P, Cout)) != 0) return code;
+  const int steps = (P + GK - 1) / GK, per = (steps + splits - 1) / splits;
+  const int din_cols = (Cin + GN - 1) / GN, din_blocks = (P + GM - 1) / GM * din_cols;
+  const int wgrad_ci = (Cin + GM - 1) / GM, wgrad_co = (Cout + GN - 1) / GN;
+  cudaError_t err = cudaFuncSetAttribute(bwd_wgmma_kernel<TAPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = din_blocks + wgrad_ci * wgrad_co * TAPS * splits;
+  bwd_wgmma_kernel<TAPS><<<blocks, GT, SMEM, stream>>>(wmap, damap, da, a_in, din, part, P, H, W,
+                                                       Cin, Cout, per, din_blocks, din_cols,
+                                                       wgrad_ci, wgrad_co);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -45,10 +45,41 @@
 //   4. gn_silu_add_kernel: out = SiLU(GN2(y2)) + (x or r).
 // Statistics are summed in float within a block and in float64 across
 // blocks, so E[y^2] - E[y]^2 loses nothing that matters at a group size of
-// ~10^6. The float32 path and kernel 7 take weights in PyTorch's Conv layout
-// (Cout, Cin, kh, kw); kernel 7's bf16 convs keep the mma.sync conv_kernel_mma.
-#include <type_traits>
-
+// ~10^6. The float32 path takes weights in PyTorch's Conv layout (Cout, Cin,
+// kh, kw).
+//
+// The backward (kernel 7, replacing pallas_resnet.py _bwd_kernel_impl /
+// _make_bwd_kernel), given x and the output's cotangent g.
+// bf16 (resnet_block_bwd_wgmma): a short sequence of launches on the same
+// engine, behind one call, on operands the entry writes into one scratch
+// buffer (tap-major bf16 weights, float32 vectors and FiLM):
+//   1. the forward again: conv1 and conv2 on conv_gn_kernel (y1, y2 float32),
+//      a1 = bf16(SiLU(GN1(y1) (scale + 1) + shift)) by gn_coef_kernel +
+//      gn_act_kernel, both GroupNorms' statistics summed in a fixed order
+//      (gn_part_kernel<MOMENTS>, gn_moments_kernel);
+//   2. GN2 + SiLU backward: per-(b, c) sums of du = g SiLU'(u) and du yhat
+//      over pixel chunks, added in order (gn_part_kernel, gn_group_kernel,
+//      gn_channel_kernel: dscale2, dbias2, db2 and the residual's dbres);
+//      dy2 in bf16 (gn_dy_kernel);
+//   3. conv2's gradients on kernel 11's launch (conv_ring.cuh
+//      bwd_wgmma_kernel<9>: din and dW tiles together): dh1 (float32) and
+//      dW2, whose pixel splits conv_layout_kernel adds in order while it
+//      writes PyTorch's layout; din reads w2[8 - tap] K-major, no flipped copy;
+//   4. GN1 + FiLM + SiLU backward as 2, with dFiLM (B, 2 Cout): dy1 in bf16;
+//   5. conv1's gradients likewise: dx1 (float32) and dW1;
+//   6. the residual projection's 1 x 1 products on bwd_wgmma_kernel<1>: dres =
+//      g Wres^T (float32), dWres = x^T g;
+//   7. dx = bf16(dx1 + (dres or g)), rounded once (dx_kernel).
+// Rounding: where JAX's kernel rounds: the recomputed conv outputs y1, y2
+// (JAX's a1, a2), dh1 and the sum dx stay float32; only the conv inputs a1
+// (JAX's h1c) and dy1, dy2 (JAX's md_c) are bf16, and dx once at the end.
+// Every sum is added in a fixed order (no float atomics): the gradients are
+// the same bit for bit on every run. Any Cout (at most 32 groups dividing
+// it); channel counts padded to multiples of 8 as for kernel 3.
+// float32 (resnet_block_bwd, the check path): the FMA convs above recompute
+// the forward; the GroupNorm backward's per-channel sums sit in 256-entry
+// shared arrays (Cout <= 256); dgrad convs with flipped, transposed
+// weights; conv_wgrad_kernel for the weight gradients.
 #include "conv_ring.cuh"
 
 namespace {
@@ -187,129 +218,6 @@ __global__ void __launch_bounds__(NT) conv_kernel(const T* __restrict__ in, cons
   }
 }
 
-// ---- bf16 tensor-core variant
-constexpr int PS = 24;  // bf16 stride of a staged pixel / weight row: 16 used, 24 spreads banks
-
-template <int K, bool XFORM, bool STATS>
-__global__ void __launch_bounds__(NT) conv_kernel_mma(const bf16* __restrict__ in,
-                                                     const bf16* __restrict__ w,
-                                                     const float* __restrict__ bias,
-                                                     bf16* __restrict__ out, GNIn gn,
-                                                     double* __restrict__ out_stats,
-                                                     int out_groups, int F, int H, int W, int Cin,
-                                                     int Cout) {
-  constexpr int P = PXT + K - 1;
-  __shared__ __align__(16) bf16 patch[P * P * PS];       // [pixel][input channel]
-  __shared__ __align__(16) bf16 wbuf[K * K * CO_T * PS];  // [tap][output channel][input channel]
-  __shared__ float g_mean[MAXG], g_rstd[MAXG];
-  __shared__ float s_sum[MAXG], s_sq[MAXG];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mt = warp & 3, ng = warp >> 2;  // 16-pixel row block, 32-channel half
-  const int tiles_w = (W + PXT - 1) / PXT;
-  const int y0 = (blockIdx.x / tiles_w) * PXT, x0 = (blockIdx.x % tiles_w) * PXT;
-  const int co0 = blockIdx.y * CO_T;
-  const int frame = blockIdx.z, b = frame / F;
-  const bf16* in_f = in + (long long)frame * H * W * Cin;
-
-  if (XFORM && tid < gn.groups) {
-    const double n = (double)F * H * W * (Cin / gn.groups);
-    group_moments(gn.stats, b, tid, gn.groups, n, gn.eps, &g_mean[tid], &g_rstd[tid]);
-  }
-  if (STATS && tid < MAXG) {
-    s_sum[tid] = 0.f;
-    s_sq[tid] = 0.f;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const int p0 = 16 * mt + g, p1 = p0 + 8;  // this thread's fragment rows (pixels)
-
-  for (int c0 = 0; c0 < Cin; c0 += CI_T) {
-    __syncthreads();
-    for (int e = tid; e < P * P * CI_T; e += NT) {
-      const int cl = e % CI_T, pix = e / CI_T;
-      const int gy = y0 + pix / P - K / 2, gx = x0 + pix % P - K / 2, ci = c0 + cl;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < Cin) {
-        v = to_f(in_f[((long long)gy * W + gx) * Cin + ci]);
-        if (XFORM) {
-          const int gi = ci / (Cin / gn.groups);
-          v = (v - g_mean[gi]) * g_rstd[gi] * gn.scale[ci] + gn.bias[ci];
-          if (gn.film != nullptr) {
-            const float* f = gn.film + (long long)b * 2 * Cin;
-            v = v * (f[ci] + 1.f) + f[Cin + ci];
-          }
-          v = silu(v);
-        }
-      }
-      patch[pix * PS + cl] = __float2bfloat16(v);
-    }
-    for (int e = tid; e < K * K * CO_T * CI_T; e += NT) {
-      const int cl = e % CI_T, rest = e / CI_T;  // rest = tap * CO_T + col
-      const int col = rest % CO_T, tap = rest / CO_T;
-      const int co = co0 + col, ci = c0 + cl;
-      wbuf[rest * PS + cl] = (co < Cout && ci < Cin) ? w[((long long)co * Cin + ci) * K * K + tap]
-                                                     : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < K * K; ++tap) {
-      const int dy = tap / K, dx = tap % K;
-      const bf16* a_lo = patch + ((p0 / PXT + dy) * P + p0 % PXT + dx) * PS + 2 * t4;
-      const bf16* a_hi = patch + ((p1 / PXT + dy) * P + p1 % PXT + dx) * PS + 2 * t4;
-      const uint32_t a0 = ld2(a_lo), a1 = ld2(a_hi), a2 = ld2(a_lo + 8), a3 = ld2(a_hi + 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* bp = wbuf + (tap * CO_T + 32 * ng + 8 * j + g) * PS + 2 * t4;
-        mma_bf16(acc[j], a0, a1, a2, a3, ld2(bp), ld2(bp + 8));
-      }
-    }
-  }
-
-  const int cg = STATS ? Cout / out_groups : 1;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int co = co0 + 32 * ng + 8 * j + 2 * t4 + e;
-      float s = 0.f, sq = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = h ? p1 : p0, gy = y0 + p / PXT, gx = x0 + p % PXT;
-        if (gy < H && gx < W && co < Cout) {
-          const float v = round_to<bf16>(acc[j][2 * h + e] + (bias != nullptr ? bias[co] : 0.f));
-          out[(((long long)frame * H + gy) * W + gx) * Cout + co] = __float2bfloat16(v);
-          s += v;
-          sq += v * v;
-        }
-      }
-      if (STATS) {  // sum over the 8 lanes that share this channel, then one atomic
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          s += __shfl_xor_sync(0xffffffffu, s, o);
-          sq += __shfl_xor_sync(0xffffffffu, sq, o);
-        }
-        if (g == 0 && co < Cout) {
-          atomicAdd(&s_sum[co / cg], s);
-          atomicAdd(&s_sq[co / cg], sq);
-        }
-      }
-    }
-  }
-  if (STATS) {
-    __syncthreads();
-    if (tid < out_groups) {
-      atomicAdd(&out_stats[(b * out_groups + tid) * 2], (double)s_sum[tid]);
-      atomicAdd(&out_stats[(b * out_groups + tid) * 2 + 1], (double)s_sq[tid]);
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NT) gn_silu_add_kernel(const T* __restrict__ y,
                                                         const double* __restrict__ stats,
@@ -334,13 +242,8 @@ template <typename T, int K, bool XFORM, bool STATS>
 cudaError_t conv(const T* in, const T* w, const float* bias, T* out, GNIn gn, double* out_stats,
                  int groups, int B, int F, int H, int W, int Cin, int Cout, cudaStream_t stream) {
   const dim3 grid(((H + PXT - 1) / PXT) * ((W + PXT - 1) / PXT), (Cout + CO_T - 1) / CO_T, B * F);
-  if constexpr (std::is_same<T, bf16>::value) {
-    conv_kernel_mma<K, XFORM, STATS><<<grid, NT, 0, stream>>>(in, w, bias, out, gn, out_stats,
-                                                              groups, F, H, W, Cin, Cout);
-  } else {
-    conv_kernel<T, K, XFORM, STATS><<<grid, NT, 0, stream>>>(in, w, bias, out, gn, out_stats,
-                                                            groups, F, H, W, Cin, Cout);
-  }
+  conv_kernel<T, K, XFORM, STATS><<<grid, NT, 0, stream>>>(in, w, bias, out, gn, out_stats, groups,
+                                                          F, H, W, Cin, Cout);
   return cudaGetLastError();
 }
 
@@ -380,7 +283,7 @@ constexpr int SLOTS = 8;  // samples a tile's statistics collect in shared memor
 // One conv of the block on the wgmma engine. Blocks (x, y < cols): out =
 // conv(in, w) + bias, float32 (P, N), and the per-(sample, group) sum and
 // sum of squares of the real channels (< C, groups of C / groups) added into
-// stats (B, groups, 2). Blocks y >= cols (with a residual projection):
+// stats (B, groups, 2), unless stats is null (kernel 7 sums them in order). Blocks y >= cols (with a residual projection):
 // rout = in Wres + rbias on the same tile with one tap, no statistics.
 // S: pixels a sample. Grid: (ceil(P / GM), cols (+ cols)) of tiles BN
 // columns wide. RS ring stages, MINB blocks an SM (fused_resnet.resnet_plan).
@@ -428,7 +331,7 @@ __global__ void __launch_bounds__(GT, MINB)
         *reinterpret_cast<float2*>(out + (long long)r * N + nb) = make_float2(v[h][0], v[h][1]);
     }
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
+    for (int e = 0; e < 2 && stats != nullptr; ++e) {
       const int n = nb + e;
       if (uniform) {
         float s = 0.f, sq = 0.f;
@@ -460,6 +363,7 @@ __global__ void __launch_bounds__(GT, MINB)
       }
     }
   }
+  if (stats == nullptr) return;
   __syncthreads();
   for (int i = tid; i < SLOTS * groups; i += GT) {
     const int sl = i / groups, gi = i % groups;
@@ -474,26 +378,34 @@ __global__ void __launch_bounds__(GT, MINB)
 
 // coef[b][c] = (a, d) such that GroupNorm (+ FiLM) of y is y a + d: a = rstd
 // scale (k), d = (bias - mean rstd scale) (k) (+ shift), k = FiLM scale + 1;
-// (0, 0) for the pad channels c >= C of a row of ld.
-__global__ void __launch_bounds__(NT) gn_coef_kernel(GNIn gn, float2* __restrict__ coef, int B,
-                                                    int C, int ld, long long S) {
+// (0, 0) for the pad channels c >= C of a row of ld. Kernel 7 also takes cf
+// (or null): cf[b][c] = (mean, rstd of c's group, sk = scale k, bk = bias k
+// + shift), so that yhat = (y - mean) rstd and the SiLU's input u = yhat sk +
+// bk; zero for the pad channels.
+__global__ void __launch_bounds__(NT) gn_coef_kernel(GNIn gn, float2* __restrict__ coef,
+                                                    float4* __restrict__ cf, int B, int C, int ld,
+                                                    long long S) {
   const double n = (double)S * (C / gn.groups);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * ld; i += gridDim.x * blockDim.x) {
     const int b = i / ld, c = i % ld;
     float2 v = make_float2(0.f, 0.f);
+    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
     if (c < C) {
-      float mean, rstd;
+      float mean, rstd, k = 1.f, shift = 0.f;
       group_moments(gn.stats, b, c / (C / gn.groups), gn.groups, n, gn.eps, &mean, &rstd);
       v.x = rstd * gn.scale[c];
       v.y = gn.bias[c] - mean * v.x;
       if (gn.film != nullptr) {
         const float* f = gn.film + (long long)b * 2 * C;
-        const float k = f[c] + 1.f;
+        k = f[c] + 1.f;
+        shift = f[C + c];
         v.x *= k;
-        v.y = v.y * k + f[C + c];
+        v.y = v.y * k + shift;
       }
+      w = make_float4(mean, rstd, gn.scale[c] * k, gn.bias[c] * k + shift);
     }
     coef[i] = v;
+    if (cf != nullptr) cf[i] = w;
   }
 }
 
@@ -711,7 +623,8 @@ int block_wgmma(const bf16* x, const void* w1raw, const void* w2raw, const void*
   if (err != cudaSuccess) return (int)err;
   // 2. a1 = SiLU(FiLM(GN1(y1)))
   const GNIn gn1{stats1, g1s, g1b, film, groups, eps}, gn2{stats2, g2s, g2b, nullptr, groups, eps};
-  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn1, coef, B, Cout, N, S);
+  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn1, coef, nullptr, B, Cout, N,
+                                                              S);
   const long long total4 = Pl * N / 4;
   gn_act_kernel<<<grid_of(total4), NT, 0, stream>>>(reinterpret_cast<const float4*>(y1), coef,
                                                     reinterpret_cast<uint2*>(a1), N, S, total4);
@@ -721,16 +634,16 @@ int block_wgmma(const bf16* x, const void* w1raw, const void* w2raw, const void*
                 H, W, N, N, Cout, groups, (int)S, cols);
   if (err != cudaSuccess) return (int)err;
   // 4. out = SiLU(GN2(y2)) + residual
-  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn2, coef, B, Cout, N, S);
+  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn2, coef, nullptr, B, Cout, N,
+                                                              S);
   gn_silu_res_kernel<<<grid_of(Pl * Cout), NT, 0, stream>>>(y2, coef, x, r, out, Cout, N, S,
                                                            Pl * Cout);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- backward
-// The block's backward given x and the output's cotangent g (kernel 7,
-// replacing pallas_resnet.py _bwd_kernel_impl / _make_bwd_kernel): the
-// forward's convs run again (y1, y2 and their GroupNorm sums), then
+// ---------------------------------------------------------------- backward, float32
+// Kernel 7's check path: the forward's convs run again (y1, y2 and their
+// GroupNorm sums), then
 //   GN2 stage:  per-(b, c) sums of du and du * yhat (du = g SiLU'(u), u the
 //               SiLU's input), from which dscale2, dbias2 and the per-group
 //               means of the GN backward follow; dy2 elementwise;
@@ -1053,6 +966,452 @@ int block_bwd(const T* x, const T* gout, const T* w1, const T* w1f, const float*
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------- kernel 7, bf16
+// The backward on the conv engine (resnet_block_bwd_wgmma; see the header).
+// A GroupNorm stage's backward reads y (float32), the upstream gradient gup
+// (g in bf16 for GN2, dh1 in float32 for GN1) and cf (gn_coef_kernel):
+//   yhat = (y - mean) rstd, u = yhat sk + bk, du = gup SiLU'(u).
+// gn_part_kernel: per-(b, c) sums A, Q, Y, G of du, du yhat, yhat and gup
+//   over a chunk of sample b's pixels, a partial per (chunk, channel);
+// gn_group_kernel: per sample, the partials added in chunk order (float64);
+//   per group the means m1, m2 of dyhat and dyhat yhat (dyhat = du sk); per
+//   channel the coefficients bc = (rstd sk, -rstd m1, -rstd m2) of
+//   dy = bc.x du + bc.y + bc.z yhat, dFiLM (scale Q + bias A | A) and the
+//   per-sample terms of the channel sums;
+// gn_channel_kernel: dscale = sum_b k Q, dbias = sum_b k A, the conv bias's
+//   gradient sum_b (bc.x A + S bc.y + bc.z Y) and the residual bias's sum_b
+//   G, added over the samples in order;
+// gn_dy_kernel: dy in bf16 (JAX's md_c), the gradient products' input.
+// No float atomics: every sum is added in a fixed order.
+struct Sum4 {
+  double a, q, y, g;
+};
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// du and yhat of one element.
+__device__ __forceinline__ void gn_terms(float y, float gup, const float4& cf, float* du,
+                                         float* yh) {
+  *yh = (y - cf.x) * cf.y;
+  *du = gup * silu_grad(*yh * cf.z + cf.w);
+}
+
+constexpr int PART_COLS = 64;  // channels of a gn_part_kernel block: a warp's 32 pairs
+
+// part[b chunks + ch][c] = (A, Q, Y, G) over rows [ch per, (ch + 1) per) of
+// sample b, per = ceil(S / chunks); MOMENTS: (sum of y, of y^2, 0, 0), the
+// recompute's GroupNorm statistics (gup, cf unread). Grid: (B chunks,
+// ceil(ld / 64)); warp w takes rows w, w + 8, ...; the warps' sums are added
+// in order.
+template <typename G, bool MOMENTS = false>
+__global__ void __launch_bounds__(NT) gn_part_kernel(const float* __restrict__ y,
+                                                    const G* __restrict__ gup,
+                                                    const float4* __restrict__ cf,
+                                                    float4* __restrict__ part, int ld, long long S,
+                                                    int chunks) {
+  __shared__ float4 red[NT / 32][PART_COLS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x / chunks, ch = blockIdx.x % chunks;
+  const int c = blockIdx.y * PART_COLS + 2 * lane;
+  const long long per = (S + chunks - 1) / chunks, r0 = ch * per, r1 = min(S, r0 + per);
+  float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+  if (MOMENTS && c < ld) {
+    for (long long r = r0 + warp; r < r1; r += NT / 32) {
+      const float2 yv = load2(y + ((long long)b * S + r) * ld + c);
+      s0.x += yv.x, s0.y += yv.x * yv.x;
+      s1.x += yv.y, s1.y += yv.y * yv.y;
+    }
+  } else if (c < ld) {  // ld is a multiple of 8: c + 1 < ld too
+    const float4 f0 = cf[(long long)b * ld + c], f1 = cf[(long long)b * ld + c + 1];
+    for (long long r = r0 + warp; r < r1; r += NT / 32) {
+      const long long at = ((long long)b * S + r) * ld + c;
+      const float2 yv = load2(y + at), gv = load2(gup + at);
+      float du0, yh0, du1, yh1;
+      gn_terms(yv.x, gv.x, f0, &du0, &yh0);
+      gn_terms(yv.y, gv.y, f1, &du1, &yh1);
+      s0.x += du0, s0.y += du0 * yh0, s0.z += yh0, s0.w += gv.x;
+      s1.x += du1, s1.y += du1 * yh1, s1.z += yh1, s1.w += gv.y;
+    }
+  }
+  red[warp][2 * lane] = s0;
+  red[warp][2 * lane + 1] = s1;
+  __syncthreads();
+  if (warp == 0 && c < ld) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float4 t = red[0][2 * lane + e];
+      for (int w = 1; w < NT / 32; ++w) {
+        const float4 v = red[w][2 * lane + e];
+        t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
+      }
+      part[(long long)blockIdx.x * ld + c + e] = t;
+    }
+  }
+}
+
+// stats[b][g] = (sum of y, of y^2) over sample b's pixels and group g's
+// channels (< C), from gn_part_kernel<MOMENTS>'s partials in float64: a
+// warp a group, lane l adding the (chunk, channel) pairs l, l + 32, ... and
+// the lanes' sums added by a fixed shuffle tree. Grid: B blocks.
+__global__ void __launch_bounds__(NT) gn_moments_kernel(const float4* __restrict__ part,
+                                                       int chunks, double* __restrict__ stats,
+                                                       int groups, int C, int ld) {
+  const int b = blockIdx.x, cg = C / groups, lane = threadIdx.x & 31;
+  for (int gi = threadIdx.x >> 5; gi < groups; gi += NT / 32) {
+    double s = 0.0, ss = 0.0;
+    for (int i = lane; i < chunks * cg; i += 32) {
+      const float4 v = part[((long long)b * chunks + i / cg) * ld + gi * cg + i % cg];
+      s += v.x;
+      ss += v.y;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    if (lane == 0) {
+      stats[((long long)b * groups + gi) * 2] = s;
+      stats[((long long)b * groups + gi) * 2 + 1] = ss;
+    }
+  }
+}
+
+// One block a sample b (see above). sums (B, ld): first the chunks' sums,
+// then the terms gn_channel_kernel adds: (k Q, k A, sum of dy, G).
+__global__ void __launch_bounds__(NT) gn_group_kernel(const float4* __restrict__ part, int chunks,
+                                                     const float4* __restrict__ cf, GNIn gn,
+                                                     float4* __restrict__ bc,
+                                                     Sum4* __restrict__ sums,
+                                                     float* __restrict__ dfilm, int C, int ld,
+                                                     long long S) {
+  __shared__ float2 gm[MAXG];
+  const int b = blockIdx.x, cg = C / gn.groups;
+  Sum4* sb = sums + (long long)b * ld;
+  for (int c = threadIdx.x; c < ld; c += NT) {
+    Sum4 t{0.0, 0.0, 0.0, 0.0};
+    for (int ch = 0; ch < chunks; ++ch) {
+      const float4 v = part[((long long)b * chunks + ch) * ld + c];
+      t.a += v.x, t.q += v.y, t.y += v.z, t.g += v.w;
+    }
+    sb[c] = t;
+  }
+  __syncthreads();
+  const double n = (double)S * cg;
+  for (int gi = threadIdx.x; gi < gn.groups; gi += NT) {
+    double m1 = 0.0, m2 = 0.0;
+    for (int c = gi * cg; c < (gi + 1) * cg; ++c) {
+      const double sk = cf[(long long)b * ld + c].z;
+      m1 += sk * sb[c].a;
+      m2 += sk * sb[c].q;
+    }
+    gm[gi] = make_float2((float)(m1 / n), (float)(m2 / n));
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < ld; c += NT) {
+    if (c >= C) {
+      bc[(long long)b * ld + c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
+    const float4 f = cf[(long long)b * ld + c];
+    const float2 m = gm[c / cg];
+    const float4 k4 = make_float4(f.y * f.z, -f.y * m.x, -f.y * m.y, 0.f);
+    bc[(long long)b * ld + c] = k4;
+    const Sum4 t = sb[c];
+    const double k = gn.film != nullptr ? (double)gn.film[(long long)b * 2 * C + c] + 1.0 : 1.0;
+    if (dfilm != nullptr) {
+      dfilm[(long long)b * 2 * C + c] = (float)(gn.scale[c] * t.q + gn.bias[c] * t.a);
+      dfilm[(long long)b * 2 * C + C + c] = (float)t.a;
+    }
+    sb[c] = Sum4{k * t.q, k * t.a, k4.x * t.a + (double)S * k4.y + k4.z * t.y, t.g};
+  }
+}
+
+// Per channel c < C, the samples' terms added in order: dscale, dbias, the
+// conv bias's gradient db and (dbres not null) the residual bias's.
+__global__ void __launch_bounds__(NT) gn_channel_kernel(const Sum4* __restrict__ sums,
+                                                       float* __restrict__ dscale,
+                                                       float* __restrict__ dbias,
+                                                       float* __restrict__ db,
+                                                       float* __restrict__ dbres, int B, int C,
+                                                       int ld) {
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < C; c += gridDim.x * blockDim.x) {
+    Sum4 t{0.0, 0.0, 0.0, 0.0};
+    for (int b = 0; b < B; ++b) {
+      const Sum4 v = sums[(long long)b * ld + c];
+      t.a += v.a, t.q += v.q, t.y += v.y, t.g += v.g;
+    }
+    dscale[c] = (float)t.a;
+    dbias[c] = (float)t.q;
+    db[c] = (float)t.y;
+    if (dbres != nullptr) dbres[c] = (float)t.g;
+  }
+}
+
+// dy (B S, ld) bf16 = bc.x du + bc.y + bc.z yhat, two channels a thread; the
+// pad channels' coefficients are zero, so are they.
+template <typename G>
+__global__ void __launch_bounds__(NT) gn_dy_kernel(const float* __restrict__ y,
+                                                  const G* __restrict__ gup,
+                                                  const float4* __restrict__ cf,
+                                                  const float4* __restrict__ bc,
+                                                  uint32_t* __restrict__ dy, int ld, long long S,
+                                                  long long pairs) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < pairs;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long e = 2 * i;
+    const int c = (int)(e % ld), b = (int)(e / (S * ld));
+    const long long at = (long long)b * ld + c;
+    const float2 yv = load2(y + e), gv = load2(gup + e);
+    float du0, yh0, du1, yh1;
+    gn_terms(yv.x, gv.x, cf[at], &du0, &yh0);
+    gn_terms(yv.y, gv.y, cf[at + 1], &du1, &yh1);
+    const float4 k0 = bc[at], k1 = bc[at + 1];
+    dy[i] = pack_bf16(k0.x * du0 + k0.y + k0.z * yh0, k1.x * du1 + k1.y + k1.z * yh1);
+  }
+}
+
+// One GroupNorm stage's backward: the four launches above.
+template <typename G>
+cudaError_t gn_stage_bwd(const float* y, const G* gup, const float4* cf, const GNIn& gn,
+                         float4* part, Sum4* sums, float4* bc, float* dscale, float* dbias,
+                         float* db, float* dbres, float* dfilm, bf16* dy, int B, int C, int ld,
+                         long long S, int chunks, cudaStream_t stream) {
+  gn_part_kernel<G><<<dim3(B * chunks, (ld + PART_COLS - 1) / PART_COLS), NT, 0, stream>>>(
+      y, gup, cf, part, ld, S, chunks);
+  gn_group_kernel<<<B, NT, 0, stream>>>(part, chunks, cf, gn, bc, sums, dfilm, C, ld, S);
+  gn_channel_kernel<<<grid_of(C), NT, 0, stream>>>(sums, dscale, dbias, db, dbres, B, C, ld);
+  const long long pairs = S * B * ld / 2;
+  gn_dy_kernel<G><<<grid_of(pairs), NT, 0, stream>>>(y, gup, cf, bc,
+                                                     reinterpret_cast<uint32_t*>(dy), ld, S,
+                                                     pairs);
+  return cudaGetLastError();
+}
+
+// The recompute's GroupNorm statistics stats (B, groups, 2) of y (B S, ld),
+// summed in a fixed order.
+cudaError_t moments(const float* y, float4* part, double* stats, int B, int groups, int C, int ld,
+                    long long S, int chunks, cudaStream_t stream) {
+  gn_part_kernel<float, true><<<dim3(B * chunks, (ld + PART_COLS - 1) / PART_COLS), NT, 0,
+                                 stream>>>(y, y, nullptr, part, ld, S, chunks);
+  gn_moments_kernel<<<B, NT, 0, stream>>>(part, chunks, stats, groups, C, ld);
+  return cudaGetLastError();
+}
+
+// dx (B S, Cin) bf16 = dx1 + (dres or g), rounded once: dx1 and dres of row
+// stride Kin (float32), g of N (bf16).
+__global__ void __launch_bounds__(NT) dx_kernel(const float* __restrict__ dx1,
+                                               const float* __restrict__ dres,
+                                               const bf16* __restrict__ g, bf16* __restrict__ dx,
+                                               int Cin, int Kin, int N, long long total) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long p = i / Cin;
+    const int c = (int)(i - p * Cin);
+    const float r = dres != nullptr ? dres[p * Kin + c] : __bfloat162float(g[p * N + c]);
+    dx[i] = __float2bfloat16(dx1[p * Kin + c] + r);
+  }
+}
+
+// part (splits, taps, Kin, N) float32, the gradient products' partials ->
+// out (Cout, Cin, taps), PyTorch's Conv layout with (kh, kw) flattened: the
+// splits added in order, then tap_major_kernel's transpose undone through a
+// 32 x 32 tile. Grid: (ceil(Cin taps / 32), ceil(Cout / 32)) of 32 x 8.
+__global__ void __launch_bounds__(NT) conv_layout_kernel(const float* __restrict__ part,
+                                                        int splits, float* __restrict__ out,
+                                                        int Cout, int Cin, int taps, int Kin,
+                                                        int N) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x;
+  const long long stride = (long long)taps * Kin * N;
+  for (int i = threadIdx.y; i < 32; i += 8) {  // rows (tap, ci) of part, n along them
+    const int k = k0 + i, n = n0 + tx, ci = k / taps, tap = k % taps;
+    float s = 0.f;
+    if (ci < Cin && n < Cout) {
+      const float* p = part + ((long long)tap * Kin + ci) * N + n;
+      for (int z = 0; z < splits; ++z) s += p[z * stride];
+    }
+    tile[i][tx] = s;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {  // rows n of out, k = ci taps + tap along them
+    const int n = n0 + i, k = k0 + tx;
+    if (n < Cout && k < Cin * taps) out[(long long)n * Cin * taps + k] = tile[tx][i];
+  }
+}
+
+cudaError_t conv_layout(const float* part, int splits, float* out, int Cout, int Cin, int taps,
+                        int Kin, int N, cudaStream_t stream) {
+  const dim3 grid((Cin * taps + 31) / 32, (Cout + 31) / 32), block(32, 8);
+  conv_layout_kernel<<<grid, block, 0, stream>>>(part, splits, out, Cout, Cin, taps, Kin, N);
+  return cudaGetLastError();
+}
+
+// Kernel 7's scratch, carved from one buffer in this order, each region
+// 256-byte aligned (its size: the resnet_bwd_scratch_bytes query below): the
+// tap-major bf16 weights w1 (9, Kin, N), w2 (9, N, N), wres (1, Kin, N); the
+// float32 vectors (7, N) followed by FiLM (B, 2 C); y1 (P, N) float32, a1
+// (P, N) bf16, y2 (P, N) float32 (then dh1), dy (P, N) bf16 (dy2, then dy1),
+// dx1 and dres (P, Kin) float32; the float64 statistics (2, B, G, 2); the
+// float2 coefficients (B, N); cf (2, B, N) and bc (B, N) float4; the sums
+// (B, N) Sum4; the GroupNorm partials (B chunks, N) float4; the gradient
+// products' partials, the largest of the three: splits1 (9, Kin, N),
+// splits2 (9, N, N), splits_r (1, Kin, N) float32.
+struct BwdScratch {
+  size_t w1, w2, wr, vec, y1, a1, y2, dy, dx1, dres, stats, coef, cf, bc, sums, part, wpart, total;
+  BwdScratch(int B, long long P, int Kin, int N, int C, int groups, bool res, bool has_film,
+             int splits1, int splits2, int splits_r, int chunks) {
+    size_t at = 0;
+    auto take = [&at](size_t bytes) {
+      const size_t off = at;
+      at += (bytes + 255) / 256 * 256;
+      return off;
+    };
+    const size_t kn = (size_t)Kin * N, nn = (size_t)N * N;
+    w1 = take(9 * kn * 2);
+    w2 = take(9 * nn * 2);
+    wr = take(res ? kn * 2 : 0);
+    vec = take((7ull * N + (has_film ? 2ull * B * C : 0)) * 4);
+    y1 = take((size_t)P * N * 4);
+    a1 = take((size_t)P * N * 2);
+    y2 = take((size_t)P * N * 4);
+    dy = take((size_t)P * N * 2);
+    dx1 = take((size_t)P * Kin * 4);
+    dres = take(res ? (size_t)P * Kin * 4 : 0);
+    stats = take(4ull * B * groups * 8);
+    coef = take((size_t)B * N * 8);
+    cf = take(2ull * B * N * 16);
+    bc = take((size_t)B * N * 16);
+    sums = take((size_t)B * N * sizeof(Sum4));
+    part = take((size_t)B * chunks * N * 16);
+    size_t wmost = splits1 * 9 * kn;
+    if (splits2 * 9 * nn > wmost) wmost = splits2 * 9 * nn;
+    if (res && splits_r * kn > wmost) wmost = splits_r * kn;
+    wpart = take(wmost * 4);
+    total = at;
+  }
+};
+
+int block_bwd_wgmma(const bf16* x, const bf16* g, const void* w1raw, const void* w2raw,
+                    const void* wresraw, int wdtype, const Vecs& vecs, int vdtype,
+                    const void* filmraw, int fdtype, uint8_t* scratch, long long scratch_bytes,
+                    bf16* dx, float* grads, int B, int F, int H, int W, int Cin, int Cout,
+                    int Kin, int N, int groups, float eps, int stages1, int stages2, int bn,
+                    int splits1, int splits2, int splits_r, int chunks, cudaStream_t stream) {
+  const long long S = (long long)F * H * W, Pl = S * B;
+  const bool res = wresraw != nullptr, has_film = filmraw != nullptr;
+  if (groups > MAXG || Cout % groups || Kin % 8 || N % 8 || Cout > N || Cin > Kin ||
+      Pl >= (1LL << 31) - GM || !aligned16(x) || !aligned16(g) || (!res && Kin != N) ||
+      (wdtype != 0 && wdtype != 1) || (vdtype != 0 && vdtype != 1) ||
+      (has_film && fdtype != 0 && fdtype != 1) || splits1 < 1 || splits2 < 1 || splits_r < 1 ||
+      chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const BwdScratch sc(B, Pl, Kin, N, Cout, groups, res, has_film, splits1, splits2, splits_r,
+                      chunks);
+  if ((long long)sc.total != scratch_bytes) return (int)cudaErrorInvalidValue;
+  const int P = (int)Pl;
+  auto at = [scratch](size_t off) { return scratch + off; };
+  bf16* w1 = reinterpret_cast<bf16*>(at(sc.w1));
+  bf16* w2 = reinterpret_cast<bf16*>(at(sc.w2));
+  bf16* wres = reinterpret_cast<bf16*>(at(sc.wr));
+  float* vec = reinterpret_cast<float*>(at(sc.vec));
+  const float* film = has_film ? vec + 7 * N : nullptr;
+  float* y1 = reinterpret_cast<float*>(at(sc.y1));
+  bf16* a1 = reinterpret_cast<bf16*>(at(sc.a1));
+  float* y2 = reinterpret_cast<float*>(at(sc.y2));
+  float* dh1 = y2;  // y2 is read for the last time by GN2's dy pass
+  bf16* dy = reinterpret_cast<bf16*>(at(sc.dy));
+  float* dx1 = reinterpret_cast<float*>(at(sc.dx1));
+  float* dres = res ? reinterpret_cast<float*>(at(sc.dres)) : nullptr;
+  double* stats = reinterpret_cast<double*>(at(sc.stats));
+  float2* coef = reinterpret_cast<float2*>(at(sc.coef));
+  float4* cf1 = reinterpret_cast<float4*>(at(sc.cf));
+  float4* cf2 = cf1 + (long long)B * N;
+  float4* bc = reinterpret_cast<float4*>(at(sc.bc));
+  Sum4* sums = reinterpret_cast<Sum4*>(at(sc.sums));
+  float4* part = reinterpret_cast<float4*>(at(sc.part));
+  float* wpart = reinterpret_cast<float*>(at(sc.wpart));
+  const float *b1 = vec, *b2 = vec + N, *g1s = vec + 2 * N, *g1b = vec + 3 * N,
+              *g2s = vec + 4 * N, *g2b = vec + 5 * N;
+  // the gradients, in the caller's one float32 buffer (resnet_block_bwd_wgmma)
+  float* dw1 = grads;
+  float* dw2 = dw1 + 9LL * Cout * Cin;
+  float* dwres = dw2 + 9LL * Cout * Cout;
+  float* dvec = dwres + (res ? (long long)Cout * Cin : 0);
+  float *db1 = dvec, *dg1s = dvec + Cout, *dg1b = dvec + 2 * Cout, *db2 = dvec + 3 * Cout,
+        *dg2s = dvec + 4 * Cout, *dg2b = dvec + 5 * Cout;
+  float* dbres = res ? dvec + 6 * Cout : nullptr;
+  float* dfilm = has_film ? dvec + (res ? 7 : 6) * Cout : nullptr;
+
+  // 0. the operands: tap-major bf16 weights, float32 vectors and FiLM, zero sums
+  cudaError_t err = tap_major(wdtype, w1raw, w1, Cout, Cin, 9, Kin, N, stream);
+  if (err == cudaSuccess) err = tap_major(wdtype, w2raw, w2, Cout, Cout, 9, N, N, stream);
+  if (err == cudaSuccess && res)
+    err = tap_major(wdtype, wresraw, wres, Cout, Cin, 1, Kin, N, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int filmn = has_film ? 2 * B * Cout : 0;
+  vec_kernel<<<grid_of(7LL * N + filmn), NT, 0, stream>>>(vecs, vdtype, filmraw, fdtype, vec, Cout,
+                                                         N, filmn);
+  CUtensorMap m1, m2;
+  int code = weight_map(&m1, w1, Kin, N);
+  if (code == 0) code = weight_map(&m2, w2, N, N);
+  if (code != 0) return code;
+  double* stats1 = stats;
+  double* stats2 = stats + 2 * B * groups;
+  const GNIn gn1{stats1, g1s, g1b, film, groups, eps}, gn2{stats2, g2s, g2b, nullptr, groups, eps};
+  const int rows = (P + GM - 1) / GM, cols = (N + bn - 1) / bn;
+  // 1. the forward again on kernel 3's convs: y1, a1, y2 and both stages'
+  // coefficients; the GroupNorm statistics summed in order (kernel 3 adds
+  // them by atomics), so that every gradient repeats bit for bit
+  err = conv_gn(stages1, bn, rows, cols, stream, m1, m1, x, b1, y1, nullptr, nullptr, nullptr, P,
+                H, W, Kin, N, Cout, groups, (int)S, cols);
+  if (err == cudaSuccess) err = moments(y1, part, stats1, B, groups, Cout, N, S, chunks, stream);
+  if (err != cudaSuccess) return (int)err;
+  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn1, coef, cf1, B, Cout, N, S);
+  const long long total4 = Pl * N / 4;
+  gn_act_kernel<<<grid_of(total4), NT, 0, stream>>>(reinterpret_cast<const float4*>(y1), coef,
+                                                    reinterpret_cast<uint2*>(a1), N, S, total4);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = conv_gn(stages2, bn, rows, cols, stream, m2, m2, a1, b2, y2, nullptr, nullptr, nullptr, P,
+                H, W, N, N, Cout, groups, (int)S, cols);
+  if (err == cudaSuccess) err = moments(y2, part, stats2, B, groups, Cout, N, S, chunks, stream);
+  if (err != cudaSuccess) return (int)err;
+  gn_coef_kernel<<<grid_of((long long)B * N), NT, 0, stream>>>(gn2, coef, cf2, B, Cout, N, S);
+  // 2. GN2 + SiLU backward: dscale2, dbias2, db2 (and dbres), dy2
+  err = gn_stage_bwd<bf16>(y2, g, cf2, gn2, part, sums, bc, dg2s, dg2b, db2, dbres, nullptr, dy, B,
+                           Cout, N, S, chunks, stream);
+  if (err != cudaSuccess) return (int)err;
+  // 3. conv2's gradients: dh1 (float32) and dW2
+  if ((code = bwd_products<9>(dy, a1, w2, dh1, wpart, P, H, W, N, N, splits2, stream)) != 0)
+    return code;
+  if ((err = conv_layout(wpart, splits2, dw2, Cout, Cout, 9, N, N, stream)) != cudaSuccess)
+    return (int)err;
+  // 4. GN1 + FiLM + SiLU backward: dscale1, dbias1, db1, dFiLM, dy1
+  err = gn_stage_bwd<float>(y1, dh1, cf1, gn1, part, sums, bc, dg1s, dg1b, db1, nullptr, dfilm, dy,
+                            B, Cout, N, S, chunks, stream);
+  if (err != cudaSuccess) return (int)err;
+  // 5. conv1's gradients: dx1 (float32) and dW1
+  if ((code = bwd_products<9>(dy, x, w1, dx1, wpart, P, H, W, Kin, N, splits1, stream)) != 0)
+    return code;
+  if ((err = conv_layout(wpart, splits1, dw1, Cout, Cin, 9, Kin, N, stream)) != cudaSuccess)
+    return (int)err;
+  // 6. the residual projection's 1 x 1 products: dres = g Wres^T, dWres = x^T g
+  if (res) {
+    if ((code = bwd_products<1>(g, x, wres, dres, wpart, P, H, W, Kin, N, splits_r, stream)) != 0)
+      return code;
+    if ((err = conv_layout(wpart, splits_r, dwres, Cout, Cin, 1, Kin, N, stream)) != cudaSuccess)
+      return (int)err;
+  }
+  // 7. dx = bf16(dx1 + (dres or g)), one rounding
+  dx_kernel<<<grid_of(Pl * Cin), NT, 0, stream>>>(dx1, dres, g, dx, Cin, Kin, N, Pl * Cin);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Kernel 3 in float32 (the check path; dtype 0, bf16 takes
@@ -1108,14 +1467,15 @@ extern "C" long long resnet_scratch_bytes(int B, long long P, int Kin, int N, in
   return (long long)Scratch(B, P, Kin, N, C, groups, res != 0, film != 0).total;
 }
 
-// Gradients of resnet_block given x and the output's cotangent gout. w1f,
-// w2f: the conv weights flipped in (kh, kw) and transposed to (Cin', Cout'),
-// the layout of the dgrad convs; wresf (Cin, Cout) or null. Scratch: y1, y2,
-// a1, dy2, da1, dy1 of the output's shape, dx1 and dres (with wresf) of x's,
-// stats (2, B, groups, 2) and sums (2, B, Cout, 2) float64 zeroed by the
-// caller, coef (2, B, groups, 2), part_w and part_b large enough for the
-// largest of the three weight-gradient splits. Gradients of the float
-// operands are float32; dfilm (B, 2 Cout) or null.
+// Kernel 7 in float32 (the check path; bf16 takes resnet_block_bwd_wgmma):
+// the gradients of resnet_block given x and the output's cotangent gout.
+// w1f, w2f: the conv weights flipped in (kh, kw) and transposed to (Cin',
+// Cout'), the layout of the dgrad convs; wresf (Cin, Cout) or null. Scratch:
+// y1, y2, a1, dy2, da1, dy1 of the output's shape, dx1 and dres (with wresf)
+// of x's, stats (2, B, groups, 2) and sums (2, B, Cout, 2) float64 zeroed by
+// the caller, coef (2, B, groups, 2), part_w and part_b large enough for the
+// largest of the three weight-gradient splits. Cout <= 256. Gradients of the
+// float operands are float32; dfilm (B, 2 Cout) or null.
 extern "C" int resnet_block_bwd(int dtype, const void* x, const void* gout, const void* w1,
                                 const void* w1f, const float* b1, const float* g1s,
                                 const float* g1b, const float* film, const void* w2,
@@ -1129,11 +1489,57 @@ extern "C" int resnet_block_bwd(int dtype, const void* x, const void* gout, cons
                                 int W, int Cin, int Cout, int groups, float eps, int splits1,
                                 int splits2, int splits_res, void* stream) {
   if ((long long)B * F * H * W == 0) return 0;
-  DISPATCH_DTYPE(dtype, return block_bwd<T>(
-      (const T*)x, (const T*)gout, (const T*)w1, (const T*)w1f, b1, g1s, g1b, film, (const T*)w2,
-      (const T*)w2f, b2, g2s, g2b, (const T*)wresf, (T*)y1, (T*)y2, (T*)a1, (T*)dy2, (T*)da1,
-      (T*)dy1, (T*)dx1, (T*)dres, stats, sums, coef, part_w, part_b, (T*)dx, dw1, db1, dg1s, dg1b,
-      dfilm, dw2, db2, dg2s, dg2b, dwres, dbres, B, F, H, W, Cin, Cout, groups, eps, splits1,
-      splits2, splits_res, (cudaStream_t)stream));
-  return 0;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: resnet_block_bwd_wgmma
+  return block_bwd<float>(
+      (const float*)x, (const float*)gout, (const float*)w1, (const float*)w1f, b1, g1s, g1b, film,
+      (const float*)w2, (const float*)w2f, b2, g2s, g2b, (const float*)wresf, (float*)y1,
+      (float*)y2, (float*)a1, (float*)dy2, (float*)da1, (float*)dy1, (float*)dx1, (float*)dres,
+      stats, sums, coef, part_w, part_b, (float*)dx, dw1, db1, dg1s, dg1b, dfilm, dw2, db2, dg2s,
+      dg2b, dwres, dbres, B, F, H, W, Cin, Cout, groups, eps, splits1, splits2, splits_res,
+      (cudaStream_t)stream);
+}
+
+// Kernel 7 in bf16 on the conv engine. x (B, F, H, W, Kin) and g (B, F, H,
+// W, N) bf16, the channels past Cin and Cout zero (Kin, N: Cin and Cout
+// rounded up to multiples of 8); the block's parameters as the caller holds
+// them, as for resnet_block_wgmma (bres is not needed). scratch:
+// scratch_bytes of device memory (resnet_bwd_scratch_bytes). dx (B, F, H, W,
+// Cin) bf16; grads: one float32 buffer of dw1 (Cout, Cin, 3, 3), dw2 (Cout,
+// Cout, 3, 3), dwres (Cout, Cin) with wres, then db1, dg1s, dg1b, db2, dg2s,
+// dg2b and, with wres, dbres (Cout each), then dfilm (B, 2 Cout) with film.
+// stages1, stages2, bn: the recompute's rings and tile width (as kernel 3's);
+// splits1, splits2, splits_r: the pixel splits of dW1, dW2 and dWres;
+// chunks: the pixel chunks of a sample in the GroupNorm sums
+// (fused_resnet.resnet_bwd_plan).
+extern "C" int resnet_block_bwd_wgmma(const void* x, const void* g, const void* w1, const void* w2,
+                                      const void* wres, int wdtype, const void* b1,
+                                      const void* g1s, const void* g1b, const void* b2,
+                                      const void* g2s, const void* g2b, int vdtype,
+                                      const void* film, int fdtype, void* scratch,
+                                      long long scratch_bytes, void* dx, float* grads, int B,
+                                      int F, int H, int W, int Cin, int Cout, int Kin, int N,
+                                      int groups, float eps, int stages1, int stages2, int bn,
+                                      int splits1, int splits2, int splits_r, int chunks,
+                                      void* stream) {
+  if ((long long)B * F * H * W == 0) return 0;
+  const Vecs vecs{{b1, b2, g1s, g1b, g2s, g2b, nullptr}};
+  return block_bwd_wgmma((const bf16*)x, (const bf16*)g, w1, w2, wres, wdtype, vecs, vdtype, film,
+                         fdtype, (uint8_t*)scratch, scratch_bytes, (bf16*)dx, grads, B, F, H, W,
+                         Cin, Cout, Kin, N, groups, eps, stages1, stages2, bn, splits1, splits2,
+                         splits_r, chunks, (cudaStream_t)stream);
+}
+
+// Bytes of the scratch resnet_block_bwd_wgmma takes for B samples of P
+// pixels, Kin -> N padded channels (C real output channels), with the
+// residual projection (res) and FiLM (film) or without, and the plan's
+// splits and chunks; -1 for no block.
+extern "C" long long resnet_bwd_scratch_bytes(int B, long long P, int Kin, int N, int C,
+                                              int groups, int res, int film, int splits1,
+                                              int splits2, int splits_r, int chunks) {
+  if (B < 1 || P < 0 || Kin < 1 || N < 1 || C < 1 || C > N || groups < 1 || splits1 < 1 ||
+      splits2 < 1 || splits_r < 1 || chunks < 1)
+    return -1;
+  return (long long)BwdScratch(B, P, Kin, N, C, groups, res != 0, film != 0, splits1, splits2,
+                               splits_r, chunks)
+      .total;
 }

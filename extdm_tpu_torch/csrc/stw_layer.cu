@@ -3,7 +3,9 @@
 // over 3-D windows of the padded, rolled (B, T, H, W, C) input; and the whole
 // PreNormTemporalAttn layer, x + h + Wout(softmax(rope(q) rope(k)^T + bias) v)
 // with h = ChanLN(x) and qkv = LN(h) Wqkv, attention over each pixel's T
-// frames. One body, templated on the layer kind (TP: temporal).
+// frames. One body, templated on where a tile's rows come from (Rows: the
+// window layer's volume, the temporal layer's sequences, or pre-windowed
+// tokens).
 //
 //   stw_layer_wgmma       replaces extdm_tpu/ops/pallas_stw.py fused_stw_layer
 //                         (_fused_padded -> _make_kernel) for bf16 layers of
@@ -17,6 +19,13 @@
 //                         multiple of 32), dim_head 32 and 4 or 8 heads.
 //                         attention.cu's temporal_layer keeps float32 and the
 //                         other shapes (C <= 256, T <= 64).
+//   stw_layer_wm_wgmma    replaces pallas_stw.py fused_stw_layer_wm
+//                         (_fused_padded_wm -> _make_kernel_wm): kernel 1's
+//                         layer over pre-windowed tokens (B, nW, N, C), the
+//                         same bf16 shapes; a tile is one window's N
+//                         contiguous rows, and the shift masks come expanded
+//                         per window (a bias + mask table each). attention.cu's
+//                         stw_layer_wm keeps float32 and the other shapes.
 //
 // The temporal layer differs from the window layer in its rows, its norms
 // and its residual (temporal.cuh): a tile is two sequences of 32 frame slots
@@ -149,17 +158,25 @@ struct Args {
   float eps;
 };
 
+// Where a tile's rows come from: the window layer's padded, rolled volume
+// (kernel 1), two pixels' frame sequences (kernel 2), or one window's N
+// contiguous rows of pre-windowed tokens (B, nW, N, C) (kernel 9; its Args
+// describe them as windows (N, 1, 1) of a (B, nW N, 1, 1) volume).
+enum Rows { kWindow, kTemporal, kWindowMajor };
+
 // Element offset in x of row r of window `win` of the padded volume rolled
 // by -shift (JAX's pad and roll, read in place: token (t, h, w) of the
 // rolled volume is (t + st, h + sh, w + sw) mod the padded sizes of the
 // padded one), or -1 for a pad token or past the window's tokens. Temporal:
-// of row r of tile `win` (temporal.cuh seq_token).
-template <bool TP>
+// of row r of tile `win` (temporal.cuh seq_token). Window-major: row r of
+// window `win`'s N rows.
+template <int R>
 __device__ __forceinline__ long long token_offset(const Args& a, int win, int r) {
-  if constexpr (TP) {
+  if constexpr (R == kTemporal) {
     const long long tok = seq_token(win, r, a.T, a.H, a.nseq);
     return tok < 0 ? -1 : tok * a.C;
   }
+  if constexpr (R == kWindowMajor) return r < a.wd ? ((long long)win * a.wd + r) * a.C : -1;
   const int N = a.wd * a.wh * a.ww;
   if (r >= N) return -1;
   const int nWh = a.D2 / a.wh, nWw = a.D3 / a.ww, nW = (a.D1 / a.wd) * nWh * nWw;
@@ -173,12 +190,12 @@ __device__ __forceinline__ long long token_offset(const Args& a, int win, int r)
 }
 
 // The rows of window `win` into the A tile at shared address dst; one cp.async group.
-template <bool TP>
+template <int R>
 __device__ __forceinline__ void load_x(const Args& a, const Plan& p, uint32_t dst, int win) {
   const int cpr = p.nkp * 8;  // 16-byte chunks per row
   for (int e = threadIdx.x; e < ROWS * cpr; e += NT) {
     const int r = e / cpr, q = e % cpr;
-    const long long off = token_offset<TP>(a, win, r);
+    const long long off = token_offset<R>(a, win, r);
     const bool ok = off >= 0 && 8 * q < a.C;
     cp_async16(dst + (q >> 3) * BOX + sw128(r, q & 7), ok ? a.x + off + 8 * q : a.x, ok);
   }
@@ -207,10 +224,11 @@ __device__ __forceinline__ void issue_step(const Plan& p, const CUtensorMap* mq,
   }
 }
 
-template <int CW, bool TP>
+template <int CW, int R>
 __global__ void __launch_bounds__(NT, 1)
     stw_wgmma_kernel(__grid_constant__ const CUtensorMap mq, __grid_constant__ const CUtensorMap mp,
                      const Args a, const Plan p) {
+  constexpr bool TP = R == kTemporal;
   extern __shared__ uint8_t smem_raw[];
   // 1024-aligned for the swizzle atoms; derived from smem_raw by pointer
   // arithmetic so the compiler keeps shared-space (32-bit) addressing
@@ -251,7 +269,7 @@ __global__ void __launch_bounds__(NT, 1)
                    bars + 8 * (int)gi, true);
     }
   }
-  if (my > 0) load_x<TP>(a, p, sb + p.a, blockIdx.x);
+  if (my > 0) load_x<R>(a, p, sb + p.a, blockIdx.x);
 
   long long gi = 0;  // the next step to consume
   // Waits for step gi's boxes; returns their shared address.
@@ -281,12 +299,12 @@ __global__ void __launch_bounds__(NT, 1)
     const uint32_t A = sb + p.a + (p.a_bufs == 2 ? (it & 1) : 0) * p.nkp * BOX;
     uint8_t* Ag = base + (A - sb);
     if (p.a_bufs == 2 && next < a.nwin) {
-      load_x<TP>(a, p, sb + p.a + ((it + 1) & 1) * p.nkp * BOX, next);
+      load_x<R>(a, p, sb + p.a + ((it + 1) & 1) * p.nkp * BOX, next);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    if (tid < ROWS) row_s[tid] = token_offset<TP>(a, win, tid);
+    if (tid < ROWS) row_s[tid] = token_offset<R>(a, win, tid);
     const int mrow = a.mask_ids != nullptr ? a.mask_ids[win % nW] : 0;
     // whether 16-row tile rt has live rows (a sequence's second tile needs T > 16)
     auto live_tile = [&](int rt) {
@@ -407,7 +425,7 @@ __global__ void __launch_bounds__(NT, 1)
       }
       __syncthreads();
       if (g == p.groups - 1 && p.a_bufs == 1 && next < a.nwin)
-        load_x<TP>(a, p, sb + p.a, next);  // the A tile is free: the next window's rows
+        load_x<R>(a, p, sb + p.a, next);  // the A tile is free: the next window's rows
 
       // ---- 4. attention: (local head, 16-row tile) units over the 8 warps;
       // warp w takes head 4 g + w % 4, row tiles w / 4 and w / 4 + 2
@@ -599,13 +617,13 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int CW, bool TP>
+template <int CW, int R>
 int launch(const CUtensorMap& mq, const CUtensorMap& mp, const Args& a, const Plan& p, int grid,
            cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      stw_wgmma_kernel<CW, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.total);
+      stw_wgmma_kernel<CW, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.total);
   if (err != cudaSuccess) return (int)err;
-  stw_wgmma_kernel<CW, TP><<<grid, NT, p.total, stream>>>(mq, mp, a, p);
+  stw_wgmma_kernel<CW, R><<<grid, NT, p.total, stream>>>(mq, mp, a, p);
   return (int)cudaGetLastError();
 }
 
@@ -659,8 +677,36 @@ extern "C" int stw_layer_wgmma(const void* x, void* out, const float* gamma, con
                (const float4*)rope, nullptr, nullptr, T, H, W, Tp, Hp, Wp, st, sh, sw, wd, wh,
                ww, nwin, C, rot, heads, 0, eps};
   grid = grid < nwin ? grid : nwin;
-  if (cw == 64) return launch<64, false>(mq, mp, a, p, grid, (cudaStream_t)stream);
-  return launch<128, false>(mq, mp, a, p, grid, (cudaStream_t)stream);
+  if (cw == 64) return launch<64, kWindow>(mq, mp, a, p, grid, (cudaStream_t)stream);
+  return launch<128, kWindow>(mq, mp, a, p, grid, (cudaStream_t)stream);
+}
+
+// Kernel 9 in bf16: the same layer over pre-windowed tokens. x, out (B, nW,
+// N, C) bf16, contiguous: a window's N tokens are N contiguous rows, read
+// and written in place; bm (M, heads, 64, 64) as for stw_layer_wgmma, with
+// mask_ids (nW) int32 naming each window's table (one table a window for
+// the expanded masks), or null when M = 1; the rest as stw_layer_wgmma's
+// (fused_stw.stw_plan).
+extern "C" int stw_layer_wm_wgmma(const void* x, void* out, const float* gamma, const void* wqkv,
+                                  const void* wproj, const float* bproj, const void* bm,
+                                  const int* mask_ids, const float* rope, int B, int nW, int N,
+                                  int C, int heads, int rot, float eps, int cw, int resident,
+                                  int stages, int a_bufs, int smem, int grid, void* stream) {
+  if (N < 1 || N > ROWS || nW < 0 || !plan_ok(C, heads, rot, cw, resident, stages, a_bufs, grid))
+    return (int)cudaErrorInvalidValue;
+  const Plan p(C, heads, cw, resident, stages, a_bufs);
+  if ((int)p.total != smem || p.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int nwin = B * nW;
+  if (nwin == 0) return 0;
+  CUtensorMap mq, mp;
+  const int err = weight_maps(&mq, &mp, wqkv, wproj, C, heads * HEAD);
+  if (err != 0) return err;
+  const Args a{(const bf16*)x, (bf16*)out, gamma, bproj, (const bf16*)bm, mask_ids,
+               (const float4*)rope, nullptr, nullptr, nW, 1, 1, nW * N, 1, 1, 0, 0, 0, N, 1, 1,
+               nwin, C, rot, heads, 0, eps};
+  grid = grid < nwin ? grid : nwin;
+  if (cw == 64) return launch<64, kWindowMajor>(mq, mp, a, p, grid, (cudaStream_t)stream);
+  return launch<128, kWindowMajor>(mq, mp, a, p, grid, (cudaStream_t)stream);
 }
 
 // Bytes of the temporal body's dynamic shared memory (Plan.total) for C
@@ -728,6 +774,6 @@ extern "C" int temporal_layer_wgmma(const void* x, void* out, const void* gamma,
                (const float4*)rope, vec + C, vec + 2 * C, T, HW, 1, 1, 1, 1, 0, 0, 0, 1, 1, 1,
                tiles, C, rot, heads, nseq, eps};
   grid = grid < tiles ? grid : tiles;
-  if (cw == 64) return launch<64, true>(mq, mp, a, p, grid, s);
-  return launch<128, true>(mq, mp, a, p, grid, s);
+  if (cw == 64) return launch<64, kTemporal>(mq, mp, a, p, grid, s);
+  return launch<128, kTemporal>(mq, mp, a, p, grid, s);
 }

@@ -9,7 +9,8 @@ attention layer the whole-layer kernels do not take (``stw_route``: a
 temporal layer of more than 256 channels, as at the deepest level of the
 multi1248 preset; a bf16 window layer takes 512 forward and backward)
 runs unfused, its attention core on kernel 12; a resnet block's backward takes
-``resnet_bwd_route``'s route (kernel 7, or kernels 10 and 11 for Cout > 256).
+``resnet_bwd_route``'s route (kernel 7; in float32 kernels 10 and 11 for Cout
+> 256).
 Parameter names follow the reference denoiser's state dict
 (``downs.{i}.{0..6}``, ``mid_block1``, ``final_conv.0``, ...), so
 ``convert.py`` maps the JAX variables onto them. Layout (B, T, H, W, C).

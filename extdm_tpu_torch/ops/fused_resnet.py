@@ -32,18 +32,28 @@ Training: when an operand needs a gradient, the CUDA path runs as a
 backward launches ``resnet_block_bwd`` (kernel 7, replacing
 ``pallas_resnet._bwd_kernel_impl``), which recomputes the forward and takes
 every gradient (dx, the conv weights per tap and their biases, both
-GroupNorms' scale and bias, dFiLM (B, 2 Cout) and the residual projection's)
-in this file's kernels. The plain backward is ``resnet_block_plain_vjp``.
+GroupNorms' scale and bias, dFiLM (B, 2 Cout) and the residual projection's).
+In bf16 (``resnet_block_bwd_wgmma``) it runs on the same engine: the
+recompute on kernel 3's conv launches, each conv's input and weight
+gradients on kernel 11's launch (``bwd_wgmma_kernel``; the residual
+projection's 1 x 1 products on its one-tap variant), the GroupNorm, FiLM
+and SiLU backward in bytes-bound passes whose per-channel sums are added in
+a fixed order; one scratch buffer (``resnet_bwd_plan``, the source's
+``resnet_bwd_scratch_bytes`` query) and one ctypes call a block, with JAX's
+rounding points (y1, y2, dh1 and dx in float32 until dx's one rounding).
+The plain backward is ``resnet_block_plain_vjp``. In float32 (the check
+path) kernel 7 keeps its FMA body, whose per-channel sums in shared memory
+take Cout <= 256.
 
-Kernel 7 keeps per-channel sums in shared memory and takes Cout <= 256 and
-at most 32 groups. ``resnet_bwd_route`` (the gate of
-``pallas_resnet._fused_bwd``) sends every other block to
-``resnet_block_bwd_decomposed``, the counterpart of
-``pallas_resnet._chunked_bwd``: it recomputes the two convs with
-``conv33_fwd`` (kernel 10, replacing ``pallas_resnet._conv33_fwd``)
-and takes each conv's gradients with ``conv33_bwd`` (kernel 11, replacing
-``pallas_resnet._conv33_bwd``); the GroupNorm, FiLM and SiLU chains and the
-per-channel sums around them stay plain torch, as they stay XLA in JAX.
+``resnet_bwd_route`` (the gate of ``pallas_resnet._fused_bwd``) sends the
+blocks kernel 7 does not take (float32 over 256 channels, more than 32
+groups, groups that do not divide Cout) to ``resnet_block_bwd_decomposed``,
+the counterpart of ``pallas_resnet._chunked_bwd``: it recomputes the two
+convs with ``conv33_fwd`` (kernel 10, replacing
+``pallas_resnet._conv33_fwd``) and takes each conv's gradients with
+``conv33_bwd`` (kernel 11, replacing ``pallas_resnet._conv33_bwd``); the
+GroupNorm, FiLM and SiLU chains and the per-channel sums around them stay
+plain torch, as they stay XLA in JAX.
 Kernels 10 and 11 (``csrc/conv33.cu``) are implicit GEMMs over the 9 taps,
 bound by operations; in bf16 they run on ``wgmma`` fed by a ring of
 shared-memory stages (cp.async for the tap-shifted pixel rows, TMA for the
@@ -58,6 +68,7 @@ convs.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -73,19 +84,25 @@ __all__ = ["fused_resnet_block", "resnet_block_plain", "resnet_block_bwd",
            "resnet_block_plain_vjp", "resnet_bwd_route",
            "resnet_block_bwd_decomposed", "conv33_fwd", "conv33_plain", "conv33_bwd",
            "conv33_bwd_plain", "conv33_plan", "ConvPlan", "resnet_plan", "ResnetPlan",
-           "tap_major"]
+           "resnet_bwd_plan", "ResnetBwdPlan", "tap_major"]
 
-BWD_MAX_COUT = 256  # kernel 7 keeps (sum du, sum du yhat) per channel in shared memory
+BWD_F32_MAX_COUT = 256  # kernel 7's float32 body keeps per-channel sums in shared memory
 MAX_GROUPS = 32
 
 
-def resnet_bwd_route(shape, cin: int, cout: int, groups: int) -> str:
-    """The backward a block of input `shape` (B, T, H, W, cin) takes:
-    "fused" (kernel 7) where kernel 7 takes the block, else "decomposed"
-    (kernels 10 and 11 with the GroupNorm math in torch)."""
-    if cout > BWD_MAX_COUT or groups > MAX_GROUPS or cout % groups:
-        return "decomposed"
-    return "fused"
+def resnet_bwd_route(shape, cin: int, cout: int, groups: int, dtype) -> str:
+    """The backward a block of input `shape` (B, T, H, W, cin) in `dtype`
+    takes: "fused" (kernel 7) where kernel 7 takes the block, else
+    "decomposed" (kernels 10 and 11 with the GroupNorm math in torch)."""
+    return "fused" if _bwd_takes(cout, groups, dtype) else "decomposed"
+
+
+def _bwd_takes(cout: int, groups: int, dtype) -> bool:
+    """Kernel 7's limits: at most 32 groups dividing Cout; in float32 (its
+    check path) Cout <= 256; in bf16 any width."""
+    if groups > MAX_GROUPS or cout % groups:
+        return False
+    return dtype == torch.bfloat16 or cout <= BWD_F32_MAX_COUT
 
 
 def _group_norm(y: torch.Tensor, scale, bias, groups: int, eps: float) -> torch.Tensor:
@@ -282,7 +299,7 @@ class _ResnetBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w1 = ctx.saved_tensors[:2]
-        route = resnet_bwd_route(x.shape, x.shape[-1], w1.shape[0], ctx.kw["groups"])
+        route = resnet_bwd_route(x.shape, x.shape[-1], w1.shape[0], ctx.kw["groups"], x.dtype)
         bwd = resnet_block_bwd_decomposed if route == "decomposed" else resnet_block_bwd
         return (None, *bwd(g, *ctx.saved_tensors, **ctx.kw))
 
@@ -309,6 +326,70 @@ def _wgrad_splits(B, T, H, W, cin, cout, device) -> int:
     return max(1, min(pixel_tiles, -(-4 * _sm_count(device) // tiles)))
 
 
+class ResnetBwdPlan(NamedTuple):
+    """How the bf16 kernel 7 runs a block (``resnet_bwd_plan``)."""
+    recompute: ResnetPlan  # the forward's convs again: kernel 3's channels, grids, rings, tiles
+    splits1: int           # pixel splits of dW1, dW2 and dWres (``wgrad_splits``): each
+    splits2: int           #   gradient launch's dW blocks, TAPS x splits x tiles of 128 x 128
+    splits_r: int          #   (1 without a residual projection)
+    grad_blocks: tuple     # blocks of the conv2, conv1 and residual gradient launches (din + dW)
+    chunks: int            # pixel chunks of a sample in the GroupNorm sums
+    gn_grid: tuple         # their blocks: (B x chunks, channel tiles of GN_PART_COLS)
+    scratch: int           # bytes of the one scratch buffer (resnet_bwd_scratch_bytes)
+
+
+GN_PART_COLS = 64     # channels of a GroupNorm-sums block (csrc/resnet.cu PART_COLS)
+GN_MIN_ROWS = 64      # fewest pixel rows of a chunk
+GN_BLOCKS_PER_SM = 4
+
+
+def _grad_launch(pixels: int, cin: int, cout: int, taps: int, sms: int):
+    """(splits, blocks) of one gradient launch (``bwd_wgmma_kernel``): din's
+    pixel x Cin tiles and dW's TAPS x splits x Cin x Cout tiles."""
+    ti, to = ceil_div(cin, CONV_TILE), ceil_div(cout, CONV_TILE)
+    splits, _ = wgrad_splits(pixels, taps * ti * to, sms)
+    return splits, ceil_div(pixels, CONV_TILE) * ti + taps * splits * ti * to
+
+
+@functools.lru_cache(maxsize=512)
+def resnet_bwd_plan(batch: int, pixels: int, cin: int, cout: int, groups: int, residual: bool,
+                    film: bool, sms: int) -> ResnetBwdPlan:
+    """The plan of the bf16 kernel 7 for a block of `batch` samples over
+    `pixels` pixels in all, cin -> cout channels, with or without the
+    residual projection and FiLM, on a card of `sms` SMs: the recompute as
+    kernel 3 runs it (without the residual projection's tiles, which the
+    backward does not need), the gradient launches' dW splits as kernel 11's
+    (``conv33_plan``), the GroupNorm sums' chunks (about GN_BLOCKS_PER_SM
+    blocks an SM, at least GN_MIN_ROWS rows a chunk), and the scratch's
+    bytes from the source's ``resnet_bwd_scratch_bytes`` query."""
+    if groups > MAX_GROUPS or cout % groups or pixels % batch:
+        raise ValueError(f"resnet_bwd_plan: kernel 7 takes at most {MAX_GROUPS} groups dividing "
+                         f"Cout and whole samples; got Cout={cout}, groups={groups}, "
+                         f"{pixels} pixels in {batch} samples")
+    rec = resnet_plan(pixels, cin, cout, False, sms)
+    s1, b1 = _grad_launch(pixels, rec.cin, rec.cout, 9, sms)
+    s2, b2 = _grad_launch(pixels, rec.cout, rec.cout, 9, sms)
+    sr, br = _grad_launch(pixels, rec.cin, rec.cout, 1, sms) if residual else (1, 0)
+    cols = ceil_div(rec.cout, GN_PART_COLS)
+    per_sample = pixels // batch
+    want = max(1, min(ceil_div(per_sample, GN_MIN_ROWS),
+                      ceil_div(GN_BLOCKS_PER_SM * sms, batch * cols)))
+    chunks = ceil_div(per_sample, ceil_div(per_sample, want))  # no empty chunk
+    scratch = _build.query("resnet", "resnet_bwd_scratch_bytes", batch, pixels, rec.cin, rec.cout,
+                           cout, groups, int(residual), int(film), s1, s2, sr, chunks)
+    return ResnetBwdPlan(rec, s1, s2, sr, (b2, b1, br), chunks, (batch * chunks, cols), scratch)
+
+
+def resnet_bwd_grad_shapes(B: int, cin: int, cout: int, residual: bool, film: bool):
+    """The gradients the bf16 kernel 7 writes into its one float32 buffer,
+    in order: (name, shape); the source's resnet_block_bwd_wgmma carves them."""
+    shapes = [("w1", (cout, cin, 1, 3, 3)), ("w2", (cout, cout, 1, 3, 3))]
+    shapes += [("wres", (cout, cin, 1, 1, 1))] if residual else []
+    shapes += [(n, (cout,)) for n in ("b1", "g1s", "g1b", "b2", "g2s", "g2b")]
+    shapes += [("bres", (cout,))] if residual else []
+    return shapes + ([("film", (B, 2 * cout))] if film else [])
+
+
 def resnet_block_bwd(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, bres=None, *,
                      groups=8, eps=1e-5):
     """Kernel 7: (dx, dw1, db1, dg1s, dg1b, dfilm, dw2, db2, dg2s, dg2b, dwres,
@@ -318,14 +399,64 @@ def resnet_block_bwd(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, 
     if x.device.type == "cpu":
         return resnet_block_plain_vjp(g, *operands, groups=groups, eps=eps)
     _check_block("resnet_block_bwd", *operands, groups)
-    if resnet_bwd_route(x.shape, x.shape[-1], w1.shape[0], groups) != "fused":
-        raise ValueError(f"resnet_block_bwd: kernel 7 takes Cout <= {BWD_MAX_COUT} and at most "
-                         f"{MAX_GROUPS} groups; got Cout={w1.shape[0]}, groups={groups}")
+    if not _bwd_takes(w1.shape[0], groups, x.dtype):
+        raise ValueError(f"resnet_block_bwd: kernel 7 takes at most {MAX_GROUPS} groups dividing "
+                         f"Cout, in float32 Cout <= {BWD_F32_MAX_COUT}; got Cout={w1.shape[0]}, "
+                         f"groups={groups}, {x.dtype}")
     if g.device != x.device or tuple(g.shape) != tuple(x.shape[:4]) + (w1.shape[0],):
         raise ValueError(f"resnet_block_bwd: cotangent {tuple(g.shape)} on {g.device}")
+    if x.dtype == torch.bfloat16:
+        grads = _resnet_bwd_wgmma(g, *operands, groups=groups, eps=eps)
+    else:
+        grads = _resnet_bwd_f32(g, *operands, groups=groups, eps=eps)
+    resnet_block_bwd.launches += 1
+    return tuple(None if t is None else d.to(t.dtype) for d, t in zip(grads, operands))
+
+
+def _resnet_bwd_wgmma(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, groups,
+                      eps):
+    """Kernel 7 in bf16 (resnet.cu resnet_block_bwd_wgmma), which casts the
+    parameters into its one scratch buffer as kernel 3 does: three
+    allocations (scratch, dx, one float32 buffer of every other gradient)
+    and one launch call from here."""
+    B, T, H, W, Cin = x.shape
+    Cout = w1.shape[0]
+    pixels = B * T * H * W
+    residual, has_film = wres is not None, film is not None
+    plan = resnet_bwd_plan(B, pixels, Cin, Cout, groups, residual, has_film, _sm_count(x.device))
+    rec = plan.recompute
+    xp = _padded(x.detach().reshape(pixels, Cin), rec.cin)
+    gp = _padded(g.detach().to(torch.bfloat16).reshape(pixels, Cout), rec.cout)
+    w1c, w2c, wrc, b1c, g1sc, g1bc, b2c, g2sc, g2bc, filmc = (
+        None if t is None else t.detach().contiguous()
+        for t in (w1, w2, wres, b1, g1s, g1b, b2, g2s, g2b, film))
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=x.device)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)  # written row-major
+    shapes = resnet_bwd_grad_shapes(B, Cin, Cout, residual, has_film)
+    flat = torch.empty(sum(math.prod(s) for _, s in shapes), dtype=torch.float32, device=x.device)
+    P = _build.ptr
+    _build.launch("resnet", "resnet_block_bwd_wgmma", P(xp), P(gp), P(w1c), P(w2c), P(wrc),
+                  _code(w1c, w2c, wrc), P(b1c), P(g1sc), P(g1bc), P(b2c), P(g2sc), P(g2bc),
+                  _code(b1c, g1sc, g1bc, b2c, g2sc, g2bc), P(filmc),
+                  0 if film is None else _code(filmc), P(scratch), plan.scratch, P(dx), P(flat),
+                  B, T, H, W, Cin, Cout, rec.cin, rec.cout, groups, eps, rec.stages1,
+                  rec.stages2, rec.bn, plan.splits1, plan.splits2, plan.splits_r, plan.chunks,
+                  _build.stream(x))
+    views, at = {}, 0
+    for name, shape in shapes:
+        n = math.prod(shape)
+        views[name] = flat[at:at + n].view(shape)
+        at += n
+    return (dx, *(views.get(n) for n in ("w1", "b1", "g1s", "g1b", "film", "w2", "b2", "g2s",
+                                         "g2b", "wres", "bres")))
+
+
+def _resnet_bwd_f32(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres, *, groups, eps):
+    """Kernel 7 in float32, the check path (resnet.cu resnet_block_bwd)."""
     B, T, H, W, Cin = x.shape
     Cout = w1.shape[0]
     dt = x.dtype
+    operands = (x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres, bres)
     x = x.detach().contiguous()
     gc = g.detach().to(dt).contiguous()
     (w1c, w2c, wresc), (b1c, g1sc, g1bc, filmc, b2c, g2sc, g2bc, _) = _converted(*operands)
@@ -360,9 +491,7 @@ def resnet_block_bwd(g, x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, 
                   P(dw1), P(db1), P(dg1s), P(dg1b), P(dfilm), P(dw2), P(db2), P(dg2s), P(dg2b),
                   P(dwres), P(dbres), B, T, H, W, Cin, Cout, groups, eps, s1, s2, sr,
                   _build.stream(x))
-    resnet_block_bwd.launches += 1
-    grads = (dxo, dw1, db1, dg1s, dg1b, dfilm, dw2, db2, dg2s, dg2b, dwres, dbres)
-    return tuple(None if t is None else d.to(t.dtype) for d, t in zip(grads, operands))
+    return dxo, dw1, db1, dg1s, dg1b, dfilm, dw2, db2, dg2s, dg2b, dwres, dbres
 
 
 resnet_block_bwd.launches = 0

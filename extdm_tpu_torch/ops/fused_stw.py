@@ -1,5 +1,5 @@
-"""Kernels 1 and 2 (``csrc/stw_layer.cu`` in bf16, ``csrc/attention.cu`` in
-float32), 9 (``csrc/attention.cu``) and the backward kernels 5 and 6
+"""Kernels 1, 2 and 9 (``csrc/stw_layer.cu`` in bf16, ``csrc/attention.cu`` in
+float32) and the backward kernels 5 and 6
 (``csrc/stw_layer_bwd.cu`` in bf16, ``csrc/attention_bwd.cu`` in float32):
 whole attention layers.
 
@@ -30,13 +30,15 @@ masked as keys, which matches the JAX semantics (their k is LN(0) W = 0).
 ``pallas_stw._window_major``: "0" never, "1" always, "auto" on unshifted
 layers at a padded spatial size of 32 or more); the partition into windows
 and its reverse are torch copies around the kernel, as in the JAX package.
-Kernel 9 runs kernel 1's body on contiguous window rows, so it is bound by
-operations as kernel 1 is. Under autograd the layer's backward is kernel 5
-whatever the forward's layout, as JAX's ``custom_vjp``.
+Kernel 9 is bound by operations as kernel 1 is; in bf16 it runs kernel 1's
+body (``stw_layer_wm_wgmma``: a tile is one window's N contiguous rows, the
+expanded masks one bias + mask table a window) at kernel 1's shapes. Under
+autograd the layer's backward is kernel 5 whatever the forward's layout, as
+JAX's ``custom_vjp``.
 
-Kernel 9, and kernels 1, 2, 5 and 6 in float32, take N <= 64 tokens,
-dim_head <= 32 and C <= 256 channels (in bf16 a multiple of 32). Kernels 1
-and 5 in bf16 take C <= 512 (a multiple of 32) at dim_head 32 and 4 or 8
+Kernels 1, 2, 5, 6 and 9 in float32 take N <= 64 tokens, dim_head <= 32
+and C <= 256 channels (in bf16 a multiple of 32). Kernels 1,
+5 and 9 in bf16 take C <= 512 (a multiple of 32) at dim_head 32 and 4 or 8
 heads: kernel 1's body (``csrc/stw_layer.cu``: both products on wgmma, the
 weights by TMA, the output tiled over channels; ``stw_plan`` gives its
 shared-memory layout, weight ring and grid) and kernel 5's
@@ -57,8 +59,7 @@ unfused modules (``PreNormSTW`` / ``PreNormTemporalAttn`` with the fused
 layer off): the norms, pad and roll, partition, projections and rotary in
 torch around kernel 12 (``ops/window_attn.py``), whose autograd keeps its
 inputs only; the rest of the layer's autograd is torch's: in bf16 no preset
-has such a layer. Kernel 9 runs attention.cu's narrow body, so a
-window-major layer over 256 channels runs kernel 1.
+has such a layer.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version
 (``stw_layer_plain``, ``stw_layer_wm_plain``, ``temporal_layer_plain``) for
@@ -79,6 +80,7 @@ return one gradient per tensor argument, each in that argument's dtype.
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import NamedTuple, Tuple
 
@@ -522,7 +524,7 @@ def fused_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
     _, T, H, W, C = x.shape
     _, ph, pw = _pads(T, H, W, window)
     wm = (window_major_gate(window_major, any(s > 0 for s in shift), min(H + ph, W + pw))
-          and C <= MAX_CHANNELS)  # kernel 9 keeps the narrow body
+          and _wm_takes(C, math.prod(window), heads, dim_head, x.dtype))
     if x.device.type == "cpu":
         return _stw_wm(*operands, **kw) if wm else stw_layer_plain(*operands, **kw)
     if _needs_grad(*operands):
@@ -549,6 +551,12 @@ def window_major_gate(mode: str, shifted: bool, spatial: int) -> bool:
     if mode == "auto":
         return not shifted and spatial >= 32
     raise ValueError(f"window-major mode is one of {WINDOW_MAJOR_MODES}, got {mode!r}")
+
+
+def _wm_takes(C: int, N: int, heads: int, dim_head: int, dtype) -> bool:
+    """Whether kernel 9 takes a layer: in bf16 kernel 1's shapes (its body,
+    C <= 512), else the narrow body's (C <= 256)."""
+    return _wide(C, N, heads, dim_head, dtype) or C <= MAX_CHANNELS
 
 
 def _wm_partition(xp, window):
@@ -619,7 +627,11 @@ def stw_layer_wm_plain(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp=Non
 def fused_stw_layer_wm(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp=None, *, heads,
                        dim_head, eps=1e-5):
     """Kernel 9: the PreNormSTW layer over pre-windowed tokens; same
-    arguments and result as ``stw_layer_wm_plain``."""
+    arguments and result as ``stw_layer_wm_plain``. In bf16 at kernel 1's
+    shapes (C <= 512) it runs kernel 1's body (``csrc/stw_layer.cu``
+    ``stw_layer_wm_wgmma``: a tile is one window's N contiguous rows, the
+    expanded masks one bias + mask table a window); otherwise
+    ``attention.cu``'s ``stw_layer_wm``."""
     if xw.device.type == "cpu":
         return stw_layer_wm_plain(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp,
                                   heads=heads, dim_head=dim_head, eps=eps)
@@ -631,7 +643,50 @@ def fused_stw_layer_wm(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp=Non
                   b_proj=(b_proj, (C,)), bias_hnn=(bias_hnn, (heads, N, N)))
     if masks_exp is not None:
         shapes["masks_exp"] = (masks_exp, (nW, N, N))
-    _check_operands("fused_stw_layer_wm", xw, N, heads, dim_head, **shapes)
+    _check_operands("fused_stw_layer_wm", xw, N, heads, dim_head, wide="window", **shapes)
+    if _wide(C, N, heads, dim_head, xw.dtype):
+        out = _stw_wm_wgmma(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp, heads=heads,
+                            dim_head=dim_head, eps=eps)
+    else:
+        out = _stw_wm_narrow(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp, heads=heads,
+                             dim_head=dim_head, eps=eps)
+    fused_stw_layer_wm.launches += 1
+    return out
+
+
+@lru_cache(maxsize=None)
+def _window_ids(nW: int, device) -> torch.Tensor:
+    """Each window's own bias + mask table: 0 .. nW - 1 (int32)."""
+    return torch.arange(nW, dtype=torch.int32, device=device)
+
+
+def _stw_wm_wgmma(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp, *, heads, dim_head,
+                  eps):
+    """Kernel 9 on kernel 1's bf16 body: xw read and the output written in
+    place; bias and mask added before the cast, as the reference adds them."""
+    B, nW, N, C = xw.shape
+    xw = xw.detach().contiguous()
+    wq, wp = _weights(xw, w_qkv, w_proj)
+    g, bp = _f32(gamma), _f32(b_proj)
+    masks = None if masks_exp is None else masks_exp.detach().float()
+    bm = bias_mask_table(bias_hnn.detach(), masks)
+    ids = None if masks_exp is None else _window_ids(nW, xw.device)
+    plan = stw_plan(C, N, heads, dim_head, _sm_count(xw.device))
+    rot = min(32, dim_head)
+    out = torch.empty_like(xw)
+    P = _build.ptr
+    _build.launch("stw_layer", "stw_layer_wm_wgmma", P(xw), P(out), P(g), P(wq), P(wp), P(bp),
+                  P(bm), P(ids), P(_rope_pairs(N, rot, xw.device)), B, nW, N, C, heads, rot, eps,
+                  plan.cw, int(plan.resident), plan.stages, plan.a_bufs, plan.smem, plan.blocks,
+                  _build.stream(xw))
+    return out
+
+
+def _stw_wm_narrow(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp, *, heads, dim_head,
+                   eps):
+    """Kernel 9 on ``attention.cu``'s body (MODE 2): float32, the other head
+    shapes, and the parent's body of the bf16 layers (C <= 256)."""
+    B, nW, N, C = xw.shape
     xw = xw.detach().contiguous()
     out = torch.empty_like(xw)
     rot = min(32, dim_head)
@@ -643,7 +698,6 @@ def fused_stw_layer_wm(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp=Non
     _build.launch("attention", "stw_layer_wm", _build.dtype_code(xw.dtype),
                   P(xw), P(out), P(g), P(wq), P(wp), P(bp), P(bias), P(masks), P(cos), P(sin),
                   B, nW, N, C, heads, dim_head, rot, eps, _build.stream(xw))
-    fused_stw_layer_wm.launches += 1
     return out
 
 

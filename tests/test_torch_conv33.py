@@ -123,19 +123,22 @@ def test_decomposed_bwd_matches_jax_chunked_and_plain_vjp(film, res):
         rel_close(gg.numpy(), pp.numpy(), 1e-4)
 
 
-@pytest.mark.parametrize("cin,cout,groups,route", [
-    (128, 256, 8, "fused"),
-    (256, 512, 8, "decomposed"),      # Cout > 256: kernel 7's per-channel sums
-    (512, 512, 8, "decomposed"),
-    (1024, 256, 8, "fused"),          # up level 0 of multi1248: wide input only
-    (256, 264, 8, "decomposed"),      # just over the limit
-    (64, 64, 64, "decomposed"),       # more groups than kernel 7 holds
-    (64, 64, 32, "fused"),
-    (64, 60, 8, "decomposed"),        # groups that do not divide Cout
-    (64, 64, 8, "fused"),
+@pytest.mark.parametrize("cin,cout,groups,dtype,route", [
+    (128, 256, 8, torch.bfloat16, "fused"),
+    (256, 512, 8, torch.bfloat16, "fused"),       # kernel 7's bf16 body takes any width
+    (512, 512, 8, torch.bfloat16, "fused"),
+    (1024, 256, 8, torch.bfloat16, "fused"),      # up level 0 of multi1248
+    (256, 264, 8, torch.bfloat16, "fused"),
+    (256, 512, 8, torch.float32, "decomposed"),   # float32: per-channel sums in shared memory
+    (256, 264, 8, torch.float32, "decomposed"),   #   (Cout <= 256), just over the limit
+    (1024, 256, 8, torch.float32, "fused"),
+    (64, 64, 64, torch.bfloat16, "decomposed"),   # more groups than kernel 7 holds
+    (64, 64, 32, torch.bfloat16, "fused"),
+    (64, 60, 8, torch.bfloat16, "decomposed"),    # groups that do not divide Cout
+    (64, 64, 8, torch.bfloat16, "fused"),
 ])
-def test_resnet_bwd_route_table(cin, cout, groups, route):
-    assert fused_resnet.resnet_bwd_route((8, 30, 4, 4, cin), cin, cout, groups) == route
+def test_resnet_bwd_route_table(cin, cout, groups, dtype, route):
+    assert fused_resnet.resnet_bwd_route((8, 30, 4, 4, cin), cin, cout, groups, dtype) == route
 
 
 # ------------------------------------------------- the bf16 kernels' plan and operands

@@ -111,7 +111,8 @@ def test_size_queries_match_their_declarations():
     the ``extern "C" long long`` query it names declares, and every query
     is called. Kernel 3's scratch passes 2 GiB at KTH's 64-channel level
     when an evaluation's trajectories ride the batch, so its size goes to
-    the entry, and the pixels to the query, as 64-bit integers."""
+    the entry, and the pixels to the query, as 64-bit integers; kernel 7's
+    the same way."""
     import ast
     import ctypes
 
@@ -126,13 +127,16 @@ def test_size_queries_match_their_declarations():
     queries = {(src.stem, name): len(types) for src in _build.CSRC.glob("*.cu")
                for name, types in _build.size_queries(src.stem).items()}
     assert calls == queries == {("resnet", "resnet_scratch_bytes"): 8,
+                                ("resnet", "resnet_bwd_scratch_bytes"): 12,
                                 ("stw_layer_bwd", "stw_bwd_smem"): 3,
                                 ("stw_layer", "temporal_smem"): 6,
                                 ("stw_layer", "temporal_scratch_bytes"): 2,
                                 ("stw_layer_bwd", "temporal_bwd_scratch_bytes"): 8}
-    assert _build.size_queries("resnet")["resnet_scratch_bytes"][1] is ctypes.c_longlong
-    params = re.search(r'extern "C" int resnet_block_wgmma\(([^)]*)\)',
-                       (_build.CSRC / "resnet.cu").read_text()).group(1).split(",")
-    at = [i for i, p in enumerate(params) if p.split()[-1] == "scratch_bytes"]
-    assert len(at) == 1
-    assert _build.entry_points("resnet")["resnet_block_wgmma"][at[0]] is ctypes.c_longlong
+    for query in ("resnet_scratch_bytes", "resnet_bwd_scratch_bytes"):
+        assert _build.size_queries("resnet")[query][1] is ctypes.c_longlong
+    for entry in ("resnet_block_wgmma", "resnet_block_bwd_wgmma"):
+        params = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                           (_build.CSRC / "resnet.cu").read_text()).group(1).split(",")
+        at = [i for i, p in enumerate(params) if p.split()[-1] == "scratch_bytes"]
+        assert len(at) == 1
+        assert _build.entry_points("resnet")[entry][at[0]] is ctypes.c_longlong

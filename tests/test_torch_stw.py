@@ -232,3 +232,59 @@ def test_prenorm_stw_module_window_major_matches_flax(shift):
     port = unet3d.PreNormSTW(32, window, shift, heads, dh, window_major="1")
     port.load_state_dict(_convert_module("stw", variables["params"]))
     close(port(torch.from_numpy(x)).detach(), ref)
+
+
+def test_stw_window_major_plain_at_320_channels_matches_jax(monkeypatch):
+    """The window-major layer (``_stw_wm``: pad, roll, partition,
+    ``stw_layer_wm_plain``, reverse) at 320 channels, a width kernel 9's
+    bf16 body now takes, against JAX ``_layer_impl`` with its window-major
+    gate forced on, in interpret mode, shifted (the expanded masks)."""
+    shape, shift, window, heads, dh = (1, 4, 8, 4, 320), (2, 2, 2), (4, 4, 4), 8, 32
+    B, T, H, W, C = shape
+    p = _params(11, C, heads, dh, window)
+    x = np.random.default_rng(12).normal(size=shape).astype(np.float32)
+    win, sh = get_window_size((T, H, W), window, shift)
+    N = win[0] * win[1] * win[2]
+    rel = _relative_position_index(window)[:N, :N]
+    bias = np.transpose(p["table"][rel.reshape(-1)].reshape(N, N, heads), (2, 0, 1))
+    kw = dict(window=win, shift=sh, heads=heads, dim_head=dh)
+    routes = _count_calls(monkeypatch, pallas_stw, "_fused_padded_wm")
+    monkeypatch.setattr(pallas_stw, "_window_major", lambda shifted, spatial: True)
+    want = pallas_stw.fused_stw_layer(jnp.asarray(x), p["gamma"], p["w_qkv"], p["w_proj"],
+                                      p["b_proj"], jnp.asarray(bias), rotary=True, interpret=True,
+                                      **kw)
+    assert routes, "the JAX side did not take its window-major kernel"
+    t = torch.from_numpy
+    calls = _count_calls(monkeypatch, fused_stw, "stw_layer_wm_plain")
+    out = fused_stw._stw_wm(t(x), t(p["gamma"]), t(p["w_qkv"].T.copy()), t(p["w_proj"].T.copy()),
+                            t(p["b_proj"]), t(bias), eps=1e-5, **kw)
+    assert calls == [1]
+    close(out, want)
+
+
+@pytest.mark.parametrize("C,dtype,heads,dim_head,takes", [
+    (288, torch.bfloat16, 8, 32, True),    # kernel 1's body: bf16 up to 512 channels
+    (512, torch.bfloat16, 4, 32, True),
+    (544, torch.bfloat16, 8, 32, False),   # over 512: neither body
+    (288, torch.float32, 8, 32, False),    # float32 keeps attention.cu's 256
+    (256, torch.float32, 8, 32, True),
+    (288, torch.bfloat16, 4, 64, False),   # dim_head 64: kernel 1's body refuses
+    (96, torch.bfloat16, 2, 32, True),     # 2 heads: attention.cu's body (C <= 256)
+])
+def test_window_major_route_rows(C, dtype, heads, dim_head, takes, monkeypatch):
+    """Which layers the window-major layout takes (kernel 9): the gate's
+    mode and shape as JAX's, and a width kernel 9 runs. bf16 layers of 288
+    and 512 channels, which kernel 1's body takes, now go window-major; on
+    the CPU the layer then runs ``stw_layer_wm_plain``."""
+    assert fused_stw._wm_takes(C, 64, heads, dim_head, dtype) == takes
+    if C % 32 or dtype != torch.bfloat16 or C > 512:
+        return
+    calls = _count_calls(monkeypatch, fused_stw, "stw_layer_wm_plain")
+    g = torch.Generator().manual_seed(C)
+    hid = heads * dim_head
+    args = [torch.randn(1, 4, 4, 4, C, generator=g).bfloat16(), torch.ones(C),
+            0.05 * torch.randn(3 * hid, C, generator=g), 0.05 * torch.randn(C, hid, generator=g),
+            torch.zeros(C), torch.zeros(heads, 64, 64)]
+    out = fused_stw.fused_stw_layer(*args, window=(4, 4, 4), shift=(0, 0, 0), heads=heads,
+                                    dim_head=dim_head, window_major="1")
+    assert out.shape == args[0].shape and calls == ([1] if takes else [])
