@@ -13,10 +13,11 @@
    bf16 (the whole output, and for the UNet kernels also the part that the
    kernel's products compute) and at one small shape in float32, and times
    kernel, plain version and (grid sample only) the PyTorch library call
-   with CUDA events; kernels 1, 2 and 3 also by their own device time
-   (torch.profiler), with their device TFLOP/s and share of the bound, and
+   with CUDA events; kernels 1, 2, 3 and 4 also by their own device time
+   (torch.profiler), with their device TFLOP/s and share of the bound,
    kernel 2 beside the device time of the parent's body (attention.cu) on
-   the same inputs;
+   the same inputs, kernel 4 beside F.grid_sample's device time (the bytes
+   model of kernels 4 and 8's bounds is printed once);
    kernel 1 against its plain version at STW_RAGGED (windows clamped to 16
    and 32 tokens, 96, 192 and 320 channels), kernel 3 at RESNET_RAGGED
    (6 x 6 and 5 x 7 frames, Cin != Cout, channels off multiples of 64) and
@@ -50,8 +51,12 @@
    uint8 gray pairs at batch 64, recording the inputs and incoming cotangent
    of every grid-sample backward; checks the grid-sample backward kernel
    against its plain version there in float32 and, at the decode shapes
-   (C >= 67), in bf16, and times kernel, plain version and ATen's
-   grid_sampler_2d_backward; takes 3 timed steps with the counters from 0 (6
+   (C >= 67), in bf16, twice for a bitwise equal d_grid, and times kernel,
+   plain version and ATen's grid_sampler_2d_backward (CUDA events and device
+   time); checks kernels 4 and 8 at WARP_RAGGED (all padding modes, points
+   on the clamp and fold lines, a NaN grid point, operands off a 16-byte
+   boundary);
+   takes 3 timed steps with the counters from 0 (6
    grid-sample forward and 5 backward launches per step); and compares one
    float32 loss and every gradient at batch 2, kernels on the card against
    the plain versions on the CPU, with the same weights, augmentation and
@@ -237,12 +242,14 @@ I3D_F32_REL_TOL = 1e-3
 
 
 # Kernels whose lines carry their own device time (torch.profiler), device
-# TFLOP/s and share of the bound: 1, 2, 3, 5, 6, 7 and 9, the redesigned
-# main-path ones. Kernels 2, 6 and 9 also carry the device time of the
-# parent's body (attention.cu / attention_bwd.cu, which keeps float32) on
-# the same inputs.
+# TFLOP/s and share of the bound: 1-9, the redesigned main-path ones.
+# Kernels 2, 6 and 9 also carry the device time of the parent's body
+# (attention.cu / attention_bwd.cu, which keeps float32) on the same inputs;
+# kernels 4 and 8 the device time of the wrapper's other ops and of the
+# library call.
 DEVICE_TIMED = ("stw_layer", "temporal_layer", "resnet_block", "stw_layer_bwd",
-                "temporal_layer_bwd", "resnet_block_bwd", "stw_layer_wm")
+                "temporal_layer_bwd", "resnet_block_bwd", "stw_layer_wm", "grid_sample",
+                "grid_sample_bwd")
 
 
 def log(obj) -> None:
@@ -890,15 +897,17 @@ def parent_body_ms(k, args, kwargs, reps):
                      kernel_symbols(k["parent_source"]))[0]
 
 
-# Backward kernels checked twice on the same inputs for bitwise equal gradients.
-REPEATS = ("temporal_layer_bwd", "resnet_block_bwd")
+# Backward kernels checked twice on the same inputs for bitwise equal gradients
+# (kernel 8: d_grid; its d_image's global sums vary below float32 resolution).
+REPEATS = ("temporal_layer_bwd", "resnet_block_bwd", "grid_sample_bwd")
 
 
 def repeat_check(name, key, first, again):
     """A backward kernel twice on the same inputs: every gradient the same
     bit for bit (partials added in a fixed order, no atomics across threads
     on one element)."""
-    if not all(torch.equal(a, b) for a, b in zip(first, again) if a is not None):
+    if not all(torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+               for a, b in zip(first, again) if a is not None):
         raise AssertionError(f"{name}{key}: two launches on the same inputs differ")
 
 
@@ -968,6 +977,9 @@ def kernel_phase(table, record, card):
             tot.update(device_ms=0.0, flops=0.0)
         if "parent" in k:
             tot.update(parent_device_ms=0.0)
+        if name == "grid_sample":
+            tot.update(library_device_ms=0.0, other_device_ms=0.0)
+            log({"bound_model": WARP_BOUND_MODEL})
         for key, entry in record[name].items():
             args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
             out_k = k["wrapper"](*args, **kwargs)
@@ -986,8 +998,8 @@ def kernel_phase(table, record, card):
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **res}
             if name in DEVICE_TIMED:  # the kernel's own device time
-                dev_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), reps,
-                                   kernel_symbols(k["source"]))[0]
+                dev_ms, other_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), reps,
+                                             kernel_symbols(k["source"]))
                 line.update(kernel_device_ms=dev_ms, device_tflops=flops / dev_ms / 1e9,
                             bound_share=max(bytes_ms, ops_ms) / dev_ms)
                 tot["device_ms"] += count * dev_ms
@@ -999,9 +1011,14 @@ def kernel_phase(table, record, card):
                 image = args[0].permute(0, 3, 1, 2)
                 grid = args[1].to(image.dtype)
                 mode = kwargs.get("padding_mode", "zeros")
-                line["library_ms"] = cuda_ms(lambda: F.grid_sample(
-                    image, grid, mode="bilinear", padding_mode=mode, align_corners=True), reps)
+                library = lambda: F.grid_sample(  # noqa: E731
+                    image, grid, mode="bilinear", padding_mode=mode, align_corners=True)
+                line["library_ms"] = cuda_ms(library, reps)
+                line["library_device_ms"] = device_ms(library, reps)[0]
+                line["wrapper_other_device_ms"] = other_ms
                 tot["library_ms"] += count * line["library_ms"]
+                tot["library_device_ms"] += count * line["library_device_ms"]
+                tot["other_device_ms"] += count * other_ms
             else:
                 line["library_ms_note"] = "no single PyTorch call computes this layer"
             line["card"] = card
@@ -1314,11 +1331,14 @@ def warp_bwd_library(g, image, grid, padding_mode="zeros", image_grad=True, grid
 
 def ae_backward_phase(btable, record, card):
     """The grid-sample backward kernel against its plain version at every
-    recorded AE-step shape (float32, and bf16 at the decode shapes), CUDA-event
-    times of kernel, plain version and ATen's call."""
+    recorded AE-step shape (float32, and bf16 at the decode shapes), twice
+    for a bitwise equal d_grid; CUDA-event and device times of kernel, plain
+    version and ATen's call; then WARP_RAGGED."""
     name, k = "grid_sample_bwd", btable["grid_sample_bwd"]
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-               max_abs_err=0.0)
+               max_abs_err=0.0, device_ms=0.0, flops=0.0, library_device_ms=0.0,
+               other_device_ms=0.0)
+    symbols = kernel_symbols(k["source"])
     for key, entry in record[name].items():
         args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
         got = k["wrapper"](*args, **kwargs)
@@ -1327,6 +1347,8 @@ def ae_backward_phase(btable, record, card):
         # relative to each gradient's own size: at batch 64 the decode warps'
         # d_image is ~1e-5, far under the max(1, .) floor of F32_REL_TOL
         res = check_grads(f"{name}{key}", got, want, F32_REL_TOL, F32_REL_TOL)
+        if name in REPEATS:
+            repeat_check(name, key, got[1:], k["wrapper"](*args, **kwargs)[1:])
         line = {"kernel": name, "shape": list(key[0]), "key": str(key[1:]), "dtype": "float32",
                 "per_step": count, **res}
         if args[1].shape[-1] >= 67:  # the decode warps: the kernel serves bf16 images too
@@ -1336,31 +1358,188 @@ def ae_backward_phase(btable, record, card):
                                 BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
             line["bf16"] = res16
         ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 5)
+        dev_ms, other_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), 5, symbols)
         plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 5)
-        library_ms = cuda_ms(warp_bwd_library(*args, **kwargs), 5)
+        library = warp_bwd_library(*args, **kwargs)
+        library_ms = cuda_ms(library, 5)
+        library_dev_ms = device_ms(library, 5)[0]
         byts, flops, op_dtype = k["cost"](*args, **kwargs)
         bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
-        line.update(kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        line.update(kernel_ms=ms, kernel_device_ms=dev_ms, wrapper_other_device_ms=other_ms,
+                    bound_share=max(bytes_ms, ops_ms) / dev_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, library_device_ms=library_dev_ms,
                     library_call="aten.grid_sampler_2d_backward (NCHW-contiguous operands)",
                     bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations", card=card)
         log(line)
         for field, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                              ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms),
-                             ("ops_ms", ops_ms)):
+                             ("ops_ms", ops_ms), ("device_ms", dev_ms), ("flops", flops),
+                             ("library_device_ms", library_dev_ms),
+                             ("other_device_ms", other_ms)):
             tot[field] += count * value
         tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
     # the padding modes the AE step does not differentiate through, float32
+    # (d_grid by the TPU kernel's rules, warp_bwd_reference)
     gen = torch.Generator(device="cuda").manual_seed(9)
     for mode in WARP_MODES:
         image = torch.randn((2, 12, 16, 67), generator=gen, device="cuda")
         grid = torch.rand((2, 10, 14, 2), generator=gen, device="cuda") * 2.4 - 1.2
         g = torch.randn((2, 10, 14, 67), generator=gen, device="cuda")
         res = check_grads(f"{name} {mode} float32", k["wrapper"](g, image, grid, mode),
-                          k["plain"](g, image, grid, mode), F32_REL_TOL, F32_REL_TOL)
+                          warp_bwd_reference(g, image, grid, mode), F32_REL_TOL, F32_REL_TOL)
         log({"kernel": name, "shape": list(image.shape), "padding_mode": mode, "dtype": "float32",
              "check": "kernel vs plain backward", **res})
+    warp_ragged_phase(card)
     return {name: tot}
+
+
+# Kernels 4 and 8 off the path's shapes: (C, image (B, H, W), output (Ho, Wo)).
+# Output sizes that are no multiple of the tiles (4 x 8 to 16 x 16 pixels);
+# every channel count's vector width (C = 1, 3, 5, 67: one element; 130: two
+# bf16 / floats; 256, 512: 16 bytes) and lanes a pixel (1-32). Each on three
+# grids (``warp_grid``): one that contracts (kernel 8's reductions collide
+# on few pixels), a smooth one near scale 1 with points on the lines, and a
+# uniform random one.
+WARP_RAGGED = ((1, (2, 128, 96), (37, 45)), (3, (2, 72, 72), (33, 41)),
+               (5, (2, 72, 72), (41, 29)), (67, (2, 40, 40), (21, 19)),
+               (130, (2, 40, 40), (23, 30)), (256, (1, 40, 40), (19, 21)),
+               (512, (1, 40, 40), (13, 17)))
+# Normalised grid values on the clamp and fold lines: x = 0 and x = W - 1
+# (-1, 1: the border clamp's ends; a reflection fold at W - 1), x = 2 (W - 1)
+# and -2 (W - 1) (3, -5: the reflection's period), x = -(W - 1) (-3: onto
+# the fold).
+WARP_LINES = (-1.0, 1.0, 3.0, -3.0, -5.0)
+WARP_BOUND_MODEL = {
+    "grid_sample": "bytes: the image, the float32 grid and the output once",
+    "grid_sample_bwd": "bytes: dout and the float32 grid read once, the image read once where "
+                       "d_grid is asked for, d_image (the image's dtype) and the float32 d_grid "
+                       "written once; the zero fill of d_image not counted"}
+
+
+def warp_grid(g, kind, n, ho, wo):
+    """(n, ho, wo, 2) float32: "affine", the identity through a seeded
+    affine map that leaves the image a little, with every 7th point on a
+    clamp or fold line (WARP_LINES) in x, every 11th in y; "contracting",
+    the identity through a seeded affine map that shrinks it to about a
+    third (a tile's corners fall in a box smaller than the tile, so that
+    kernel 8's d_image reductions collide); or "uniform" in [-1.2, 1.2]."""
+    if kind == "uniform":
+        return torch.rand((n, ho, wo, 2), generator=g, device="cuda") * 2.4 - 1.2
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, ho, device="cuda"),
+                            torch.linspace(-1, 1, wo, device="cuda"), indexing="ij")
+    ident = torch.stack([xs, ys], -1).reshape(1, ho * wo, 2)
+    scale = 0.3 if kind == "contracting" else 1.05
+    a = scale * torch.eye(2, device="cuda") + 0.1 * scale * torch.randn(
+        (n, 2, 2), generator=g, device="cuda")
+    t = 0.1 * torch.randn((n, 1, 2), generator=g, device="cuda")
+    grid = (ident @ a.transpose(1, 2) + t).reshape(n, ho * wo, 2)
+    if kind == "contracting":
+        return grid.reshape(n, ho, wo, 2).contiguous()
+    lines = torch.tensor(WARP_LINES, device="cuda")
+    i = torch.arange(ho * wo, device="cuda")
+    grid[:, i % 7 == 0, 0] = lines[(i[i % 7 == 0] // 7) % len(WARP_LINES)]
+    grid[:, i % 11 == 0, 1] = lines[(i[i % 11 == 0] // 11) % len(WARP_LINES)]
+    return grid.reshape(n, ho, wo, 2).contiguous()
+
+
+def warp_bwd_reference(g, image, grid, padding_mode="zeros"):
+    """What kernel 8 is held to off the path: the plain backward's d_image
+    and, for d_grid, ``grid_sample_dgrid_plain``, which takes the TPU
+    kernel's rules on the clamp and fold lines (where the plain backward's
+    autograd differs: a border bound, a reflection fold); off the lines the
+    two d_grids agree (tests/test_torch_warp_plan.py holds both against the
+    JAX package's Pallas backward)."""
+    from extdm_tpu_torch.ops import fused_warp
+
+    d_image = fused_warp.grid_sample_plain_vjp(g, image, grid, padding_mode)[0]
+    return d_image, fused_warp.grid_sample_dgrid_plain(g, image, grid, padding_mode)
+
+
+def check_nan(name, got, want, rel, mean_rel=None):
+    """NaN where want is NaN, and check / check_grads on the rest."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is not None and not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"{name} output {i}: NaN at {int(torch.isnan(a).sum())} "
+                                 f"places, the plain version at {int(torch.isnan(b).sum())}")
+    clean = lambda ts: [None if t is None else t.nan_to_num(0.0) for t in ts]  # noqa: E731
+    return check_grads(name, clean(got), clean(want), rel, mean_rel)
+
+
+def warp_ragged_phase(card, seed=37):
+    """Kernels 4 and 8 against their plain versions at WARP_RAGGED in float32
+    and bf16, all three padding modes, on a contracting grid, a smooth
+    affine one with points on the clamp and fold lines and a uniform random
+    one, d_grid bitwise equal on repeat; then one NaN grid point (NaN where
+    the plain version has NaN, the rest within the limits) and operands
+    that start off a 16-byte boundary (the plan's narrower vectors). Kernel
+    8's d_grid is held to ``warp_bwd_reference``. Each case also takes
+    d_grid alone (kernel 8 without d_image, as the K+1 sparse warp calls
+    it)."""
+    from extdm_tpu_torch.ops import fused_warp
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cases = 0
+
+    def one(what, image, grid, cot, mode, nan=False):
+        nonlocal cases
+        dtype = image.dtype
+        f32 = dtype == torch.float32
+        fwd_tol, bwd = (F32_REL_TOL, (F32_REL_TOL, F32_REL_TOL)) if f32 else (
+            BF16_REL_TOL, (BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL))
+        out = fused_warp.grid_sample(image, grid, mode)
+        want = fused_warp.grid_sample_plain(image, grid, mode)
+        got_b = fused_warp.grid_sample_bwd(cot, image, grid, mode)
+        want_b = warp_bwd_reference(cot, image, grid, mode)
+        repeat_check("grid_sample_bwd", what, got_b[1:],
+                     fused_warp.grid_sample_bwd(cot, image, grid, mode)[1:])
+        # d_grid alone (the K+1 sparse warp's call): a pixel a thread where
+        # a pixel's channels are few
+        got_g = (None, fused_warp.grid_sample_bwd(cot, image, grid, mode, image_grad=False)[1])
+        repeat_check("grid_sample_bwd d_grid alone", what, got_g[1:],
+                     fused_warp.grid_sample_bwd(cot, image, grid, mode, image_grad=False)[1:])
+        if nan:
+            fres = check_nan(f"grid_sample {what}", [out], [want], fwd_tol)
+            bres = check_nan(f"grid_sample_bwd {what}", got_b, want_b, *bwd)
+            check_nan(f"grid_sample_bwd {what}, d_grid alone", got_g, (None, want_b[1]), *bwd)
+        else:
+            fres = check(f"grid_sample {what}", out, want, fwd_tol)
+            bres = check_grads(f"grid_sample_bwd {what}", got_b, want_b, *bwd)
+            check_grads(f"grid_sample_bwd {what}, d_grid alone", got_g, (None, want_b[1]), *bwd)
+        plan = fused_warp.grid_sample_plan(*image.shape, *grid.shape[1:3], image.element_size(),
+                                           fused_warp._align(image, cot),
+                                           torch.cuda.get_device_properties(0).multi_processor_count,
+                                           True)
+        log({"kernel": "grid_sample", "check": f"kernels 4 and 8 vs plain, {what}",
+             "shape": list(image.shape), "grid": list(grid.shape), "padding_mode": mode,
+             "dtype": str(dtype).replace("torch.", ""), "forward": fres, "backward": bres,
+             "bwd_vec": plan.vec, "bwd_lanes": plan.lanes, "bwd_tile": [plan.tile_h, plan.tile_w]})
+        cases += 1
+
+    for C, (B, H, W), (Ho, Wo) in WARP_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            image = torch.randn((B, H, W, C), generator=g, device="cuda").to(dtype)
+            cot = torch.randn((B, Ho, Wo, C), generator=g, device="cuda").to(dtype)
+            for mode in WARP_MODES:
+                for kind in ("contracting", "affine", "uniform"):
+                    one(f"{kind} grid", image, warp_grid(g, kind, B, Ho, Wo), cot, mode)
+    for C in (3, 67):
+        for dtype in (torch.float32, torch.bfloat16):
+            image = torch.randn((2, 24, 20, C), generator=g, device="cuda").to(dtype)
+            cot = torch.randn((2, 17, 13, C), generator=g, device="cuda").to(dtype)
+            grid = warp_grid(g, "affine", 2, 17, 13)
+            grid[1, 5, 6, 0] = float("nan")
+            for mode in WARP_MODES:
+                one("one NaN grid point", image, grid, cot, mode, nan=True)
+    for C, dtype in ((256, torch.bfloat16), (128, torch.float32), (130, torch.float32)):
+        # views one element into their storage: 2 or 4 bytes off 16
+        image = torch.randn((2 * 30 * 28 * C + 1,), generator=g, device="cuda").to(dtype)[1:]
+        cot = torch.randn((2 * 21 * 19 * C + 1,), generator=g, device="cuda").to(dtype)[1:]
+        image, cot = image.view(2, 30, 28, C), cot.view(2, 21, 19, C)
+        for mode in WARP_MODES:
+            one("operands off a 16-byte boundary", image, warp_grid(g, "affine", 2, 21, 19),
+                cot, mode)
+    log({"phase": "WARP_RAGGED", "cases": cases, "card": card})
 
 
 def grad_fn_check():
@@ -2733,6 +2912,9 @@ def main() -> int:
                         "library_ms": s["library_ms"],
                         **({f: s[f] for f in ("device_ms", "plain_device_ms",
                                               "library_device_ms")} if name in rt else {}),
+                        **({"library_device_ms": s["library_device_ms"],
+                            "wrapper_other_device_ms": s["other_device_ms"]}
+                           if name in ("grid_sample", "grid_sample_bwd") else {}),
                         **({"device_ms": s["device_ms"],
                             "device_tflops": s["flops"] / s["device_ms"] / 1e9,
                             "bound_share": s["bound_ms"] / s["device_ms"]}

@@ -17,6 +17,10 @@ ending in ``torch.cuda.synchronize()``) of:
                      layer): whether the window-major layout pays;
   m1248_sampler_ms   the multi1248/ada sampler at batch 4;
   m1248_step_ms      the multi1248/ada train step at batch 8;
+  ae_step_ms         the AE (stage-1) train step at batch 64, float32
+                     (configs/AE/kth.yaml, PyTorch's TF32 defaults), on raw
+                     uint8 pairs with the KTH flip and jitter on the card, as
+                     chip_smoke.py's phase 7 builds it;
 
 and for one more call or step of each the card's busy time (torch.profiler:
 the union of the device's kernel and copy intervals, ``busy_ms``) beside
@@ -36,7 +40,7 @@ import time
 
 import torch
 
-BATCH, TRAIN_BATCH, EVAL_BATCH = 4, 8, 16
+BATCH, TRAIN_BATCH, EVAL_BATCH, AE_BATCH = 4, 8, 16, 64
 
 
 def busy_ms(fn) -> float:
@@ -107,6 +111,27 @@ def step_metric(cfg, seed: int, calls: int) -> dict:
     return out
 
 
+def ae_step_metric(seed: int, calls: int) -> dict:
+    from extdm_tpu_torch.config import kth_ae_training_config
+    from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
+    from extdm_tpu_torch.train.ae_trainer import AETrainer, make_optimizer
+
+    cfg = kth_ae_training_config()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = ReconstructionModel(**cfg["model"])
+    trainer = AETrainer(model, make_optimizer(cfg["lr"], cfg["milestones"], cfg["gamma"]),
+                        device_augment=cfg["device_augment"], device="cuda")
+    px, g = cfg["frame_shape"], torch.Generator().manual_seed(seed)
+    batch = {k: torch.randint(0, 256, (AE_BATCH, px, px), generator=g, dtype=torch.uint8).cuda()
+             for k in ("source", "driving")}
+    gen = torch.Generator(device="cuda")
+    out = timed(lambda: trainer.train_step(gen.manual_seed(10), batch), calls)
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--calls", type=int, default=5)
@@ -135,6 +160,7 @@ def main() -> int:
         "m1248_sampler_ms": sampler_metric(kth_multi1248_config(dtype=bf16), BATCH, 6,
                                            args.calls),
         "m1248_step_ms": step_metric(kth_multi1248_config(dtype=bf16, remat=True), 7, args.calls),
+        "ae_step_ms": ae_step_metric(3, args.calls),
     }
     print(json.dumps({"e2e": line, "build_s": build_s, "card": card}), flush=True)
     return 0

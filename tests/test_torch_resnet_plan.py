@@ -131,7 +131,8 @@ def test_size_queries_match_their_declarations():
                                 ("stw_layer_bwd", "stw_bwd_smem"): 3,
                                 ("stw_layer", "temporal_smem"): 6,
                                 ("stw_layer", "temporal_scratch_bytes"): 2,
-                                ("stw_layer_bwd", "temporal_bwd_scratch_bytes"): 8}
+                                ("stw_layer_bwd", "temporal_bwd_scratch_bytes"): 8,
+                                ("grid_sample", "grid_sample_smem"): 2}
     for query in ("resnet_scratch_bytes", "resnet_bwd_scratch_bytes"):
         assert _build.size_queries("resnet")[query][1] is ctypes.c_longlong
     for entry in ("resnet_block_wgmma", "resnet_block_bwd_wgmma"):
