@@ -62,7 +62,25 @@
    the plain versions on the CPU, with the same weights, augmentation and
    TPS draws; one more step runs under torch.profiler for the card's busy
    share and the ops that take its time.
-8. Evaluation: the KTH sampling configuration in bf16 with the STW layout
+8. The DM training job: ``train/train_dm.py`` ``main`` in-process on a
+   copy of configs/DM/kth.yaml with every cadence at 1 or 2, at full width
+   in bf16, batch 8 of 8 in-memory moving-shapes videos, the LFAE random: 4
+   steps with a validation, shots and checkpoints at step 2, then a
+   --set_start resume from the final checkpoint to step 6. Checks the
+   launches of every train step (18 / 10 / 20 layers forward and backward,
+   1 grid sample) and validation sampler call (180 / 91 / 200 / 5), that
+   the resumed run starts at step 4 with the checkpoint's parameters and
+   AdamW moments, finite losses, the logs, shots and checkpoints, and that
+   eval/valid_dm.load_weights reads the checkpoint; prints the job's ms per
+   step beside the train phase's, its data wait and the seconds of each
+   validation, shot and checkpoint write.
+9. The AE training job: ``train/train_ae.py`` ``main`` on a copy of
+   configs/AE/kth.yaml (num_repeats 8: one batch of 64 pairs from 8
+   in-memory videos an epoch) with --device_augment, 4 steps and a resume
+   as above, then two steps with the host augmentation (numpy, no cv2),
+   then eval/valid_ae on the checkpoint. Checks 6 / 5 grid-sample launches
+   a step and the rest as for the DM job; prints the same timing lines.
+10. Evaluation: the KTH sampling configuration in bf16 with the STW layout
    in "auto" (window-major on the two unshifted 32x32 layers: kernel 9);
    4 in-memory 64 px gray moving-shapes videos of 50 frames through the
    port's VideoDataset and DataLoader (raw uint8, pinned, canonicalised on
@@ -81,7 +99,7 @@
    its samples in host memory; run again at 8 trajectories (2 videos per
    loader batch, the same sampler batch), its peak device memory must stay
    within EVAL_PEAK_REL_TOL of the 4-trajectory run's.
-9. multi1248: the KTH sampling configuration with the multi1248/ada UNet
+11. multi1248: the KTH sampling configuration with the multi1248/ada UNet
    (dim_mults (1,2,4,8): 512 channels at the deepest level and in the mid
    blocks) in bf16. The layers over the narrow kernels' 256 channels
    (``wide_layers``: 4 window layers, 1 temporal layer, 4 resnet blocks)
@@ -1279,7 +1297,7 @@ def train_phase(table, btable, card, others=None):
     del trainer, fd
     torch.cuda.empty_cache()
     train_f32_card_vs_cpu(cfg)
-    return summary, launches
+    return summary, launches, med * 1e3
 
 
 # ------------------------------------------------------------- AE training
@@ -1759,7 +1777,273 @@ def ae_phase(table, btable, ae_btable, card, others=None):
     torch.cuda.empty_cache()
     ae_f32_card_vs_cpu(cfg)
     log({"phase": "AE phase", "seconds": time.perf_counter() - t_phase})
-    return summary, launches
+    return summary, launches, med * 1e3
+
+
+# ------------------------------------------------------------ training jobs
+@contextlib.contextmanager
+def per_call_launches(owner, attr, counters, calls, before_first=None, factory=False):
+    """owner.attr (a method; with `factory`, a method whose result is the
+    callable to count) wrapped: each call appends its launches of every
+    counter to `calls`; `before_first(args)` runs before the first."""
+    orig = getattr(owner, attr)
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            if before_first is not None and not calls:
+                before_first(args)
+            start = {n: c.launches for n, c in counters.items()}
+            out = fn(*args, **kwargs)
+            calls.append({n: c.launches - start[n] for n, c in counters.items()})
+            return out
+        return call
+
+    if factory:
+        setattr(owner, attr, lambda *a, **k: counted(orig(*a, **k)))
+    else:
+        setattr(owner, attr, counted(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def job_defaults():
+    """PyTorch's TF32 defaults, which a job runs under (and the bare steps
+    of the train and AE phases); the card-vs-CPU checks before turn TF32
+    off."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def job_yaml(src, tmp, section, **train_params):
+    """A copy of a repository yaml in `tmp` with the train_params of
+    `section` ("diffusion_params" or "flow_params") overridden."""
+    import yaml
+
+    cfg = yaml.safe_load(open(Path(__file__).resolve().parent / src))
+    cfg[section]["train_params"].update(train_params)
+    path = Path(tmp) / Path(src).name
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def job_records(log_dir):
+    return [json.loads(line) for line in open(Path(log_dir) / "metrics.jsonl")]
+
+
+def check_job_run(log_dir, loss_key, steps, files, best_prefix):
+    """The records and files of one job run: one loss record a step (each
+    loss finite), the artefacts in `files` and a gated best checkpoint."""
+    recs = job_records(log_dir)
+    losses = [r for r in recs if loss_key in r]
+    if [r["step"] for r in losses] != list(steps):
+        raise AssertionError(f"{log_dir}: loss records at {[r['step'] for r in losses]}, "
+                             f"want {list(steps)}")
+    skip = {"step", "time", "batch_time", "data_time"}
+    for r in losses:
+        bad = {k: v for k, v in r.items() if k not in skip and not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{log_dir} step {r['step']}: non-finite {bad}")
+    have = {str(p.relative_to(log_dir)) for p in Path(log_dir).rglob("*") if p.is_file()}
+    missing = [f for f in files if not any(Path(h).match(f) for h in have)]
+    best = f"{best_prefix}*_best_*.ckpt"
+    if missing or best_prefix and not any(Path(h).match(best) for h in have):
+        raise AssertionError(f"{log_dir}: missing {missing or best}; has {sorted(have)}")
+    return recs
+
+
+def job_timing(recs, bare_step_ms):
+    """The job's timing line: ms per step (median of batch_time, the run's
+    first step, its warm-up, dropped), data wait, and the seconds of each
+    validation, shot and checkpoint write, from its metrics.jsonl."""
+    steps = [r for r in recs if "batch_time" in r][1:]
+    pick = lambda k: [r[k] for r in recs if k in r]  # noqa: E731
+    return {"job_ms_per_step": statistics.median(r["batch_time"] for r in steps) * 1e3,
+            "job_ms_per_step_all": [r["batch_time"] * 1e3 for r in steps],
+            "bare_step_median_ms": bare_step_ms,
+            "data_time_ms": statistics.median(r["data_time"] for r in steps) * 1e3,
+            "valid_seconds": pick("valid_seconds"), "shot_seconds": pick("shot_seconds"),
+            "ckpt_seconds": pick("ckpt_seconds")}
+
+
+def same_state(what, module_state, saved, opt, saved_opt):
+    """A resumed trainer's parameters and optimizer moments, before its first
+    update, against its checkpoint's."""
+    for k, v in saved.items():
+        if not torch.equal(module_state[k].detach().cpu(), v):
+            raise AssertionError(f"{what}: resumed {k} differs from the checkpoint")
+    state = opt.opt.state_dict()["state"]
+    if state.keys() != saved_opt["state"].keys() or opt.count != saved_opt["count"]:
+        raise AssertionError(f"{what}: resumed optimizer state keys or count differ")
+    for i, s in state.items():
+        for k, v in s.items():
+            if not torch.equal(v.cpu(), saved_opt["state"][i][k]):
+                raise AssertionError(f"{what}: resumed optimizer {i}.{k} differs")
+
+
+def dm_job_phase(counters, card, bare_step_ms):
+    """The DM training job (train/train_dm.py main) in-process on the card:
+    configs/DM/kth.yaml at full width in bf16, batch 8 of in-memory
+    moving-shapes videos, every cadence at 1 or 2 (a copy of the yaml), the
+    LFAE random; 4 steps with validation at step 2, then a --set_start
+    resume to step 6. Checks the launches of every train step and sampler
+    call, the resumed state, the records and artefacts, and that
+    eval/valid_dm.load_weights reads the checkpoint."""
+    import tempfile
+
+    from extdm_tpu_torch.config import dm_config_from_yaml, load_config
+    from extdm_tpu_torch.eval.valid_dm import load_weights
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.train import checkpoint, train_dm
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer
+
+    t_phase = time.perf_counter()
+    job_defaults()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = job_yaml("configs/DM/kth.yaml", tmp, "diffusion_params", print_freq=1,
+                            update_ckpt_freq=2, save_img_freq=2, save_vid_freq=2,
+                            dataloader_workers=4)
+        cfg = dm_config_from_yaml(load_config(cfg_path), dtype=torch.bfloat16)
+        fwd, bwd = expected_train_launches(cfg)
+        want_step = {n: {**fwd, **bwd}.get(n, 0) for n in counters}
+        want_call = {n: expected_launches(cfg).get(n, 0) for n in counters}
+        common = ["--config", cfg_path, "--bf16", "--batch_size", "8", "--synthetic_videos", "8",
+                  "--valid_every", "2", "--valid_videos", "4", "--device", "cuda"]
+        runs = []
+        for i, extra in enumerate((["--max_steps", "4"],
+                                   ["--max_steps", "6", "--set_start", "--checkpoint",
+                                    str(Path(tmp) / "run0" / train_dm.CKPT)])):
+            log_dir = str(Path(tmp) / f"run{i}")
+            steps, calls, shots = [], [], []
+            check = None
+            if i:
+                saved = checkpoint.load_checkpoint(extra[-1])
+
+                def check(args, saved=saved):
+                    trainer = args[0]
+                    unet = {f"denoise_fn.{k}": v for k, v in trainer.fd.unet.state_dict().items()}
+                    same_state("DM job resume", unet, saved["diffusion"], trainer.optimizer,
+                               saved["optimizer"])
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with per_call_launches(DMTrainer, "train_step", counters, steps, check), \
+                    per_call_launches(FlowDiffusion, "make_sampler", counters, calls,
+                                      factory=True), \
+                    per_call_launches(FlowDiffusion, "make_monitor", counters, shots,
+                                      factory=True):
+                train_dm.main(common + extra + ["--log_dir", log_dir])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            first = 4 * i
+            recs = check_job_run(log_dir, "loss", range(first, first + 4 - 2 * i),
+                                 ["train.log", "metrics.jsonl", train_dm.CKPT, "imgshots/*.png",
+                                  "vidshots/*.gif"], "flowdiff")
+            if not steps or any(s != want_step for s in steps):
+                raise AssertionError(f"DM job run {i}: step launches {steps} != {want_step}")
+            if not calls or any(c != want_call for c in calls):
+                raise AssertionError(f"DM job run {i}: sampler launches {calls} != {want_call}")
+            if "at step 4" not in (Path(log_dir) / "train.log").read_text() and i:
+                raise AssertionError("DM job: the resumed run did not start at step 4")
+            runs.append(dict(job_timing(recs, bare_step_ms), run=i, seconds=seconds,
+                             steps=len(steps), sampler_calls=len(calls),
+                             monitor_launches=[{n: c for n, c in m.items() if c} for m in shots]))
+            ckpt = Path(log_dir) / train_dm.CKPT
+        fd = FlowDiffusion(cfg, device="cuda")
+        load_weights(fd, "", str(ckpt))
+        saved = checkpoint.load_checkpoint(str(ckpt))
+        if saved["step"] != 6 or saved["optimizer"]["count"] != 6:
+            raise AssertionError(f"DM job: final checkpoint at step {saved['step']}")
+        for k, v in fd.unet.state_dict().items():
+            if not torch.equal(v.cpu(), saved["diffusion"][f"denoise_fn.{k}"]):
+                raise AssertionError(f"DM job: load_weights read {k} wrong")
+        del fd
+    torch.cuda.empty_cache()
+    for r in runs:
+        log({"phase": "DM job", "config": "configs/DM/kth.yaml, bf16, batch 8, 8 in-memory "
+             "videos, random LFAE", "launches_per_step": want_step,
+             "launches_per_sampler_call": want_call, **r, "card": card})
+    log({"phase": "DM job phase", "seconds": time.perf_counter() - t_phase})
+
+
+def ae_job_phase(counters, card, bare_step_ms):
+    """The AE training job (train/train_ae.py main) in-process on the card:
+    configs/AE/kth.yaml at full width (float32), batch 64 of raw uint8 pairs
+    from 8 in-memory videos (num_repeats 8 in the yaml's copy, so an epoch
+    is one batch) with --device_augment, every cadence at 1 or 2; 4 steps
+    with validation at step 2, a --set_start resume to step 6, two steps with
+    host augmentation (data/augmentation.py, numpy), and eval/valid_ae on the
+    checkpoint. Checks launches per step, the resumed state, the records and
+    artefacts."""
+    import tempfile
+
+    from extdm_tpu_torch.eval import valid_ae
+    from extdm_tpu_torch.train import checkpoint, train_ae
+    from extdm_tpu_torch.train.ae_trainer import AETrainer
+
+    t_phase = time.perf_counter()
+    job_defaults()
+    want_step = {n: {"grid_sample": 6, "grid_sample_bwd": 5}.get(n, 0) for n in counters}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = job_yaml("configs/AE/kth.yaml", tmp, "flow_params", print_freq=1,
+                            update_ckpt_freq=2, save_img_freq=2, num_repeats=8,
+                            dataloader_workers=8)
+        common = ["--config", cfg_path, "--batch_size", "64", "--synthetic_videos", "8",
+                  "--valid_every", "2", "--valid_videos", "4", "--valid_batch_size", "4",
+                  "--device", "cuda"]
+        ckpt0 = str(Path(tmp) / "run0" / train_ae.CKPT)
+        plan = ((["--device_augment", "--max_steps", "4"], range(0, 4), True),
+                (["--device_augment", "--max_steps", "6", "--set_start", "--checkpoint", ckpt0],
+                 range(4, 6), True),
+                (["--max_steps", "2", "--valid_every", "0"], range(0, 2), False))
+        for i, (extra, steps_want, full) in enumerate(plan):
+            log_dir = str(Path(tmp) / f"run{i}")
+            steps, check = [], None
+            if "--checkpoint" in extra:
+                saved = checkpoint.load_checkpoint(ckpt0)
+
+                def check(args, saved=saved):
+                    trainer = args[0]
+                    parts = {f"{p}.{k}": v for p in checkpoint.AE_PARTS + ("vgg",)
+                             for k, v in saved[p].items()}
+                    same_state("AE job resume", trainer.model.state_dict(), parts,
+                               trainer.optimizer, saved["optimizer"])
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with per_call_launches(AETrainer, "train_step", counters, steps, check):
+                train_ae.main(common + extra + ["--log_dir", log_dir])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            files = ["train.log", "metrics.jsonl", train_ae.CKPT] + (
+                ["imgshots/*.png"] if full else [])
+            recs = check_job_run(log_dir, "loss_total", steps_want, files,
+                                 "RegionMM" if full else "")
+            if not steps or any(s != want_step for s in steps):
+                raise AssertionError(f"AE job run {i}: step launches {steps} != {want_step}")
+            if "--checkpoint" in extra and "at step 4" not in (
+                    Path(log_dir) / "train.log").read_text():
+                raise AssertionError("AE job: the resumed run did not start at step 4")
+            runs.append(dict(job_timing(recs, bare_step_ms), run=i, seconds=seconds,
+                             steps=len(steps), device_augment=full))
+        out = Path(tmp) / "valid_ae"
+        t0 = time.perf_counter()
+        valid_ae.main(["--config", cfg_path, "--checkpoint", str(Path(tmp) / "run1" /
+                                                                train_ae.CKPT),
+                       "--synthetic_videos", "4", "--batch_size", "4", "--log_dir", str(out),
+                       "--device", "cuda"])
+        res = json.loads((out / "metrics.json").read_text())
+        if not all(math.isfinite(float(v)) for v in res.values()):
+            raise AssertionError(f"valid_ae: {res}")
+        valid_seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for r in runs:
+        log({"phase": "AE job", "config": "configs/AE/kth.yaml, float32, batch 64, 8 in-memory "
+             "videos x 8 repeats", "launches_per_step": want_step, **r, "card": card})
+    log({"phase": "valid_ae", "seconds": valid_seconds, **res, "card": card})
+    log({"phase": "AE job phase", "seconds": time.perf_counter() - t_phase})
 
 
 # ----------------------------------------------------------------- evaluation
@@ -2864,11 +3148,17 @@ def main() -> int:
 
     # ---- the DM train path
     btable, ae_btable = backward_table(table), ae_backward_table()
-    bsummary, train_launches = train_phase(table, btable, card,
-                                           others={**ae_btable, **wm, **rt})
+    bsummary, train_launches, train_ms = train_phase(table, btable, card,
+                                                     others={**ae_btable, **wm, **rt})
 
     # ---- the AE (stage-1) train path
-    aesummary, ae_launches = ae_phase(table, btable, ae_btable, card, others={**wm, **rt})
+    aesummary, ae_launches, ae_ms = ae_phase(table, btable, ae_btable, card,
+                                             others={**wm, **rt})
+
+    # ---- the two training jobs (train/train_dm.py and train/train_ae.py main)
+    counters = {n: k["wrapper"] for n, k in {**table, **btable, **ae_btable, **wm, **rt}.items()}
+    dm_job_phase(counters, card, train_ms)
+    ae_job_phase(counters, card, ae_ms)
 
     # ---- the evaluation path (kernel 9)
     wsummary, eval_launches, eval_calls = eval_phase(table, btable, {**ae_btable, **rt}, card)

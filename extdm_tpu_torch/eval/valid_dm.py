@@ -43,6 +43,7 @@ from extdm_tpu_torch.metrics import (
     calculate_psnr3,
     calculate_ssim3,
 )
+from extdm_tpu_torch.train.checkpoint import AE_PARTS, load_checkpoint, restore_ae, restore_dm
 
 METRICS = ("fvd", "psnr", "ssim", "lpips")
 # Real videos (with their trajectories) per slab moved to the card for PSNR,
@@ -62,32 +63,36 @@ def metric_stuff(values: np.ndarray):
     return mean, std, conf
 
 
-def _load(path: str) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+def load_lfae(lfae, path: str) -> None:
+    """Stage-1 weights from `path` into an ``LFAE``: a reference AE checkpoint
+    ({"region_predictor", "bg_predictor", "generator"} state dicts, as the
+    AE training job writes it; its other entries are not read) or an LFAE
+    state dict. The weights are cast to the LFAE's dtype (a float32 AE
+    checkpoint into a bf16 LFAE)."""
+    ckpt = load_checkpoint(path)
+    if all(p in ckpt for p in AE_PARTS):
+        restore_ae(ckpt, lfae)
+    else:
+        lfae.load_state_dict(ckpt)
 
 
 def load_weights(fd, flowae_checkpoint: str = "", checkpoint: str = "") -> None:
     """Stage-1 and diffusion weights into `fd`, as the JAX CLIs load them
-    (``scripts/train_dm.py:load_lfae_variables``): a reference AE checkpoint
-    ({"region_predictor", "bg_predictor", "generator"} state dicts) or an
-    LFAE state dict; a reference DM checkpoint ({"diffusion":
-    GaussianDiffusion state dict}, ``denoise_fn.*``) or a Unet3D state dict.
-    Without a stage-1 file the LFAE keeps its seeded random init."""
+    (``scripts/train_dm.py:load_lfae_variables``): ``load_lfae``'s stage-1
+    files; a reference DM checkpoint ({"diffusion": GaussianDiffusion state
+    dict}, ``denoise_fn.*``, as the DM training job writes it) or a Unet3D
+    state dict. Without a stage-1 file the LFAE keeps its seeded random init."""
     if not flowae_checkpoint:
         print("WARNING: no --flowae_checkpoint; using random LFAE (smoke mode)")
     else:
-        ckpt = _load(flowae_checkpoint)
-        parts = ("region_predictor", "bg_predictor", "generator")
-        if all(p in ckpt for p in parts):
-            ckpt = {f"{p}.{k}": v for p in parts for k, v in ckpt[p].items()}
-        fd.lfae.load_state_dict(ckpt)
+        load_lfae(fd.lfae, flowae_checkpoint)
         print(f"loaded LFAE from {flowae_checkpoint}")
     if checkpoint:
-        ckpt = _load(checkpoint)
+        ckpt = load_checkpoint(checkpoint)
         if "diffusion" in ckpt:
-            ckpt = {k[len("denoise_fn."):]: v for k, v in ckpt["diffusion"].items()
-                    if k.startswith("denoise_fn.")}
-        fd.unet.load_state_dict(ckpt)
+            restore_dm(ckpt, fd.unet)
+        else:
+            fd.unet.load_state_dict(ckpt)
         print(f"loaded diffusion from {checkpoint}")
 
 
@@ -272,9 +277,9 @@ def main(argv=None) -> int:
                            random_time=False, seed=args.seed, raw_uint8=True)
     loader = DataLoader(dataset, args.batch_size, shuffle=False, num_workers=8,
                         drop_last=False, seed=args.seed, device=fd.device)
-    i3d = (I3DExtractor(_load(args.i3d_state_dict), device=fd.device)
+    i3d = (I3DExtractor(load_checkpoint(args.i3d_state_dict), device=fd.device)
            if args.i3d_state_dict else None)
-    lpips = (LPIPSMetric(_load(args.lpips_state_dict), device=fd.device)
+    lpips = (LPIPSMetric(load_checkpoint(args.lpips_state_dict), device=fd.device)
              if args.lpips_state_dict else None)
     out = evaluate(fd, loader, num_traj=args.num_sample_video, total_pred=total_pred,
                    seed=args.seed, metrics=args.metrics.split(","), i3d=i3d, lpips=lpips)

@@ -51,9 +51,12 @@ class LFAE(nn.Module):
                                    revert_axis_swap=fp.get("revert_axis_swap", True),
                                    **fp["generator_params"])
 
-    def encode_video(self, video: torch.Tensor, cond_frames: int) -> Dict[str, torch.Tensor]:
+    def encode_video(self, video: torch.Tensor, cond_frames: int,
+                     with_decode: bool = False) -> Dict[str, torch.Tensor]:
         """video (B, T, H, W, C) in [0, 1] -> flow (B, T, h, w, 2), conf (B, T, h, w, 1)
-        and the reference frame's region parameters."""
+        and the reference frame's region parameters. With `with_decode` the
+        generator runs in full mode and also gives out_vid and warped_vid
+        (B, T, H, W, C): the reference frame warped to every frame."""
         B, T = video.shape[:2]
         ref_img = video[:, cond_frames - 1]
         source_params = self.region_predictor(ref_img)
@@ -63,11 +66,16 @@ class LFAE(nn.Module):
         bg_params = self.bg_predictor(ref_rep, frames)
         src = {k: v.repeat_interleave(T, dim=0) for k, v in source_params.items()
                if k != "heatmap"}
-        gen = self.generator(ref_rep, driving_params, src, bg_params, mode="encode_flow")
+        gen = self.generator(ref_rep, driving_params, src, bg_params,
+                             mode="full" if with_decode else "encode_flow")
         conf = gen.get("occlusion_map")
-        return {"flow": _split_bt(gen["optical_flow"], B),
-                "conf": _split_bt(conf, B) if conf is not None else None,
-                "source_region_params": source_params}
+        out = {"flow": _split_bt(gen["optical_flow"], B),
+               "conf": _split_bt(conf, B) if conf is not None else None,
+               "source_region_params": source_params}
+        if with_decode:
+            out["out_vid"] = _split_bt(gen["prediction"], B)
+            out["warped_vid"] = _split_bt(gen["deformed"], B)
+        return out
 
     def ref_features(self, video: torch.Tensor, cond_frames: int,
                      pred_frames: int) -> torch.Tensor:
@@ -247,6 +255,39 @@ class FlowDiffusion:
                 aux["rec_loss"] = (gt * 10.0 - dec["out_vid"].float() * 10.0).abs().mean()
                 aux["rec_warp_loss"] = (gt * 10.0 - dec["warped_vid"].float() * 10.0).abs().mean()
         return loss, aux
+
+    def make_monitor(self):
+        """fn(generator, video, t=None, noise=None) -> the DM training shots'
+        tensors (JAX ``make_monitor``, ref scripts/DM/train.py:281-399), under
+        no_grad: ref_imgs, real_out_vid, real_warped_vid, real_vid_grid and
+        real_vid_conf from the LFAE's full encode of `video` (B, tc+tp, H, W,
+        C) in [0, 1]; fake_out_vid, fake_warped_vid, fake_vid_grid and
+        fake_vid_conf decoded from ``p_losses``' pred_x0 at a diffusion time t
+        and noise drawn from `generator` (or given), the UNet as the train
+        step runs it."""
+        cfg = self.cfg
+        tc, tp = cfg.cond_frames, cfg.pred_frames
+
+        @torch.no_grad()
+        def monitor(generator: Optional[torch.Generator], video: torch.Tensor,
+                    t: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None) -> Dict[str, Optional[torch.Tensor]]:
+            video = video.to(self.device)
+            enc = self.lfae.encode_video(video, tc, with_decode=True)
+            fea = self.lfae.ref_features(video, tc, tp) if cfg.use_ref_features else None
+            frames = self.latents_from_encode(enc).float()
+            _, pred_x0 = self.diffusion.p_losses(self.denoise_fn(), generator, frames[:, :tc],
+                                                 frames[:, tc:tc + tp], fea, t=t, noise=noise)
+            fake_flow = self.flow_from_pred(pred_x0)
+            fake_conf = None if enc["conf"] is None else (pred_x0[..., 2:3] + 1.0) * 0.5
+            dec = self.lfae.decode_flows(video[:, tc - 1], fake_flow, fake_conf)
+            return {"ref_imgs": video[:, tc - 1],
+                    "real_out_vid": enc["out_vid"], "real_warped_vid": enc["warped_vid"],
+                    "real_vid_grid": enc["flow"], "real_vid_conf": enc["conf"],
+                    "fake_out_vid": dec["out_vid"], "fake_warped_vid": dec["warped_vid"],
+                    "fake_vid_grid": fake_flow, "fake_vid_conf": fake_conf}
+
+        return monitor
 
     def make_sampler(self):
         """fn(generator, cond_video, init_noise=None) -> dict with the keys of

@@ -8,11 +8,11 @@ per pixel computes its coordinates, padding fold, four corners and weights
 once, into shared memory, and the block then streams the tile's channels in
 vectors of up to 16 bytes. Kernel 8's d_grid is a per-pixel channel sum in
 a fixed order, so it repeats bit for bit; its d_image goes to global memory
-by vector reductions per corner. On the clamp and fold lines kernel 8 takes
-the TPU kernel's derivatives (0 at the border's bounds, -1 on a reflection
-fold, a corner out of range reads 0), where the plain version takes
-autograd's; ``grid_sample_dgrid_plain`` is d_grid with the TPU kernel's
-rules in plain torch.
+by vector reductions per corner. On the clamp and fold lines kernel 8 and
+its plain version take the TPU kernel's derivatives (0 at the border's
+bounds, -1 on a reflection fold, a corner out of range reads 0), which
+autograd of ``grid_sample_plain`` does not: ``grid_sample_dgrid_plain``
+states them in plain torch.
 ``grid_sample_plan`` (a plain, tested function) gives the tile, the vector
 width, kernel 8's lanes per pixel and the shared bytes (the source's
 ``grid_sample_smem`` query). The JAX package's VMEM/tileability gates
@@ -20,10 +20,11 @@ width, kernel 8's lanes per pixel and the shared bytes (the source's
 warp of the path and its backward take the kernels.
 
 ``grid_sample`` runs the kernel for CUDA tensors and the plain version
-(``grid_sample_plain``) for CPU tensors. On CUDA, when an operand needs a
-gradient, it runs inside a ``torch.autograd.Function`` whose backward is
-``grid_sample_bwd`` (kernel 8; its plain version ``grid_sample_plain_vjp`` is
-the autograd of ``grid_sample_plain``). ``grid_sample.launches`` and
+(``grid_sample_plain``) for CPU tensors. When an operand needs a gradient,
+it runs inside a ``torch.autograd.Function`` whose backward is
+``grid_sample_bwd``: kernel 8 on CUDA, its plain version
+``grid_sample_plain_vjp`` on the CPU (d_image by autograd of
+``grid_sample_plain``, d_grid from ``grid_sample_dgrid_plain``). ``grid_sample.launches`` and
 ``grid_sample_bwd.launches`` count kernel launches. Each wrapper call is one
 ctypes call; an operand that is contiguous and of the kernel's dtype is
 passed as it is, and kernel 8's entry zero-fills d_image itself.
@@ -138,6 +139,8 @@ def _check(what, image, grid, padding_mode):
 
 
 def _grid_sample_forward(image, grid, padding_mode):
+    if image.device.type == "cpu":
+        return grid_sample_plain(image.detach(), grid.detach(), padding_mode)
     _check("grid_sample", image, grid, padding_mode)
     B, H, W, C = image.shape
     _, Ho, Wo, _ = grid.shape
@@ -173,8 +176,6 @@ class _GridSample(torch.autograd.Function):
 def grid_sample(image: torch.Tensor, grid: torch.Tensor,
                 padding_mode: str = "zeros") -> torch.Tensor:
     """image (B, H, W, C), grid (B, Ho, Wo, 2) -> (B, Ho, Wo, C), align_corners=True."""
-    if image.device.type == "cpu":
-        return grid_sample_plain(image, grid, padding_mode)
     if _needs_grad(image, grid):
         return _GridSample.apply(image, grid, padding_mode)
     return _grid_sample_forward(image, grid, padding_mode)
@@ -190,8 +191,7 @@ def grid_sample_bwd(g: torch.Tensor, image: torch.Tensor, grid: torch.Tensor,
     cotangent g (B, Ho, Wo, C), each in its operand's dtype; None where its
     flag is off (the kernel then does none of that output's work)."""
     if image.device.type == "cpu":
-        d_image, d_grid = grid_sample_plain_vjp(g, image, grid, padding_mode)
-        return (d_image if image_grad else None), (d_grid if grid_grad else None)
+        return _plain_vjp(g, image, grid, padding_mode, image_grad, grid_grad)
     _check("grid_sample_bwd", image, grid, padding_mode)
     B, H, W, C = image.shape
     _, Ho, Wo, _ = grid.shape
@@ -223,8 +223,19 @@ def grid_sample_bwd(g: torch.Tensor, image: torch.Tensor, grid: torch.Tensor,
 grid_sample_bwd.launches = 0
 
 
+def _plain_vjp(g, image, grid, padding_mode, image_grad=True, grid_grad=True):
+    grid = grid.detach()
+    d_image = d_grid = None
+    if image_grad:
+        d_image = plain_vjp(lambda im: grid_sample_plain(im, grid, padding_mode), g, image)[0]
+    if grid_grad:
+        d_grid = grid_sample_dgrid_plain(g, image.detach(), grid, padding_mode).to(grid.dtype)
+    return d_image, d_grid
+
+
 def grid_sample_plain_vjp(g: torch.Tensor, image: torch.Tensor, grid: torch.Tensor,
                           padding_mode: str = "zeros"):
-    """The plain version of kernel 8: autograd of ``grid_sample_plain``,
-    (d_image, d_grid)."""
-    return plain_vjp(grid_sample_plain, g, image, grid, padding_mode=padding_mode)
+    """The plain version of kernel 8, (d_image, d_grid): d_image by autograd
+    of ``grid_sample_plain``, d_grid from ``grid_sample_dgrid_plain`` (the
+    TPU kernel's rules on the clamp and fold lines; autograd's elsewhere)."""
+    return _plain_vjp(g, image, grid, padding_mode)

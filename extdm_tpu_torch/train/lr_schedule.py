@@ -65,3 +65,15 @@ class ScheduledOptimizer:
         self.opt.step()
         self.count += 1
         return True
+
+    def state_dict(self) -> dict:
+        """The torch optimizer's state dict, with the update count and the
+        nan guard's count of consecutive skips beside it."""
+        return {**self.opt.state_dict(), "count": self.count,
+                "notfinite_count": self.notfinite_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        self.count = int(state.pop("count"))
+        self.notfinite_count = int(state.pop("notfinite_count"))
+        self.opt.load_state_dict(state)

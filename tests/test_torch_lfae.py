@@ -49,6 +49,20 @@ def test_encode_video(models):
         close(out["source_region_params"][k], ref["source_region_params"][k], TOL)
 
 
+def test_encode_video_with_decode(models):
+    """The full-mode encode: besides the flow and conf, every frame
+    reconstructed (out_vid) and the reference frame warped to it
+    (warped_vid)."""
+    jl, variables, port, video, tc = models
+    ref = jax.jit(lambda v, vid: jl.apply(v, vid, tc, True, method=JLFAE.encode_video))(
+        variables, jnp.asarray(video))
+    with torch.no_grad():
+        out = port.encode_video(torch.from_numpy(video), tc, with_decode=True)
+    for k in ("flow", "conf", "out_vid", "warped_vid"):
+        assert out[k].shape == ref[k].shape, k
+        close(out[k], ref[k], TOL)
+
+
 def test_ref_features(models):
     jl, variables, port, video, tc = models
     ref = jax.jit(lambda v, vid: jl.apply(v, vid, tc, 2, method=JLFAE.ref_features))(

@@ -244,17 +244,10 @@ def test_cpu_wrappers_take_the_plain_versions(dtype, mode):
 LINES = (-1.0, 1.0, 3.0, -3.0, -5.0)
 
 
-@pytest.mark.parametrize("axis", [0, 1])
-@pytest.mark.parametrize("mode", ["zeros", "border", "reflection"])
-def test_line_derivatives_match_pallas_bwd(mode, axis):
-    """d_grid at points on the clamp and fold lines (in x or in y), against
-    ``jax.vjp`` of ``pallas_warp.grid_sample(..., interpret=True)``, the TPU
-    kernel that kernel 8 replaces: ``grid_sample_dgrid_plain`` (the
-    reference chip_smoke.py holds kernel 8's d_grid to) equals it within
-    1e-5 of max(1, max|reference|), as tests/test_torch_warp_bwd.py holds
-    the plain backward off the lines, and so does the plain backward's
-    d_image. The plain backward's d_grid (autograd) equals it off the lines
-    and, in border and reflection modes, differs on them."""
+def _line_case(mode, axis):
+    """Image, grid (every third point on a clamp or fold line, in x or in y),
+    cotangent, the mask of the points on the lines, and JAX's
+    (d_image, d_grid) from ``pallas_warp.grid_sample(..., interpret=True)``."""
     rng = np.random.default_rng(11 + axis)
     H, W, C, Ho, Wo = 8, 16, 3, 8, 16  # the Pallas kernel's index split needs a power-of-two W
     image = rng.normal(size=(2, H, W, C)).astype(np.float32)
@@ -265,17 +258,57 @@ def test_line_derivatives_match_pallas_bwd(mode, axis):
     g = rng.normal(size=(2, Ho, Wo, C)).astype(np.float32)
     fn = jax.jit(lambda im, gr, ct: jax.vjp(
         lambda a, b: pallas_warp.grid_sample(a, b, mode, interpret=True), im, gr)[1](ct))
-    want_image, want_grid = (np.asarray(t) for t in fn(jnp.asarray(image), jnp.asarray(grid),
-                                                       jnp.asarray(g)))
+    want = tuple(np.asarray(t) for t in fn(jnp.asarray(image), jnp.asarray(grid), jnp.asarray(g)))
+    return image, grid, g, on, want
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mode", ["zeros", "border", "reflection"])
+def test_line_derivatives_match_pallas_bwd(mode, axis):
+    """d_grid at points on the clamp and fold lines (in x or in y), against
+    ``jax.vjp`` of ``pallas_warp.grid_sample(..., interpret=True)``, the TPU
+    kernel that kernel 8 replaces: ``grid_sample_dgrid_plain`` (the
+    reference chip_smoke.py holds kernel 8's d_grid to) and the plain
+    backward ``grid_sample_plain_vjp`` (d_grid and d_image) equal it within
+    1e-5 of max(1, max|reference|), on the lines and off them, as
+    tests/test_torch_warp_bwd.py holds the plain backward off the lines.
+    Autograd of ``grid_sample_plain`` equals it off the lines and, in border
+    and reflection modes, differs on them: the plain backward takes its
+    d_grid from ``grid_sample_dgrid_plain`` for that reason."""
+    image, grid, g, on, (want_image, want_grid) = _line_case(mode, axis)
     t = [torch.from_numpy(a) for a in (g, image, grid)]
     got = fw.grid_sample_dgrid_plain(*t, mode).numpy()
     d_image, d_grid = (a.numpy() for a in fw.grid_sample_plain_vjp(*t, mode))
     tol = 1e-5 * max(1.0, float(np.abs(want_grid).max()))
     assert np.abs(got - want_grid).max() <= tol
+    assert np.abs(d_grid - want_grid).max() <= tol
     assert np.abs(d_image - want_image).max() <= 1e-5 * max(1.0, np.abs(want_image).max())
-    autograd = np.abs(d_grid - want_grid).reshape(-1, 2).max(-1)
-    assert (autograd[~on] <= tol).all()
-    assert (autograd[on].max() > tol) == (mode != "zeros")
+    autograd = fw.plain_vjp(fw.grid_sample_plain, *t, padding_mode=mode)[1].numpy()
+    err = np.abs(autograd - want_grid).reshape(-1, 2).max(-1)
+    assert (err[~on] <= tol).all()
+    assert (err[on].max() > tol) == (mode != "zeros")
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mode", ["zeros", "border", "reflection"])
+def test_cpu_autograd_takes_the_line_rules(mode, axis):
+    """``grid_sample(...).backward`` on CPU tensors: the gradient of a
+    ``torch.autograd.Function`` whose backward is the plain backward, so
+    d_grid equals ``grid_sample_dgrid_plain`` (bitwise) and JAX's Pallas
+    backward (1e-5 of max(1, max|reference|)) on the lines too; d_image
+    equals autograd's of ``grid_sample_plain``."""
+    image, grid, g, _, (want_image, want_grid) = _line_case(mode, axis)
+    im = torch.from_numpy(image).requires_grad_(True)
+    gr = torch.from_numpy(grid).requires_grad_(True)
+    out = fw.grid_sample(im, gr, mode)
+    assert type(out.grad_fn).__name__ == "_GridSampleBackward"
+    out.backward(torch.from_numpy(g))
+    rule = fw.grid_sample_dgrid_plain(*(torch.from_numpy(a) for a in (g, image, grid)), mode)
+    assert torch.equal(gr.grad, rule)
+    assert np.abs(gr.grad.numpy() - want_grid).max() <= 1e-5 * max(1.0, np.abs(want_grid).max())
+    assert np.abs(im.grad.numpy() - want_image).max() <= 1e-5 * max(1.0, np.abs(want_image).max())
+    assert torch.equal(out.detach(), fw.grid_sample_plain(*(torch.from_numpy(a)
+                                                            for a in (image, grid)), mode))
 
 
 @pytest.mark.parametrize("mode", ["zeros", "border", "reflection"])
