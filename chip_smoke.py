@@ -145,6 +145,28 @@
    256 channels takes the decomposed route (kernel 7's float32 body keeps
    256), so kernels 10 and 11 run twice each per such block.
 
+12. w_ref/traj: ``config.kth_traj_config()`` (window (2, 4, 4): N = 32
+   tokens a window, shift (1, 2, 2) over T = 30; TrajWarp at every DDIM
+   step, no cond cache; adaptors from level 2) in bf16. A recorded warm-up
+   sampler call at batch 4; kernel 1 against its plain version at each of
+   its N = 32 layer shapes (bf16 limits and branch limits; call and device
+   time); 3 timed calls with every launch count (180 / 90 / 200 / 5: no
+   cond-stream temporal layer); the float32 traj UNet at batch 1, card vs
+   CPU. Then its train step at batch 8 (remat, bf16 compute): a recorded
+   warm-up step, kernel 5 against the plain backward at each N = 32 shape,
+   3 timed steps with launch counts (18 / 9 / 20 forward and backward).
+13. AE bf16: the AE step at batch 64 with ``ReconstructionModel(dtype=
+   bfloat16)``: a recorded warm-up step, kernels 4 and 8 at its shapes
+   (bf16 images, and the float32 TPS warp) against their plain versions,
+   the losses against the float32 step's on the same batch, weights and
+   draws (AE_BF16_LOSS_REL_TOL), float32 parameters, gradients and
+   BatchNorm statistics after the step, 3 timed steps (6 / 5 warp
+   launches) beside the float32 step's median; then ``train_ae.main
+   --bf16`` for 2 steps ("AE job").
+The sampling phase also runs the sampler variants after its end-to-end
+line: ``make_sampler(decode=False)`` and ``sample_video`` against
+``make_sampler()`` on the same seed (SPREAD_MULT).
+
 The train phase also runs an A/B of the two resnet backward routes: at the
 KTH step's resnet-backward shapes (32^2 to 4^2 frames), kernels 10 and 11
 are first checked against their plain versions at every conv shape of the
@@ -1064,15 +1086,23 @@ def kernel_phase(table, record, card):
 
 
 # ----------------------------------------------------------------- end to end
+def cond_stream_layers(cfg):
+    """Temporal layers of the UNet's (x, t)-invariant conditioning stream:
+    one in the adaptor family (run once a sampler call, as its cond cache),
+    none in the trajwarp family (whose conditioning is TrajWarp, no kernel
+    layer) or without reference features."""
+    return int(cfg.use_ref_features and cfg.conditioning != "trajwarp")
+
+
 def expected_launches(cfg):
     levels, steps = len(cfg.dim_mults), cfg.sampling_timesteps
     return {"stw_layer": steps * 2 * (2 * levels + 1),
-            "temporal_layer": steps * (1 + 2 * levels) + 1,
+            "temporal_layer": steps * (1 + 2 * levels) + cond_stream_layers(cfg),
             "resnet_block": steps * (4 * levels + 4),
             "grid_sample": 5}
 
 
-def unet_f32_card_vs_cpu(cfg):
+def unet_f32_card_vs_cpu(cfg, what="unet3d"):
     """One float32 Unet3D forward at batch 1: kernels on the card vs plain on the CPU."""
     import dataclasses
 
@@ -1091,9 +1121,9 @@ def unet_f32_card_vs_cpu(cfg):
         t0 = time.perf_counter()
         out_cpu = unet_cpu(*inputs)
         cpu_s = time.perf_counter() - t0
-    res = check("unet3d float32 card vs cpu", out_gpu, out_cpu, UNET_F32_REL_TOL)
-    log({"check": "unet3d float32 batch 1, card kernels vs CPU plain", "shape": list(out_cpu.shape),
-         "cpu_s": cpu_s, **res})
+    res = check(f"{what} float32 card vs cpu", out_gpu, out_cpu, UNET_F32_REL_TOL)
+    log({"check": f"{what} float32 batch 1, card kernels vs CPU plain",
+         "shape": list(out_cpu.shape), "cpu_s": cpu_s, **res})
 
 
 def backward_phase(table, record, card):
@@ -1174,7 +1204,8 @@ def backward_phase(table, record, card):
 
 def expected_train_launches(cfg):
     levels = len(cfg.dim_mults)
-    per_layer = {"stw_layer": 2 * (2 * levels + 1), "temporal_layer": 2 + 2 * levels,
+    per_layer = {"stw_layer": 2 * (2 * levels + 1),
+                 "temporal_layer": 1 + 2 * levels + cond_stream_layers(cfg),
                  "resnet_block": 4 * levels + 4}
     fwd = dict(per_layer, grid_sample=1)
     bwd = {f"{n}_bwd": c for n, c in per_layer.items()}
@@ -1582,13 +1613,13 @@ def grad_fn_check():
          "grid_sample_bwd kernel", **res})
 
 
-def ae_model_and_trainer(cfg, device, seed=0):
+def ae_model_and_trainer(cfg, device, seed=0, dtype=None):
     from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
     from extdm_tpu_torch.train.ae_trainer import AETrainer, make_optimizer
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = ReconstructionModel(**cfg["model"])
+        model = ReconstructionModel(dtype=dtype, **cfg["model"])
     return AETrainer(model, make_optimizer(cfg["lr"], cfg["milestones"], cfg["gamma"]),
                      device_augment=cfg["device_augment"], device=device)
 
@@ -3076,6 +3107,457 @@ def resnet_backward_step_ab(trainer, video, counters, want, card):
          "decomposed_median_ms": statistics.median(times["decomposed"]), "card": card})
 
 
+# ------------------------------------ w_ref/traj, AE bf16 and the sampler variants
+def check_sample(out, cfg, B, decode=True):
+    """The sampler's keys, shapes and finite values."""
+    T, px = cfg.cond_frames + cfg.pred_frames, cfg.frame_shape
+    want = {"sample_vid_grid": (B, T, px // 2, px // 2, 2),
+            "sample_vid_conf": (B, T, px // 2, px // 2, 1),
+            "real_vid_grid": (B, cfg.cond_frames, px // 2, px // 2, 2),
+            "real_vid_conf": (B, cfg.cond_frames, px // 2, px // 2, 1)}
+    if decode:
+        want.update(sample_out_vid=(B, T, px, px, 3), sample_warped_vid=(B, T, px, px, 3))
+    if set(out) != set(want):
+        raise AssertionError(f"sampler keys {sorted(out)} != {sorted(want)}")
+    for key, shape in want.items():
+        if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+            raise AssertionError(f"{key}: shape {tuple(out[key].shape)} (want {shape}) or "
+                                 f"non-finite")
+
+
+# make_sampler(decode=False) and sample_video against make_sampler() on the
+# card, same generator seed. They run the same computation and draws (bit
+# for bit on the CPU: tests/test_torch_variants.py), and the encode's
+# latents (real_vid_*) agree bit for bit here too. The sampled latents and
+# pixels do not repeat bit for bit on the card: kernel 3 sums its GroupNorm
+# statistics with float atomics, whose order varies between calls (kernels 7
+# and 8 sum in a fixed order; kernel 3 keeps its design in this slice), and
+# ten bf16 DDIM steps with noise carry those last-bit differences into
+# visible ones (a second make_sampler() call on the same seed moved a decoded
+# pixel by 0.138). So each sampled output of a variant is held by its mean
+# difference from make_sampler()'s: at most SPREAD_MULT times the mean
+# difference of a second make_sampler() call on the same seed, plus one bf16
+# ulp (2^-8) of the output's mean magnitude. A variant that sampled other
+# draws, decoded other frames or dropped a step differs by about the
+# output's own size.
+SPREAD_MULT = 4.0
+
+
+def sampler_variants_phase(fd, cond, card):
+    """make_sampler(decode=False) against the decoding sampler's latents,
+    and sample_video against make_sampler(), each on the same generator
+    seed: the keys and shapes, real_vid_* bit for bit, the sampled outputs
+    within SPREAD_MULT of make_sampler()'s spread against itself."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    calls = {}
+    for name, fn in (("make_sampler()", lambda: fd.make_sampler()(gen.manual_seed(7), cond)),
+                     ("make_sampler() again", lambda: fd.make_sampler()(gen.manual_seed(7), cond)),
+                     ("make_sampler(decode=False)",
+                      lambda: fd.make_sampler(decode=False)(gen.manual_seed(7), cond)),
+                     ("sample_video", lambda: fd.sample_video(gen.manual_seed(7), cond))):
+        t1 = time.perf_counter()
+        calls[name] = fn()
+        torch.cuda.synchronize()
+        check_sample(calls[name], fd.cfg, cond.shape[0], name != "make_sampler(decode=False)")
+        calls[name]["ms"] = (time.perf_counter() - t1) * 1e3
+    full, again = calls["make_sampler()"], calls["make_sampler() again"]
+    spread = {k: (again[k].float() - full[k].float()).abs().mean().item()
+              for k in full if k != "ms"}
+    lines = []
+    for name in ("make_sampler(decode=False)", "sample_video"):
+        out, line = calls[name], {"variant": name, "ms": calls[name]["ms"]}
+        for key in [k for k in out if k != "ms"]:
+            diff = (out[key].float() - full[key].float()).abs()
+            if key.startswith("real_"):
+                if not torch.equal(out[key], full[key]):
+                    raise AssertionError(f"{name}: {key} differs from make_sampler()'s")
+                continue
+            tol = SPREAD_MULT * spread[key] + 2.0 ** -8 * full[key].float().abs().mean().item()
+            line[key] = {"mean_abs_err": diff.mean().item(), "max_abs_err": diff.max().item(),
+                         "tol": tol, "repeat_mean_abs_err": spread[key],
+                         "bitwise": bool(torch.equal(out[key], full[key]))}
+            if not diff.mean().item() <= tol:
+                raise AssertionError(f"{name} {key}: mean difference from make_sampler()'s "
+                                     f"{line[key]}")
+        lines.append(line)
+    log({"phase": "sampler variants", "batch": cond.shape[0], "variants": lines,
+         "repeat_mean_abs_err": spread, "seconds": time.perf_counter() - t0, "card": card})
+
+
+def n32_record_phase(table, record, name, card, what):
+    """Kernel 1 (forward, `name` "stw_layer") or kernel 5 ("stw_layer_bwd")
+    against its plain version at every recorded window layer of N = 32
+    tokens, bf16; CUDA-event and device time, bound. Returns the per-call or
+    per-step totals."""
+    k = table[name]
+    tot = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, bound_ms=0.0, flops=0.0, max_abs_err=0.0,
+               launches=0, shapes=0)
+    symbols = kernel_symbols(k["source"])
+    backward = name.endswith("_bwd")
+    for key, entry in record[name].items():
+        args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+        if math.prod(kwargs["window"]) != 32:
+            raise AssertionError(f"{name}{key}: window {kwargs['window']}, not 32 tokens")
+        got = k["wrapper"](*args, **kwargs)
+        want = k["plain"](*args, **kwargs)
+        torch.cuda.synchronize()
+        if backward:
+            res = check_grads(f"{name}{key} N=32", got, want, BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+        else:
+            res = check(f"{name}{key} N=32", got, want, BF16_REL_TOL,
+                        k["residual"](*args, **kwargs))
+        reps = 5
+        ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), reps)
+        plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), reps)
+        dev_ms = device_ms(lambda: k["wrapper"](*args, **kwargs), reps, symbols)[0]
+        byts, flops, op_dtype = k["cost"](*args, **kwargs)
+        bytes_ms, ops_ms = byts / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[op_dtype] * 1e3
+        bound = max(bytes_ms, ops_ms)
+        log({"kernel": name, "config": what, "shape": list(key[0]), "key": str(key[1:]),
+             "tokens": 32, "dtype": "bfloat16", "per_call": count, "kernel_ms": ms,
+             "kernel_device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "device_tflops": flops / dev_ms / 1e9, "bound_share": bound / dev_ms, **res,
+             "card": card})
+        for field, value in (("ms", ms), ("plain_ms", plain_ms), ("device_ms", dev_ms),
+                             ("bound_ms", bound), ("flops", flops)):
+            tot[field] += count * value
+        tot["launches"] += count
+        tot["shapes"] += 1
+        tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
+    return tot
+
+
+def traj_sampling_phase(table, others, card):
+    """The w_ref/traj KTH preset (window (2, 4, 4): N = 32, shift (1, 2, 2)
+    over T = 30; TrajWarp at every DDIM step, no cond cache) in bf16 at
+    batch 4: a recorded warm-up call, kernel 1 at each of its N = 32 layer
+    shapes, 3 timed calls with every launch count, and the float32 traj
+    UNet at batch 1, card vs CPU."""
+    from extdm_tpu_torch.config import kth_traj_config
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+
+    t_phase = time.perf_counter()
+    cfg = kth_traj_config()
+    fd = FlowDiffusion(cfg, device="cuda", seed=0)
+    sampler = fd.make_sampler()
+    cond = torch.rand((BATCH, cfg.cond_frames, cfg.frame_shape, cfg.frame_shape, 3),
+                      generator=torch.Generator().manual_seed(1)).cuda()
+    gen = torch.Generator(device="cuda")
+    record = {}
+    t0 = time.perf_counter()
+    with recording(table, record):
+        sampler(gen.manual_seed(1), cond)
+        torch.cuda.synchronize()
+    want = expected_launches(cfg)
+    seen = {n: sum(e["count"] for e in r.values()) for n, r in record.items()}
+    log({"phase": "traj warm-up request", "seconds": time.perf_counter() - t0,
+         "shapes": {n: len(r) for n, r in record.items()}, "launches": seen})
+    if seen != want:
+        raise AssertionError(f"traj warm-up kernel calls {seen} != expected {want}")
+    n32 = n32_record_phase(table, record, "stw_layer", card, "w_ref/traj sampler, batch 4")
+    del record
+
+    counters = {n: k["wrapper"] for n, k in {**table, **others}.items()}
+    want = {n: want.get(n, 0) for n in counters}
+    times = []
+    for i in range(TIMED_CALLS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = sampler(gen.manual_seed(100 + i), cond)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        if launches != want:
+            raise AssertionError(f"traj request {i}: kernel launches {launches} != {want}")
+    check_sample(out, cfg, BATCH)
+    med = statistics.median(times)
+    log({"phase": "traj sampling", "config": "KTH 64px tc=10 tp=20 DDIM-10 bf16, w_ref/traj "
+         "(window (2,4,4), TrajWarp, adaptors from level 2)", "batch": BATCH,
+         "ms_per_call": [t * 1e3 for t in times], "median_ms": med * 1e3,
+         "predicted_frames_per_s": BATCH * cfg.pred_frames / med,
+         "launches_per_call": {n: c for n, c in launches.items() if c},
+         "kernel1_n32": n32, "card": card})
+    del fd, sampler
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    unet_f32_card_vs_cpu(cfg, "w_ref/traj unet3d")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    log({"phase": "traj sampling phase", "seconds": time.perf_counter() - t_phase})
+    return n32, launches
+
+
+def traj_train_phase(table, btable, others, card):
+    """The w_ref/traj preset's DM train step at batch 8 (remat, bf16
+    compute, float32 master weights): a recorded warm-up step, kernel 5 at
+    each of its N = 32 layer shapes against the plain backward, 3 timed
+    steps with every launch count."""
+    from extdm_tpu_torch.config import kth_traj_config
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = kth_traj_config(remat=True)
+    fd = FlowDiffusion(cfg, device="cuda", seed=0)
+    trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), 2e-4, (500000,), 0.5))
+    T, px = cfg.cond_frames + cfg.pred_frames, cfg.frame_shape
+    video = torch.rand((TRAIN_BATCH, T, px, px, 3),
+                       generator=torch.Generator().manual_seed(2)).cuda()
+    gen = torch.Generator(device="cuda")
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(btable, record):
+        aux = trainer.train_step(gen.manual_seed(0), video)
+        torch.cuda.synchronize()
+    want_fwd, want_bwd = expected_train_launches(cfg)
+    seen = {n: sum(e["count"] for e in r.values()) for n, r in record.items()}
+    log({"phase": "traj train warm-up step", "seconds": time.perf_counter() - t0,
+         "loss": aux["loss"].item(), "grad_norm": aux["grad_norm"].item(), "launches": seen})
+    if seen != want_bwd:
+        raise AssertionError(f"traj warm-up backward kernel calls {seen} != {want_bwd}")
+    n32 = n32_record_phase(btable, record, "stw_layer_bwd", card, "w_ref/traj step, batch 8")
+    del record
+
+    counters = {n: k["wrapper"] for n, k in {**table, **btable, **others}.items()}
+    want = {n: {**want_fwd, **want_bwd}.get(n, 0) for n in counters}
+    times = []
+    for i in range(TIMED_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        aux = trainer.train_step(gen.manual_seed(10 + i), video)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        loss, grad_norm = aux["loss"].item(), aux["grad_norm"].item()
+        if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+            raise AssertionError(f"traj train step {i}: loss {loss}, grad_norm {grad_norm}")
+        if launches != want:
+            raise AssertionError(f"traj train step {i}: launches {launches} != {want}")
+    med = statistics.median(times)
+    log({"phase": "traj train", "config": "KTH 64px tc=10 tp=20 w_ref/traj, bf16 compute, "
+         "float32 master weights, remat", "batch": TRAIN_BATCH,
+         "ms_per_step": [t * 1e3 for t in times], "median_ms": med * 1e3,
+         "train_frames_per_s": TRAIN_BATCH * T / med,
+         "launches_per_step": {n: c for n, c in launches.items() if c},
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "kernel5_n32": n32,
+         "card": card})
+    del trainer, fd
+    torch.cuda.empty_cache()
+    log({"phase": "traj train phase", "seconds": time.perf_counter() - t_phase})
+    return n32, launches
+
+
+# bf16 AE step vs the float32 step on the same batch, weights, augmentation
+# and TPS draw: each loss within this fraction of the float32 one. The
+# policy rounds every conv's inputs and outputs to bf16 (2^-8 relative) and
+# the losses pass through train-mode BatchNorm and the temperature-0.1 region
+# softmax, which amplify that rounding: at full width on the CPU (batch 4,
+# the seeded init) the bf16 losses lay up to 2.1% from the float32 ones
+# (equivariance_shift), and the JAX package's bf16 losses up to 1.45% from
+# its float32 ones at the tiny test model. 5% leaves more than twice the
+# first; a lost or doubled term moves a loss by far more.
+AE_BF16_LOSS_REL_TOL = 0.05
+
+
+def ae_bf16_phase(table, ae_btable, others, card, f32_ms):
+    """The AE step at batch 64 with the bf16 compute policy
+    (ReconstructionModel(dtype=bfloat16)): a recorded warm-up step; kernels
+    4 and 8 at its shapes (bf16 images: the K+1 source warps and the
+    decode's; float32: the TPS warp) against their plain versions; the
+    losses against the float32 step's on the same batch, weights and draws;
+    parameters, gradients and BatchNorm statistics float32 after a step; 3
+    timed steps with launch counts beside the float32 step's median."""
+    from extdm_tpu_torch.config import kth_ae_training_config
+    from extdm_tpu_torch.models.lfae.transform import random_tps
+    from extdm_tpu_torch.train.device_augment import sample_augment
+    from extdm_tpu_torch.train.train_ae import frozen_statistics
+
+    t_phase = time.perf_counter()
+    job_defaults()
+    cfg = kth_ae_training_config()
+    trainer = ae_model_and_trainer(cfg, "cuda", dtype=torch.bfloat16)
+    px = cfg["frame_shape"]
+    g = torch.Generator().manual_seed(3)
+    batch = {k: torch.randint(0, 256, (AE_BATCH, px, px), generator=g, dtype=torch.uint8).cuda()
+             for k in ("source", "driving")}
+    gen = torch.Generator(device="cuda")
+    warp = {"grid_sample": table["grid_sample"]}
+    frecord, record = {}, {}
+    t0 = time.perf_counter()
+    with recording(warp, frecord), recording(ae_btable, record):
+        aux = trainer.train_step(gen.manual_seed(0), batch)
+        torch.cuda.synchronize()
+    want = {"grid_sample": 6, "grid_sample_bwd": 5}
+    seen = {n: sum(e["count"] for e in r.values()) for n, r in {**frecord, **record}.items()}
+    log({"phase": "AE bf16 warm-up step", "seconds": time.perf_counter() - t0,
+         "losses": {k: v.float().item() for k, v in aux.items()}, "launches": seen})
+    if seen != want:
+        raise AssertionError(f"AE bf16 warm-up warp calls {seen} != expected {want}")
+    summary = {}
+    for name, rec, k in (("grid_sample", frecord, warp["grid_sample"]),
+                         ("grid_sample_bwd", record, ae_btable["grid_sample_bwd"])):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                   launches=0, bf16=0)
+        for key, entry in rec[name].items():
+            args, kwargs, count = entry["args"], entry["kwargs"], entry["count"]
+            image = args[1] if name == "grid_sample_bwd" else args[0]
+            bf16 = image.dtype == torch.bfloat16
+            got, want_k = k["wrapper"](*args, **kwargs), k["plain"](*args, **kwargs)
+            torch.cuda.synchronize()
+            if name == "grid_sample_bwd":
+                res = (check_grads(f"{name}{key}", got, want_k, BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL)
+                       if bf16 else check_grads(f"{name}{key}", got, want_k, F32_REL_TOL,
+                                                F32_REL_TOL))
+            else:
+                res = check(f"{name}{key}", got, want_k, BF16_REL_TOL if bf16 else F32_REL_TOL)
+            ms = cuda_ms(lambda: k["wrapper"](*args, **kwargs), 5)
+            plain_ms = cuda_ms(lambda: k["plain"](*args, **kwargs), 5)
+            if name == "grid_sample_bwd":  # ATen takes one dtype for all three operands
+                g, img, grid = args[:3]
+                library = warp_bwd_library(g.to(img.dtype), img, grid.to(img.dtype), *args[3:],
+                                           **kwargs)
+            else:
+                img_nchw, grid = args[0].permute(0, 3, 1, 2), args[1].to(args[0].dtype)
+                library = lambda: F.grid_sample(  # noqa: E731
+                    img_nchw, grid, mode="bilinear", align_corners=True,
+                    padding_mode=kwargs.get("padding_mode", "zeros"))
+            library_ms = cuda_ms(library, 5)
+            byts, flops, op_dtype = k["cost"](*args, **kwargs)
+            bound = max(byts / HBM_BYTES_PER_S, flops / PEAK_FLOPS[op_dtype]) * 1e3
+            log({"kernel": name, "config": "AE step bf16 policy, batch 64",
+                 "shape": list(key[0]) if isinstance(key[0], tuple) else str(key),
+                 "key": str(key[1:]), "dtype": str(image.dtype).replace("torch.", ""),
+                 "per_step": count, "kernel_ms": ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, "bound_ms": bound, **res, "card": card})
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["library_ms"] += count * library_ms
+            tot["bound_ms"] += count * bound
+            tot["launches"] += count
+            tot["bf16"] += count * bf16
+            tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
+        summary[name] = tot
+    if not (summary["grid_sample"]["bf16"] and summary["grid_sample_bwd"]["bf16"]):
+        raise AssertionError(f"AE bf16 step: no bf16 warp ran: {summary}")
+    del frecord, record
+
+    # the losses against the float32 step's: same weights (same seed), batch and draws
+    draws = torch.Generator().manual_seed(5)
+    augment = sample_augment(draws, AE_BATCH, (px, px), **cfg["device_augment"])
+    tps = random_tps(draws, AE_BATCH, **cfg["model"]["transform_params"])
+    trainer32 = ae_model_and_trainer(cfg, "cuda")
+    trainer16 = ae_model_and_trainer(cfg, "cuda", dtype=torch.bfloat16)
+    losses = {}
+    for run, tr in (("float32", trainer32), ("bf16", trainer16)):
+        with torch.no_grad(), frozen_statistics(tr.model):
+            total, ls = tr.loss(None, batch, tps=tps, augment=augment)
+        losses[run] = {k: v.float().item() for k, v in ls.items()} | {"total": total.item()}
+    del trainer32, trainer16
+    rel = {k: abs(losses["bf16"][k] - v) / abs(v) for k, v in losses["float32"].items()}
+    if not all(math.isfinite(v) for v in losses["bf16"].values()) or any(
+            r > AE_BF16_LOSS_REL_TOL for r in rel.values()):
+        raise AssertionError(f"AE bf16 losses {losses['bf16']} vs float32 {losses['float32']}: "
+                             f"relative {rel} (limit {AE_BF16_LOSS_REL_TOL})")
+    model = trainer.model
+    kinds = {"parameters": {p.dtype for p in model.parameters()},
+             "gradients": {p.grad.dtype for p in model.parameters() if p.grad is not None},
+             "batchnorm statistics": {b.dtype for n, b in model.named_buffers()
+                                      if "running" in n}}
+    if any(v != {torch.float32} for v in kinds.values()):
+        raise AssertionError(f"AE bf16 step: {kinds} (all must be float32)")
+    log({"check": "AE step bf16 policy vs float32, batch 64, same weights, batch and draws",
+         "losses_bf16": losses["bf16"], "losses_float32": losses["float32"], "rel_err": rel,
+         "tol": AE_BF16_LOSS_REL_TOL, "dtypes_after_step": {k: [str(d) for d in v]
+                                                             for k, v in kinds.items()}})
+
+    counters = {n: k["wrapper"] for n, k in {**table, **ae_btable, **others}.items()}
+    expected = {n: want.get(n, 0) for n in counters}
+    times = []
+    for i in range(TIMED_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        aux = trainer.train_step(gen.manual_seed(10 + i), batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        if not all(torch.isfinite(v).all() for v in aux.values()):
+            raise AssertionError(f"AE bf16 step {i}: losses {aux}")
+        if launches != expected:
+            raise AssertionError(f"AE bf16 step {i}: launches {launches} != {expected}")
+    med = statistics.median(times)
+    log({"phase": "AE bf16", "config": "configs/AE/kth.yaml, bf16 compute policy (float32 "
+         "parameters and BatchNorm statistics)", "batch": AE_BATCH,
+         "ms_per_step": [t * 1e3 for t in times], "median_ms": med * 1e3,
+         "pairs_per_s": AE_BATCH / med, "float32_median_ms": f32_ms,
+         "float32_pairs_per_s": AE_BATCH / f32_ms * 1e3,
+         "launches_per_step": {n: c for n, c in launches.items() if c},
+         "warps": summary, "card": card})
+    del trainer, batch
+    torch.cuda.empty_cache()
+    ae_bf16_job_run(counters, card, med * 1e3)
+    log({"phase": "AE bf16 phase", "seconds": time.perf_counter() - t_phase})
+    return summary, launches
+
+
+def ae_bf16_job_run(counters, card, bare_step_ms):
+    """train/train_ae.py main with --bf16 (and --device_augment) for 2 steps
+    on the card: configs/AE/kth.yaml at batch 64 of 8 in-memory videos.
+    Checks the launches of each step, finite losses, float32 parameters and
+    statistics in the trainer after the run and the checkpoint's float32
+    tensors."""
+    import tempfile
+
+    from extdm_tpu_torch.train import checkpoint, train_ae
+    from extdm_tpu_torch.train.ae_trainer import AETrainer
+
+    job_defaults()
+    want_step = {n: {"grid_sample": 6, "grid_sample_bwd": 5}.get(n, 0) for n in counters}
+    trainers = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = job_yaml("configs/AE/kth.yaml", tmp, "flow_params", print_freq=1,
+                            update_ckpt_freq=2, save_img_freq=2, num_repeats=8,
+                            dataloader_workers=8)
+        log_dir = str(Path(tmp) / "bf16")
+        steps = []
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with per_call_launches(AETrainer, "train_step", counters, steps,
+                               lambda args: trainers.append(args[0])):
+            train_ae.main(["--config", cfg_path, "--batch_size", "64", "--synthetic_videos", "8",
+                           "--valid_every", "0", "--device", "cuda", "--bf16",
+                           "--device_augment", "--max_steps", "2", "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        recs = check_job_run(log_dir, "loss_total", range(2),
+                             ["train.log", "metrics.jsonl", train_ae.CKPT], "")
+        if len(steps) != 2 or any(s != want_step for s in steps):
+            raise AssertionError(f"AE bf16 job: step launches {steps} != {want_step}")
+        model = trainers[0].model
+        if model.dtype != torch.bfloat16 or {p.dtype for p in model.parameters()} != {
+                torch.float32}:
+            raise AssertionError("AE bf16 job: the model is not the bf16 policy on float32 "
+                                 "parameters")
+        saved = checkpoint.load_checkpoint(str(Path(log_dir) / train_ae.CKPT))
+        kinds = {v.dtype for part in checkpoint.AE_PARTS for v in saved[part].values()
+                 if v.is_floating_point()}
+        if kinds != {torch.float32}:
+            raise AssertionError(f"AE bf16 job: checkpoint tensors {kinds}")
+    del trainers
+    torch.cuda.empty_cache()
+    log({"phase": "AE job", "config": "configs/AE/kth.yaml, --bf16 --device_augment, batch 64, "
+         "8 in-memory videos x 8 repeats", "launches_per_step": {n: c for n, c in
+                                                                 want_step.items() if c},
+         **job_timing(recs, bare_step_ms), "seconds": seconds, "steps": len(steps),
+         "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3130,18 +3612,14 @@ def main() -> int:
         launches = {n: k["wrapper"].launches for n, k in {**table, **wm, **rt}.items()}
         if launches != want:
             raise AssertionError(f"request {i}: kernel launches {launches} != expected {want}")
-    B, T, tp = BATCH, cfg.cond_frames + cfg.pred_frames, cfg.pred_frames
-    for key, shape in (("sample_out_vid", (B, T, cfg.frame_shape, cfg.frame_shape, 3)),
-                       ("sample_warped_vid", (B, T, cfg.frame_shape, cfg.frame_shape, 3)),
-                       ("sample_vid_grid", (B, T, cfg.frame_shape // 2, cfg.frame_shape // 2, 2)),
-                       ("sample_vid_conf", (B, T, cfg.frame_shape // 2, cfg.frame_shape // 2, 1))):
-        if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
-            raise AssertionError(f"{key}: shape {tuple(out[key].shape)} (want {shape}) or non-finite")
+    B, tp = BATCH, cfg.pred_frames
+    check_sample(out, cfg, B)
     med = statistics.median(times)
     log({"phase": "end to end", "config": "KTH 64px tc=10 tp=20 DDIM-10 bf16", "batch": B,
          "ms_per_call": [t * 1e3 for t in times], "median_ms": med * 1e3,
          "predicted_frames_per_s": B * tp / med, "launches_per_call": launches, "card": card})
 
+    sampler_variants_phase(fd, cond, card)
     unet_f32_card_vs_cpu(cfg)
     del fd, sampler
     torch.cuda.empty_cache()
@@ -3166,6 +3644,11 @@ def main() -> int:
     # ---- the multi1248/ada preset (kernels 10-12 on the layers over 256 channels)
     msummary, m_call, m_step, m_f32, m_f32_step = multi1248_phase(table, btable,
                                                                   {**ae_btable, **wm}, card)
+
+    # ---- the w_ref/traj preset (kernels 1 and 5 at N = 32), then the AE step in bf16
+    _, traj_call = traj_sampling_phase(table, {**btable, **ae_btable, **wm, **rt}, card)
+    _, traj_step = traj_train_phase(table, btable, {**ae_btable, **wm, **rt}, card)
+    _, ae16_step = ae_bf16_phase(table, ae_btable, {**btable, **wm, **rt}, card, ae_ms)
 
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the
@@ -3196,6 +3679,9 @@ def main() -> int:
                         "multi1248_step_launches": m_step[name],
                         "multi1248_f32_forward_launches": m_f32[name],
                         "multi1248_f32_step_launches": m_f32_step[name],
+                        "traj_call_launches": traj_call.get(name, 0),
+                        "traj_step_launches": traj_step.get(name, 0),
+                        "ae_bf16_step_launches": ae16_step.get(name, 0),
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",

@@ -66,6 +66,16 @@ def kth_multi1248_config(**overrides) -> FlowDiffusionConfig:
     return kth_sampling_config(**{**ARCH_PRESETS["multi1248/ada"], **overrides})
 
 
+def kth_traj_config(**overrides) -> FlowDiffusionConfig:
+    """The KTH sampling preset with the ``w_ref/traj`` UNet (the reference's
+    VideoFlowDiffusion_multi_w_ref with the ..._traj_u12/u22 denoisers):
+    window (2, 4, 4), so N = 32 tokens a window and shift (1, 2, 2); the
+    trajectory-warp conditioning (``TrajWarp``) at the init conv and
+    MotionAdaptors from down level 2; bf16 compute unless overridden."""
+    return kth_sampling_config(**{"dtype": torch.bfloat16, **ARCH_PRESETS["w_ref/traj"],
+                                  **overrides})
+
+
 def kth_training_config(dtype=torch.bfloat16, **overrides) -> FlowDiffusionConfig:
     """bench.py's KTH train-step configuration (``bench_train_step``): the
     sampling preset's widths with remat, computing in `dtype` (None: float32)."""
@@ -87,6 +97,7 @@ def dm_config_from_yaml(cfg: Dict[str, Any], arch: str = "w_ref_u22/ada_u22",
         pred_frames=dp["train_params"]["pred_frames"],
         frame_shape=dp["frame_shape"],
         sampling_timesteps=diff.get("sampling_timesteps", 10),
+        loss_type=diff.get("loss_type", "l2"),
         use_residual_flow=diff.get("use_residual_flow", False),
     )
     kwargs.update(ARCH_PRESETS[arch])

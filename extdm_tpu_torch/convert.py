@@ -8,6 +8,12 @@ VGG19, the lpips package's and pytorch_i3d's for the metrics), so this is the
 inverse of the JAX package's torch -> flax mapping
 (``extdm_tpu/convert/torch2jax.py``). The split init conv of the JAX UNet
 (latent part + cond-feature part) is joined back into one conv.
+
+The trajwarp UNet's own parameters (``init_noise_conv``, ``init_traj``'s
+``linear_q`` / ``linear_k`` / ``linear_v`` / ``linear_o`` and ``fuser``) and
+the guidance's ``null_cond_emb`` are named after the JAX tree's modules:
+no checkpoint of the reference's traj denoisers is at hand to read its
+names from, so a reference traj checkpoint may need a rename.
 """
 from __future__ import annotations
 
@@ -175,9 +181,27 @@ class _Builder:
         self.conv(f"{src}/fuser/Conv_0", f"{dst}.fuser.fn")
 
 
+    def trajwarp(self, src: str, dst: str):
+        for lin in ("linear_q", "linear_k", "linear_v", "linear_o"):
+            self.linear(f"{src}{lin}", f"{dst}{lin}")
+        self.conv(f"{src}fuser/Conv_0", f"{dst}fuser")
+
+
+def trajwarp_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """JAX ``TrajWarp`` params -> ``TrajWarp`` state dict."""
+    b = _Builder(params)
+    b.trajwarp("", "")
+    return _tensors(b.sd.items())
+
+
 def unet_state_dict(params: Mapping[str, Any]) -> StateDict:
     """JAX ``Unet3D`` params (the "params" collection) -> ``Unet3D`` state dict."""
     b = _Builder(params)
+    if b.has("init_noise_conv"):
+        b.conv("init_noise_conv/Conv_0", "init_noise_conv")
+        b.trajwarp("init_traj/", "init_traj.")
+    if b.has("null_cond_emb"):
+        b.sd["null_cond_emb"] = b.get("null_cond_emb")
     w = conv_weight(b.get("init_conv/Conv_0/kernel"))
     if b.has("init_conv_cond/kernel"):
         w = np.concatenate([w, conv_weight(b.get("init_conv_cond/kernel"))], axis=1)

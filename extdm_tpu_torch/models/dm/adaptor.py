@@ -1,4 +1,5 @@
-"""Motion adaptor, the distribution-extrapolation module (port of
+"""Motion adaptor, the distribution-extrapolation module, and the
+trajectory warp of the ``w_ref/traj`` denoisers (port of
 extdm_tpu/models/dm/adaptor.py). Layout (B, T, H, W, C); parameter names are
 the reference denoiser's (``adaptors.predictor.fn.norm.gamma``, ...).
 
@@ -8,13 +9,11 @@ cast to the compute type where they are used; norm statistics stay float32."""
 from __future__ import annotations
 
 import math
-from typing import Optional
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from extdm_tpu_torch.nn.layers import chan_layer_norm
+from extdm_tpu_torch.nn.layers import cast, chan_layer_norm
 
 
 class ChanLayerNorm(nn.Module):
@@ -50,10 +49,6 @@ class Residual(nn.Module):
 
     def forward(self, x):
         return x + self.fn(x)
-
-
-def cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
-    return None if t is None else t.to(dtype)
 
 
 class PointwiseConv3d(nn.Conv3d):
@@ -136,3 +131,48 @@ class MotionAdaptor(nn.Module):
         y = y.reshape(B, H, W, self.tp, C).permute(0, 3, 1, 2, 4)
         fused = self.fuser(torch.cat([y, xp.to(y.dtype)], dim=-1))
         return torch.cat([xm, fused + xp], dim=1)
+
+
+class TrajWarp(nn.Module):
+    """Cross-attention feature warp of the ``traj_u12/u22`` denoisers: the
+    noisy prediction stream, max-pooled 2x to the features' size, queries the
+    cond frames' features; the attended features are fused into the
+    prediction frames' features.
+
+    ``forward(xp, f)``: xp (B, tp, 2H, 2W, C) the lifted noisy latents, f
+    (B, tc + tp, H, W, C) the features. q, k and v are ReLU'd projections
+    (pred tokens tp H W attend to cond tokens tc H W, ``heads`` heads of C /
+    heads), the attention output a ReLU'd projection; then [f_pred, warped]
+    -> 1x1x1 ``fuser``. The attention is plain in the JAX package (no TPU
+    kernel), here ``F.scaled_dot_product_attention`` on every device, which
+    on the card does not keep the (tp H W) x (tc H W) score matrix."""
+
+    def __init__(self, dim: int, tc: int, tp: int, heads: int = 8, dtype=None):
+        super().__init__()
+        self.tc, self.tp, self.heads = tc, tp, heads
+        self.compute_dtype = dtype or torch.float32
+        self.linear_q, self.linear_k = nn.Linear(dim, dim), nn.Linear(dim, dim)
+        self.linear_v, self.linear_o = nn.Linear(dim, dim), nn.Linear(dim, dim)
+        self.fuser = PointwiseConv3d(2 * dim, dim, dtype=dtype)
+
+    def _dense(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.relu(F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt)))
+
+    def forward(self, xp: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        B, T, H, W, C = f.shape
+        fm, fp = f[:, :self.tc], f[:, self.tc:]
+        xp = F.max_pool2d(xp.reshape(B * self.tp, *xp.shape[2:]).permute(0, 3, 1, 2), 2, 2)
+        if tuple(xp.shape[2:]) != (H, W):
+            raise ValueError(f"pooled queries {tuple(xp.shape[2:])} != features {(H, W)}")
+        q = xp.permute(0, 2, 3, 1).reshape(B, -1, C)
+        kv = fm.reshape(B, -1, C)
+
+        def heads(a):
+            return a.reshape(B, a.shape[1], self.heads, C // self.heads).transpose(1, 2)
+
+        q, k, v = (heads(self._dense(lin, a)) for lin, a in
+                   ((self.linear_q, q), (self.linear_k, kv), (self.linear_v, kv)))
+        out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B, -1, C)
+        warped = self._dense(self.linear_o, out).reshape(B, self.tp, H, W, C)
+        return torch.cat([fm, self.fuser(torch.cat([fp, warped], dim=-1))], dim=1)

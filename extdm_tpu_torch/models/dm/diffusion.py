@@ -6,7 +6,9 @@ grid. ``sample`` runs DDIM when it takes fewer steps than the schedule and
 the ancestral ``p_sample_loop`` otherwise (at as many steps as the schedule
 the last DDIM pair is (0, 0), whose sigma is 0/0). Timesteps and noise come
 from an explicit ``torch.Generator``; ``init_noise`` and ``noises`` replace
-the draws (reproducible trajectories, and the JAX draws in the tests)."""
+the draws (reproducible trajectories, and the JAX draws in the tests).
+``interpolate`` mixes two noised latents and denoises back ancestrally;
+``guided_denoise_fn`` wraps a denoiser for classifier-free guidance."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -186,6 +188,30 @@ class GaussianDiffusion:
             img = mean + torch.exp(0.5 * log_var) * normal(i) if t > 0 else mean
         return img
 
+    def interpolate(self, denoise_fn: DenoiseFn, generator: torch.Generator,
+                    x_cond: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
+                    cond_fea: Optional[torch.Tensor] = None, t: Optional[int] = None,
+                    lam: float = 0.5, noise: Optional[torch.Tensor] = None,
+                    noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Latent interpolation (ref Diffusion.py:260-274): noise x1 and x2
+        (B, T, h, w, C) to step t (default the last) with one shared draw,
+        mix them with weight `lam`, then denoise ancestrally from t-1 to 0.
+        `noise` replaces the shared draw, `noises` (one per step, step i at
+        time t-1-i) the steps' draws."""
+        t = self.schedule.num_timesteps - 1 if t is None else t
+        B, device = x1.shape[0], x1.device
+        normal = _normals(generator, x1.shape, device, noises)
+        noise = normal() if noise is None else noise.to(device, torch.float32)
+        tb = torch.full((B,), t, dtype=torch.long, device=device)
+        img = (1 - lam) * self.q_sample(x1, tb, noise) + lam * self.q_sample(x2, tb, noise)
+        for i, ti in enumerate(range(t - 1, -1, -1)):
+            t_b = torch.full((B,), ti, dtype=torch.long, device=device)
+            eps = denoise_fn(img, t_b, x_cond, cond_fea)
+            x0 = dynamic_threshold(self.predict_start_from_noise(img, t_b, eps))
+            mean, _, log_var = self.q_posterior(x0, img, t_b)
+            img = mean + torch.exp(0.5 * log_var) * normal(i) if ti > 0 else mean
+        return img
+
     def sample(self, denoise_fn: DenoiseFn, generator: torch.Generator, x_cond: torch.Tensor,
                pred_frames: int, cond_fea: Optional[torch.Tensor] = None,
                init_noise: Optional[torch.Tensor] = None,
@@ -195,6 +221,28 @@ class GaussianDiffusion:
                else self.p_sample_loop)
         return run(denoise_fn, generator, x_cond, pred_frames, cond_fea, init_noise=init_noise,
                    noises=noises)
+
+
+def guided_denoise_fn(denoise_fn: DenoiseFn, cond_scale: float = 1.0) -> DenoiseFn:
+    """Classifier-free guidance (reference forward_with_cond_scale):
+    eps = eps_null + cond_scale (eps - eps_null), the null prediction with
+    every sample's condition replaced by the null embedding; scale 1 is
+    `denoise_fn` itself, scale 0 the null prediction. `denoise_fn` takes a
+    ``null_cond_mask`` keyword (B,) bool."""
+    if cond_scale == 1.0:
+        return denoise_fn
+
+    def fn(x, t, cond_frames, cond_fea, **kw):
+        b = x.shape[0]
+        null = denoise_fn(x, t, cond_frames, cond_fea,
+                          null_cond_mask=torch.ones(b, dtype=torch.bool, device=x.device), **kw)
+        if cond_scale == 0.0:
+            return null
+        full = denoise_fn(x, t, cond_frames, cond_fea,
+                          null_cond_mask=torch.zeros(b, dtype=torch.bool, device=x.device), **kw)
+        return null + (full - null) * cond_scale
+
+    return fn
 
 
 def _normals(generator: torch.Generator, shape, device, noises: Optional[Sequence[torch.Tensor]]):

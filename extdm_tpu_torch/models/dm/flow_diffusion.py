@@ -37,19 +37,19 @@ def _split_bt(x: torch.Tensor, b: int) -> torch.Tensor:
 class LFAE(nn.Module):
     """Frozen stage-1 bundle used inside the DM (region + bg + generator)."""
 
-    def __init__(self, flow_params: dict):
+    def __init__(self, flow_params: dict, dtype=None):
         super().__init__()
         fp = flow_params
         rp = {k: v for k, v in fp["region_predictor_params"].items() if k != "fast_svd"}
         self.region_predictor = RegionPredictor(
             num_regions=fp["num_regions"], num_channels=fp["num_channels"],
-            estimate_affine=fp.get("estimate_affine", True), **rp)
-        self.bg_predictor = BGMotionPredictor(num_channels=fp["num_channels"],
+            estimate_affine=fp.get("estimate_affine", True), dtype=dtype, **rp)
+        self.bg_predictor = BGMotionPredictor(num_channels=fp["num_channels"], dtype=dtype,
                                               **fp["bg_predictor_params"])
         self.generator = Generator(num_regions=fp["num_regions"],
                                    num_channels=fp["num_channels"],
                                    revert_axis_swap=fp.get("revert_axis_swap", True),
-                                   **fp["generator_params"])
+                                   dtype=dtype, **fp["generator_params"])
 
     def encode_video(self, video: torch.Tensor, cond_frames: int,
                      with_decode: bool = False) -> Dict[str, torch.Tensor]:
@@ -148,7 +148,7 @@ class FlowDiffusionConfig:
                       stw_window_major=self.stw_window_major)
 
     def make_lfae(self) -> LFAE:
-        return LFAE(self.flow_params)
+        return LFAE(self.flow_params, self.dtype)
 
     def make_diffusion(self) -> GaussianDiffusion:
         return GaussianDiffusion(schedule=DiffusionSchedule.create(self.timesteps),
@@ -215,14 +215,16 @@ class FlowDiffusion:
     def denoise_fn(self, cond_cache=None, unet: Optional[Unet3D] = None):
         unet = unet or self.unet
 
-        def fn(x, t, cond_frames, cond_fea):
-            return unet(x, t, cond_frames, cond_fea, cond_cache=cond_cache)
+        def fn(x, t, cond_frames, cond_fea, **kw):
+            return unet(x, t, cond_frames, cond_fea, cond_cache=cond_cache, **kw)
         return fn
 
     def cond_cache(self, x_cond: torch.Tensor, fea: Optional[torch.Tensor],
                    unet: Optional[Unet3D] = None):
-        """The (x, t)-invariant conditioning term, computed once per sampler call."""
-        if fea is None:
+        """The (x, t)-invariant conditioning term, computed once per sampler
+        call; None without features and for the trajwarp conditioning, which
+        depends on x and runs at every denoising step."""
+        if fea is None or self.cfg.conditioning == "trajwarp":
             return None
         B, tc, h, w, C = x_cond.shape
         x_dummy = torch.zeros((B, self.cfg.pred_frames, h, w, C), device=x_cond.device)
@@ -289,37 +291,53 @@ class FlowDiffusion:
 
         return monitor
 
-    def make_sampler(self):
-        """fn(generator, cond_video, init_noise=None) -> dict with the keys of
-        the JAX sampler: sample_vid_grid, sample_vid_conf, real_vid_grid,
-        real_vid_conf, sample_out_vid and sample_warped_vid.
-        cond_video (B, tc, H, W, C) in [0, 1]; only the tp predicted frames
-        are decoded, the real cond frames are spliced in front."""
+    def _sample(self, generator: torch.Generator, cond_video: torch.Tensor, decode: bool,
+                init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         tc, tp = cfg.cond_frames, cfg.pred_frames
-
-        @torch.no_grad()
-        def sampler(generator: torch.Generator, cond_video: torch.Tensor,
-                    init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-            cond_video = cond_video.to(self.device)
-            enc = self.lfae.encode_video(cond_video, tc)
-            fea = self.lfae.ref_features(cond_video, tc, tp) if cfg.use_ref_features else None
-            x_cond = self.latents_from_encode(enc)
-            unet = self.sampling_unet()
-            cache = self.cond_cache(x_cond, fea, unet)
-            pred = self.diffusion.sample(self.denoise_fn(cache, unet), generator, x_cond, tp, fea,
-                                         init_noise=init_noise)
-            enc_flow, enc_conf = enc["flow"], enc["conf"]
-            sample_flow = torch.cat([enc_flow, self.flow_from_pred(pred)], dim=1)
-            sample_conf = None
-            if enc_conf is not None:
-                sample_conf = torch.cat([enc_conf, (pred[..., 2:3] + 1.0) * 0.5], dim=1)
-            out = {"sample_vid_grid": sample_flow, "sample_vid_conf": sample_conf,
-                   "real_vid_grid": enc_flow, "real_vid_conf": enc_conf}
+        cond_video = cond_video.to(self.device)
+        enc = self.lfae.encode_video(cond_video, tc)
+        fea = self.lfae.ref_features(cond_video, tc, tp) if cfg.use_ref_features else None
+        x_cond = self.latents_from_encode(enc)
+        unet = self.sampling_unet()
+        cache = self.cond_cache(x_cond, fea, unet)
+        pred = self.diffusion.sample(self.denoise_fn(cache, unet), generator, x_cond, tp, fea,
+                                     init_noise=init_noise)
+        enc_flow, enc_conf = enc["flow"], enc["conf"]
+        sample_flow = torch.cat([enc_flow, self.flow_from_pred(pred)], dim=1)
+        sample_conf = None
+        if enc_conf is not None:
+            sample_conf = torch.cat([enc_conf, (pred[..., 2:3] + 1.0) * 0.5], dim=1)
+        out = {"sample_vid_grid": sample_flow, "sample_vid_conf": sample_conf,
+               "real_vid_grid": enc_flow, "real_vid_conf": enc_conf}
+        if decode:
             dec = self.lfae.decode_flows(cond_video[:, tc - 1], sample_flow[:, tc:],
                                          None if sample_conf is None else sample_conf[:, tc:])
             for key, name in (("sample_out_vid", "out_vid"), ("sample_warped_vid", "warped_vid")):
                 out[key] = torch.cat([cond_video.to(dec[name].dtype), dec[name]], dim=1)
-            return out
+        return out
+
+    def make_sampler(self, decode: bool = True):
+        """fn(generator, cond_video, init_noise=None) -> dict with the keys of
+        the JAX sampler: sample_vid_grid, sample_vid_conf, real_vid_grid and
+        real_vid_conf, and with `decode` sample_out_vid and sample_warped_vid.
+        cond_video (B, tc, H, W, C) in [0, 1]; only the tp predicted frames
+        are decoded, the real cond frames are spliced in front. Without
+        `decode` the LFAE's decoder does not run."""
+
+        @torch.no_grad()
+        def sampler(generator: torch.Generator, cond_video: torch.Tensor,
+                    init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+            return self._sample(generator, cond_video, decode, init_noise)
 
         return sampler
+
+    @torch.no_grad()
+    def sample_video(self, generator: torch.Generator, cond_video: torch.Tensor,
+                     decode: bool = True,
+                     init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One sampler call (JAX ``sample_video``, ref sample_one_video): the
+        latents of the tc + tp window and, with `decode`, the pixels; the
+        same computation and draws as ``make_sampler(decode)``; `init_noise`
+        replaces the drawn x_T."""
+        return self._sample(generator, cond_video, decode, init_noise)

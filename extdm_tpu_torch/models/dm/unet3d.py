@@ -1,5 +1,12 @@
 """3-D diffusion UNet over the flow + occlusion latents (port of
-extdm_tpu/models/dm/unet3d.py), the ``adaptor`` conditioning family.
+extdm_tpu/models/dm/unet3d.py): the ``adaptor`` conditioning family, whose
+(x, t)-invariant conditioning stream is computed once a sampler call
+(``cond_only`` / ``cond_cache``), and the ``trajwarp`` family of the
+``w_ref/traj`` preset, whose init conv lifts the latents to the features'
+width and warps the cond features toward them (``TrajWarp``) at every call.
+Optional classifier-free guidance plumbing: ``cond_dim`` widens the time
+embedding by a given condition embedding, ``null_cond_mask`` swaps in the
+(learned, with ``learn_null_cond``) null embedding per sample.
 
 Per level: two time-conditioned ResnetBlock3d, a shifted and a plain window
 attention layer, a MotionAdaptor and a temporal attention layer. On the card
@@ -33,10 +40,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from extdm_tpu_torch.models.dm.adaptor import MotionAdaptor, PointwiseConv3d, PreNorm, cast
+from extdm_tpu_torch.models.dm.adaptor import MotionAdaptor, PointwiseConv3d, PreNorm, TrajWarp
 from extdm_tpu_torch.nn.attention import (RelativePositionBias, RelativePositionBiasTHW,
                                           TemporalAttentionLayer, WindowAttention3D,
                                           get_window_size)
+from extdm_tpu_torch.nn.layers import cast
 from extdm_tpu_torch.ops.fused_resnet import fused_resnet_block
 from extdm_tpu_torch.ops.fused_stw import (WINDOW_MAJOR_MODES, fused_stw_layer,
                                            fused_temporal_layer, stw_layer_unfused, stw_route,
@@ -204,13 +212,15 @@ class Unet3D(nn.Module):
                  window_size: Tuple[int, int, int] = (4, 4, 4),
                  dim_mults: Sequence[int] = (1, 2, 4, 4), channels: int = 3,
                  cond_feature_dim: int = 256, attn_heads: int = 8, attn_dim_head: int = 32,
-                 init_kernel_size: int = 7, resnet_groups: int = 8, cond_num: int = 0,
+                 init_dim: Optional[int] = None, init_kernel_size: int = 7,
+                 resnet_groups: int = 8, use_final_activation: bool = False, cond_num: int = 0,
                  pred_num: int = 0, use_ref_features: bool = True,
                  conditioning: str = "adaptor", down_adaptor_from_level: int = 0,
+                 cond_dim: Optional[int] = None, learn_null_cond: bool = False,
                  path: int = 0, remat: bool = True, dtype=None, stw_window_major: str = "0"):
         super().__init__()
-        if conditioning not in ("adaptor", "none"):
-            raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
+        if conditioning not in ("adaptor", "trajwarp", "none"):
+            raise ValueError(f"conditioning is adaptor, trajwarp or none, got {conditioning!r}")
         if stw_window_major not in WINDOW_MAJOR_MODES:
             raise ValueError(f"stw_window_major is one of {WINDOW_MAJOR_MODES}, "
                              f"got {stw_window_major!r}")
@@ -219,9 +229,12 @@ class Unet3D(nn.Module):
         self.compute_dtype = dt = dtype or torch.float32
         self.cond_num, self.pred_num = cond_num, pred_num
         self.use_ref_features = use_ref_features
+        self.traj = use_ref_features and conditioning == "trajwarp"
+        self.use_final_activation = use_final_activation
+        self.cond_dim = cond_dim
         heads, dh = attn_heads, attn_dim_head
         shift = tuple(w // 2 for w in window_size)
-        init_dim, k0 = dim, init_kernel_size
+        init_dim, k0 = init_dim or dim, init_kernel_size
         self.init_pad = k0 // 2
 
         if path == 1:
@@ -231,9 +244,16 @@ class Unet3D(nn.Module):
         else:
             self.time_rel_pos_bias = RelativePositionBias(heads=heads, max_distance=32)
 
-        in_ch = channels + (cond_feature_dim if use_ref_features else 0)
+        if self.traj:
+            # the latents lifted to the features' width, then [lifted, warped features]
+            self.init_noise_conv = nn.Conv3d(channels, cond_feature_dim, (1, k0, k0),
+                                             padding=(0, k0 // 2, k0 // 2))
+            self.init_traj = TrajWarp(cond_feature_dim, cond_num, pred_num, heads, dt)
+            in_ch = 2 * cond_feature_dim
+        else:
+            in_ch = channels + (cond_feature_dim if use_ref_features else 0)
         self.init_conv = nn.Conv3d(in_ch, init_dim, (1, k0, k0), padding=(0, k0 // 2, k0 // 2))
-        if use_ref_features:
+        if use_ref_features and not self.traj:
             self.cond_adaptor = MotionAdaptor(cond_feature_dim, cond_num, pred_num, dt)
             self.cond_temporal_attn = PreNormTemporalAttn(cond_feature_dim, heads, dh)
         self.init_temporal_attn = PreNormTemporalAttn(init_dim, heads, dh)
@@ -241,6 +261,10 @@ class Unet3D(nn.Module):
         time_dim = dim * 4
         self.time_mlp = nn.Sequential(SinusoidalPosEmb(dim), nn.Linear(dim, time_dim),
                                       nn.GELU(approximate="tanh"), nn.Linear(time_dim, time_dim))
+        if cond_dim is not None:
+            self.null_cond_emb = (nn.Parameter(torch.randn(1, cond_dim)) if learn_null_cond
+                                  else None)
+            time_dim += cond_dim
 
         dims = [init_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
@@ -257,7 +281,8 @@ class Unet3D(nn.Module):
                 resample(d_out, dt) if resample is not None else nn.Identity(),
             ])
 
-        ada = conditioning == "adaptor"
+        # per-level MotionAdaptors in both the adaptor and the trajwarp family
+        ada = conditioning in ("adaptor", "trajwarp")
         self.downs = nn.ModuleList(
             level(d_in, d_out, ada and i >= down_adaptor_from_level,
                   Downsample if i < n - 1 else None)
@@ -271,10 +296,12 @@ class Unet3D(nn.Module):
         self.ups = nn.ModuleList(
             level(d_out * 2, d_in, ada and i > 1, Upsample if i < n - 1 else None)
             for i, (d_in, d_out) in enumerate(reversed(in_out)))
-        self.final_conv = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt),
+        # the last up level gives init_dim channels, concatenated with the init conv's
+        self.final_conv = nn.Sequential(ResnetBlock3d(init_dim * 2, dim, None, resnet_groups, dt),
                                         PointwiseConv3d(dim, out_grid_dim, dtype=dt))
-        self.occlusion_map = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, resnet_groups, dt),
-                                           PointwiseConv3d(dim, out_conf_dim, dtype=dt))
+        self.occlusion_map = nn.Sequential(
+            ResnetBlock3d(init_dim * 2, dim, None, resnet_groups, dt),
+            PointwiseConv3d(dim, out_conf_dim, dtype=dt))
 
     def _pos_bias(self, T: int, H: int, W: int) -> torch.Tensor:
         if self.path != 1:
@@ -309,10 +336,14 @@ class Unet3D(nn.Module):
                            padding=self.init_pad)
 
     def forward(self, x, time, cond_frames, cond_fea=None, cond_cache=None,
-                cond_only: bool = False):
+                cond_only: bool = False, cond=None, null_cond_mask=None):
         """x (B, tp, h, w, C) noisy latents, cond_frames (B, tc, h, w, C),
         cond_fea (B, tc+tp, hf, wf, cond_feature_dim) -> (B, tp, h, w, 3) float32.
-        cond_only returns the conditioning term to pass back as cond_cache."""
+        cond_only returns the conditioning term to pass back as cond_cache
+        (the adaptor family only: the trajwarp conditioning depends on x).
+        With ``cond_dim``: cond (B, cond_dim) is the condition embedding
+        (None: the null embedding), null_cond_mask (B,) bool replaces a
+        sample's condition with the null embedding."""
         tc, tp = cond_frames.shape[1], x.shape[1]
         if (tc, tp) != (self.cond_num, self.pred_num):
             raise ValueError(f"frames (cond, pred) = {(tc, tp)}, the UNet was built for "
@@ -323,7 +354,16 @@ class Unet3D(nn.Module):
         pos_bias = self._pos_bias(T, H, W)
 
         w0, b0 = self.init_conv.weight, self.init_conv.bias
-        if self.use_ref_features:
+        if self.traj:
+            if cond_only or cond_cache is not None:
+                raise ValueError("the trajwarp conditioning depends on x: it has no cond cache")
+            nc = self.init_noise_conv
+            x = conv_frames(x, nc.weight, nc.bias, dtype, padding=self.init_pad)
+            f = self.init_traj(x[:, tc:], cond_fea)
+            f = interpolate_bilinear(f.reshape(B * T, *f.shape[2:]), (H, W))
+            x = torch.cat([x, f.reshape(B, T, H, W, -1)], dim=-1)
+            x = conv_frames(x, w0, b0, dtype, padding=self.init_pad)
+        elif self.use_ref_features:
             if cond_cache is None:
                 cond_cache = self.cond_stream(cond_fea, H, W, pos_bias)
             if cond_only:
@@ -338,6 +378,13 @@ class Unet3D(nn.Module):
         tm = self.time_mlp
         t_emb = F.linear(tm[0](time), tm[1].weight.float(), tm[1].bias.float())
         t_emb = F.linear(tm[2](t_emb), tm[3].weight.float(), tm[3].bias.float())
+        if self.cond_dim is not None:
+            null = (self.null_cond_emb.float() if self.null_cond_emb is not None
+                    else t_emb.new_zeros(1, self.cond_dim))
+            cond = null.expand(B, -1) if cond is None else cond.to(t_emb)
+            if null_cond_mask is not None:
+                cond = torch.where(null_cond_mask.to(t_emb.device)[:, None], null, cond)
+            t_emb = torch.cat([t_emb, cond], dim=-1)
 
         hs = []
         for res1, stw1, res2, stw2, adaptor, tattn, down in self.downs:
@@ -357,4 +404,6 @@ class Unet3D(nn.Module):
             x = up(x)
         x = torch.cat([x, r], dim=-1)
         out = torch.cat([self.final_conv(x), self.occlusion_map(x)], dim=-1)
+        if self.use_final_activation:
+            out = torch.tanh(out)
         return out[:, tc:].float()

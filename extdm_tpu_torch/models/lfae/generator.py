@@ -3,7 +3,10 @@ extdm_tpu/models/lfae/generator.py). Modes used by the sampling path:
 ``bottle`` (encoder features), ``encode_flow`` (flow + occlusion only),
 ``encode_feats`` (features and skips of the reference frame) and
 ``flow_decode`` (decode given flows and pre-encoded features); ``full``
-runs flow prediction and decode together."""
+runs flow prediction and decode together. ``dtype`` is the compute type
+(None: float32): the source image is cast to it on entry, the occlusion
+blends run in the promoted type of their two inputs, and the pixel head's
+sigmoid in float32 (so the final blend with the warped source is float32)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -31,25 +34,26 @@ class Generator(nn.Module):
                  max_features: int = 512, num_down_blocks: int = 2,
                  num_bottleneck_blocks: int = 6, skips: bool = True,
                  revert_axis_swap: bool = True,
-                 pixelwise_flow_predictor_params: Optional[dict] = None):
+                 pixelwise_flow_predictor_params: Optional[dict] = None, dtype=None):
         super().__init__()
         self.skips, self.revert_axis_swap = skips, revert_axis_swap
+        self.compute_dtype = dtype or torch.float32
         self.pixelwise_flow_predictor = None
         if pixelwise_flow_predictor_params is not None:
             self.pixelwise_flow_predictor = PixelwiseFlowPredictor(
                 num_regions=num_regions, num_channels=num_channels,
-                revert_axis_swap=revert_axis_swap, **pixelwise_flow_predictor_params)
-        self.first = SameBlock2d(num_channels, block_expansion, kernel_size=7)
+                revert_axis_swap=revert_axis_swap, dtype=dtype, **pixelwise_flow_predictor_params)
+        self.first = SameBlock2d(num_channels, block_expansion, kernel_size=7, dtype=dtype)
         feats = lambda i: min(max_features, block_expansion * 2 ** i)  # noqa: E731
-        self.down_blocks = nn.ModuleList(DownBlock2d(feats(i), feats(i + 1))
+        self.down_blocks = nn.ModuleList(DownBlock2d(feats(i), feats(i + 1), dtype=dtype)
                                          for i in range(num_down_blocks))
         self.up_blocks = nn.ModuleList(UpBlock2d(feats(num_down_blocks - i),
-                                                 feats(num_down_blocks - i - 1))
+                                                 feats(num_down_blocks - i - 1), dtype=dtype)
                                        for i in range(num_down_blocks))
         self.bottleneck = nn.Sequential()
         for i in range(num_bottleneck_blocks):
-            self.bottleneck.add_module(f"r{i}", ResBlock2d(feats(num_down_blocks)))
-        self.final = Conv2d(block_expansion, num_channels, 7, padding=3)
+            self.bottleneck.add_module(f"r{i}", ResBlock2d(feats(num_down_blocks), dtype=dtype))
+        self.final = Conv2d(block_expansion, num_channels, 7, padding=3, dtype=dtype)
 
     def _encode(self, source_image):
         out = self.first(source_image)
@@ -105,7 +109,7 @@ class Generator(nn.Module):
     def forward(self, source_image, driving_region_params=None, source_region_params=None,
                 bg_params=None, mode: str = "full", optical_flow=None, occlusion_map=None,
                 feat=None, skips=None) -> Dict[str, torch.Tensor]:
-        source_image = source_image.to(self.final.weight.dtype)
+        source_image = source_image.to(self.compute_dtype)
         if mode == "bottle":
             return {"bottle_neck_feat": self._encode(source_image)[0]}
         if mode == "encode_flow":

@@ -1,7 +1,9 @@
 """Dense pixelwise flow from sparse region motions (port of
 extdm_tpu/models/lfae/pixelwise_flow.py): Gaussian heatmap differences, K+1
 sparse motions, K+1 warped copies of the source in one grid sample, hourglass
--> softmax mask -> weighted flow, optional occlusion head."""
+-> softmax mask -> weighted flow, optional occlusion head. ``dtype`` is the
+compute type (None: float32): the downsampled source is cast to it for the
+K+1 warps, the heads' softmax and sigmoid run in float32."""
 from __future__ import annotations
 
 from typing import Dict
@@ -22,15 +24,17 @@ class PixelwiseFlowPredictor(nn.Module):
                  max_features: int = 1024, num_blocks: int = 5,
                  estimate_occlusion_map: bool = False, scale_factor: float = 1.0,
                  region_var: float = 0.01, use_covar_heatmap: bool = False,
-                 use_deformed_source: bool = True, revert_axis_swap: bool = False):
+                 use_deformed_source: bool = True, revert_axis_swap: bool = False,
+                 dtype=None):
         super().__init__()
+        self.compute_dtype = dtype or torch.float32
         self.num_regions, self.scale_factor, self.region_var = num_regions, scale_factor, region_var
         self.use_covar_heatmap, self.use_deformed_source = use_covar_heatmap, use_deformed_source
         self.revert_axis_swap = revert_axis_swap
         in_features = (num_regions + 1) * ((num_channels if use_deformed_source else 0) + 1)
-        self.hourglass = Hourglass(block_expansion, in_features, num_blocks, max_features)
-        self.mask = Conv2d(self.hourglass.out_filters, num_regions + 1, 7, padding=3)
-        self.occlusion = (Conv2d(self.hourglass.out_filters, 1, 7, padding=3)
+        self.hourglass = Hourglass(block_expansion, in_features, num_blocks, max_features, dtype)
+        self.mask = Conv2d(self.hourglass.out_filters, num_regions + 1, 7, padding=3, dtype=dtype)
+        self.occlusion = (Conv2d(self.hourglass.out_filters, 1, 7, padding=3, dtype=dtype)
                           if estimate_occlusion_map else None)
 
     def heatmap_representations(self, source, driving_params, source_params):
@@ -60,7 +64,7 @@ class PixelwiseFlowPredictor(nn.Module):
 
     def forward(self, source, driving_params, source_params, bg_params=None
                 ) -> Dict[str, torch.Tensor]:
-        source = antialias_downsample(source, self.scale_factor).to(self.mask.weight.dtype)
+        source = antialias_downsample(source, self.scale_factor).to(self.compute_dtype)
         B, h, w, C = source.shape
         K1 = self.num_regions + 1
         heatmap = self.heatmap_representations(source, driving_params, source_params)

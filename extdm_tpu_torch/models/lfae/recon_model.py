@@ -5,6 +5,15 @@ As in the JAX package, the VGG19 of the perceptual loss is one of the
 model's trained modules: its parameters get gradients (the real frame's
 features are not detached) and the optimizer updates them. The reference
 froze it; that divergence is the JAX package's and is kept here.
+
+``dtype`` is the compute type of every module (None: float32; the AE job's
+``--bf16`` passes bfloat16, as JAX's ``ReconstructionModel(dtype=...)``):
+parameters and BatchNorm statistics stay float32, each conv casts its input
+and weights, BatchNorm reduces in float32. There is no second copy of the
+model: the optimizer updates the float32 parameters that the forward casts.
+The losses come out in the type their last operation gives, as in the JAX
+package: the perceptual loss in the compute type (means of VGG features),
+the others float32.
 """
 from __future__ import annotations
 
@@ -27,17 +36,21 @@ class ReconstructionModel(nn.Module):
     def __init__(self, region_predictor_cfg: dict, bg_predictor_cfg: dict, generator_cfg: dict,
                  num_regions: int, num_channels: int = 3,
                  scales: Sequence[float] = (1.0, 0.5, 0.25), loss_weights: Optional[dict] = None,
-                 transform_params: Optional[dict] = None):
+                 transform_params: Optional[dict] = None, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.region_predictor = RegionPredictor(num_regions=num_regions,
-                                                num_channels=num_channels, **region_predictor_cfg)
-        self.bg_predictor = BGMotionPredictor(num_channels=num_channels, **bg_predictor_cfg)
+                                                num_channels=num_channels, dtype=dtype,
+                                                **region_predictor_cfg)
+        self.bg_predictor = BGMotionPredictor(num_channels=num_channels, dtype=dtype,
+                                              **bg_predictor_cfg)
         self.generator = Generator(num_regions=num_regions, num_channels=num_channels,
-                                   **generator_cfg)
+                                   dtype=dtype, **generator_cfg)
         self.scales = tuple(scales)
         self.loss_weights = dict(loss_weights or {})
         self.transform_params = dict(transform_params or {})
-        self.vgg = Vgg19Features() if sum(self.loss_weights.get("perceptual", [0])) != 0 else None
+        self.vgg = (Vgg19Features(dtype) if sum(self.loss_weights.get("perceptual", [0])) != 0
+                    else None)
 
     @property
     def uses_tps(self) -> bool:

@@ -1,6 +1,8 @@
 """Region predictor: hourglass -> K region heatmaps -> affine parameters
 (port of extdm_tpu/models/lfae/region_predictor.py). The per-region 2x2 SVD
-is the closed-form symmetric eigendecomposition."""
+is the closed-form symmetric eigendecomposition. ``dtype`` is the compute
+type of the hourglass and the heads (None: float32); the softmax, the
+coordinate grid and the region statistics stay float32."""
 from __future__ import annotations
 
 from typing import Dict
@@ -18,14 +20,14 @@ class RegionPredictor(nn.Module):
     def __init__(self, num_regions: int, num_channels: int = 3, block_expansion: int = 32,
                  max_features: int = 1024, num_blocks: int = 5, temperature: float = 0.1,
                  scale_factor: float = 1.0, pca_based: bool = True, estimate_affine: bool = True,
-                 pad: int = 0):
+                 pad: int = 0, dtype=None):
         super().__init__()
         self.temperature, self.scale_factor = temperature, scale_factor
         self.pca_based, self.estimate_affine = pca_based, estimate_affine
-        self.predictor = Hourglass(block_expansion, num_channels, num_blocks, max_features)
-        self.regions = Conv2d(self.predictor.out_filters, num_regions, 7, padding=pad)
+        self.predictor = Hourglass(block_expansion, num_channels, num_blocks, max_features, dtype)
+        self.regions = Conv2d(self.predictor.out_filters, num_regions, 7, padding=pad, dtype=dtype)
         if not pca_based and estimate_affine:
-            self.jacobian = Conv2d(self.predictor.out_filters, 4, 7, padding=pad)
+            self.jacobian = Conv2d(self.predictor.out_filters, 4, 7, padding=pad, dtype=dtype)
             nn.init.zeros_(self.jacobian.weight)
             with torch.no_grad():
                 self.jacobian.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 1.0]))
@@ -39,7 +41,7 @@ class RegionPredictor(nn.Module):
         B, h, w, K = prediction.shape
         region = torch.softmax(prediction.float().reshape(B, h * w, K) / self.temperature, dim=1)
         region = region.reshape(B, h, w, K)
-        grid = make_coordinate_grid(h, w, torch.float32, x.device)
+        grid = make_coordinate_grid(h, w, region.dtype, x.device)
         shift = torch.einsum("bhwk,hwc->bkc", region, grid)
         params = {"shift": shift, "heatmap": region}
         if self.pca_based:

@@ -8,6 +8,8 @@ with ImageNet normalization in front. No pretrained weights are available
 here, so the weights are random from the caller's seed (torchvision's
 initialisation: He-normal over fan-out, zero bias): the loss is then a valid
 but weaker perceptual metric, the same fallback the JAX package documents.
+``dtype`` is the compute type of the convolutions (None: float32): the
+normalized input and each conv's weights are cast to it.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ class Vgg19Features(nn.Module):
     """(B, H, W, 3) in [0, 1] -> [relu1_1, relu2_1, relu3_1, relu4_1, relu5_1],
     each channels-last."""
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
+        self.compute_dtype = dtype or torch.float32
         layers, ends, cin = [], [], 3
         for sl in _SLICES:
             for cout, pool_before in sl:
@@ -58,10 +61,15 @@ class Vgg19Features(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = (x.permute(0, 3, 1, 2).to(self.mean.dtype) - self.mean) / self.std
+        dt = self.compute_dtype
+        x = ((x.permute(0, 3, 1, 2).to(self.mean.dtype) - self.mean) / self.std).to(dt)
         outs, start = [], 0
         for end in self.ends:
-            x = self.features[start:end](x)
+            for layer in self.features[start:end]:
+                if isinstance(layer, nn.Conv2d):
+                    x = layer._conv_forward(x, layer.weight.to(dt), layer.bias.to(dt))
+                else:
+                    x = layer(x)
             outs.append(x.permute(0, 2, 3, 1))
             start = end
         return outs

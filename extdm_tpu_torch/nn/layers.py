@@ -4,10 +4,16 @@ Convolutions and BatchNorm take (B, H, W, C) tensors and keep PyTorch's
 parameter layouts and the reference LFAE's state-dict names. These convs
 sit outside every TPU kernel of the JAX package, so they stay cuDNN
 convolutions here.
+
+Dtype policy, as in the flax modules: each layer and block takes a compute
+``dtype`` (None: float32). Parameters and BatchNorm statistics keep their
+own type (float32 master weights when training; the DM stores its frozen
+LFAE in its compute type); a conv casts its input and weights to the
+compute type, and BatchNorm reduces in float32 and returns the compute type.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -25,31 +31,52 @@ def chan_layer_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> 
     return ((x32 - mean) * torch.rsqrt(var + eps) * gamma.float().reshape(-1)).to(x.dtype)
 
 
+def cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d on channels-last (B, H, W, C) tensors, computing in its
-    parameters' dtype."""
+    """nn.Conv2d on channels-last (B, H, W, C) tensors, computing in `dtype`
+    (None: float32): input, weight and bias are cast to it."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, padding: int = 0, dtype=None):
+        super().__init__(cin, cout, kernel_size, padding=padding)
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
-        return super().forward(x).permute(0, 2, 3, 1)
+        dt = self.compute_dtype
+        y = self._conv_forward(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
+                               cast(self.bias, dt))
+        return y.permute(0, 2, 3, 1)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d on (B, H, W, C) tensors with flax's statistics update.
+    """BatchNorm2d on (B, H, W, C) tensors with flax's statistics update,
+    returning `dtype` (None: float32).
 
     In eval mode (the LFAE frozen inside the diffusion model) it normalizes
     with the running statistics. In train mode (stage-1 training) it
     normalizes with the batch's and moves the running statistics by
     ``momentum`` toward the batch mean and the *biased* batch variance, as
     flax ``nn.BatchNorm(momentum=0.9)`` does; ``F.batch_norm`` would move
-    them toward the unbiased variance."""
+    them toward the unbiased variance. Where the parameters are kept in
+    another type than the compute type (float32 master weights under a bf16
+    policy), the input is cast to float32, normalized there and the result
+    cast to the compute type, as flax's BatchNorm promotes to its float32
+    parameters and casts its output; where they are kept in the compute
+    type (the DM's frozen LFAE), it normalizes in that type."""
+
+    def __init__(self, features: int, dtype=None):
+        super().__init__(features)
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        dt = self.compute_dtype
+        x = x.permute(0, 3, 1, 2).to(self.weight.dtype)
         if not self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
-            return y.permute(0, 2, 3, 1)
+            return y.permute(0, 2, 3, 1).to(dt)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
@@ -57,16 +84,16 @@ class BatchNorm(nn.BatchNorm2d):
         # no running statistics here: autograd would keep them for the
         # backward, and the module's next call in this step updates them
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        return y.permute(0, 2, 3, 1)
+        return y.permute(0, 2, 3, 1).to(dt)
 
 
 class SameBlock2d(nn.Module):
     """conv -> BN -> ReLU, same resolution."""
 
-    def __init__(self, cin: int, cout: int, kernel_size: int = 3):
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, dtype=None):
         super().__init__()
-        self.conv = Conv2d(cin, cout, kernel_size, padding=kernel_size // 2)
-        self.norm = BatchNorm(cout)
+        self.conv = Conv2d(cin, cout, kernel_size, padding=kernel_size // 2, dtype=dtype)
+        self.norm = BatchNorm(cout, dtype)
 
     def forward(self, x):
         return F.relu(self.norm(self.conv(x)))
@@ -89,13 +116,13 @@ class UpBlock2d(SameBlock2d):
 class ResBlock2d(nn.Module):
     """(BN -> ReLU -> conv) twice, plus the input."""
 
-    def __init__(self, features: int, kernel_size: int = 3):
+    def __init__(self, features: int, kernel_size: int = 3, dtype=None):
         super().__init__()
         pad = kernel_size // 2
-        self.norm1 = BatchNorm(features)
-        self.conv1 = Conv2d(features, features, kernel_size, padding=pad)
-        self.norm2 = BatchNorm(features)
-        self.conv2 = Conv2d(features, features, kernel_size, padding=pad)
+        self.norm1 = BatchNorm(features, dtype)
+        self.conv1 = Conv2d(features, features, kernel_size, padding=pad, dtype=dtype)
+        self.norm2 = BatchNorm(features, dtype)
+        self.conv2 = Conv2d(features, features, kernel_size, padding=pad, dtype=dtype)
 
     def forward(self, x):
         h = self.conv1(F.relu(self.norm1(x)))
@@ -106,11 +133,11 @@ class Encoder(nn.Module):
     """Hourglass encoder; returns [input, d1, ..., dN]."""
 
     def __init__(self, block_expansion: int, in_features: int, num_blocks: int = 3,
-                 max_features: int = 256):
+                 max_features: int = 256, dtype=None):
         super().__init__()
         chans = [in_features] + [min(max_features, block_expansion * 2 ** (i + 1))
                                  for i in range(num_blocks)]
-        self.down_blocks = nn.ModuleList(DownBlock2d(chans[i], chans[i + 1])
+        self.down_blocks = nn.ModuleList(DownBlock2d(chans[i], chans[i + 1], dtype=dtype)
                                          for i in range(num_blocks))
 
     def forward(self, x) -> List[torch.Tensor]:
@@ -125,13 +152,14 @@ class Decoder(nn.Module):
     block_expansion + in_features."""
 
     def __init__(self, block_expansion: int, in_features: int, num_blocks: int = 3,
-                 max_features: int = 256):
+                 max_features: int = 256, dtype=None):
         super().__init__()
         blocks = []
         for i in reversed(range(num_blocks)):
             cin = (1 if i == num_blocks - 1 else 2) * min(max_features,
                                                           block_expansion * 2 ** (i + 1))
-            blocks.append(UpBlock2d(cin, min(max_features, block_expansion * 2 ** i)))
+            blocks.append(UpBlock2d(cin, min(max_features, block_expansion * 2 ** i),
+                                    dtype=dtype))
         self.up_blocks = nn.ModuleList(blocks)
         self.out_filters = block_expansion + in_features
 
@@ -147,10 +175,10 @@ class Hourglass(nn.Module):
     """Encoder + decoder."""
 
     def __init__(self, block_expansion: int, in_features: int, num_blocks: int = 3,
-                 max_features: int = 256):
+                 max_features: int = 256, dtype=None):
         super().__init__()
-        self.encoder = Encoder(block_expansion, in_features, num_blocks, max_features)
-        self.decoder = Decoder(block_expansion, in_features, num_blocks, max_features)
+        self.encoder = Encoder(block_expansion, in_features, num_blocks, max_features, dtype)
+        self.decoder = Decoder(block_expansion, in_features, num_blocks, max_features, dtype)
         self.out_filters = self.decoder.out_filters
 
     def forward(self, x):

@@ -6,6 +6,11 @@ predictors, generator in ``full`` mode, perceptual, equivariance and
 reconstruction losses) -> backward through every warp -> Adam(0.5, 0.999)
 over all modules (and, optionally, the reference's learnable scalar loss
 weights), with the MultiStepLR schedule stepped per update.
+
+The compute type is the model's (``ReconstructionModel(dtype=...)``): the
+trainer keeps one float32 copy of the weights, the master weights that Adam
+updates and every layer casts where it computes, and refuses a model whose
+parameters are in another type. BatchNorm statistics stay float32 too.
 """
 from __future__ import annotations
 
@@ -65,6 +70,11 @@ class AETrainer:
                  learnable_loss_weights: bool = False, device_augment: Optional[dict] = None,
                  device="cuda"):
         self.device = resolve_device(device)
+        cast = sorted({str(p.dtype) for p in model.parameters()} - {"torch.float32"})
+        if cast:
+            raise ValueError(f"AETrainer keeps float32 master weights; the model's parameters "
+                             f"are {cast}: set the compute type with "
+                             f"ReconstructionModel(dtype=...) instead of casting the model")
         self.model = model.to(self.device).train()
         self.loss_weights = None
         params = list(self.model.parameters())

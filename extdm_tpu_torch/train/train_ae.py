@@ -1,7 +1,7 @@
 """Stage-1 (LFAE) training job (port of scripts/train_ae.py).
 
     python -m extdm_tpu_torch.train.train_ae --config configs/AE/kth.yaml \\
-        [--device_augment] [--max_steps N] [--log_dir logs/ae_kth] \\
+        [--device_augment] [--bf16] [--max_steps N] [--log_dir logs/ae_kth] \\
         [--synthetic_videos N] [--device cuda|cpu]
 
 Frame pairs (``TwoFramesDataset`` in a ``DatasetRepeater``) train the
@@ -17,10 +17,12 @@ validation the LFAE's reconstruction of held-out clips (the last cond frame
 warped to every frame) with PSNR, SSIM, FVD and LPIPS and a gated
 ``RegionMM_best_*`` copy. ``--checkpoint <ckpt> --set_start`` resumes the
 modules, Adam's moments, the schedule's count, the nan guard's count and the
-loss weights.
+loss weights. ``--bf16`` trains with the bf16 compute policy
+(``ReconstructionModel(dtype=torch.bfloat16)``: parameters and BatchNorm
+statistics stay float32); validation reconstructs in float32, as the JAX
+CLI's does.
 
-Not ported: ``--bf16`` (ROADMAP §1 item 2: the ReconstructionModel has no
-compute-dtype policy yet), ``--shard_map`` (item 4) and ``--loader process``
+Not ported: ``--shard_map`` (ROADMAP §1 item 4) and ``--loader process``
 (item 5); each raises.
 """
 from __future__ import annotations
@@ -187,14 +189,12 @@ def main(argv=None) -> int:
     p.add_argument("--log_dir", default="logs/ae")
     p.add_argument("--valid_batch_size", type=int, default=8)
     p.add_argument("--learnable_loss_weights", action="store_true")
-    p.add_argument("--bf16", action="store_true", help="not ported (ROADMAP §1 item 2)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute policy (parameters and BatchNorm statistics stay float32)")
     p.add_argument("--device_augment", action="store_true",
                    help="ship raw uint8 pairs and augment them on the device")
     args = p.parse_args(argv)
     refuse_unported(args)
-    if args.bf16:
-        raise NotImplementedError("--bf16: the AE compute-dtype policy is ROADMAP §1 item 2, "
-                                  "not ported yet (ReconstructionModel computes in float32)")
 
     cfg = load_config(args.config)
     if args.root_dir:
@@ -231,7 +231,8 @@ def main(argv=None) -> int:
         dataset = DatasetRepeater(dataset, tp.get("num_repeats", 1))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(args.seed)
-            model = ReconstructionModel(**ae_model_kwargs(cfg))
+            model = ReconstructionModel(dtype=torch.bfloat16 if args.bf16 else None,
+                                        **ae_model_kwargs(cfg))
         print(f"LFAE parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
         sched = tp["scheduler_param"]
         trainer = AETrainer(model, make_optimizer(tp["lr"], sched["milestones"], sched["gamma"],

@@ -251,8 +251,7 @@ def test_png_and_gif_read_back(tmp_path):
 # ------------------------------------------------------------------ flags
 @pytest.mark.parametrize("job,flag,item", [
     ("dm", "--shard_map", "item 4"), ("dm", "--loader=process", "item 5"),
-    ("ae", "--shard_map", "item 4"), ("ae", "--loader=process", "item 5"),
-    ("ae", "--bf16", "item 2")])
+    ("ae", "--shard_map", "item 4"), ("ae", "--loader=process", "item 5")])
 def test_unported_flags_raise(job, flag, item):
     main = (train_dm if job == "dm" else train_ae).main
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
