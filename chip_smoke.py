@@ -163,6 +163,22 @@
    BatchNorm statistics after the step, 3 timed steps (6 / 5 warp
    launches) beside the float32 step's median; then ``train_ae.main
    --bf16`` for 2 steps ("AE job").
+14. DP (data parallel): single-process references first (the KTH DM step
+   in bf16 at batch 8, twice from the same state for its repeat spread;
+   the AE step at batch 64 on the same raw pairs, augmentation and TPS
+   draws, and once more on its frames moved by AE_ROUGH_EPS, TF32 off),
+   then 2 spawned ranks on cuda:0 over gloo (and over nccl,
+   one rank a card, where there are 2 cards or more): each rank takes the
+   data-parallel DM step on its 4 rows (the draws given), the AE step with
+   SyncBN on its 32 pairs and the sharded sampler (batch 4, 2 rows a rank),
+   with every launch counter from 0 before each; checks every rank's
+   launches against world 1's (each layer on its kernel at the local
+   batch), the ranks' parameters equal after each step, the DM and AE
+   parameters, gradients, losses and running statistics against the
+   single-process step within SPREAD_MULT of its spread, and each rank's rows of
+   the sharded sample against the plain sampler on its rows with its
+   rank's generator (the same rule); prints each rank's ms per step or
+   call and the ms of the gradient, SyncBN, loss and gather all-reduces.
 The sampling phase also runs the sampler variants after its end-to-end
 line: ``make_sampler(decode=False)`` and ``sample_video`` against
 ``make_sampler()`` on the same seed (SPREAD_MULT).
@@ -1613,7 +1629,7 @@ def grad_fn_check():
          "grid_sample_bwd kernel", **res})
 
 
-def ae_model_and_trainer(cfg, device, seed=0, dtype=None):
+def ae_model_and_trainer(cfg, device, seed=0, dtype=None, group=None):
     from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
     from extdm_tpu_torch.train.ae_trainer import AETrainer, make_optimizer
 
@@ -1621,7 +1637,7 @@ def ae_model_and_trainer(cfg, device, seed=0, dtype=None):
         torch.manual_seed(seed)
         model = ReconstructionModel(dtype=dtype, **cfg["model"])
     return AETrainer(model, make_optimizer(cfg["lr"], cfg["milestones"], cfg["gamma"]),
-                     device_augment=cfg["device_augment"], device=device)
+                     device_augment=cfg["device_augment"], device=device, group=group)
 
 
 def smooth_frames(g, n, px, sigma=4.0):
@@ -3558,6 +3574,397 @@ def ae_bf16_job_run(counters, card, bare_step_ms):
          "card": card})
 
 
+# ------------------------------------------------------------ data parallel
+# Phase "DP": the data-parallel DM step, AE step (SyncBN) and sharded
+# sampler at full KTH width in DP_RANKS spawned ranks. On one card the
+# ranks share it over gloo (nccl serves one rank per card): a smoke of the
+# collectives and of every rank's kernel route at its local batch, not a
+# scaling figure; gloo stages every all-reduce through host memory. Each
+# step's result is held against the single-process step on the same global
+# batch and draws, here in the parent process: the mean absolute difference
+# of the parameters (gradients, losses, statistics) at most SPREAD_MULT
+# times a spread plus 2^-8 of the mean update (or of the mean magnitude).
+# The DM's spread is a second single-process step from the same state
+# (kernel 3's GroupNorm atomics do not repeat bit for bit). The AE's
+# single-process step repeats to ~1e-8, so its spread is a step on the
+# augmented frames moved by AE_ROUGH_EPS: its gradients are rough at init
+# (AE_ROUGH_MULT), and the ranks' reduction orders differ (SyncBN's
+# E[x^2] - E[x]^2, cuDNN at 32 pairs). The AE comparison step runs with
+# TF32 off on both sides: in TF32, cuDNN's algorithms at 32 and 64 pairs
+# round differently enough to flip the sign of Adam's first update on many
+# parameters (an H100 at 700 W), far beyond either spread; its timed steps
+# run with TF32 on. With two cards or more the ranks also run over nccl,
+# one a card.
+DP_RANKS = 2
+DP_DM_BATCH = 8
+DP_AE_BATCH = 64
+DP_SAMPLER_BATCH = 4
+DP_TIMED_STEPS = 2
+
+
+def _flat_params(module) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1) for p in module.parameters()])
+
+
+def _flat_grads(module) -> torch.Tensor:
+    """Every parameter's gradient, flat, on the host."""
+    return torch.cat([p.grad.detach().float().reshape(-1) for p in module.parameters()]).cpu()
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN and cuBLAS in full float32 for the block, PyTorch's defaults
+    after (job_defaults)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        job_defaults()
+
+
+def _stats(module) -> torch.Tensor:
+    """Every BatchNorm running mean and variance, flat, on the host."""
+    return torch.cat([b.detach().float().reshape(-1) for n, b in module.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))]).cpu()
+
+
+def _spread_check(got, first, again, base):
+    """got and again against first by their mean absolute difference:
+    the line, "ok" where got's is at most SPREAD_MULT times again's plus
+    2^-8 of mean|first - base| (one bf16 ulp of the step's mean update; of
+    mean|first| without a base)."""
+    err = (got - first).abs().mean().item()
+    spread = (again - first).abs().mean().item()
+    moved = (first - base).abs().mean().item() if base is not None else first.abs().mean().item()
+    tol = SPREAD_MULT * spread + 2.0 ** -8 * moved
+    return {"ok": err <= tol, "mean_abs_err": err, "max_abs_err": (got - first).abs().max().item(),
+            "spread_mean_abs_err": spread, "mean_update": moved, "tol": tol}
+
+
+def _digest(module) -> list:
+    """A checksum of every parameter and buffer of `module`, on its device:
+    per tensor, the sum of its float32 bit patterns (as int64) weighted by
+    their positions, so that equal states give equal lists."""
+    out = []
+    for t in module.state_dict().values():
+        bits = t.detach().float().reshape(-1).view(torch.int32).long()
+        pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+        out.append(int((bits * pos).sum()))
+    return out
+
+
+def dp_reference(tmp):
+    """The single-process DM step on the global batch twice from the same
+    state (the seeded init), the AE step on its global batch and on its
+    frames moved by AE_ROUGH_EPS; writes the ranks' inputs (the batches
+    and draws, the init's checksums) to <tmp>/dp_inputs.pt and returns the
+    references (on the host)."""
+    from extdm_tpu_torch.config import kth_ae_training_config, kth_training_config
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.models.lfae.transform import random_tps
+    from extdm_tpu_torch.train.device_augment import prepare_batch, sample_augment
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
+
+    cfg = kth_training_config(torch.bfloat16)
+    fd = FlowDiffusion(cfg, device="cuda", seed=0)
+    T, px, tc = cfg.cond_frames + cfg.pred_frames, cfg.frame_shape, cfg.cond_frames
+    g = torch.Generator().manual_seed(61)
+    video = torch.rand((DP_DM_BATCH, T, px, px, 3), generator=g)
+    with torch.no_grad():
+        latent = fd.latents_from_encode(fd.lfae.encode_video(video[:1].cuda(), tc))
+    t = torch.randint(0, cfg.timesteps, (DP_DM_BATCH,), generator=g)
+    noise = torch.randn((DP_DM_BATCH, cfg.pred_frames, *latent.shape[2:]), generator=g)
+    init = {k: v.detach().clone() for k, v in fd.unet.state_dict().items()}
+    dm = {"init": _flat_params(fd.unet).cpu(), "params": [], "grads": [], "loss": []}
+    dm_inputs = {"unet_digest": _digest(fd.unet), "lfae_digest": _digest(fd.lfae),
+                 "video": video, "t": t, "noise": noise}
+    for _ in range(2):
+        fd.unet.load_state_dict(init)
+        trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), 2e-4, (500000,), 0.5))
+        aux = trainer.train_step(None, video.cuda(), t=t.cuda(), noise=noise.cuda())
+        torch.cuda.synchronize()
+        dm["params"].append(_flat_params(fd.unet).cpu())
+        dm["grads"].append(_flat_grads(fd.unet))
+        dm["loss"].append(aux["loss"].item())
+    del fd, trainer, init
+    torch.cuda.empty_cache()
+
+    acfg = kth_ae_training_config()
+    apx = acfg["frame_shape"]
+    g = torch.Generator().manual_seed(62)
+    batch = {k: torch.randint(0, 256, (DP_AE_BATCH, apx, apx), generator=g, dtype=torch.uint8)
+             for k in ("source", "driving")}
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    augment = sample_augment(gen, DP_AE_BATCH, (apx, apx), torch.device("cuda"),
+                             **acfg["device_augment"])
+    # The AE's single-process step repeats to within ~1e-8 (kernel 8's
+    # vector reductions), but its gradients are rough at its init
+    # (AE_ROUGH_MULT): a second step on the augmented frames moved by
+    # AE_ROUGH_EPS gives the scale of float32 noise that the ranks' other
+    # reduction orders (SyncBN's E[x^2] - E[x]^2, cuDNN at 32 pairs) meet.
+    trainer = ae_model_and_trainer(acfg, "cuda")
+    tps = random_tps(torch.Generator(device="cuda").manual_seed(64), DP_AE_BATCH,
+                     device="cuda", **trainer.model.transform_params)
+    ae = {"init": _flat_params(trainer.model).cpu(), "init_stats": _stats(trainer.model),
+          "params": [], "grads": [], "stats": [], "losses": []}
+    ae_digest = _digest(trainer.model)
+    frames = prepare_batch(*(batch[k].cuda() for k in ("source", "driving")), augment)
+    gm = torch.Generator(device="cuda").manual_seed(65)
+    moved = {k: v * (1 + AE_ROUGH_EPS * torch.randn(v.shape, generator=gm, device="cuda"))
+             for k, v in zip(("source", "driving"), frames)}
+    for i, (inputs, aug) in enumerate(((batch, augment), (moved, None))):
+        if i:  # the seeded init again, augmenting nothing: the frames are augmented
+            trainer = ae_model_and_trainer(dict(acfg, device_augment=None), "cuda")
+        with tf32_off():
+            aux = trainer.train_step(None, {k: v.cuda() for k, v in inputs.items()}, tps=tps,
+                                     augment=aug)
+            torch.cuda.synchronize()
+        ae["params"].append(_flat_params(trainer.model).cpu())
+        ae["grads"].append(_flat_grads(trainer.model))
+        ae["stats"].append(_stats(trainer.model))
+        ae["losses"].append({k: v.item() for k, v in aux.items()})
+        del trainer
+    ae_inputs = {"digest": ae_digest, "batch": batch,
+                 "augment": {k: v if not torch.is_tensor(v) else v.cpu()
+                             for k, v in augment.items()},
+                 "tps": tuple(None if v is None else v.cpu() for v in tps)}
+    torch.cuda.empty_cache()
+    torch.save({"dm": dm_inputs, "ae": ae_inputs}, Path(tmp) / "dp_inputs.pt")
+    return {"dm": dm, "ae": ae}
+
+
+def dp_rank(rank, world, backend, tmp):
+    """One rank of phase "DP": joins the group over `backend` (a file store
+    in `tmp`), runs the DM step, the sharded sampler (on the DM step's
+    model) and the AE step on its rows with the counters from 0 before
+    each, and writes what it measured to <tmp>/dp_rank<r>.pt."""
+    from extdm_tpu_torch.config import kth_ae_training_config, kth_training_config
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.models.lfae.transform import TPSTransform
+    from extdm_tpu_torch.parallel import (init_data_group, make_data_group, rank_generator,
+                                          shard_batch)
+    from extdm_tpu_torch.train.device_augment import augment_rows
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
+
+    w = init_data_group(backend, "cuda", rank=rank, world_size=world, local_rank=rank,
+                        init_method=f"file://{tmp}/dp_store_{backend}")
+    job_defaults()
+    inp = torch.load(Path(tmp) / "dp_inputs.pt", weights_only=False)
+    table = kernel_table()
+    tables = {**table, **backward_table(table), **ae_backward_table(), **wm_table(table),
+              **route_table()}
+    counters = {n: k["wrapper"] for n, k in tables.items()}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, {n: c.launches for n, c in counters.items()}
+
+    def timed_steps(group, step):
+        """DP_TIMED_STEPS steps: ms each (the first with the collectives
+        untimed, the rest with each collective bracketed by syncs) and the
+        collectives' ms of the timed ones."""
+        times, timings = [], []
+        for i in range(DP_TIMED_STEPS):
+            group.timings = {} if i else None
+            _, ms, _ = counted(step)
+            times.append(ms)
+            if i:
+                timings.append(group.timings)
+        return times, timings
+
+    out = {"rank": rank, "device": str(w.device), "backend": backend,
+           "device_name": torch.cuda.get_device_name(w.device)}
+    # the DM step
+    cfg = kth_training_config(torch.bfloat16)
+    fd = FlowDiffusion(cfg, device=w.device, seed=0)
+    if (_digest(fd.unet), _digest(fd.lfae)) != (inp["dm"]["unet_digest"],
+                                                inp["dm"]["lfae_digest"]):
+        raise AssertionError(f"DP rank {rank}: the seeded DM init differs from the parent's")
+    group = make_data_group(DP_DM_BATCH, w)
+    trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), 2e-4, (500000,), 0.5), group)
+    rows = group.rows(DP_DM_BATCH)
+    video, t, noise = (v.to(w.device) for v in shard_batch(
+        [inp["dm"][k] for k in ("video", "t", "noise")], group))
+    aux, ms, launches = counted(lambda: trainer.train_step(None, video, t=t, noise=noise))
+    out["dm"] = {"rows": [rows.start, rows.stop], "first_ms": ms, "launches": launches,
+                 "loss": aux["loss"].item(), "params": _flat_params(fd.unet).cpu(),
+                 "grads": _flat_grads(fd.unet),
+                 "digest": _digest(fd.unet)}
+    times, timings = timed_steps(group, lambda: trainer.train_step(None, video, t=t,
+                                                                   noise=noise))
+    out["dm"].update(ms=times, timings=timings)
+    # the sharded sampler, on the DM step's model (the ranks' weights equal)
+    cond = torch.rand((DP_SAMPLER_BATCH, cfg.cond_frames, cfg.frame_shape, cfg.frame_shape, 3),
+                      generator=torch.Generator().manual_seed(65)).to(w.device)
+    group = make_data_group(DP_SAMPLER_BATCH, w)
+    rows = group.rows(DP_SAMPLER_BATCH)
+    sharded = fd.make_sharded_sampler(group)
+    gen = torch.Generator(device=w.device)
+    group.timings = {}
+    got, ms, launches = counted(lambda: sharded(gen.manual_seed(66), cond))
+    own = [fd.make_sampler()(rank_generator(gen.manual_seed(66), group.rank), cond[rows])
+           for _ in range(2)]
+    check_sample(got, cfg, DP_SAMPLER_BATCH)
+    lines = {}
+    for key in got:
+        mine = got[key][rows]
+        if key.startswith("real_"):  # the encode repeats bit for bit
+            lines[key] = torch.equal(mine, own[0][key]) or {"ok": False, "bitwise": False}
+        else:
+            lines[key] = _spread_check(mine.float(), own[0][key].float(), own[1][key].float(),
+                                       None)
+    gather_timings, group.timings = group.timings, None
+    _, ms2, _ = counted(lambda: sharded(gen.manual_seed(67), cond))
+    out["sampler"] = {"rows": [rows.start, rows.stop], "first_ms": ms, "ms": [ms2],
+                      "launches": launches, "checks": lines, "timings": gather_timings}
+    del fd, trainer, video, noise
+    torch.cuda.empty_cache()
+
+    # the AE step (SyncBN)
+    acfg = kth_ae_training_config()
+    group = make_data_group(DP_AE_BATCH, w)
+    trainer = ae_model_and_trainer(acfg, w.device, group=group)
+    if _digest(trainer.model) != inp["ae"]["digest"]:
+        raise AssertionError(f"DP rank {rank}: the seeded AE init differs from the parent's")
+    rows = group.rows(DP_AE_BATCH)
+    batch = {k: v.to(w.device) for k, v in shard_batch(inp["ae"]["batch"], group).items()}
+    augment = {k: v.to(w.device) if torch.is_tensor(v) else v
+               for k, v in augment_rows(inp["ae"]["augment"], rows).items()}
+    tps = TPSTransform(*(None if v is None else v.to(w.device) for v in inp["ae"]["tps"]))
+    tps = tps.rows(rows)
+    with tf32_off():
+        aux, ms, launches = counted(lambda: trainer.train_step(None, batch, tps=tps,
+                                                               augment=augment))
+    stats = _stats(trainer.model)
+    out["ae"] = {"rows": [rows.start, rows.stop], "first_ms": ms, "launches": launches,
+                 "losses": {k: v.item() for k, v in aux.items()},
+                 "params": _flat_params(trainer.model).cpu(), "stats": stats,
+                 "grads": _flat_grads(trainer.model),
+                 "digest": _digest(trainer.model)}
+    times, timings = timed_steps(group, lambda: trainer.train_step(None, batch, tps=tps,
+                                                                   augment=augment))
+    out["ae"].update(ms=times, timings=timings)
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    torch.save(out, Path(tmp) / f"dp_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def dp_phase(card):
+    """Phase "DP": the single-process references, then DP_RANKS ranks over
+    gloo on cuda:0 (and over nccl, one a card, where there are enough
+    cards); checks each step against its reference, the ranks' states
+    against each other and every rank's launches against world 1's."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from extdm_tpu_torch.config import kth_training_config
+
+    t_phase = time.perf_counter()
+    cfg = kth_training_config(torch.bfloat16)
+    want_fwd, want_bwd = expected_train_launches(cfg)
+    want_dm = {**want_fwd, **want_bwd}
+    want_ae = {"grid_sample": 6, "grid_sample_bwd": 5}
+    want_sampler = expected_launches(cfg)
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= DP_RANKS else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = dp_reference(tmp)
+        log({"phase": "DP reference", "seconds": time.perf_counter() - t0,
+             "dm_loss": ref["dm"]["loss"], "ae_losses": ref["ae"]["losses"]})
+        for backend in backends:
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(dp_rank, args=(DP_RANKS, backend, tmp), nprocs=DP_RANKS,
+                                     join=False, start_method="spawn")
+            while not ctx.join(timeout=5.0):
+                if time.perf_counter() - t0 > 600:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise TimeoutError(f"DP ranks over {backend} still running after 600 s")
+            spawn_s = time.perf_counter() - t0
+            got = [torch.load(Path(tmp) / f"dp_rank{r}.pt", weights_only=False)
+                   for r in range(DP_RANKS)]
+            dp_check(got, ref, backend, spawn_s, want_dm, want_ae, want_sampler, card)
+    log({"phase": "DP phase", "seconds": time.perf_counter() - t_phase, "backends": backends})
+
+
+def dp_check(got, ref, backend, spawn_s, want_dm, want_ae, want_sampler, card):
+    """Phase "DP"'s lines and checks for one backend's ranks: every line is
+    printed before a failed check raises."""
+    dm, ae = ref["dm"], ref["ae"]
+    checks, failed = {}, []
+    for part, want in (("dm", want_dm), ("ae", want_ae), ("sampler", want_sampler)):
+        for g in got:
+            seen = {n: c for n, c in g[part]["launches"].items() if c}
+            if seen != want:
+                failed.append(f"rank {g['rank']} {part} launches {seen} != world 1's {want}")
+    for part in ("dm", "ae"):
+        checks[f"{part}_ranks_equal"] = got[0][part]["digest"] == got[1][part]["digest"]
+        if not checks[f"{part}_ranks_equal"]:
+            failed.append(f"{part}: the ranks' parameters differ after the step")
+    for g in got:
+        failed += [f"rank {g['rank']} sampler {k}" for k, line in g["sampler"]["checks"].items()
+                   if line is not True and not line["ok"]]
+
+    def held(name, got_, first, again, base):
+        checks[name] = _spread_check(got_, first, again, base)
+        if not checks[name]["ok"]:
+            failed.append(name)
+
+    held("dm_params", got[0]["dm"]["params"], dm["params"][0], dm["params"][1], dm["init"])
+    held("dm_grads", got[0]["dm"]["grads"], dm["grads"][0], dm["grads"][1], None)
+    held("dm_loss", torch.tensor(got[0]["dm"]["loss"]), torch.tensor(dm["loss"][0]),
+         torch.tensor(dm["loss"][1]), None)
+    # the AE against its step on frames moved by AE_ROUGH_EPS
+    held("ae_params", got[0]["ae"]["params"], ae["params"][0], ae["params"][1], ae["init"])
+    held("ae_grads", got[0]["ae"]["grads"], ae["grads"][0], ae["grads"][1], None)
+    held("ae_running_stats", got[0]["ae"]["stats"], ae["stats"][0], ae["stats"][1],
+         ae["init_stats"])
+    for k in ae["losses"][0]:
+        held(f"ae_{k}", torch.tensor(got[0]["ae"]["losses"][k]),
+             torch.tensor(ae["losses"][0][k]), torch.tensor(ae["losses"][1][k]), None)
+
+    def ms_of(timings, kind):
+        return [sum(t.get(kind, [])) for t in timings]
+
+    for g in got:
+        log({"phase": "DP", "backend": backend, "rank": g["rank"], "device": g["device"],
+             "device_name": g["device_name"], "ranks": DP_RANKS,
+             "note": "ranks share one card over gloo (host-staged all-reduce): a smoke, not a "
+                     "scaling figure" if backend == "gloo" and g["device"] == got[0]["device"]
+                     else "one rank a card",
+             "dm_step": {"global_batch": DP_DM_BATCH, "rows": g["dm"]["rows"],
+                         "first_ms": g["dm"]["first_ms"], "ms": g["dm"]["ms"],
+                         "grad_allreduce_ms": ms_of(g["dm"]["timings"], "grad"),
+                         "aux_allreduce_ms": ms_of(g["dm"]["timings"], "aux"),
+                         "launches": {n: c for n, c in g["dm"]["launches"].items() if c}},
+             "ae_step": {"global_batch": DP_AE_BATCH, "rows": g["ae"]["rows"],
+                         "first_ms": g["ae"]["first_ms"], "ms": g["ae"]["ms"],
+                         "grad_allreduce_ms": ms_of(g["ae"]["timings"], "grad"),
+                         "syncbn_allreduce_ms": ms_of(g["ae"]["timings"], "bn"),
+                         "syncbn_allreduces": [len(t.get("bn", [])) for t in g["ae"]["timings"]],
+                         "loss_allreduce_ms": ms_of(g["ae"]["timings"], "loss"),
+                         "launches": {n: c for n, c in g["ae"]["launches"].items() if c}},
+             "sampler": {"global_batch": DP_SAMPLER_BATCH, "rows": g["sampler"]["rows"],
+                         "first_ms": g["sampler"]["first_ms"], "ms": g["sampler"]["ms"],
+                         "gather_ms": sum(g["sampler"]["timings"].get("gather", [])),
+                         "launches": {n: c for n, c in g["sampler"]["launches"].items() if c},
+                         "vs_plain_on_own_rows": g["sampler"]["checks"]},
+             "card": card})
+    log({"phase": "DP checks", "backend": backend, "spawn_seconds": spawn_s, "checks": checks,
+         "card": card})
+    if failed:
+        raise AssertionError(f"DP {backend}: {failed} outside the single-process step's spread")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3649,6 +4056,11 @@ def main() -> int:
     _, traj_call = traj_sampling_phase(table, {**btable, **ae_btable, **wm, **rt}, card)
     _, traj_step = traj_train_phase(table, btable, {**ae_btable, **wm, **rt}, card)
     _, ae16_step = ae_bf16_phase(table, ae_btable, {**btable, **wm, **rt}, card, ae_ms)
+
+    # ---- data parallel: the DM and AE steps and the sampler in 2 ranks
+    job_defaults()
+    torch.cuda.empty_cache()
+    dp_phase(card)
 
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the

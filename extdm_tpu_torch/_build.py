@@ -5,6 +5,10 @@ with a plain C interface, loaded with ``ctypes``. All sources are compiled at
 first use, one ``nvcc`` process each, started together. The libraries go to
 ``extdm_tpu_torch/_build/<hash>/``, keyed by a hash of every source and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
+Processes that build at once (the ranks of a data-parallel launch) take an
+exclusive lock on ``_build/<hash>.lock`` (``flock``: the system drops it
+with a process that dies) and build once: the first compiles, the others
+wait for it and find the libraries built.
 
 Each C entry point (``extern "C" int name(...)``) takes a dtype code,
 device pointers, sizes and the stream, and returns ``cudaGetLastError()``.
@@ -16,7 +20,9 @@ so that a layout is written once, in the source that uses it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -56,12 +62,36 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def build_lock(path: Path):
+    """An exclusive ``flock`` on `path` (created if missing) for the block."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _unbuilt(out_dir: Path) -> List[Path]:
+    return [s for s in sorted(CSRC.glob("*.cu")) if not (out_dir / f"lib{s.stem}.so").exists()]
+
+
 def build_all() -> Path:
-    """Compile every ``csrc/*.cu`` that is not built yet; return the build dir."""
+    """Compile every ``csrc/*.cu`` that is not built yet, under the build
+    lock; return the build dir."""
     out_dir = BUILD_ROOT / _key()
-    todo = [s for s in sorted(CSRC.glob("*.cu")) if not (out_dir / f"lib{s.stem}.so").exists()]
-    if not todo:
+    if not _unbuilt(out_dir):
         return out_dir
+    with build_lock(BUILD_ROOT / f"{out_dir.name}.lock"):
+        todo = _unbuilt(out_dir)  # empty where another process built them meanwhile
+        if todo:
+            _compile(todo, out_dir)
+    return out_dir
+
+
+def _compile(todo: List[Path], out_dir: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -81,7 +111,6 @@ def build_all() -> Path:
             os.replace(tmp, out_dir / f"lib{src.stem}.so")
     if errors:
         raise RuntimeError("\n".join(errors))
-    return out_dir
 
 
 def library(name: str) -> ctypes.CDLL:

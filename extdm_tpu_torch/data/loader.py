@@ -10,6 +10,11 @@ are the JAX loader's. Ship the stored uint8 layout (``VideoDataset(...,
 raw_uint8=True)``) and canonicalise on the card with ``canonicalize_clips``:
 a quarter of the float32 bytes cross to the card.
 
+Data parallel, ``group`` (a ``parallel.DataGroup``) makes the loader load
+and ship only this rank's rows of each global batch of ``batch_size``: the
+same permutation and batches as one process, rows [r B / n, (r + 1) B / n)
+of each.
+
 Process workers (``worker_type="process"``) are not ported yet.
 """
 from __future__ import annotations
@@ -70,14 +75,15 @@ def _tensors(obj):
 
 class DataLoader:
     """``DataLoader(dataset, batch_size, shuffle, num_workers, drop_last,
-    seed, collate_fn, prefetch, device)``. With ``device=None`` batches stay
-    numpy; otherwise every array becomes a tensor on `device` (a CUDA device
-    needs a card). ``wait_s`` adds up the seconds the consumer spent waiting
-    for a batch."""
+    seed, collate_fn, prefetch, device, worker_type, group)``. With
+    ``device=None`` batches stay numpy; otherwise every array becomes a
+    tensor on `device` (a CUDA device needs a card). With a data group, each
+    batch is this rank's rows of the global batch. ``wait_s`` adds up the
+    seconds the consumer spent waiting for a batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, num_workers: int = 8,
                  drop_last: bool = True, seed: int = 0, collate_fn: Callable = default_collate,
-                 prefetch: int = 2, device=None, worker_type: str = "thread"):
+                 prefetch: int = 2, device=None, worker_type: str = "thread", group=None):
         if worker_type != "thread":
             raise NotImplementedError(f"worker_type={worker_type!r}: only thread workers are "
                                       "ported")
@@ -93,6 +99,7 @@ class DataLoader:
         if self.device is not None and self.device.type == "cuda" \
                 and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' or None")
+        self.group = group
         self.pool = ThreadPoolExecutor(max_workers=num_workers) if num_workers else None
         self.wait_s = 0.0
 
@@ -106,7 +113,8 @@ class DataLoader:
             self.rng.shuffle(idx)
         stop = len(idx) - (len(idx) % self.batch_size) if self.drop_last else len(idx)
         for s in range(0, stop, self.batch_size):
-            yield idx[s:s + self.batch_size]
+            batch = idx[s:s + self.batch_size]
+            yield batch if self.group is None else batch[self.group.rows(len(batch))]
 
     def _load(self, indices) -> Any:
         ids = [int(i) for i in indices]

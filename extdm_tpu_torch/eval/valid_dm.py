@@ -2,6 +2,7 @@
 
     python -m extdm_tpu_torch.eval.valid_dm --config configs/DM/kth.yaml \\
         --synthetic_videos 4 --num_sample_video 4 --batch_size 4 --device cpu
+    torchrun --nproc_per_node N -m extdm_tpu_torch.eval.valid_dm --mesh_data N ...
 
 Trajectories ride the batch axis (each video repeated ``num_sample_video``
 times, ``np.repeat`` order); each batch is rolled out autoregressively in
@@ -19,9 +20,15 @@ Data: ``--root_dir`` (the config's HDF5 shards; needs h5py) or
 ``.pth`` files with the reference key names; without the first the LFAE is
 a seeded random init (smoke mode), as in the JAX CLI. LPIPS and I3D take
 their reference state dicts (``--lpips_state_dict`` / ``--i3d_state_dict``)
-or stay seeded random, flagged ``pretrained: False``. Not ported yet: the
-comparison gif, ``--dump_flow``, ``--dump_arrays`` and the ``--mesh_*``
-multi-device modes.
+or stay seeded random, flagged ``pretrained: False``.
+
+``--mesh_data N`` (a launch of N ranks, torchrun) shards the (videos x
+trajectories) batch axis of every sampler call over the ranks
+(``FlowDiffusion.make_sharded_sampler``): each rank samples its rows with
+its rank's generator and the batches are gathered; rank 0 computes the
+metrics and writes ``metrics.txt``. Not ported yet: ``--mesh_model``, the
+latent-H sharded sampler (ROADMAP §1 item 4(b)), which raises, and the
+comparison gif, ``--dump_flow`` and ``--dump_arrays``.
 """
 from __future__ import annotations
 
@@ -43,7 +50,9 @@ from extdm_tpu_torch.metrics import (
     calculate_psnr3,
     calculate_ssim3,
 )
+from extdm_tpu_torch.parallel.mesh import DataGroup, init_data_group, make_data_group
 from extdm_tpu_torch.train.checkpoint import AE_PARTS, load_checkpoint, restore_ae, restore_dm
+from extdm_tpu_torch.train.job import default_backend, finish
 
 METRICS = ("fvd", "psnr", "ssim", "lpips")
 # Real videos (with their trajectories) per slab moved to the card for PSNR,
@@ -121,7 +130,8 @@ def _best_of(metric3, samples: torch.Tensor, real: torch.Tensor, num_traj: int, 
 def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int = 0,
              metrics: Iterable[str] = METRICS, i3d: Optional[I3DExtractor] = None,
              lpips: Optional[LPIPSMetric] = None,
-             init_noise: Optional[Callable[[int, int], Optional[torch.Tensor]]] = None) -> Dict:
+             init_noise: Optional[Callable[[int, int], Optional[torch.Tensor]]] = None,
+             group: Optional[DataGroup] = None) -> Dict:
     """Sample every batch of `loader` (clips in a stored layout, on any
     device) `num_traj` times and score the trajectories. `init_noise(batch,
     round)` may give each sampler call's starting noise. Each finished batch
@@ -131,11 +141,15 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
     trajectories. Returns the metric ``lines``, their ``values``, the real
     videos and the samples (float32 (N, T, H, W, 3) and (N * num_traj, T, H,
     W, 3) in host memory), and ``seconds``: sampling per call, the metrics
-    and the loader's wait."""
+    and the loader's wait. With a data group of several ranks every rank
+    takes part in each (sharded) sampler call and holds the gathered
+    samples; rank 0 alone computes the metrics (the others return no
+    lines and no values)."""
     cfg, dev = fd.cfg, fd.device
     tc, tp = cfg.cond_frames, cfg.pred_frames
     wanted = set(metrics)
-    sampler = fd.make_sampler()
+    sharded = group is not None and group.parallel
+    sampler = fd.make_sharded_sampler(group) if sharded else fd.make_sampler()
     num_autoreg = math.ceil(total_pred / tp)
     real_all, sample_all, call_s, pred_frames = [], [], [], []
     for clips in loader:
@@ -174,6 +188,8 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
     print(f"evaluated {N} videos x {num_traj} trajectories")
     lines, values = [], {}
     seconds = {"sampling_per_call": call_s, "loader_wait": getattr(loader, "wait_s", 0.0)}
+    if sharded and group.rank != 0:
+        return dict(lines=lines, values=values, real=real, samples=samples, seconds=seconds)
 
     def timed(name, fn):
         _sync(dev)
@@ -227,9 +243,6 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
 
 
 def main(argv=None) -> int:
-    from extdm_tpu_torch.config import dm_config_from_yaml, load_config
-    from extdm_tpu_torch.data import InMemoryVideoStore, make_moving_shapes_video
-    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
     from extdm_tpu_torch.ops.fused_stw import WINDOW_MAJOR_MODES
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -252,14 +265,53 @@ def main(argv=None) -> int:
     p.add_argument("--stw_window_major", default="0", choices=WINDOW_MAJOR_MODES,
                    help="STW layout: 0 padded windows, 1 window-major, auto by layer shape")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="shard the (videos x trajectories) batch axis over this many ranks "
+                        "(a launch of that many, torchrun; batch_size * num_sample_video must "
+                        "divide by it)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="shard the latent H axis of the denoiser: not ported (ROADMAP §1 item "
+                        "4(b)); more than 1 raises")
+    p.add_argument("--init_method", default="env://",
+                   help="torch.distributed init method (default: torchrun's environment)")
     args = p.parse_args(argv)
+    if args.mesh_model > 1:
+        raise NotImplementedError("--mesh_model: the latent-H sharded sampler is ROADMAP §1 "
+                                  "item 4(b), not ported yet; use --mesh_data")
+    group = _eval_group(args)
+    if group.member:
+        _evaluate(args, group)
+    finish(group)
+    return 0
+
+
+def _eval_group(args) -> DataGroup:
+    """The data group of ``--mesh_data`` ranks: the launch's world (one
+    process without torchrun) must have that many."""
+    world = init_data_group(default_backend(args.device), args.device,
+                            init_method=args.init_method)
+    if world.size != args.mesh_data:
+        raise ValueError(f"--mesh_data {args.mesh_data} in a launch of {world.size} "
+                         f"process(es): launch {args.mesh_data} (torchrun --nproc_per_node)")
+    rows = args.batch_size * args.num_sample_video
+    if rows % args.mesh_data:
+        raise ValueError(f"batch_size x num_sample_video = {rows} does not divide over "
+                         f"--mesh_data {args.mesh_data}")
+    return make_data_group(rows, world)
+
+
+def _evaluate(args, group: DataGroup) -> None:
+    """The evaluation on a rank of the data group; rank 0 writes the lines."""
+    from extdm_tpu_torch.config import dm_config_from_yaml, load_config
+    from extdm_tpu_torch.data import InMemoryVideoStore, make_moving_shapes_video
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
 
     cfg_raw = load_config(args.config)
     dp = cfg_raw["dataset_params"]
     vp = dp["valid_params"]
     tc, total_pred = vp["cond_frames"], vp["pred_frames"]
     cfg = dm_config_from_yaml(cfg_raw, arch=args.arch, stw_window_major=args.stw_window_major)
-    fd = FlowDiffusion(cfg, device=args.device, seed=args.seed)
+    fd = FlowDiffusion(cfg, device=group.world.device, seed=args.seed)
     load_weights(fd, args.flowae_checkpoint, args.checkpoint)
     print(f"autoregressive rounds: {math.ceil(total_pred / cfg.pred_frames)} x "
           f"{cfg.pred_frames} frames")
@@ -282,12 +334,14 @@ def main(argv=None) -> int:
     lpips = (LPIPSMetric(load_checkpoint(args.lpips_state_dict), device=fd.device)
              if args.lpips_state_dict else None)
     out = evaluate(fd, loader, num_traj=args.num_sample_video, total_pred=total_pred,
-                   seed=args.seed, metrics=args.metrics.split(","), i3d=i3d, lpips=lpips)
+                   seed=args.seed, metrics=args.metrics.split(","), i3d=i3d, lpips=lpips,
+                   group=group)
+    if group.rank != 0:
+        return
     print("\n".join(out["lines"]))
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "metrics.txt"), "w") as f:
         f.write("\n".join(out["lines"]) + "\n")
-    return 0
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ from extdm_tpu_torch.models.lfae.bg_predictor import BGMotionPredictor
 from extdm_tpu_torch.models.lfae.generator import Generator
 from extdm_tpu_torch.models.lfae.region_predictor import RegionPredictor
 from extdm_tpu_torch.ops.coords import make_coordinate_grid
+from extdm_tpu_torch.parallel.mesh import gather_batch, rank_generator
 
 
 def _merge_bt(x: torch.Tensor) -> torch.Tensor:
@@ -329,6 +330,24 @@ class FlowDiffusion:
         def sampler(generator: torch.Generator, cond_video: torch.Tensor,
                     init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
             return self._sample(generator, cond_video, decode, init_noise)
+
+        return sampler
+
+    def make_sharded_sampler(self, group, decode: bool = True):
+        """The data-parallel sampler (JAX ``make_sharded_sampler``,
+        flow_diffusion.py:479-548) over a ``parallel.DataGroup``: fn(generator,
+        cond_video, init_noise=None) with the global batch on every rank;
+        each rank runs this sampler on its rows (``group.rows``) with its
+        rank's generator (``rank_generator``) and the global result is
+        gathered on every rank. `init_noise`, where given, is the global
+        batch's x_T. The batch must divide over the group's ranks."""
+        @torch.no_grad()
+        def sampler(generator: torch.Generator, cond_video: torch.Tensor,
+                    init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+            rows = group.rows(cond_video.shape[0])
+            out = self._sample(rank_generator(generator, group.rank), cond_video[rows], decode,
+                               None if init_noise is None else init_noise[rows])
+            return gather_batch(out, group)
 
         return sampler
 

@@ -25,6 +25,11 @@ class TPSTransform(NamedTuple):
     control_points: Optional[torch.Tensor]  # (P*P, 2)
     control_params: Optional[torch.Tensor]  # (B, 1, P*P)
 
+    def rows(self, rows: slice) -> "TPSTransform":
+        """The transforms of batch rows `rows` (the control grid is shared)."""
+        return TPSTransform(self.theta[rows], self.control_points,
+                            None if self.control_params is None else self.control_params[rows])
+
 
 def random_tps(generator: Optional[torch.Generator], batch: int, sigma_affine: float,
                sigma_tps: Optional[float] = None, points_tps: Optional[int] = None,

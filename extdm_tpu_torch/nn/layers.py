@@ -13,6 +13,8 @@ compute type, and BatchNorm reduces in float32 and returns the compute type.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import List, Optional
 
 import torch
@@ -20,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from extdm_tpu_torch.ops.resize import avg_pool_2x2, upsample_nearest
+from extdm_tpu_torch.parallel.mesh import all_mean_autograd
 
 
 def chan_layer_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -50,6 +53,26 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+# SyncBN (JAX ``sync_bn_axis``, nn/layers.py:117-133): within the scope,
+# every BatchNorm in train mode takes its statistics over the data group's
+# global batch.
+_SYNC_BN_GROUP: contextvars.ContextVar = contextvars.ContextVar("sync_bn_group", default=None)
+
+
+@contextlib.contextmanager
+def sync_bn_group(group):
+    """Within this scope, BatchNorm in train mode averages the batch mean
+    and mean of squares over the ranks of `group` (a
+    ``parallel.DataGroup``) and normalizes with the global statistics, as
+    flax ``BatchNorm(axis_name=...)`` under ``sync_bn_axis`` does; its
+    running statistics move toward the global biased variance."""
+    token = _SYNC_BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _SYNC_BN_GROUP.reset(token)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d on (B, H, W, C) tensors with flax's statistics update,
     returning `dtype` (None: float32).
@@ -64,7 +87,11 @@ class BatchNorm(nn.BatchNorm2d):
     policy), the input is cast to float32, normalized there and the result
     cast to the compute type, as flax's BatchNorm promotes to its float32
     parameters and casts its output; where they are kept in the compute
-    type (the DM's frozen LFAE), it normalizes in that type."""
+    type (the DM's frozen LFAE), it normalizes in that type. Under
+    ``sync_bn_group`` with more than one rank, train mode takes flax's
+    cross-replica statistics instead: the mean and mean of squares, in
+    float32, averaged over the ranks (the backward averages their
+    cotangents too), and var = E[x^2] - E[x]^2."""
 
     def __init__(self, features: int, dtype=None):
         super().__init__(features)
@@ -77,14 +104,34 @@ class BatchNorm(nn.BatchNorm2d):
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
             return y.permute(0, 2, 3, 1).to(dt)
+        group = _SYNC_BN_GROUP.get()
+        if group is not None and group.parallel:
+            return self._synced(x, group).permute(0, 2, 3, 1).to(dt)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
-            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self._track(mean, var)
         # no running statistics here: autograd would keep them for the
         # backward, and the module's next call in this step updates them
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.permute(0, 2, 3, 1).to(dt)
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Running statistics moved by ``momentum`` toward (mean, biased var)."""
+        self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+        self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+
+    def _synced(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Train-mode normalization of (B, C, H, W) `x` with the group's
+        global statistics (one all-reduce of [mean, mean of squares])."""
+        x32 = x.float()
+        moments = torch.stack([x32.mean(dim=(0, 2, 3)), (x32 * x32).mean(dim=(0, 2, 3))])
+        mean, mean_sq = all_mean_autograd(moments, group)
+        var = (mean_sq - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self._track(mean, var)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x32 - mean[:, None, None]) * scale[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
 
 
 class SameBlock2d(nn.Module):

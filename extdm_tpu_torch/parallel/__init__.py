@@ -1,0 +1,15 @@
+"""Data parallelism across processes (port of extdm_tpu/parallel)."""
+from extdm_tpu_torch.parallel.mesh import (  # noqa: F401
+    DataGroup,
+    World,
+    all_mean,
+    all_mean_autograd,
+    average_gradients,
+    broadcast_module,
+    data_ranks,
+    gather_batch,
+    init_data_group,
+    make_data_group,
+    rank_generator,
+    shard_batch,
+)

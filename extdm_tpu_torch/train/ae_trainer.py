@@ -11,6 +11,14 @@ The compute type is the model's (``ReconstructionModel(dtype=...)``): the
 trainer keeps one float32 copy of the weights, the master weights that Adam
 updates and every layer casts where it computes, and refuses a model whose
 parameters are in another type. BatchNorm statistics stay float32 too.
+
+Data parallel (JAX ``shard_mapped_train_step``, ae_trainer.py:128-189):
+given a ``parallel.DataGroup`` of several ranks, each rank takes its rows
+of the global batch and draws its augmentation and TPS transforms from its
+own generator; the forward runs under ``sync_bn_group`` (BatchNorm
+statistics over the global batch), the losses are averaged over the ranks
+inside the loss (the backward averages their cotangents), and one
+all-reduce averages the gradients before Adam.
 """
 from __future__ import annotations
 
@@ -21,6 +29,9 @@ import torch
 from extdm_tpu_torch.models.dm.flow_diffusion import resolve_device
 from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
 from extdm_tpu_torch.models.lfae.transform import TPSTransform, random_tps
+from extdm_tpu_torch.nn.layers import sync_bn_group
+from extdm_tpu_torch.parallel.mesh import (DataGroup, all_mean_autograd, average_gradients,
+                                           broadcast_module, rank_generator)
 from extdm_tpu_torch.train.device_augment import AugmentParams, prepare_batch, sample_augment
 from extdm_tpu_torch.train.lr_schedule import ScheduledOptimizer, multi_step
 
@@ -64,11 +75,13 @@ class AETrainer:
     optimizer over its parameters and the loss weights. ``device_augment``
     is the config's {"flip_param": ..., "jitter_param": ...} (raw uint8
     pairs are then augmented on the device) or None (batches are only
-    canonicalized)."""
+    canonicalized). With a data group of several ranks (``group``), the
+    model's parameters and statistics are broadcast from its rank 0 and
+    each step is data parallel."""
 
     def __init__(self, model: ReconstructionModel, optimizer: OptimizerFactory,
                  learnable_loss_weights: bool = False, device_augment: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda", group: Optional[DataGroup] = None):
         self.device = resolve_device(device)
         cast = sorted({str(p.dtype) for p in model.parameters()} - {"torch.float32"})
         if cast:
@@ -76,6 +89,9 @@ class AETrainer:
                              f"are {cast}: set the compute type with "
                              f"ReconstructionModel(dtype=...) instead of casting the model")
         self.model = model.to(self.device).train()
+        self.group = group if group is not None and group.parallel else None
+        if self.group is not None:
+            broadcast_module(self.model, self.group)
         self.loss_weights = None
         params = list(self.model.parameters())
         if learnable_loss_weights:
@@ -103,7 +119,13 @@ class AETrainer:
         src, drv = prepare_batch(src, drv, _to(augment, self.device))
         if tps is None and self.model.uses_tps:
             tps = random_tps(generator, B, device=self.device, **self.model.transform_params)
-        losses, _ = self.model(src, drv, _to(tps, self.device))
+        with sync_bn_group(self.group):
+            losses, _ = self.model(src, drv, _to(tps, self.device))
+        if self.group is not None:  # per-rank losses -> the global batch's (pmean)
+            keys = list(losses)
+            mean = all_mean_autograd(torch.stack([losses[k].float() for k in keys]),
+                                     self.group, "loss")
+            losses = {k: mean[i].to(losses[k].dtype) for i, k in enumerate(keys)}
         return self.total_loss(losses), losses
 
     def train_step(self, generator: Optional[torch.Generator], batch: Dict[str, torch.Tensor],
@@ -111,10 +133,17 @@ class AETrainer:
                    augment: Optional[AugmentParams] = None) -> Dict[str, torch.Tensor]:
         """One update from a {source, driving} batch (raw integer stored
         layout or float (B, H, W, 3) in [0, 1]). Returns aux with every loss
-        and loss_total, as tensors on the device."""
+        and loss_total, as tensors on the device. Data parallel, `batch`,
+        `tps` and `augment` are this rank's rows, the draws come from
+        ``rank_generator(generator, rank)``, and the losses (so the aux) and
+        the gradients are averaged over the ranks."""
+        if self.group is not None:
+            generator = rank_generator(generator, self.group.rank)
         self.optimizer.zero_grad()
         total, losses = self.loss(generator, batch, tps, augment)
         total.backward()
+        if self.group is not None:
+            average_gradients(self.optimizer.params, self.group)
         self.optimizer.step()
         aux = {k: v.detach() for k, v in losses.items()}
         aux["loss_total"] = total.detach()

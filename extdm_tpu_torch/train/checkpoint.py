@@ -13,7 +13,11 @@ written with ``torch.save`` in the reference layout (SURVEY §5).
 state dict with the schedule's update count and the nan guard's count, so
 that a resumed run continues the schedule and the guard. Files are written
 to a tmp file and moved into place with ``os.replace``: a crash never leaves
-a half-written checkpoint.
+a half-written checkpoint. In a data-parallel job rank 0 writes and every
+rank reads (``train/job.py``: the others wait at a barrier until the file
+is in place); a payload holds the global batch's example count and no rank
+or world size, so a checkpoint written at one world size resumes at any
+other.
 """
 from __future__ import annotations
 

@@ -176,6 +176,18 @@ def sample_augment(generator: Optional[torch.Generator], B: int, in_hw, device=N
     return params
 
 
+def augment_rows(params: Optional[AugmentParams], rows: slice) -> Optional[AugmentParams]:
+    """The pairs `rows` of drawn parameters: a data-parallel rank's share
+    of draws made for the global batch (a rank of the data-parallel step
+    otherwise draws its own, from its rank's generator)."""
+    if params is None:
+        return None
+    out = {k: None if v is None else v[rows] for k, v in params.items() if k != "geometry"}
+    geo = params["geometry"]
+    out["geometry"] = None if geo is None else (geo[0], *(g[rows] for g in geo[1:]))
+    return out
+
+
 def _crop_size(crop_param: Optional[dict], in_hw) -> int:
     cs = (crop_param or {}).get("size", in_hw[0])
     if isinstance(cs, (tuple, list)):

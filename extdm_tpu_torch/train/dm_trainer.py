@@ -4,6 +4,15 @@ One step: frozen-LFAE encode -> q_sample -> UNet forward and backward ->
 AdamW on the UNet's float32 parameters, with the MultiStepLR schedule
 stepped per update. The epsilon loss is the only gradient source; the LFAE
 gets none.
+
+Data parallel (JAX ``shard_mapped_train_step``, dm_trainer.py:115-153):
+given a ``parallel.DataGroup`` of several ranks, each rank takes its rows
+of the global batch and draws t and noise from its own generator; after
+the backward one all-reduce averages the gradients before AdamW (so every
+rank applies the same update, and the nan guard skips on all ranks or on
+none), the aux is averaged and grad_norm is that of the averaged
+gradients. An explicit all-reduce, not a DistributedDataParallel wrapper:
+the UNet keeps its state-dict keys.
 """
 from __future__ import annotations
 
@@ -12,6 +21,8 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+from extdm_tpu_torch.parallel.mesh import (DataGroup, all_mean, average_gradients,
+                                           broadcast_module, rank_generator)
 from extdm_tpu_torch.train.lr_schedule import ScheduledOptimizer, multi_step
 
 
@@ -47,9 +58,17 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, milestones: 
 
 
 class DMTrainer:
-    def __init__(self, fd: FlowDiffusion, optimizer: ScheduledOptimizer):
+    """``DMTrainer(fd, make_optimizer(...), group)``: with a data group of
+    several ranks the UNet's weights are broadcast from its rank 0 and each
+    step is data parallel."""
+
+    def __init__(self, fd: FlowDiffusion, optimizer: ScheduledOptimizer,
+                 group: Optional[DataGroup] = None):
         self.fd = fd
         self.optimizer = optimizer
+        self.group = group if group is not None and group.parallel else None
+        if self.group is not None:
+            broadcast_module(fd.unet, self.group)
 
     def train_step(self, generator: torch.Generator, video: torch.Tensor,
                    t: Optional[torch.Tensor] = None,
@@ -57,11 +76,19 @@ class DMTrainer:
         """One update from a (B, tc+tp, H, W, C) batch in [0, 1], or raw
         integer video in the stored layout. `t` and `noise` replace the draws
         from `generator`. Returns aux with the loss and grad_norm (the global
-        L2 norm of the UNet gradients), as tensors on the device."""
+        L2 norm of the UNet gradients), as tensors on the device. Data
+        parallel, `video`, `t` and `noise` are this rank's rows, the draws
+        come from ``rank_generator(generator, rank)``, and the gradients
+        and aux are averaged over the ranks."""
         video = canonicalize_video(video.to(self.fd.device))
+        if self.group is not None:
+            generator = rank_generator(generator, self.group.rank)
         self.optimizer.zero_grad()
         loss, aux = self.fd.loss(generator, video, t=t, noise=noise)
         loss.backward()
+        if self.group is not None:
+            average_gradients(self.optimizer.params, self.group)
+            aux = all_mean(aux, self.group)
         aux["grad_norm"] = global_norm(p.grad for p in self.optimizer.params
                                        if p.grad is not None)
         self.optimizer.step()

@@ -1,8 +1,16 @@
 """The loop and flags the two training jobs share (``train/train_dm.py``,
 ``train/train_ae.py``): the print / checkpoint / shot / validation cadences
 of the JAX CLIs (scripts/train_dm.py, scripts/train_ae.py), the in-memory
-moving-shapes stores, the validation metrics and the refusal of the flags
-not ported yet."""
+moving-shapes stores, the validation metrics, the data-parallel world and
+the refusal of the flag not ported yet.
+
+Data parallel: launched as several processes (``torchrun --nproc_per_node
+N -m extdm_tpu_torch.train.train_dm ...``), a job splits each global batch
+of ``--batch_size`` over the most ranks that divide it (``make_data_group``)
+and takes the data-parallel step; ranks beyond them wait at the end. Rank 0
+writes the logs, shots and checkpoints and runs the validation (the plain
+sampler, as scripts/train_dm.py:104-108), the others wait for it at a
+barrier; every rank reads a checkpoint it resumes from."""
 from __future__ import annotations
 
 import argparse
@@ -14,6 +22,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from extdm_tpu_torch.parallel.mesh import DataGroup, init_data_group, make_data_group
 from extdm_tpu_torch.train.checkpoint import gate_best, select_gate_metric
 from extdm_tpu_torch.utils.logger import MetricLogger, StepTimer
 
@@ -31,10 +40,15 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--valid_videos", type=int, default=16)
     p.add_argument("--nan_guard", type=int, default=0,
                    help="skip non-finite updates; raise after N in a row (0: off)")
-    p.add_argument("--shard_map", action="store_true", help="not ported (ROADMAP §1 item 4)")
+    p.add_argument("--shard_map", action="store_true",
+                   help="data-parallel step over the ranks of the launch (torchrun); a world of "
+                        "more than one rank takes it without the flag too, as the JAX CLIs' "
+                        "default GSPMD path does")
     p.add_argument("--loader", default="thread", choices=["thread", "process"],
                    help="loader workers; 'process' is not ported (ROADMAP §1 item 5)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--init_method", default="env://",
+                   help="torch.distributed init method (default: torchrun's environment)")
     p.add_argument("--synthetic_videos", type=int, default=0,
                    help="train and validate on this many moving-shapes videos made in memory "
                         "(each split from its own seed) instead of the config's HDF5 shards")
@@ -42,12 +56,31 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
 
 def refuse_unported(args) -> None:
     """A flag whose path is not ported raises, naming its ROADMAP item."""
-    if args.shard_map:
-        raise NotImplementedError("--shard_map: batch-sharded training is ROADMAP §1 item 4 "
-                                  "(multi-GPU), not ported yet")
     if args.loader == "process":
         raise NotImplementedError("--loader process: process workers are ROADMAP §1 item 5, "
                                   "not ported yet; use --loader thread")
+
+
+def default_backend(device) -> str:
+    """The collectives of a launch on `device`: nccl on the card (one rank
+    a card), gloo on the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def data_group(args, batch_size: int) -> DataGroup:
+    """Join the launch's world (``--init_method``; a world of one without
+    torchrun) and return the data group of the global batch."""
+    world = init_data_group(default_backend(args.device), args.device,
+                            init_method=args.init_method)
+    return make_data_group(batch_size, world)
+
+
+def finish(group: DataGroup) -> None:
+    """Every rank of the world (members of the data group or not) meets
+    here, then leaves the process group."""
+    if group.world.size > 1:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 def synthetic_stores(num_videos: int, train_frames: int, valid_frames: int, image_size: int,
@@ -115,7 +148,8 @@ def run_loop(loader: Iterable, cadence: Cadence, metrics: MetricLogger, *,
              save: Callable[[int], str], log_dir: str, prefix: str,
              shots: Optional[Callable[[int, object, bool, bool], None]] = None,
              validate: Optional[Callable[[int], Dict[str, float]]] = None,
-             skipped: Optional[Callable[[], int]] = None, digits: int = 5) -> int:
+             skipped: Optional[Callable[[], int]] = None, digits: int = 5,
+             group: Optional[DataGroup] = None) -> int:
     """Steps cadence.start_step .. max_steps - 1 over `loader` (epochs again
     and again), as the JAX CLIs' loops: each step ``step_fn(step, batch)``;
     at print steps a metrics record (the losses, ``skipped`` where the nan
@@ -124,7 +158,15 @@ def run_loop(loader: Iterable, cadence: Cadence, metrics: MetricLogger, *,
     ``validate(step)``, its record and a gated ``<prefix>_best_<metric>``
     copy of the checkpoint. Checkpoint, shot and validation seconds are
     recorded too and land in no data_time (the timer skips them). A last
-    checkpoint at the end; returns the final step."""
+    checkpoint at the end; returns the final step. With a data group, rank
+    0 alone saves, shoots and validates, and the ranks meet at a barrier
+    after each: a rank reads a checkpoint only once it is written."""
+    lead = group is None or group.rank == 0
+
+    def barrier():
+        if group is not None:
+            group.barrier()
+
     timer = StepTimer()
     step, best = cadence.start_step, float("inf")
     while step < cadence.max_steps:
@@ -148,18 +190,21 @@ def run_loop(loader: Iterable, cadence: Cadence, metrics: MetricLogger, *,
             # (--set_start) goes on at step + 1
             done = step + 1
             if step > 0 and step % cadence.save_freq == 0:
-                t0 = time.perf_counter()
-                save(done)
-                metrics.log(step, ckpt_seconds=time.perf_counter() - t0)
+                if lead:
+                    t0 = time.perf_counter()
+                    save(done)
+                    metrics.log(step, ckpt_seconds=time.perf_counter() - t0)
+                barrier()
             want_img = bool(cadence.img_freq) and step > 0 and step % cadence.img_freq == 0
             want_vid = bool(cadence.vid_freq) and step > 0 and step % cadence.vid_freq == 0
-            if shots is not None and (want_img or want_vid):
+            if lead and shots is not None and (want_img or want_vid):
                 t0 = time.perf_counter()
                 shots(step, batch, want_img, want_vid)
                 metrics.log(step, shot_seconds=time.perf_counter() - t0, imgshot=want_img,
                             vidshot=want_vid)
-            if validate is not None and cadence.valid_every and step > 0 \
-                    and step % cadence.valid_every == 0:
+            want_valid = validate is not None and cadence.valid_every and step > 0 \
+                and step % cadence.valid_every == 0
+            if lead and want_valid:
                 t0 = time.perf_counter()
                 vm = validate(step)
                 metrics.log(step, **vm, valid_seconds=time.perf_counter() - t0)
@@ -173,11 +218,15 @@ def run_loop(loader: Iterable, cadence: Cadence, metrics: MetricLogger, *,
                     best = sort_val
                     gate_best(save(done), log_dir, disp_val,
                               prefix if crit == "fvd" else f"{prefix}_{crit}")
+            if want_valid:
+                barrier()
             timer.skip()
             step += 1
         if not batches:
             raise ValueError("the loader gave no batch: fewer items than one batch?")
-    save(step)
+    if lead:
+        save(step)
+    barrier()
     print(f"done at step {step}")
     return step
 
@@ -186,10 +235,14 @@ def epoch_of(updates: int, loader) -> int:
     return updates // max(len(loader), 1)
 
 
-def open_logs(log_dir: str):
-    """(stdout tee to <log_dir>/train.log, MetricLogger of metrics.jsonl)."""
+def open_logs(log_dir: str, lead: bool = True):
+    """(stdout tee to <log_dir>/train.log, MetricLogger of metrics.jsonl);
+    on a rank other than 0 (``lead`` false), os.devnull and a logger that
+    records nothing."""
     from extdm_tpu_torch.utils.logger import Logger
 
+    if not lead:
+        return open(os.devnull, "w"), MetricLogger(None)
     os.makedirs(log_dir, exist_ok=True)
     return Logger(os.path.join(log_dir, "train.log")), MetricLogger(
         os.path.join(log_dir, "metrics.jsonl"))

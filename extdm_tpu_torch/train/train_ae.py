@@ -3,6 +3,7 @@
     python -m extdm_tpu_torch.train.train_ae --config configs/AE/kth.yaml \\
         [--device_augment] [--bf16] [--max_steps N] [--log_dir logs/ae_kth] \\
         [--synthetic_videos N] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m extdm_tpu_torch.train.train_ae --shard_map ...
 
 Frame pairs (``TwoFramesDataset`` in a ``DatasetRepeater``) train the
 ``ReconstructionModel`` with Adam(0.5, 0.999) and the MultiStepLR schedule
@@ -22,8 +23,12 @@ loss weights. ``--bf16`` trains with the bf16 compute policy
 statistics stay float32); validation reconstructs in float32, as the JAX
 CLI's does.
 
-Not ported: ``--shard_map`` (ROADMAP §1 item 4) and ``--loader process``
-(item 5); each raises.
+Launched on N ranks (torchrun), the job is data parallel (``train/job.py``):
+each rank loads its rows of every global batch of ``--batch_size``, the
+step runs under SyncBN and averages losses and gradients over the ranks
+(``AETrainer(group=...)``); rank 0 logs, checkpoints, shoots and
+validates. A world of one runs as a single process does. Not ported:
+``--loader process`` (ROADMAP §1 item 5), which raises.
 """
 from __future__ import annotations
 
@@ -39,9 +44,9 @@ from extdm_tpu_torch.train.ae_trainer import AETrainer
 from extdm_tpu_torch.train.checkpoint import (AE_PARTS, ae_payload, load_checkpoint,
                                               restore_ae, save_checkpoint,
                                               start_step_from_example)
-from extdm_tpu_torch.train.job import (Cadence, add_common_flags, epoch_of, open_logs,
-                                       refuse_unported, run_loop, synthetic_stores,
-                                       video_metrics)
+from extdm_tpu_torch.train.job import (Cadence, add_common_flags, data_group, epoch_of,
+                                       finish, open_logs, refuse_unported, run_loop,
+                                       synthetic_stores, video_metrics)
 from extdm_tpu_torch.utils.logger import MetricLogger
 from extdm_tpu_torch.utils.seed import step_generator
 
@@ -151,7 +156,8 @@ def train_loop(trainer: AETrainer, loader: Iterable, cadence: Cadence, log_dir: 
     ``trainer.train_step`` a batch with the step's generator
     ``step_generator(root, step)`` (``draws(step)`` gives the (tps, augment)
     draws in its place), the region imgshot, ``validate(step)`` and the
-    checkpoints in `log_dir`. Returns the final step."""
+    checkpoints in `log_dir` (on the data group's rank 0, where the trainer
+    has a group). Returns the final step."""
     metrics = metrics or MetricLogger(os.path.join(log_dir, "metrics.jsonl"))
 
     def step_fn(step, batch):
@@ -174,15 +180,12 @@ def train_loop(trainer: AETrainer, loader: Iterable, cadence: Cadence, log_dir: 
 
     skipped = (lambda: trainer.optimizer.notfinite_count) if trainer.optimizer.nan_guard else None
     return run_loop(loader, cadence, metrics, step_fn=step_fn, save=save, log_dir=log_dir,
-                    prefix="RegionMM", shots=shots, validate=validate, skipped=skipped, digits=4)
+                    prefix="RegionMM", shots=shots, validate=validate, skipped=skipped, digits=4,
+                    group=trainer.group)
 
 
 def main(argv=None) -> int:
-    from extdm_tpu_torch.config import ae_model_kwargs, load_config
-    from extdm_tpu_torch.data import DatasetRepeater, TwoFramesDataset
-    from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
-    from extdm_tpu_torch.train.ae_trainer import make_optimizer
-    from extdm_tpu_torch.utils.seed import setup_seed
+    from extdm_tpu_torch.config import load_config
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_flags(p)
@@ -199,11 +202,7 @@ def main(argv=None) -> int:
     cfg = load_config(args.config)
     if args.root_dir:
         cfg["dataset_params"]["root_dir"] = args.root_dir
-    dp = cfg["dataset_params"]
-    tp = cfg["flow_params"]["train_params"]
-    vp = dp["valid_params"]
-    batch_size = args.batch_size or tp["batch_size"]
-    aug_params = dp.get("augmentation_params")
+    aug_params = cfg["dataset_params"].get("augmentation_params")
     device_aug = None
     if args.device_augment:
         extra = set(aug_params or ()) - set(DEVICE_AUGMENT_KEYS)
@@ -211,56 +210,76 @@ def main(argv=None) -> int:
             raise SystemExit(f"--device_augment supports {sorted(DEVICE_AUGMENT_KEYS)}; "
                              f"config also has {sorted(extra)}")
         device_aug = {k: (aug_params or {}).get(k) for k in DEVICE_AUGMENT_KEYS}
-    tee, metrics = open_logs(args.log_dir)
+    batch_size = args.batch_size or cfg["flow_params"]["train_params"]["batch_size"]
+    group = data_group(args, batch_size)
+    tee, metrics = open_logs(args.log_dir, lead=group.world.rank == 0)
     with contextlib.closing(tee), contextlib.closing(metrics), contextlib.redirect_stdout(tee):
-        root = setup_seed(args.seed, args.device)
-        if args.synthetic_videos:
-            stores = synthetic_stores(args.synthetic_videos,
-                                      max(dp.get("max_frame_distance", 50) + 1, 16),
-                                      vp["cond_frames"] + vp["pred_frames"], dp["frame_shape"],
-                                      args.seed)
-            train_data, valid_data = stores["train"], stores["valid"]
-        else:
-            train_data = valid_data = dp["root_dir"]
-        dataset = TwoFramesDataset(
-            train_data, type=dp["train_params"]["type"], frame_shape=dp["frame_shape"],
-            min_frame_distance=dp.get("min_frame_distance", 0),
-            max_frame_distance=dp.get("max_frame_distance", 50),
-            augmentation_params=None if args.device_augment else aug_params, seed=args.seed,
-            raw_uint8=args.device_augment)
-        dataset = DatasetRepeater(dataset, tp.get("num_repeats", 1))
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(args.seed)
-            model = ReconstructionModel(dtype=torch.bfloat16 if args.bf16 else None,
-                                        **ae_model_kwargs(cfg))
-        print(f"LFAE parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
-        sched = tp["scheduler_param"]
-        trainer = AETrainer(model, make_optimizer(tp["lr"], sched["milestones"], sched["gamma"],
-                                                  nan_guard=args.nan_guard),
-                            learnable_loss_weights=args.learnable_loss_weights,
-                            device_augment=device_aug, device=args.device)
-        loader = DataLoader(dataset, batch_size, num_workers=tp.get("dataloader_workers", 8),
-                            seed=args.seed, prefetch=3, device=trainer.device)
-        start_step = 0
-        if args.checkpoint:
-            ckpt = load_checkpoint(args.checkpoint)
-            restore_ae(ckpt, model, trainer.optimizer, trainer.loss_weights)
-            if args.set_start:
-                start_step = start_step_from_example(ckpt["example"], batch_size)
-            print(f"resumed from {args.checkpoint} at step {start_step}")
-        cadence = Cadence.from_train_params(
-            tp, args.max_steps or tp["max_epochs"] * max(len(loader), 1), start_step,
-            args.valid_every, 100, 2500)
-        cache: dict = {}
-
-        def validate(step):
-            return run_ae_validation(cfg, model, valid_data, args.valid_videos,
-                                     args.valid_batch_size, cache, seed=args.seed,
-                                     device=trainer.device)
-
-        train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
-                   validate=validate, metrics=metrics)
+        if group.member:
+            _train(args, cfg, batch_size, device_aug, group, metrics)
+        finish(group)
     return 0
+
+
+def _train(args, cfg: dict, batch_size: int, device_aug: Optional[dict], group,
+           metrics: MetricLogger) -> None:
+    """The job on a member of the data group."""
+    from extdm_tpu_torch.config import ae_model_kwargs
+    from extdm_tpu_torch.data import DatasetRepeater, TwoFramesDataset
+    from extdm_tpu_torch.models.lfae.recon_model import ReconstructionModel
+    from extdm_tpu_torch.train.ae_trainer import make_optimizer
+    from extdm_tpu_torch.utils.seed import setup_seed
+
+    dp = cfg["dataset_params"]
+    tp = cfg["flow_params"]["train_params"]
+    vp = dp["valid_params"]
+    aug_params = dp.get("augmentation_params")
+    root = setup_seed(args.seed, group.world.device)
+    if args.synthetic_videos:
+        stores = synthetic_stores(args.synthetic_videos,
+                                  max(dp.get("max_frame_distance", 50) + 1, 16),
+                                  vp["cond_frames"] + vp["pred_frames"], dp["frame_shape"],
+                                  args.seed)
+        train_data, valid_data = stores["train"], stores["valid"]
+    else:
+        train_data = valid_data = dp["root_dir"]
+    dataset = TwoFramesDataset(
+        train_data, type=dp["train_params"]["type"], frame_shape=dp["frame_shape"],
+        min_frame_distance=dp.get("min_frame_distance", 0),
+        max_frame_distance=dp.get("max_frame_distance", 50),
+        augmentation_params=None if args.device_augment else aug_params, seed=args.seed,
+        raw_uint8=args.device_augment)
+    dataset = DatasetRepeater(dataset, tp.get("num_repeats", 1))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        model = ReconstructionModel(dtype=torch.bfloat16 if args.bf16 else None,
+                                    **ae_model_kwargs(cfg))
+    print(f"LFAE parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    sched = tp["scheduler_param"]
+    trainer = AETrainer(model, make_optimizer(tp["lr"], sched["milestones"], sched["gamma"],
+                                              nan_guard=args.nan_guard),
+                        learnable_loss_weights=args.learnable_loss_weights,
+                        device_augment=device_aug, device=group.world.device, group=group)
+    loader = DataLoader(dataset, batch_size, num_workers=tp.get("dataloader_workers", 8),
+                        seed=args.seed, prefetch=3, device=trainer.device, group=group)
+    start_step = 0
+    if args.checkpoint:
+        ckpt = load_checkpoint(args.checkpoint)
+        restore_ae(ckpt, model, trainer.optimizer, trainer.loss_weights)
+        if args.set_start:
+            start_step = start_step_from_example(ckpt["example"], batch_size)
+        print(f"resumed from {args.checkpoint} at step {start_step}")
+    cadence = Cadence.from_train_params(
+        tp, args.max_steps or tp["max_epochs"] * max(len(loader), 1), start_step,
+        args.valid_every, 100, 2500)
+    cache: dict = {}
+
+    def validate(step):
+        return run_ae_validation(cfg, model, valid_data, args.valid_videos,
+                                 args.valid_batch_size, cache, seed=args.seed,
+                                 device=trainer.device)
+
+    train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
+               validate=validate, metrics=metrics)
 
 
 if __name__ == "__main__":

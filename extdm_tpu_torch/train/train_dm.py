@@ -3,6 +3,7 @@
     python -m extdm_tpu_torch.train.train_dm --config configs/DM/kth.yaml \\
         --flowae_checkpoint logs/ae_kth/RegionMM.ckpt [--bf16] [--max_steps N] \\
         [--log_dir logs/dm_kth] [--synthetic_videos N] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m extdm_tpu_torch.train.train_dm --shard_map ...
 
 The config's clips (``VideoDataset``, raw uint8, through ``DataLoader`` to
 the device) train the UNet with AdamW and the MultiStepLR schedule
@@ -19,8 +20,14 @@ count, at the step after the checkpoint's last update.
 
 Data: the config's HDF5 shards (needs h5py), or ``--synthetic_videos N``
 moving-shapes videos made in memory. Without ``--flowae_checkpoint`` the
-LFAE keeps its seeded random init. Not ported: ``--shard_map`` (ROADMAP §1
-item 4) and ``--loader process`` (item 5); both raise.
+LFAE keeps its seeded random init.
+
+Launched on N ranks (torchrun), the job is data parallel (``train/job.py``):
+each rank loads its rows of every global batch of ``--batch_size`` and the
+step averages the gradients over the ranks (``DMTrainer(group=...)``);
+rank 0 logs, checkpoints, shoots and validates. A world of one runs as a
+single process does. Not ported: ``--loader process`` (ROADMAP §1 item 5),
+which raises.
 """
 from __future__ import annotations
 
@@ -35,9 +42,9 @@ from extdm_tpu_torch.data import DataLoader, VideoDataset, canonicalize_clips
 from extdm_tpu_torch.train.checkpoint import (dm_payload, load_checkpoint, restore_dm,
                                               save_checkpoint, start_step_from_example)
 from extdm_tpu_torch.train.dm_trainer import DMTrainer
-from extdm_tpu_torch.train.job import (Cadence, add_common_flags, epoch_of, open_logs,
-                                       refuse_unported, run_loop, synthetic_stores,
-                                       video_metrics)
+from extdm_tpu_torch.train.job import (Cadence, add_common_flags, data_group, epoch_of,
+                                       finish, open_logs, refuse_unported, run_loop,
+                                       synthetic_stores, video_metrics)
 from extdm_tpu_torch.utils.logger import MetricLogger
 from extdm_tpu_torch.utils.seed import step_generator
 
@@ -82,8 +89,9 @@ def train_loop(trainer: DMTrainer, loader: Iterable, cadence: Cadence, log_dir: 
     ``trainer.train_step`` a batch with the step's generator
     ``step_generator(root, step)`` (``draws(step)`` gives t and noise in their
     place), the shots from ``FlowDiffusion.make_monitor`` on the batch's first
-    clip, ``validate(step)`` and the checkpoints in `log_dir`. Returns the
-    final step."""
+    clip, ``validate(step)`` and the checkpoints in `log_dir` (on the data
+    group's rank 0, where the trainer has a group). Returns the final
+    step."""
     fd = trainer.fd
     tc, tp = fd.cfg.cond_frames, fd.cfg.pred_frames
     metrics = metrics or MetricLogger(os.path.join(log_dir, "metrics.jsonl"))
@@ -120,16 +128,12 @@ def train_loop(trainer: DMTrainer, loader: Iterable, cadence: Cadence, log_dir: 
 
     skipped = (lambda: trainer.optimizer.notfinite_count) if trainer.optimizer.nan_guard else None
     return run_loop(loader, cadence, metrics, step_fn=step_fn, save=save, log_dir=log_dir,
-                    prefix="flowdiff", shots=shots, validate=validate, skipped=skipped)
+                    prefix="flowdiff", shots=shots, validate=validate, skipped=skipped,
+                    group=trainer.group)
 
 
 def main(argv=None) -> int:
-    from extdm_tpu_torch.config import dm_config_from_yaml, load_config
-    from extdm_tpu_torch.eval.valid_dm import load_weights
-    from extdm_tpu_torch.metrics import I3DExtractor, LPIPSMetric
-    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
-    from extdm_tpu_torch.train.dm_trainer import make_optimizer
-    from extdm_tpu_torch.utils.seed import setup_seed
+    from extdm_tpu_torch.config import load_config
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_flags(p)
@@ -144,52 +148,68 @@ def main(argv=None) -> int:
     cfg_raw = load_config(args.config)
     if args.root_dir:
         cfg_raw["dataset_params"]["root_dir"] = args.root_dir
+    batch_size = args.batch_size or cfg_raw["diffusion_params"]["train_params"]["batch_size"]
+    group = data_group(args, batch_size)
+    tee, metrics = open_logs(args.log_dir, lead=group.world.rank == 0)
+    with contextlib.closing(tee), contextlib.closing(metrics), contextlib.redirect_stdout(tee):
+        if group.member:
+            _train(args, cfg_raw, batch_size, group, metrics)
+        finish(group)
+    return 0
+
+
+def _train(args, cfg_raw: dict, batch_size: int, group, metrics: MetricLogger) -> None:
+    """The job on a member of the data group."""
+    from extdm_tpu_torch.config import dm_config_from_yaml
+    from extdm_tpu_torch.eval.valid_dm import load_weights
+    from extdm_tpu_torch.metrics import I3DExtractor, LPIPSMetric
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.train.dm_trainer import make_optimizer
+    from extdm_tpu_torch.utils.seed import setup_seed
+
     dp = cfg_raw["dataset_params"]
     tp = cfg_raw["diffusion_params"]["train_params"]
-    batch_size = args.batch_size or tp["batch_size"]
-    tee, metrics = open_logs(args.log_dir)
-    with contextlib.closing(tee), contextlib.closing(metrics), contextlib.redirect_stdout(tee):
-        root = setup_seed(args.seed, args.device)
-        cfg = dm_config_from_yaml(cfg_raw, arch=args.arch, path=args.path,
-                                  dtype=torch.bfloat16 if args.bf16 else None)
-        fd = FlowDiffusion(cfg, device=args.device, seed=args.seed)
-        load_weights(fd, args.flowae_checkpoint)
-        print(f"UNet parameters: {sum(p.numel() for p in fd.unet.parameters()) / 1e6:.2f}M")
-        nf = cfg.cond_frames + cfg.pred_frames
-        if args.synthetic_videos:
-            stores = synthetic_stores(args.synthetic_videos, nf + 8, nf, dp["frame_shape"],
-                                      args.seed)
-            train_data, valid_data = stores["train"], stores["valid"]
-        else:
-            train_data = valid_data = dp["root_dir"]
-        dataset = VideoDataset(train_data, type=dp["train_params"]["type"], num_frames=nf,
-                               image_size=dp["frame_shape"], seed=args.seed, raw_uint8=True)
-        loader = DataLoader(dataset, batch_size, num_workers=tp.get("dataloader_workers", 8),
-                            seed=args.seed, prefetch=3, device=fd.device)
-        sched = tp["scheduler_param"]
-        trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), tp["lr"],
-                                               sched["milestones"], sched["gamma"],
-                                               nan_guard=args.nan_guard))
-        start_step = 0
-        if args.checkpoint:
-            ckpt = load_checkpoint(args.checkpoint)
-            restore_dm(ckpt, fd.unet, trainer.optimizer)
-            if args.set_start:
-                start_step = start_step_from_example(ckpt["example"], batch_size)
-            print(f"resumed from {args.checkpoint} at step {start_step}")
-        cadence = Cadence.from_train_params(tp, args.max_steps or tp["max_epochs"], start_step,
-                                            args.valid_every, 1000, 5000)
-        nets = {}
+    device = group.world.device
+    root = setup_seed(args.seed, device)
+    cfg = dm_config_from_yaml(cfg_raw, arch=args.arch, path=args.path,
+                              dtype=torch.bfloat16 if args.bf16 else None)
+    fd = FlowDiffusion(cfg, device=device, seed=args.seed)
+    load_weights(fd, args.flowae_checkpoint)
+    print(f"UNet parameters: {sum(p.numel() for p in fd.unet.parameters()) / 1e6:.2f}M")
+    nf = cfg.cond_frames + cfg.pred_frames
+    if args.synthetic_videos:
+        stores = synthetic_stores(args.synthetic_videos, nf + 8, nf, dp["frame_shape"],
+                                  args.seed)
+        train_data, valid_data = stores["train"], stores["valid"]
+    else:
+        train_data = valid_data = dp["root_dir"]
+    dataset = VideoDataset(train_data, type=dp["train_params"]["type"], num_frames=nf,
+                           image_size=dp["frame_shape"], seed=args.seed, raw_uint8=True)
+    loader = DataLoader(dataset, batch_size, num_workers=tp.get("dataloader_workers", 8),
+                        seed=args.seed, prefetch=3, device=fd.device, group=group)
+    sched = tp["scheduler_param"]
+    trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), tp["lr"],
+                                           sched["milestones"], sched["gamma"],
+                                           nan_guard=args.nan_guard), group=group)
+    start_step = 0
+    if args.checkpoint:
+        ckpt = load_checkpoint(args.checkpoint)
+        restore_dm(ckpt, fd.unet, trainer.optimizer)
+        if args.set_start:
+            start_step = start_step_from_example(ckpt["example"], batch_size)
+        print(f"resumed from {args.checkpoint} at step {start_step}")
+    cadence = Cadence.from_train_params(tp, args.max_steps or tp["max_epochs"], start_step,
+                                        args.valid_every, 1000, 5000)
+    nets = {}
 
-        def validate(step):
-            if not nets:
-                nets.update(i3d=I3DExtractor(device=fd.device), lpips=LPIPSMetric(device=fd.device))
-            return run_validation(fd, cfg_raw, valid_data, step_generator(root, 999),
-                                  num_videos=args.valid_videos, **nets)
+    def validate(step):
+        if not nets:
+            nets.update(i3d=I3DExtractor(device=fd.device), lpips=LPIPSMetric(device=fd.device))
+        return run_validation(fd, cfg_raw, valid_data, step_generator(root, 999),
+                              num_videos=args.valid_videos, **nets)
 
-        train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
-                   validate=validate, metrics=metrics)
-    return 0
+    train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
+               validate=validate, metrics=metrics)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Run logs (port of extdm_tpu/utils/logger.py): the stdout tee, JSONL
-metric records and the step timer."""
+metric records and the step timer. In a data-parallel job rank 0 writes
+the logs; the other ranks get a ``MetricLogger(None)``, which records
+nothing (and print to os.devnull)."""
 from __future__ import annotations
 
 import json
 import os
 import sys
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -33,14 +35,19 @@ class Logger:
 
 
 class MetricLogger:
-    """Append-only JSONL records {"step", "time", ...}."""
+    """Append-only JSONL records {"step", "time", ...}; ``path=None``
+    records nothing."""
 
-    def __init__(self, path: str):
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    def __init__(self, path: Optional[str]):
         self.path = path
-        self._f = open(path, "a", buffering=1)
+        self._f = None
+        if path is not None:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            self._f = open(path, "a", buffering=1)
 
     def log(self, step: int, **metrics: Any) -> None:
+        if self._f is None:
+            return
         rec: Dict[str, Any] = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
             try:
@@ -50,7 +57,8 @@ class MetricLogger:
         self._f.write(json.dumps(rec) + "\n")
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class AverageMeter:

@@ -22,7 +22,9 @@ LFAE, 32 px, tc = tp = 2.
   state as there); run_ae_validation's metrics equal JAX's
   run_ae_validation's on the same weights and HDF5 store (I3D and LPIPS
   random and converted).
-- Flags not ported raise NotImplementedError naming their ROADMAP item.
+- Flags not ported raise NotImplementedError naming their ROADMAP item
+  (``--shard_map`` runs since the data-parallel port:
+  tests/test_torch_parallel_jobs.py).
 """
 import importlib.util
 import json
@@ -250,10 +252,10 @@ def test_png_and_gif_read_back(tmp_path):
 
 # ------------------------------------------------------------------ flags
 @pytest.mark.parametrize("job,flag,item", [
-    ("dm", "--shard_map", "item 4"), ("dm", "--loader=process", "item 5"),
-    ("ae", "--shard_map", "item 4"), ("ae", "--loader=process", "item 5")])
+    ("dm", "--loader=process", "item 5"), ("ae", "--loader=process", "item 5"),
+    ("valid_dm", "--mesh_model=2", r"item 4\(b\)")])
 def test_unported_flags_raise(job, flag, item):
-    main = (train_dm if job == "dm" else train_ae).main
+    main = {"dm": train_dm, "ae": train_ae, "valid_dm": valid_dm}[job].main
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         main(["--config", "unused.yaml", "--device", "cpu", flag])
 
