@@ -179,6 +179,19 @@
    the sharded sample against the plain sampler on its rows with its
    rank's generator (the same rule); prints each rank's ms per step or
    call and the ms of the gradient, SyncBN, loss and gather all-reduces.
+15. spatial (sequence-parallel sampling): kernel 1 on a shard's windows
+   (the global shift-mask table, the ids cut to the shard's H windows) at
+   KTH shapes with shift (2, 2, 2) and an H-only shift (0, 2, 0), and in
+   float32, each shard against the plain layer on its inputs and the
+   shards joined against the plain layer on the global tensor; then the
+   single-process references (the KTH sampler in bf16 at batch 4 twice,
+   the world-1 spatial call, one UNet forward; a configs/DM/cityscapes.yaml
+   call at 128 px, batch 2) and 2 spawned ranks on cuda:0 over gloo (data
+   1 x model 2; nccl one rank a card with 2 cards, (2, 2) with 4): each
+   rank's UNet forward and sampler results against them (see
+   SPATIAL_MAX_REL_TOL), its launches per call (180 / 91 / 0 / 5: no
+   kernel 3), ms per call, the exchanges' ms and counts by kind, and its
+   peak and working memory beside the single process's.
 The sampling phase also runs the sampler variants after its end-to-end
 line: ``make_sampler(decode=False)`` and ``sample_video`` against
 ``make_sampler()`` on the same seed (SPREAD_MULT).
@@ -3965,6 +3978,418 @@ def dp_check(got, ref, backend, spawn_s, want_dm, want_ae, want_sampler, card):
         raise AssertionError(f"DP {backend}: {failed} outside the single-process step's spread")
 
 
+# ------------------------------------------------------------------ spatial
+# Phase "spatial": the spatial (sequence-parallel) sampler,
+# FlowDiffusion.make_spatial_sampler over a (data, model) mesh of spawned
+# ranks: the batch over the data ranks, the latent H over the model ranks,
+# every halo, statistic and gather an all-reduce (parallel/spatial.py). On
+# one card SPATIAL_RANKS ranks share it over gloo (data 1 x model 2): a
+# smoke of the exchanges and of each rank's kernels on its rows, not a
+# scaling figure (gloo stages every all-reduce through host memory). With 2
+# cards the ranks also run over nccl one a card, with 4 cards as (2, 2).
+# Checks, for the KTH sampler in bf16 at batch SPATIAL_BATCH:
+# - kernel 1 on a shard's windows (the global mask table, the ids cut to the
+#   shard's H windows, the H roll done outside): each shard's output against
+#   the plain layer on the same inputs, and the shards put back together
+#   against the plain layer on the global tensor, at KTH shapes with the
+#   UNet's shift (2, 2, 2) and an H-only shift (0, 2, 0);
+# - each rank's denoiser forward on its rows (one UNet call on the encoded
+#   latents) against the single process's forward: max|diff| <=
+#   SPATIAL_MAX_REL_TOL * max(1, max|ref|), mean|diff| <=
+#   SPATIAL_MEAN_REL_TOL * mean|ref|;
+# - each rank's sampler result (the global dict) against the world-1
+#   spatial call on the same generator, and that against make_sampler, by
+#   the same two limits, each widened by SPREAD_MULT times make_sampler's
+#   own difference from a second call on the same seed (kernel 3's
+#   GroupNorm atomics do not repeat bit for bit, and ten bf16 DDIM steps
+#   carry any last-bit difference into visible ones; see SPREAD_MULT); the
+#   decoded pixels by the mean limit alone (their max is printed): the warp
+#   multiplies a flow's last-bit differences by the image's slope (on the
+#   CPU at a tiny model, world-1 spatial vs make_sampler moved a pixel by
+#   0.05-0.07 where the flows moved by 0.009);
+# - per rank: launches of kernels 1/2/3/4/9 on a call (180 / 91 / 0 / 5 / 0:
+#   the resnet blocks run as resnet_block_sharded, convs and GroupNorm in
+#   torch, as JAX's spatial sampler runs them on XLA), ms per call (median of
+#   SPATIAL_TIMED_CALLS), the exchanges' ms and counts by kind on one more
+#   call, and the peak device memory against the single process's;
+# - one configs/DM/cityscapes.yaml call at 128 px (a 64 x 64 latent: every
+#   level's windows within the shards), batch SPATIAL_CITY_BATCH: its result
+#   by the mean limit against the single process's, and the peak memory.
+SPATIAL_RANKS = 2
+SPATIAL_BATCH = 4
+SPATIAL_CITY_BATCH = 2
+SPATIAL_TIMED_CALLS = 3
+SPATIAL_LIMIT_S = 600
+SPATIAL_MAX_REL_TOL = 2.0 ** -5
+SPATIAL_MEAN_REL_TOL = 2.0 ** -6
+# (shape, shift, dtype) of kernel 1 on a shard's windows: KTH's first two
+# levels at model 2 (16 and 8 rows a shard), window (4, 4, 4), 8 heads of
+# 32, in bf16 (stw_layer.cu), and one float32 case (attention.cu's body).
+SPATIAL_K1_CASES = [((4, 30, 32, 32, 64), (2, 2, 2), torch.bfloat16),
+                    ((4, 30, 32, 32, 64), (0, 2, 0), torch.bfloat16),
+                    ((4, 30, 16, 16, 128), (2, 2, 2), torch.bfloat16),
+                    ((1, 6, 16, 8, 64), (2, 2, 2), torch.float32)]
+CITYSCAPES_YAML = Path(__file__).resolve().parent / "configs" / "DM" / "cityscapes.yaml"
+
+
+def spatial_config(city=False):
+    from extdm_tpu_torch.config import dm_config_from_yaml, kth_sampling_config, load_config
+
+    if city:
+        return dm_config_from_yaml(load_config(str(CITYSCAPES_YAML)), dtype=torch.bfloat16)
+    return kth_sampling_config(dtype=torch.bfloat16)
+
+
+def spatial_expected(cfg):
+    """A spatial rank's launches per sampler call: every STW and temporal
+    layer on its rows, the encode and decode's grid samples, no resnet
+    block on kernel 3 and no other kernel (layout "0")."""
+    return {**expected_launches(cfg), "resnet_block": 0}
+
+
+PIXEL_KEYS = ("sample_out_vid", "sample_warped_vid")
+
+
+def _diff(got, ref):
+    diff = (got.float() - ref.float()).abs()
+    return diff.max().item(), diff.mean().item()
+
+
+def spatial_limits(name, got, ref, spread=None) -> dict:
+    """max|got - ref| against SPATIAL_MAX_REL_TOL * max(1, max|ref|) (but
+    for decoded pixels, PIXEL_KEYS in `name`) and mean|got - ref| against
+    SPATIAL_MEAN_REL_TOL * mean|ref|, each plus SPREAD_MULT times `spread`
+    (make_sampler's (max, mean) difference from itself) where given."""
+    got, ref = got.float(), ref.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        return {"what": name, "ok": False, "finite": False}
+    err_max, err_mean = _diff(got, ref)
+    spread = spread or (0.0, 0.0)
+    line = {"what": name, "max_abs_err": err_max,
+            "max_tol": (SPATIAL_MAX_REL_TOL * max(1.0, ref.abs().max().item())
+                        + SPREAD_MULT * spread[0]),
+            "mean_abs_err": err_mean,
+            "mean_tol": SPATIAL_MEAN_REL_TOL * ref.abs().mean().item() + SPREAD_MULT * spread[1],
+            "spread": list(spread)}
+    line["max_held"] = not any(k in name for k in PIXEL_KEYS)
+    line["ok"] = ((line["max_abs_err"] <= line["max_tol"] or not line["max_held"])
+                  and line["mean_abs_err"] <= line["mean_tol"])
+    return line
+
+
+def spatial_kernel1_phase(card, model=2):
+    """Kernel 1 on a shard's windows, at SPATIAL_K1_CASES, shards run in
+    this process (each given the rows the cyclic halo would give it)."""
+    from extdm_tpu_torch.ops import fused_stw
+
+    g = torch.Generator(device="cuda").manual_seed(81)
+    window, heads, dh = (4, 4, 4), 8, 32
+    hid, N = heads * dh, math.prod(window)
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, generator=g, device="cuda")
+
+    for shape, shift, dtype in SPATIAL_K1_CASES:
+        B, T, H, W, C = shape
+        x = randn(*shape).to(dtype)
+        rel, residual = (BF16_REL_TOL, True) if dtype == torch.bfloat16 else (F32_REL_TOL, False)
+        params = (1.0 + randn(C, scale=0.1), randn(3 * hid, C, scale=0.05),
+                  randn(C, hid, scale=0.05), randn(C, scale=0.05), randn(heads, N, N, scale=0.1))
+        kw = dict(window=window, heads=heads, dim_head=dh)
+        full = fused_stw.stw_layer_plain(x, *params, shift=shift, **kw)
+        sh, HL = shift[1], H // model
+        pd, _, pw = fused_stw._pads(T, H, W, window)
+        local_shift = (shift[0], 0, shift[2])
+        rolled = torch.roll(x, -sh, dims=2)
+        outs, shards = [], []
+        for m in range(model):
+            mask = fused_stw.shard_mask_tables(T + pd, H, W + pw, window, tuple(shift), m, model,
+                                               x.device)
+            local = rolled[:, :, m * HL:(m + 1) * HL].contiguous()
+            before = fused_stw.fused_stw_layer.launches
+            k = fused_stw.fused_stw_layer(local, *params, shift=local_shift, mask=mask, **kw)
+            torch.cuda.synchronize()
+            if fused_stw.fused_stw_layer.launches != before + 1:
+                raise AssertionError("kernel 1 with cut ids: the wrapper launched no kernel")
+            p = fused_stw.stw_layer_plain(local, *params, shift=local_shift, mask=mask, **kw)
+            shards.append(check(f"kernel 1 cut ids {shape} {shift} shard {m}", k, p, rel,
+                                residual=local if residual else None))
+            outs.append(k)
+        joined = torch.roll(torch.cat(outs, dim=2), sh, dims=2)
+        whole = check(f"kernel 1 cut ids {shape} {shift} joined", joined, full, rel,
+                      residual=x if residual else None)
+        mask = fused_stw.shard_mask_tables(T + pd, H, W + pw, window, tuple(shift), 0, model,
+                                           x.device)
+        local = rolled[:, :, :HL].contiguous()
+        log({"phase": "spatial kernel 1", "shape": list(shape), "shift": list(shift),
+             "dtype": str(dtype),
+             "model": model, "local_shape": list(local.shape), "mask_tables": list(mask[0].shape),
+             "ids": mask[1].numel(), "shards": shards, "joined_vs_global_plain": whole,
+             "kernel_ms": cuda_ms(lambda: fused_stw.fused_stw_layer(
+                 local, *params, shift=local_shift, mask=mask, **kw), 5),
+             "plain_ms": cuda_ms(lambda: fused_stw.stw_layer_plain(
+                 local, *params, shift=local_shift, mask=mask, **kw), 3),
+             "card": card})
+
+
+def _peak_call(fn):
+    """fn()'s result, the peak device memory (bytes) of the call and that
+    peak less the memory held before it: the call's own working memory
+    (the weights, the inputs and whatever the caller holds left out)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, peak, peak - before
+
+
+def _host(out):
+    return {k: None if v is None else v.float().cpu() for k, v in out.items()}
+
+
+def spatial_reference(tmp):
+    """The single process's results, on the card: the KTH model's encode of
+    the cond videos and one denoiser forward on random noisy latents, two
+    make_sampler calls and one world-1 spatial call on the same seed (with
+    their peak memory), and the cityscapes call; writes the ranks' inputs to
+    <tmp>/spatial_inputs.pt and returns the references (on the host)."""
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.parallel import World, make_spatial_mesh
+
+    ref, inputs = {}, {}
+    world1 = World(rank=0, size=1, local_rank=0, device=torch.device("cuda", 0), backend="gloo")
+    for name, city in (("kth", False), ("city", True)):
+        cfg = spatial_config(city)
+        fd = FlowDiffusion(cfg, device="cuda", seed=0)
+        B = SPATIAL_CITY_BATCH if city else SPATIAL_BATCH
+        px = cfg.frame_shape
+        cond = torch.rand((B, cfg.cond_frames, px, px, 3),
+                          generator=torch.Generator().manual_seed(71)).cuda()
+        gen = torch.Generator(device="cuda")
+        plain = fd.make_sampler()
+        with torch.no_grad():
+            enc, fea, x_cond = fd._encode(cond)
+            x = torch.randn((B, cfg.pred_frames, *x_cond.shape[2:]),
+                            generator=torch.Generator().manual_seed(72)).cuda()
+            t = torch.tensor([500] * B, device="cuda")
+            unet = fd.sampling_unet()
+            unet(x, t, x_cond, fea)  # warm
+            forward, _, forward_work = _peak_call(lambda: unet(x, t, x_cond, fea))
+        plain(gen.manual_seed(73), cond)  # warm
+        first, peak, work = _peak_call(lambda: plain(gen.manual_seed(73), cond))
+        again = plain(gen.manual_seed(73), cond)
+        spatial1 = fd.make_spatial_sampler(make_spatial_mesh(world1, 1, 1))
+        one, _, work1 = _peak_call(lambda: spatial1(gen.manual_seed(73), cond))
+        first, again = _host(first), _host(again)
+        ref[name] = {"plain": first, "world1": _host(one), "forward": forward.float().cpu(),
+                     "forward_work": forward_work, "work": work, "world1_work": work1,
+                     "spread": {k: _diff(again[k], v) for k, v in first.items() if v is not None},
+                     "peak": peak}
+        inputs[name] = {"cond": cond.cpu(), "x": x.cpu(), "t": t.cpu(), "x_cond": x_cond.cpu(),
+                        "fea": None if fea is None else fea.cpu(),
+                        "digest": (_digest(fd.unet), _digest(fd.lfae))}
+        del fd, plain, spatial1, unet, enc
+        torch.cuda.empty_cache()
+    torch.save(inputs, Path(tmp) / "spatial_inputs.pt")
+    return ref
+
+
+def spatial_rank(rank, world, backend, data, tmp):
+    """One rank of phase "spatial": joins the group over `backend`, makes
+    the (data, world / data) mesh and runs ``spatial_rank_calls`` on the KTH
+    model, then the cityscapes call, the counters from 0 before each call.
+    Writes what it measured to <tmp>/spatial_<backend>_rank<r>.pt."""
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.parallel import init_data_group, make_spatial_mesh
+
+    w = init_data_group(backend, "cuda", rank=rank, world_size=world, local_rank=rank,
+                        init_method=f"file://{tmp}/spatial_store_{backend}_{world}")
+    job_defaults()
+    inp = torch.load(Path(tmp) / "spatial_inputs.pt", weights_only=False)
+    table = kernel_table()
+    tables = {**table, **wm_table(table), **route_table()}
+    counters = {n: k["wrapper"] for n, k in tables.items()}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, {n: c.launches for n, c in counters.items()}
+
+    out = {"rank": rank, "device": str(w.device), "backend": backend,
+           "device_name": torch.cuda.get_device_name(w.device)}
+    mesh = make_spatial_mesh(w, data, world // data)
+    out["place"] = [mesh.d, mesh.m]
+    for name, city in (("kth", False), ("city", True)):
+        cfg, case = spatial_config(city), inp[name]
+        fd = FlowDiffusion(cfg, device=w.device, seed=0)
+        if (_digest(fd.unet), _digest(fd.lfae)) != case["digest"]:
+            raise AssertionError(f"spatial rank {rank}: the seeded init differs from the parent's")
+        out[name] = spatial_rank_calls(fd, mesh, case, counted, timed=not city)
+        del fd
+        torch.cuda.empty_cache()
+    torch.save(out, Path(tmp) / f"spatial_{backend}_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def spatial_rank_calls(fd, mesh, case, counted, timed):
+    """A rank's calls on one model: a counted first call, then, where
+    `timed`, one denoiser forward on the rank's rows, SPATIAL_TIMED_CALLS
+    timed calls and one with the exchanges timed (its peak memory), else
+    one more call (its peak memory)."""
+    dev = fd.device
+    cond = case["cond"].to(dev)
+    sampler = fd.make_spatial_sampler(mesh)
+    gen = torch.Generator(device=dev)
+    res = {}
+    got, res["first_ms"], res["launches"] = counted(lambda: sampler(gen.manual_seed(73), cond))
+    res["out"] = _host(got)
+    if not timed:
+        _, res["peak"], res["work"] = _peak_call(lambda: sampler(gen.manual_seed(73), cond))
+        return res
+    rows = mesh.rows(cond.shape[0])
+    args = (mesh.local(case["x"].to(dev)), case["t"].to(dev)[rows],
+            mesh.local(case["x_cond"].to(dev)), case["fea"].to(dev)[rows])
+    unet = fd.sampling_unet()
+    with torch.no_grad():
+        unet(*args, shard=mesh)  # warm
+        y, _, res["forward_work"] = _peak_call(lambda: unet(*args, shard=mesh))
+    h_rows = mesh.h_rows(y.shape[2] * mesh.model)
+    res.update(forward=y.float().cpu(), rows=[rows.start, rows.stop],
+               h_rows=[h_rows.start, h_rows.stop], ms=[], timed_launches=[])
+    for _ in range(SPATIAL_TIMED_CALLS):
+        _, ms, launches = counted(lambda: sampler(gen.manual_seed(73), cond))
+        res["ms"].append(ms)
+        res["timed_launches"].append(launches)
+    mesh.timings = {}
+    (_, res["exchanges_timed_call_ms"], _), res["peak"], res["work"] = _peak_call(
+        lambda: counted(lambda: sampler(gen.manual_seed(73), cond)))
+    timings, mesh.timings = mesh.timings, None
+    res["exchange_ms"] = {k: sum(v) for k, v in timings.items()}
+    res["exchanges"] = {k: len(v) for k, v in timings.items()}
+    return res
+
+
+def spatial_phase(card):
+    """Phase "spatial": kernel 1 on cut ids, the single-process references,
+    then the ranks over gloo on cuda:0 (and over nccl, one a card, where
+    there are 2 or 4 cards); checks and prints each rank's lines. Returns
+    rank 0's launches per KTH call over gloo."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    spatial_kernel1_phase(card)
+    cards = torch.cuda.device_count()
+    runs = [("gloo", SPATIAL_RANKS, 1)]
+    if cards >= 4:
+        runs.append(("nccl", 4, 2))
+    elif cards >= 2:
+        runs.append(("nccl", 2, 1))
+    first = None
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = spatial_reference(tmp)
+        keys = [(n, k) for n, r in ref.items() for k in r["spread"]]
+        world1 = [spatial_limits(f"{n} {k}", ref[n]["world1"][k], ref[n]["plain"][k],
+                                 ref[n]["spread"][k]) for n, k in keys]
+        log({"phase": "spatial reference", "seconds": time.perf_counter() - t0,
+             "peak_bytes": {n: r["peak"] for n, r in ref.items()},
+             "working_bytes": {n: r["work"] for n, r in ref.items()},
+             "world1_spatial_working_bytes": {n: r["world1_work"] for n, r in ref.items()},
+             "world1_vs_make_sampler": world1,
+             "make_sampler_repeat_max_mean": {f"{n} {k}": ref[n]["spread"][k] for n, k in keys},
+             "card": card})
+        failed = [line for line in world1 if not line["ok"]]
+        if failed:
+            raise AssertionError(f"spatial: the world-1 spatial call differs from make_sampler "
+                                 f"beyond a limit: {failed}")
+        for backend, world, data in runs:
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(spatial_rank, args=(world, backend, data, tmp),
+                                     nprocs=world, join=False, start_method="spawn")
+            while not ctx.join(timeout=5.0):
+                if time.perf_counter() - t0 > SPATIAL_LIMIT_S:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise TimeoutError(f"spatial ranks over {backend} still running after "
+                                       f"{SPATIAL_LIMIT_S} s")
+            spawn_s = time.perf_counter() - t0
+            got = [torch.load(Path(tmp) / f"spatial_{backend}_rank{r}.pt", weights_only=False)
+                   for r in range(world)]
+            spatial_check(got, ref, backend, world, data, spawn_s, card)
+            if first is None:
+                first = got[0]["kth"]["launches"]
+    log({"phase": "spatial phase", "seconds": time.perf_counter() - t_phase,
+         "runs": [list(r) for r in runs]})
+    return first
+
+
+def spatial_check(got, ref, backend, world, data, spawn_s, card):
+    """Phase "spatial"'s lines and checks for one run of ranks: every line
+    is printed before a failed check raises."""
+    failed = []
+    kth_cfg = spatial_config()
+    want = {n: c for n, c in spatial_expected(kth_cfg).items() if c}
+    for g in got:
+        kth, city = g["kth"], g["city"]
+        for what, seen in [("warm-up", kth["launches"])] + [
+                (f"timed call {i}", s) for i, s in enumerate(kth["timed_launches"])]:
+            nonzero = {n: c for n, c in seen.items() if c}
+            if nonzero != want:
+                failed.append(f"rank {g['rank']} {what} launches {nonzero} != {want}")
+        r0, r1 = kth["rows"]
+        h0, h1 = kth["h_rows"]
+        fwd = spatial_limits("denoiser forward", kth["forward"],
+                             ref["kth"]["forward"][r0:r1, :, h0:h1])
+        lines = {"forward": fwd}
+        for name, res in (("kth", kth), ("city", city)):
+            for key, v in res["out"].items():
+                if v is None:
+                    continue
+                lines[f"{name} {key} vs world 1"] = spatial_limits(
+                    key, v, ref[name]["world1"][key], ref[name]["spread"][key])
+                if name == "kth" and key.startswith("real_") and data == 1:
+                    lines[f"{name} {key} encode bitwise"] = {
+                        "ok": torch.equal(v, ref[name]["plain"][key])}
+        for what, line in lines.items():
+            if not line["ok"]:
+                failed.append(f"rank {g['rank']} {what}: {line}")
+        log({"phase": "spatial", "backend": backend, "rank": g["rank"], "place": g["place"],
+             "mesh": [data, world // data], "device": g["device"],
+             "device_name": g["device_name"],
+             "note": ("ranks share one card over gloo (host-staged all-reduce): a smoke, not a "
+                      "scaling figure") if len({x["device"] for x in got}) == 1
+             else f"one rank a card over {backend}",
+             "kth": {"global_batch": SPATIAL_BATCH, "first_ms": kth["first_ms"], "ms": kth["ms"],
+                     "median_ms": statistics.median(kth["ms"]),
+                     "launches": {n: c for n, c in kth["launches"].items() if c},
+                     "exchanges_timed_call_ms": kth["exchanges_timed_call_ms"],
+                     "exchange_ms": kth["exchange_ms"], "exchanges": kth["exchanges"],
+                     "peak_bytes": kth["peak"], "single_process_peak_bytes": ref["kth"]["peak"],
+                     "working_bytes": kth["work"],
+                     "single_process_working_bytes": ref["kth"]["work"],
+                     "world1_spatial_working_bytes": ref["kth"]["world1_work"],
+                     "unet_forward_working_bytes": kth["forward_work"],
+                     "single_process_unet_forward_working_bytes": ref["kth"]["forward_work"]},
+             "cityscapes": {"global_batch": SPATIAL_CITY_BATCH, "first_ms": city["first_ms"],
+                            "launches": {n: c for n, c in city["launches"].items() if c},
+                            "peak_bytes": city["peak"], "working_bytes": city["work"],
+                            "single_process_peak_bytes": ref["city"]["peak"],
+                            "single_process_working_bytes": ref["city"]["work"],
+                            "world1_spatial_working_bytes": ref["city"]["world1_work"]},
+             "checks": lines, "card": card})
+    log({"phase": "spatial checks", "backend": backend, "spawn_seconds": spawn_s,
+         "failed": failed, "card": card})
+    if failed:
+        raise AssertionError(f"spatial {backend}: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4062,6 +4487,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_phase(card)
 
+    # ---- spatial: the sampler over ranks holding shards of the latent H
+    torch.cuda.empty_cache()
+    spatial_launches = spatial_phase(card)
+
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the
     # grid-sample backward, on the eval path (all its sampler calls) for
@@ -4094,6 +4523,7 @@ def main() -> int:
                         "traj_call_launches": traj_call.get(name, 0),
                         "traj_step_launches": traj_step.get(name, 0),
                         "ae_bf16_step_launches": ae16_step.get(name, 0),
+                        "spatial_rank_call_launches": spatial_launches.get(name, 0),
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",

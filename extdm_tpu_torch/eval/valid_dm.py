@@ -3,6 +3,8 @@
     python -m extdm_tpu_torch.eval.valid_dm --config configs/DM/kth.yaml \\
         --synthetic_videos 4 --num_sample_video 4 --batch_size 4 --device cpu
     torchrun --nproc_per_node N -m extdm_tpu_torch.eval.valid_dm --mesh_data N ...
+    torchrun --nproc_per_node D*M -m extdm_tpu_torch.eval.valid_dm --mesh_data D \
+        --mesh_model M ...
 
 Trajectories ride the batch axis (each video repeated ``num_sample_video``
 times, ``np.repeat`` order); each batch is rolled out autoregressively in
@@ -26,9 +28,13 @@ or stay seeded random, flagged ``pretrained: False``.
 trajectories) batch axis of every sampler call over the ranks
 (``FlowDiffusion.make_sharded_sampler``): each rank samples its rows with
 its rank's generator and the batches are gathered; rank 0 computes the
-metrics and writes ``metrics.txt``. Not ported yet: ``--mesh_model``, the
-latent-H sharded sampler (ROADMAP §1 item 4(b)), which raises, and the
-comparison gif, ``--dump_flow`` and ``--dump_arrays``.
+metrics and writes ``metrics.txt``. ``--mesh_model M`` with ``--mesh_data
+D`` (a launch of D x M ranks) runs the spatial sampler
+(``FlowDiffusion.make_spatial_sampler``): the batch over D data rows, the
+latent H over M model ranks. Every rank draws from the same generator per
+(batch, round) as a single process, so the metrics are the single
+process's. Not ported yet: the comparison gif, ``--dump_flow`` and
+``--dump_arrays`` (ROADMAP §1, eval artefacts).
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ from extdm_tpu_torch.metrics import (
     calculate_psnr3,
     calculate_ssim3,
 )
-from extdm_tpu_torch.parallel.mesh import DataGroup, init_data_group, make_data_group
+from extdm_tpu_torch.parallel.mesh import DataGroup, World, init_data_group, make_data_group
+from extdm_tpu_torch.parallel.spatial import SpatialMesh, make_spatial_mesh
 from extdm_tpu_torch.train.checkpoint import AE_PARTS, load_checkpoint, restore_ae, restore_dm
 from extdm_tpu_torch.train.job import default_backend, finish
 
@@ -131,7 +138,7 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
              metrics: Iterable[str] = METRICS, i3d: Optional[I3DExtractor] = None,
              lpips: Optional[LPIPSMetric] = None,
              init_noise: Optional[Callable[[int, int], Optional[torch.Tensor]]] = None,
-             group: Optional[DataGroup] = None) -> Dict:
+             group: Optional[DataGroup] = None, mesh: Optional[SpatialMesh] = None) -> Dict:
     """Sample every batch of `loader` (clips in a stored layout, on any
     device) `num_traj` times and score the trajectories. `init_noise(batch,
     round)` may give each sampler call's starting noise. Each finished batch
@@ -144,12 +151,19 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
     and the loader's wait. With a data group of several ranks every rank
     takes part in each (sharded) sampler call and holds the gathered
     samples; rank 0 alone computes the metrics (the others return no
-    lines and no values)."""
+    lines and no values). With a spatial `mesh` the calls run on the
+    spatial sampler, every rank holds the samples and rank 0 alone computes
+    the metrics likewise."""
     cfg, dev = fd.cfg, fd.device
     tc, tp = cfg.cond_frames, cfg.pred_frames
     wanted = set(metrics)
     sharded = group is not None and group.parallel
-    sampler = fd.make_sharded_sampler(group) if sharded else fd.make_sampler()
+    if mesh is not None:
+        sampler, lead = fd.make_spatial_sampler(mesh), mesh.world.rank == 0
+    elif sharded:
+        sampler, lead = fd.make_sharded_sampler(group), group.rank == 0
+    else:
+        sampler, lead = fd.make_sampler(), True
     num_autoreg = math.ceil(total_pred / tp)
     real_all, sample_all, call_s, pred_frames = [], [], [], []
     for clips in loader:
@@ -188,7 +202,7 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
     print(f"evaluated {N} videos x {num_traj} trajectories")
     lines, values = [], {}
     seconds = {"sampling_per_call": call_s, "loader_wait": getattr(loader, "wait_s", 0.0)}
-    if sharded and group.rank != 0:
+    if not lead:
         return dict(lines=lines, values=values, real=real, samples=samples, seconds=seconds)
 
     def timed(name, fn):
@@ -270,38 +284,42 @@ def main(argv=None) -> int:
                         "(a launch of that many, torchrun; batch_size * num_sample_video must "
                         "divide by it)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="shard the latent H axis of the denoiser: not ported (ROADMAP §1 item "
-                        "4(b)); more than 1 raises")
+                   help="shard the latent H axis of the denoiser over this many ranks (a launch "
+                        "of mesh_data x mesh_model, torchrun)")
     p.add_argument("--init_method", default="env://",
                    help="torch.distributed init method (default: torchrun's environment)")
     args = p.parse_args(argv)
-    if args.mesh_model > 1:
-        raise NotImplementedError("--mesh_model: the latent-H sharded sampler is ROADMAP §1 "
-                                  "item 4(b), not ported yet; use --mesh_data")
-    group = _eval_group(args)
+    world = init_data_group(default_backend(args.device), args.device,
+                            init_method=args.init_method)
+    group, mesh = _eval_group(args, world)
     if group.member:
-        _evaluate(args, group)
+        _evaluate(args, group, mesh)
     finish(group)
     return 0
 
 
-def _eval_group(args) -> DataGroup:
-    """The data group of ``--mesh_data`` ranks: the launch's world (one
-    process without torchrun) must have that many."""
-    world = init_data_group(default_backend(args.device), args.device,
-                            init_method=args.init_method)
-    if world.size != args.mesh_data:
-        raise ValueError(f"--mesh_data {args.mesh_data} in a launch of {world.size} "
-                         f"process(es): launch {args.mesh_data} (torchrun --nproc_per_node)")
+def _eval_group(args, world: World):
+    """(the data group of ``--mesh_data`` ranks, None), or with
+    ``--mesh_model`` > 1 (a group of the whole world, the spatial mesh):
+    the launch's world (one process without torchrun) must have mesh_data
+    x mesh_model ranks."""
+    D, M = args.mesh_data, args.mesh_model
+    if world.size != D * M:
+        raise ValueError(f"--mesh_data {D} x --mesh_model {M} in a launch of {world.size} "
+                         f"process(es): launch {D * M} (torchrun --nproc_per_node)")
     rows = args.batch_size * args.num_sample_video
-    if rows % args.mesh_data:
+    if rows % D:
         raise ValueError(f"batch_size x num_sample_video = {rows} does not divide over "
-                         f"--mesh_data {args.mesh_data}")
-    return make_data_group(rows, world)
+                         f"--mesh_data {D}")
+    if M == 1:
+        return make_data_group(rows, world), None
+    print(f"spatial-parallel eval: batch over {D} x latent-H over {M} devices")
+    return DataGroup(size=world.size, rank=world.rank, world=world), make_spatial_mesh(world, D, M)
 
 
-def _evaluate(args, group: DataGroup) -> None:
-    """The evaluation on a rank of the data group; rank 0 writes the lines."""
+def _evaluate(args, group: DataGroup, mesh: Optional[SpatialMesh] = None) -> None:
+    """The evaluation on a rank of the data group (or of the spatial mesh);
+    rank 0 writes the lines."""
     from extdm_tpu_torch.config import dm_config_from_yaml, load_config
     from extdm_tpu_torch.data import InMemoryVideoStore, make_moving_shapes_video
     from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
@@ -335,7 +353,7 @@ def _evaluate(args, group: DataGroup) -> None:
              if args.lpips_state_dict else None)
     out = evaluate(fd, loader, num_traj=args.num_sample_video, total_pred=total_pred,
                    seed=args.seed, metrics=args.metrics.split(","), i3d=i3d, lpips=lpips,
-                   group=group)
+                   group=group, mesh=mesh)
     if group.rank != 0:
         return
     print("\n".join(out["lines"]))

@@ -5,7 +5,14 @@ the reference denoiser's (``adaptors.predictor.fn.norm.gamma``, ...).
 
 Each module takes an explicit compute ``dtype`` (None: float32), as the flax
 modules do: parameters keep their own dtype (float32 when training) and are
-cast to the compute type where they are used; norm statistics stay float32."""
+cast to the compute type where they are used; norm statistics stay float32.
+
+``MotionAdaptor`` also runs on an H shard (``shard``, a
+``parallel.SpatialMesh``; inference): the extrapolator's per-(sample,
+channel) statistics over (T, H, W) are combined over the shards
+(``SpatialMesh.moments``, the global count in the unbiased variance) and
+its 3x3x3 convolutions read one halo row of each neighbour; the rest acts
+on each pixel alone."""
 from __future__ import annotations
 
 import math
@@ -70,9 +77,13 @@ class Conv3x3x3(nn.Conv3d):
         super().__init__(dim, dim, 3, padding=1, bias=False)
         self.compute_dtype = dtype or torch.float32
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
         dt = self.compute_dtype
-        y = self._conv_forward(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt), None)
+        if shard is None:
+            y = self._conv_forward(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt), None)
+        else:  # the H padding is the neighbours' rows (zeros past the global edges)
+            xh = shard.halo(x.to(dt), 1, 1, "zero")
+            y = F.conv3d(xh.permute(0, 4, 1, 2, 3), self.weight.to(dt), None, padding=(1, 0, 1))
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -92,16 +103,22 @@ class Extrapolator(nn.Module):
         self.predictor = Residual(PreNorm(dim, PointwiseConv3d(dim, dim, dtype=dtype)))
         self.extrapolators = nn.ModuleList(Residual(Conv3x3x3(dim, dtype)) for _ in range(num_layers))
 
-    def forward(self, xm):
+    def forward(self, xm, shard=None):
         tm = xm.shape[1]
         x = self.predictor(xm)
         for ext in self.extrapolators:
             r = x
             x32 = x.float()
-            mean = x32.mean(dim=(1, 2, 3), keepdim=True)
-            var = x32.reshape(x.shape[0], -1, x.shape[-1]).var(dim=1, unbiased=True)
-            std = torch.sqrt(var + 1e-5)[:, None, None, None, :]
-            xh = ext(((x32 - mean) / std).to(x.dtype))
+            if shard is None:
+                mean = x32.mean(dim=(1, 2, 3), keepdim=True)
+                var = x32.reshape(x.shape[0], -1, x.shape[-1]).var(dim=1, unbiased=True)
+                std = torch.sqrt(var + 1e-5)[:, None, None, None, :]
+                xh = ext(((x32 - mean) / std).to(x.dtype))
+            else:
+                mean, m2, n = shard.moments(x32, (1, 2, 3))
+                std = torch.sqrt(m2 / (n - 1) + 1e-5)
+                xn = ((x32 - mean) / std).to(x.dtype)
+                xh = xn + ext.fn(xn, shard)
             x = torch.cat([r, (xh.float() * std + mean).to(x.dtype)], dim=1)
         return x[:, tm:]
 
@@ -119,12 +136,12 @@ class MotionAdaptor(nn.Module):
         self.Tmodulator = nn.Conv2d(self.num_frames * dim, tp * dim, 1)
         self.fuser = PreNorm(2 * dim, PointwiseConv3d(2 * dim, dim, dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
         B, T, H, W, C = x.shape
         if T != self.tc + self.tp:
             raise ValueError(f"{T} frames, the adaptor was built for {self.tc} + {self.tp}")
         xm, xp = x[:, :self.tc], x[:, self.tc:]
-        xm2p = self.adaptors(xm)  # (B, nf, H, W, C)
+        xm2p = self.adaptors(xm, shard)  # (B, nf, H, W, C)
         dt = self.compute_dtype
         w3 = self.Tmodulator.weight.reshape(self.tp * C, self.num_frames, C).to(dt)
         y = torch.einsum("bfhwc,ofc->bhwo", xm2p.to(dt), w3) + self.Tmodulator.bias.to(dt)

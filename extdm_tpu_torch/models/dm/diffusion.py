@@ -8,7 +8,14 @@ the last DDIM pair is (0, 0), whose sigma is 0/0). Timesteps and noise come
 from an explicit ``torch.Generator``; ``init_noise`` and ``noises`` replace
 the draws (reproducible trajectories, and the JAX draws in the tests).
 ``interpolate`` mixes two noised latents and denoises back ancestrally;
-``guided_denoise_fn`` wraps a denoiser for classifier-free guidance."""
+``guided_denoise_fn`` wraps a denoiser for classifier-free guidance.
+
+With ``shard`` (a ``parallel.SpatialMesh``) ``sample`` runs on a rank's
+batch rows and H rows of the latents (the spatial sampler's DDIM stage):
+every rank draws the global x_T and step noise from the one generator and
+keeps its part, so the result is the single process's whatever the mesh,
+and the dynamic threshold's per-sample quantile reads |x0| gathered over the
+H shards (a quantile does not reduce as a sum)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -67,10 +74,13 @@ class DiffusionSchedule:
         )
 
 
-def dynamic_threshold(x0: torch.Tensor, percentile: float = 0.9) -> torch.Tensor:
-    """Clamp to the per-sample `percentile` of |x0| (at least 1), rescale into [-1, 1]."""
+def dynamic_threshold(x0: torch.Tensor, percentile: float = 0.9, shard=None) -> torch.Tensor:
+    """Clamp to the per-sample `percentile` of |x0| (at least 1), rescale into
+    [-1, 1]. With `shard`, x0 (B, T, HL, ...) is an H shard's rows and the
+    quantile is taken on |x0| gathered over the shards."""
     b = x0.shape[0]
-    s = torch.quantile(x0.reshape(b, -1).abs(), percentile, dim=-1, interpolation="linear")
+    a = x0.abs() if shard is None else shard.gather_h(x0.abs(), "threshold")
+    s = torch.quantile(a.reshape(b, -1), percentile, dim=-1, interpolation="linear")
     s = torch.clamp(s, min=1.0).reshape(b, *((1,) * (x0.ndim - 1)))
     return torch.maximum(torch.minimum(x0, s), -s) / s
 
@@ -145,15 +155,18 @@ class GaussianDiffusion:
     def ddim_sample(self, denoise_fn: DenoiseFn, generator: torch.Generator,
                     x_cond: torch.Tensor, pred_frames: int, cond_fea: Optional[torch.Tensor],
                     init_noise: Optional[torch.Tensor] = None,
-                    noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                    noises: Optional[Sequence[torch.Tensor]] = None, shard=None) -> torch.Tensor:
         """x_cond (B, tc, h, w, C) -> (B, pred_frames, h, w, C) float32 latents.
         `init_noise` replaces the drawn x_T (reproducible trajectories);
-        `noises`, one per step, replace the per-step draws."""
+        `noises`, one per step, replace the per-step draws. With `shard`,
+        x_cond and the result are a rank's rows of the global batch and
+        latent H, and `init_noise` and `noises` are global."""
         B, _, h, w, C = x_cond.shape
         shape = (B, pred_frames, h, w, C)
         device = x_cond.device
-        normal = _normals(generator, shape, device, noises)
-        img = normal() if init_noise is None else init_noise.to(device, torch.float32)
+        normal = _normals(generator, shape, device, noises, shard)
+        img = normal() if init_noise is None else _local(init_noise, shard).to(device,
+                                                                              torch.float32)
         alphas_prev = self.schedule.alphas_cumprod_prev
         eta = np.float32(self.ddim_eta)
         for i, (time, time_next) in enumerate(ddim_time_pairs(self.schedule.num_timesteps,
@@ -161,7 +174,8 @@ class GaussianDiffusion:
             alpha, alpha_next = alphas_prev[time], alphas_prev[time_next]  # float32 scalars
             t_b = torch.full((B,), int(time), dtype=torch.long, device=device)
             pred_noise = denoise_fn(img, t_b, x_cond, cond_fea)
-            x_start = dynamic_threshold(self.predict_start_from_noise(img, t_b, pred_noise))
+            x_start = dynamic_threshold(self.predict_start_from_noise(img, t_b, pred_noise),
+                                        shard=shard)
             sigma = eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
             c = np.sqrt(np.maximum((1 - alpha_next) - sigma ** 2, np.float32(0.0)))
             img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
@@ -172,18 +186,20 @@ class GaussianDiffusion:
     def p_sample_loop(self, denoise_fn: DenoiseFn, generator: torch.Generator,
                       x_cond: torch.Tensor, pred_frames: int, cond_fea: Optional[torch.Tensor],
                       init_noise: Optional[torch.Tensor] = None,
-                      noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                      noises: Optional[Sequence[torch.Tensor]] = None,
+                      shard=None) -> torch.Tensor:
         """Ancestral sampling over every step of the schedule, t = T-1 .. 0;
         the same arguments and result as ``ddim_sample``."""
         B, _, h, w, C = x_cond.shape
         shape = (B, pred_frames, h, w, C)
         device = x_cond.device
-        normal = _normals(generator, shape, device, noises)
-        img = normal() if init_noise is None else init_noise.to(device, torch.float32)
+        normal = _normals(generator, shape, device, noises, shard)
+        img = normal() if init_noise is None else _local(init_noise, shard).to(device,
+                                                                              torch.float32)
         for i, t in enumerate(range(self.schedule.num_timesteps - 1, -1, -1)):
             t_b = torch.full((B,), t, dtype=torch.long, device=device)
             eps = denoise_fn(img, t_b, x_cond, cond_fea)
-            x0 = dynamic_threshold(self.predict_start_from_noise(img, t_b, eps))
+            x0 = dynamic_threshold(self.predict_start_from_noise(img, t_b, eps), shard=shard)
             mean, _, log_var = self.q_posterior(x0, img, t_b)
             img = mean + torch.exp(0.5 * log_var) * normal(i) if t > 0 else mean
         return img
@@ -215,12 +231,12 @@ class GaussianDiffusion:
     def sample(self, denoise_fn: DenoiseFn, generator: torch.Generator, x_cond: torch.Tensor,
                pred_frames: int, cond_fea: Optional[torch.Tensor] = None,
                init_noise: Optional[torch.Tensor] = None,
-               noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+               noises: Optional[Sequence[torch.Tensor]] = None, shard=None) -> torch.Tensor:
         """DDIM with fewer steps than the schedule, else the ancestral loop."""
         run = (self.ddim_sample if self.sampling_timesteps < self.schedule.num_timesteps
                else self.p_sample_loop)
         return run(denoise_fn, generator, x_cond, pred_frames, cond_fea, init_noise=init_noise,
-                   noises=noises)
+                   noises=noises, shard=shard)
 
 
 def guided_denoise_fn(denoise_fn: DenoiseFn, cond_scale: float = 1.0) -> DenoiseFn:
@@ -245,11 +261,22 @@ def guided_denoise_fn(denoise_fn: DenoiseFn, cond_scale: float = 1.0) -> Denoise
     return fn
 
 
-def _normals(generator: torch.Generator, shape, device, noises: Optional[Sequence[torch.Tensor]]):
+def _local(x: torch.Tensor, shard) -> torch.Tensor:
+    return x if shard is None else shard.local(x)
+
+
+def _normals(generator: torch.Generator, shape, device, noises: Optional[Sequence[torch.Tensor]],
+             shard=None):
     """normal() draws x_T; normal(i) step i's noise, taken from `noises`
-    when given, else drawn."""
+    when given, else drawn. With `shard`, `shape` is a rank's part of the
+    latents: the global draw is made and the part kept."""
+    if shard is not None:
+        B, T, h, w, C = shape
+        shape = (B * shard.data, T, h * shard.model, w, C)
+
     def normal(step: Optional[int] = None) -> torch.Tensor:
         if step is not None and noises is not None:
-            return noises[step].to(device, torch.float32)
-        return torch.randn(shape, generator=generator, device=generator.device).to(device)
+            return _local(noises[step], shard).to(device, torch.float32)
+        draw = torch.randn(shape, generator=generator, device=generator.device)
+        return _local(draw, shard).to(device)
     return normal

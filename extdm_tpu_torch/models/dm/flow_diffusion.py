@@ -213,24 +213,25 @@ class FlowDiffusion:
             flow = flow + self._identity_grid(*flow.shape[2:4])
         return flow
 
-    def denoise_fn(self, cond_cache=None, unet: Optional[Unet3D] = None):
+    def denoise_fn(self, cond_cache=None, unet: Optional[Unet3D] = None, shard=None):
         unet = unet or self.unet
 
         def fn(x, t, cond_frames, cond_fea, **kw):
-            return unet(x, t, cond_frames, cond_fea, cond_cache=cond_cache, **kw)
+            return unet(x, t, cond_frames, cond_fea, cond_cache=cond_cache, shard=shard, **kw)
         return fn
 
     def cond_cache(self, x_cond: torch.Tensor, fea: Optional[torch.Tensor],
-                   unet: Optional[Unet3D] = None):
+                   unet: Optional[Unet3D] = None, shard=None):
         """The (x, t)-invariant conditioning term, computed once per sampler
         call; None without features and for the trajwarp conditioning, which
-        depends on x and runs at every denoising step."""
+        depends on x and runs at every denoising step. With `shard`, x_cond
+        and the term are an H shard's rows."""
         if fea is None or self.cfg.conditioning == "trajwarp":
             return None
         B, tc, h, w, C = x_cond.shape
         x_dummy = torch.zeros((B, self.cfg.pred_frames, h, w, C), device=x_cond.device)
         t_dummy = torch.zeros((B,), dtype=torch.long, device=x_cond.device)
-        return (unet or self.unet)(x_dummy, t_dummy, x_cond, fea, cond_only=True)
+        return (unet or self.unet)(x_dummy, t_dummy, x_cond, fea, cond_only=True, shard=shard)
 
     def loss(self, generator: torch.Generator, video: torch.Tensor,
              t: Optional[torch.Tensor] = None,
@@ -292,18 +293,30 @@ class FlowDiffusion:
 
         return monitor
 
+    def _encode(self, cond_video: torch.Tensor):
+        """The LFAE's encode of the cond frames: (enc, ref features, latents)."""
+        cfg = self.cfg
+        enc = self.lfae.encode_video(cond_video, cfg.cond_frames)
+        fea = (self.lfae.ref_features(cond_video, cfg.cond_frames, cfg.pred_frames)
+               if cfg.use_ref_features else None)
+        return enc, fea, self.latents_from_encode(enc)
+
     def _sample(self, generator: torch.Generator, cond_video: torch.Tensor, decode: bool,
                 init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        tc, tp = cfg.cond_frames, cfg.pred_frames
         cond_video = cond_video.to(self.device)
-        enc = self.lfae.encode_video(cond_video, tc)
-        fea = self.lfae.ref_features(cond_video, tc, tp) if cfg.use_ref_features else None
-        x_cond = self.latents_from_encode(enc)
+        enc, fea, x_cond = self._encode(cond_video)
         unet = self.sampling_unet()
         cache = self.cond_cache(x_cond, fea, unet)
-        pred = self.diffusion.sample(self.denoise_fn(cache, unet), generator, x_cond, tp, fea,
-                                     init_noise=init_noise)
+        pred = self.diffusion.sample(self.denoise_fn(cache, unet), generator, x_cond,
+                                     self.cfg.pred_frames, fea, init_noise=init_noise)
+        return self._finalize(cond_video, enc, pred, decode)
+
+    def _finalize(self, cond_video: torch.Tensor, enc: Dict[str, torch.Tensor],
+                  pred: torch.Tensor, decode: bool) -> Dict[str, torch.Tensor]:
+        """The sampler's dict from the encode and the predicted latents:
+        the sampled flows and conf after the real ones and, with `decode`,
+        the predicted frames decoded after the cond frames."""
+        tc = self.cfg.cond_frames
         enc_flow, enc_conf = enc["flow"], enc["conf"]
         sample_flow = torch.cat([enc_flow, self.flow_from_pred(pred)], dim=1)
         sample_conf = None
@@ -348,6 +361,42 @@ class FlowDiffusion:
             out = self._sample(rank_generator(generator, group.rank), cond_video[rows], decode,
                                None if init_noise is None else init_noise[rows])
             return gather_batch(out, group)
+
+        return sampler
+
+    def make_spatial_sampler(self, mesh, decode: bool = True):
+        """The spatial (sequence-parallel) sampler (JAX ``make_spatial_sampler``,
+        flow_diffusion.py:551-693) over a ``parallel.SpatialMesh``:
+        fn(generator, cond_video, init_noise=None) with the global batch on
+        every rank, returning the plain sampler's dict (the global batch) on
+        every rank. The LFAE encode runs on the rank's data rows (the same on
+        each model rank of a row); the DDIM stage runs on its rows and its
+        shard of the latent H (``Unet3D.forward(shard=...)``), every rank
+        drawing the global x_T and step noise from `generator`, so that the
+        result is ``make_sampler``'s on the same generator whatever the
+        mesh; the latents are gathered over H, decoded on the data rows and
+        the rows gathered. `init_noise`, where given, is the global x_T. The
+        batch must divide over the data ranks, and every level's latent H
+        over the model ranks. Inference only. The trajwarp conditioning
+        raises: its warp attends over every cond token and its resize of the
+        warped features needs an exchange of its own."""
+        if self.cfg.conditioning == "trajwarp":
+            raise NotImplementedError("the spatial sampler of the trajwarp conditioning is "
+                                      "ROADMAP §1, trajwarp under --mesh_model")
+
+        @torch.no_grad()
+        def sampler(generator: torch.Generator, cond_video: torch.Tensor,
+                    init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+            cond_video = cond_video[mesh.rows(cond_video.shape[0])].to(self.device)
+            enc, fea, x_cond = self._encode(cond_video)
+            x_cond = mesh.slice_h(x_cond)
+            unet = self.sampling_unet()
+            cache = self.cond_cache(x_cond, fea, unet, shard=mesh)
+            pred = self.diffusion.sample(self.denoise_fn(cache, unet, shard=mesh), generator,
+                                         x_cond, self.cfg.pred_frames, fea,
+                                         init_noise=init_noise, shard=mesh)
+            out = self._finalize(cond_video, enc, mesh.gather_h(pred), decode)
+            return mesh.gather_rows(out)
 
         return sampler
 

@@ -29,6 +29,23 @@ The time MLP runs in float32 and norm statistics stay float32. With
 ``remat``, the MotionAdaptors run under ``torch.utils.checkpoint``: their
 autograd would keep every intermediate of the extrapolator, while the
 kernel layers' autograd Functions already keep only their inputs.
+
+On an H shard (``forward(..., shard=mesh)``, a ``parallel.SpatialMesh``;
+inference, the port of the DDIM stage of JAX's ``make_spatial_sampler``):
+x and the cond frames are the shard's rows of the global latent H, and
+every module that reads across rows exchanges them by hand. The (1, k, k)
+convolutions (init conv, resnet convs, Down/Upsample) read halo rows of
+their neighbours (``conv_frames``); the resnet blocks run as
+``resnet_block_sharded``, their GroupNorm statistics combined over the
+shards: the counterpart of the XLA path that JAX's spatial sampler runs its
+blocks on (``pallas_resnet.inference_only_scope``), so kernel 3 does not
+run there. The STW layers run as ``spatial_stw_layer`` (kernel 1 on the
+shard's windows), the temporal layers as ``spatial_temporal_layer`` (kernel
+2 unchanged), the MotionAdaptors with combined statistics. Windows, shifts
+and the position bias are those of the global shape; the conditioning
+stream is computed on the global H once a call and cut to the shard's rows.
+The ``trajwarp`` family is not sharded (its cross-attention reads every
+cond token): it raises.
 """
 from __future__ import annotations
 
@@ -47,7 +64,8 @@ from extdm_tpu_torch.nn.attention import (RelativePositionBias, RelativePosition
 from extdm_tpu_torch.nn.layers import cast
 from extdm_tpu_torch.ops.fused_resnet import fused_resnet_block
 from extdm_tpu_torch.ops.fused_stw import (WINDOW_MAJOR_MODES, fused_stw_layer,
-                                           fused_temporal_layer, stw_layer_unfused, stw_route,
+                                           fused_temporal_layer, spatial_stw_layer,
+                                           spatial_temporal_layer, stw_layer_unfused, stw_route,
                                            temporal_layer_unfused)
 from extdm_tpu_torch.ops.resize import interpolate_bilinear
 
@@ -69,14 +87,84 @@ class SinusoidalPosEmb(nn.Module):
 
 
 def conv_frames(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], dtype,
-                stride: int = 1, padding: int = 0, transpose: bool = False) -> torch.Tensor:
+                stride: int = 1, padding: int = 0, transpose: bool = False,
+                shard=None) -> torch.Tensor:
     """A (1, k, k) Conv3d (or ConvTranspose3d) applied frame by frame to
-    (B, T, H, W, C), computing in `dtype`."""
+    (B, T, H, W, C), computing in `dtype`. With `shard`, x is an H shard's
+    rows and so is the result (``_conv_rows``)."""
+    if shard is not None:
+        return _conv_rows(x, weight, bias, dtype, stride, padding, transpose, shard)
+    return _frames(x, weight, bias, dtype, stride, padding, transpose)
+
+
+def _frames(x, weight, bias, dtype, stride, padding, transpose):
     B, T, H, W, C = x.shape
     xf = x.to(dtype).reshape(B * T, H, W, C).permute(0, 3, 1, 2)
     op = F.conv_transpose2d if transpose else F.conv2d
     y = op(xf, weight.squeeze(2).to(dtype), cast(bias, dtype), stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1).reshape(B, T, *y.shape[2:], y.shape[1])
+
+
+def _conv_rows(x, weight, bias, dtype, stride, padding, transpose, shard):
+    """``conv_frames`` on an H shard's rows (HL of them): the rows its output
+    rows read, from the neighbours as zero-edge halos, then the conv with
+    no H padding. A conv with stride s reads rows [s i - p, s i - p + k) for
+    output row i: p rows above the shard and k - s - p below (HL a multiple
+    of s: the output's rows split over the shards). A transposed conv's
+    output rows [s HL m, s HL (m + 1)) read ceil((k - 1 - p) / s) input rows
+    on each side; its full output is cropped to them."""
+    k, HL = weight.shape[-1], x.shape[2]
+    x = x.to(dtype)
+    if transpose:
+        a = -(-(k - 1 - padding) // stride)
+        y = _frames(shard.halo(x, a, a, "zero"), weight, bias, dtype, stride, (0, padding), True)
+        crop = stride * a + padding
+        return y[:, :, crop:crop + stride * HL]
+    if HL % stride:
+        raise ValueError(f"a stride-{stride} conv's output rows do not split over the shards "
+                         f"of {HL} rows")
+    xh = shard.halo(x, padding, k - stride - padding, "zero")
+    return _frames(xh, weight, bias, dtype, stride, (0, padding), False)
+
+
+def _group_norm_rows(y: torch.Tensor, scale, bias, groups: int, eps: float,
+                     shard) -> torch.Tensor:
+    """``fused_resnet._group_norm`` on an H shard: float32 statistics over
+    (T, H, W, C/G) per sample, combined over the shards; returns float32."""
+    B, T, H, W, C = y.shape
+    g = y.float().reshape(B, T, H, W, groups, C // groups)
+    mean, m2, n = shard.moments(g, (1, 2, 3, 5))
+    g = (g - mean) * torch.rsqrt(m2 / n + eps)
+    return g.reshape(y.shape) * scale.float() + bias.float()
+
+
+def resnet_block_sharded(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, b2, g2s, g2b,
+                         wres=None, bres=None, *, shard, groups=8, eps=1e-5):
+    """``resnet_block_plain`` on an H shard's rows: each 3x3 conv reads one
+    zero-edge halo row of each neighbour, each GroupNorm combines its
+    statistics over the shards; FiLM, SiLU and the residual act on each
+    pixel. Convs in x.dtype, statistics in float32, as the plain block. It
+    is the counterpart of JAX's spatial sampler's XLA blocks, which GSPMD
+    partitions: kernel 3 does not run here."""
+    dtype = x.dtype
+    h = _group_norm_rows(conv_frames(x, w1, b1, dtype, padding=1, shard=shard), g1s, g1b,
+                         groups, eps, shard)
+    if film is not None:
+        scale, shift = film.float().chunk(2, dim=-1)
+        h = h * (scale[:, None, None, None] + 1.0) + shift[:, None, None, None]
+    h = F.silu(h).to(dtype)
+    h2 = F.silu(_group_norm_rows(conv_frames(h, w2, b2, dtype, padding=1, shard=shard), g2s,
+                                 g2b, groups, eps, shard)).to(dtype)
+    res = x
+    if wres is not None:
+        res = x @ wres.to(dtype).flatten(1).t() + bres.to(dtype)
+    return (h2 + res).to(dtype)
+
+
+def _call(module: nn.Module, x: torch.Tensor, shard) -> torch.Tensor:
+    """A level's optional module (an adaptor or a resample; nn.Identity
+    where the level has none) on x."""
+    return x if isinstance(module, nn.Identity) else module(x, shard=shard)
 
 
 class Block3d(nn.Module):
@@ -103,18 +191,19 @@ class ResnetBlock3d(nn.Module):
         self.block2 = Block3d(dim_out, dim_out, groups)
         self.res_conv = nn.Conv3d(dim, dim_out, 1) if dim != dim_out else None
 
-    def forward(self, x, time_emb=None):
+    def forward(self, x, time_emb=None, shard=None):
         film = None
         dt = self.compute_dtype
         if self.mlp is not None and time_emb is not None:
             lin = self.mlp[1]
             film = F.linear(self.mlp[0](time_emb.to(dt)), lin.weight.to(dt), lin.bias.to(dt))
         b1, b2, rc = self.block1, self.block2, self.res_conv
-        return fused_resnet_block(
-            x.to(dt), b1.proj.weight, b1.proj.bias, b1.norm.weight, b1.norm.bias, film,
-            b2.proj.weight, b2.proj.bias, b2.norm.weight, b2.norm.bias,
-            rc.weight if rc is not None else None, rc.bias if rc is not None else None,
-            groups=self.groups)
+        args = (x.to(dt), b1.proj.weight, b1.proj.bias, b1.norm.weight, b1.norm.bias, film,
+                b2.proj.weight, b2.proj.bias, b2.norm.weight, b2.norm.bias,
+                rc.weight if rc is not None else None, rc.bias if rc is not None else None)
+        if shard is not None:
+            return resnet_block_sharded(*args, shard=shard, groups=self.groups)
+        return fused_resnet_block(*args, groups=self.groups)
 
 
 class Downsample(nn.Conv3d):
@@ -124,8 +213,9 @@ class Downsample(nn.Conv3d):
         super().__init__(dim, dim, (1, 4, 4), (1, 2, 2), (0, 1, 1))
         self.compute_dtype = dtype or torch.float32
 
-    def forward(self, x):
-        return conv_frames(x, self.weight, self.bias, self.compute_dtype, stride=2, padding=1)
+    def forward(self, x, shard=None):
+        return conv_frames(x, self.weight, self.bias, self.compute_dtype, stride=2, padding=1,
+                           shard=shard)
 
 
 class Upsample(nn.ConvTranspose3d):
@@ -135,9 +225,9 @@ class Upsample(nn.ConvTranspose3d):
         super().__init__(dim, dim, (1, 4, 4), (1, 2, 2), (0, 1, 1))
         self.compute_dtype = dtype or torch.float32
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
         return conv_frames(x, self.weight, self.bias, self.compute_dtype, stride=2, padding=1,
-                           transpose=True)
+                           transpose=True, shard=shard)
 
 
 class STWAttentionLayer(nn.Module):
@@ -160,14 +250,20 @@ class PreNormSTW(nn.Module):
         self.heads, self.dim_head, self.window_major = heads, dim_head, window_major
         self.fn = PreNorm(dim, STWAttentionLayer(dim, window_size, heads, dim_head))
 
-    def forward(self, x):
-        window, shift = get_window_size(x.shape[1:4], self.window_size, self.shift_size)
+    def forward(self, x, shard=None):
+        T, H, W = x.shape[1:4]
+        if shard is not None:  # the window and shift of the global shape
+            H *= shard.model
+        window, shift = get_window_size((T, H, W), self.window_size, self.shift_size)
         attn = self.fn.fn.attn
         N = window[0] * window[1] * window[2]
         args = (x, self.fn.norm.gamma.reshape(-1), attn.qkv.weight, attn.proj.weight,
                 attn.proj.bias, attn.bias_hnn(N))
         kw = dict(window=window, shift=shift, heads=self.heads, dim_head=self.dim_head)
         route = stw_route(x.shape[-1], N, self.dim_head, x.dtype, heads=self.heads)
+        if shard is not None:
+            return spatial_stw_layer(*args, shard=shard, window_major=self.window_major,
+                                     route=route, **kw)
         if route == "unfused":
             return stw_layer_unfused(*args, **kw)
         return fused_stw_layer(*args, window_major=self.window_major, **kw)
@@ -191,7 +287,7 @@ class PreNormTemporalAttn(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.fn = PreNorm(dim, _Rearranged(TemporalAttentionLayer(dim, heads, dim_head)))
 
-    def forward(self, x, pos_bias=None):
+    def forward(self, x, pos_bias=None, shard=None):
         T = x.shape[1]
         layer = self.fn.fn.fn
         if pos_bias is None:
@@ -201,10 +297,13 @@ class PreNormTemporalAttn(nn.Module):
         else:
             bias = pos_bias
         route = stw_route(x.shape[-1], T, self.dim_head, x.dtype, heads=self.heads, temporal=True)
+        args = (x, self.fn.norm.gamma.reshape(-1), layer.norm.weight, layer.norm.bias,
+                layer.attn.to_qkv.weight, layer.attn.to_out.weight, bias)
+        kw = dict(heads=self.heads, dim_head=self.dim_head)
+        if shard is not None:
+            return spatial_temporal_layer(*args, route=route, **kw)
         layer_fn = temporal_layer_unfused if route == "unfused" else fused_temporal_layer
-        return layer_fn(x, self.fn.norm.gamma.reshape(-1), layer.norm.weight, layer.norm.bias,
-                        layer.attn.to_qkv.weight, layer.attn.to_out.weight, bias,
-                        heads=self.heads, dim_head=self.dim_head)
+        return layer_fn(*args, **kw)
 
 
 class Unet3D(nn.Module):
@@ -303,6 +402,20 @@ class Unet3D(nn.Module):
             ResnetBlock3d(init_dim * 2, dim, None, resnet_groups, dt),
             PointwiseConv3d(dim, out_conf_dim, dtype=dt))
 
+    def _global_h(self, HL: int, shard) -> int:
+        """The global latent H of a shard's HL rows; every level's H must
+        split over the model ranks."""
+        H = HL * shard.model
+        if self.traj:
+            raise NotImplementedError("the trajwarp conditioning on an H shard is ROADMAP §1, "
+                                      "trajwarp under --mesh_model: its warp attends over every "
+                                      "cond token")
+        deepest = shard.model * 2 ** (len(self.downs) - 1)
+        if H % deepest:
+            raise ValueError(f"latent H = {H} does not split over {shard.model} model ranks at "
+                             f"every one of the {len(self.downs)} levels")
+        return H
+
     def _pos_bias(self, T: int, H: int, W: int) -> torch.Tensor:
         if self.path != 1:
             return self.time_rel_pos_bias(T)
@@ -319,10 +432,10 @@ class Unet3D(nn.Module):
         return (self.alpha[:, None, None, None] * tb.expand(full)
                 + self.beta[:, None, None, None] * (hb.expand(full) + wb.expand(full)))
 
-    def _adapt(self, adaptor: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    def _adapt(self, adaptor: nn.Module, x: torch.Tensor, shard=None) -> torch.Tensor:
         if self.remat and isinstance(adaptor, MotionAdaptor) and torch.is_grad_enabled():
-            return checkpoint(adaptor, x, use_reentrant=False)
-        return adaptor(x)
+            return checkpoint(adaptor, x, shard, use_reentrant=False)
+        return _call(adaptor, x, shard)
 
     def cond_stream(self, cond_fea: torch.Tensor, H: int, W: int,
                     pos_bias: torch.Tensor) -> torch.Tensor:
@@ -336,14 +449,16 @@ class Unet3D(nn.Module):
                            padding=self.init_pad)
 
     def forward(self, x, time, cond_frames, cond_fea=None, cond_cache=None,
-                cond_only: bool = False, cond=None, null_cond_mask=None):
+                cond_only: bool = False, cond=None, null_cond_mask=None, shard=None):
         """x (B, tp, h, w, C) noisy latents, cond_frames (B, tc, h, w, C),
         cond_fea (B, tc+tp, hf, wf, cond_feature_dim) -> (B, tp, h, w, 3) float32.
         cond_only returns the conditioning term to pass back as cond_cache
         (the adaptor family only: the trajwarp conditioning depends on x).
         With ``cond_dim``: cond (B, cond_dim) is the condition embedding
         (None: the null embedding), null_cond_mask (B,) bool replaces a
-        sample's condition with the null embedding."""
+        sample's condition with the null embedding. With `shard` (a
+        ``parallel.SpatialMesh``), x, cond_frames, a given cond_cache and the
+        result hold the shard's rows of h; cond_fea is whole."""
         tc, tp = cond_frames.shape[1], x.shape[1]
         if (tc, tp) != (self.cond_num, self.pred_num):
             raise ValueError(f"frames (cond, pred) = {(tc, tp)}, the UNet was built for "
@@ -351,6 +466,8 @@ class Unet3D(nn.Module):
         dtype = self.compute_dtype
         x = torch.cat([cond_frames, x], dim=1).to(dtype)
         B, T, H, W, _ = x.shape
+        if shard is not None:
+            H = self._global_h(H, shard)
         pos_bias = self._pos_bias(T, H, W)
 
         w0, b0 = self.init_conv.weight, self.init_conv.bias
@@ -364,16 +481,19 @@ class Unet3D(nn.Module):
             x = torch.cat([x, f.reshape(B, T, H, W, -1)], dim=-1)
             x = conv_frames(x, w0, b0, dtype, padding=self.init_pad)
         elif self.use_ref_features:
-            if cond_cache is None:
+            if cond_cache is None:  # on the global H, once a sampler call: cut to the shard
                 cond_cache = self.cond_stream(cond_fea, H, W, pos_bias)
+                if shard is not None:
+                    cond_cache = shard.slice_h(cond_cache)
             if cond_only:
                 return cond_cache
-            x = conv_frames(x, w0[:, :self.channels], b0, dtype, padding=self.init_pad) + cond_cache
+            x = conv_frames(x, w0[:, :self.channels], b0, dtype, padding=self.init_pad,
+                            shard=shard) + cond_cache
         else:
-            x = conv_frames(x, w0, b0, dtype, padding=self.init_pad)
+            x = conv_frames(x, w0, b0, dtype, padding=self.init_pad, shard=shard)
 
         r = x
-        x = self.init_temporal_attn(x, pos_bias)
+        x = self.init_temporal_attn(x, pos_bias, shard)
 
         tm = self.time_mlp
         t_emb = F.linear(tm[0](time), tm[1].weight.float(), tm[1].bias.float())
@@ -386,24 +506,25 @@ class Unet3D(nn.Module):
                 cond = torch.where(null_cond_mask.to(t_emb.device)[:, None], null, cond)
             t_emb = torch.cat([t_emb, cond], dim=-1)
 
-        hs = []
+        hs, sh = [], shard
         for res1, stw1, res2, stw2, adaptor, tattn, down in self.downs:
-            x = res2(res1(x, t_emb), t_emb)
-            x = self._adapt(adaptor, stw2(stw1(x)))
-            x = tattn(x, pos_bias)
+            x = res2(res1(x, t_emb, sh), t_emb, sh)
+            x = self._adapt(adaptor, stw2(stw1(x, sh), sh), sh)
+            x = tattn(x, pos_bias, sh)
             hs.append(x)
-            x = down(x)
-        x = self.mid_block1(x, t_emb)
-        x = self._adapt(self.mid_adaptor, self.mid_attn2(self.mid_attn1(x)))
-        x = self.mid_block2(x, t_emb)
+            x = _call(down, x, sh)
+        x = self.mid_block1(x, t_emb, sh)
+        x = self._adapt(self.mid_adaptor, self.mid_attn2(self.mid_attn1(x, sh), sh), sh)
+        x = self.mid_block2(x, t_emb, sh)
         for res1, stw1, res2, stw2, adaptor, tattn, up in self.ups:
             x = torch.cat([x, hs.pop()], dim=-1)
-            x = res2(res1(x, t_emb), t_emb)
-            x = self._adapt(adaptor, stw2(stw1(x)))
-            x = tattn(x, pos_bias)
-            x = up(x)
+            x = res2(res1(x, t_emb, sh), t_emb, sh)
+            x = self._adapt(adaptor, stw2(stw1(x, sh), sh), sh)
+            x = tattn(x, pos_bias, sh)
+            x = _call(up, x, sh)
         x = torch.cat([x, r], dim=-1)
-        out = torch.cat([self.final_conv(x), self.occlusion_map(x)], dim=-1)
+        out = torch.cat([proj(block(x, shard=sh)) for block, proj in (self.final_conv,
+                                                                       self.occlusion_map)], dim=-1)
         if self.use_final_activation:
             out = torch.tanh(out)
         return out[:, tc:].float()

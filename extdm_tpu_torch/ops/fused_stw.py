@@ -66,6 +66,15 @@ Each wrapper runs its kernel for CUDA tensors and its plain version
 CPU tensors, and counts launches in ``<wrapper>.launches``. Weights are in
 torch Linear layout (out, in).
 
+On an H shard (the spatial sampler, inference): ``spatial_stw_layer`` is
+``pallas_stw._spatial_stw_layer`` (a cyclic halo in place of the global H
+roll, the global shift masks by the ids of the shard's windows, a gather
+where the windows cross the shards) and ``spatial_temporal_layer`` its
+temporal counterpart (local). Kernels 1 and 9 mask a window by its id, not
+by the shift, so ``fused_stw_layer(mask=(masks, ids))`` takes the tables a
+shard needs whatever its local shift: an H-only shift runs locally
+unshifted with the wrap masks of the global volume.
+
 Training: when an operand needs a gradient, the CUDA path runs as a
 ``torch.autograd.Function`` that saves the layer's inputs only (as the JAX
 ``custom_vjp`` does) and whose backward launches ``stw_layer_bwd`` (kernel 5,
@@ -81,7 +90,7 @@ return one gradient per tensor argument, each in that argument's dtype.
 from __future__ import annotations
 
 import math
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -109,7 +118,8 @@ __all__ = ["stw_route", "stw_plan", "StwPlan", "stw_bwd_plan", "StwBwdPlan", "te
            "stw_layer_plain_vjp",
            "WINDOW_MAJOR_MODES", "window_major_gate", "fused_stw_layer_wm", "stw_layer_wm_plain",
            "fused_temporal_layer", "temporal_layer_plain", "temporal_layer_bwd",
-           "temporal_layer_plain_vjp"]
+           "temporal_layer_plain_vjp", "shard_mask_tables", "spatial_stw_layer",
+           "spatial_temporal_layer"]
 
 
 MAX_TOKENS, MAX_DIM_HEAD, MAX_CHANNELS = 64, 32, 256  # kernel 9; 1, 2, 5 and 6 in float32
@@ -301,12 +311,14 @@ def _pads(T: int, H: int, W: int, window) -> Tuple[int, int, int]:
 
 # ------------------------------------------------------------------------ STW
 def stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
-                    dim_head, eps=1e-5, attend=None):
+                    dim_head, eps=1e-5, attend=None, mask=None):
     """x + window attention of ChanLN(x): the semantics of
     ``pallas_stw.stw_layer_reference``. x: (B, T, H, W, C); bias_hnn
     (heads, N, N) for the call window; matmuls in x.dtype, softmax in float32.
     `attend`: the attention core of ``window_attention``, given the shift
-    masks as ``window_attn.mask_tables``."""
+    masks as ``window_attn.mask_tables``. `mask`: the (masks, ids) tables to
+    apply in place of the shift's own, whatever the shift (an H shard's
+    windows of a global volume, ``spatial_stw_layer``)."""
     B, T, H, W, C = x.shape
     dtype = x.dtype
     h = chan_layer_norm(x, gamma, eps)
@@ -316,10 +328,12 @@ def stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
     if shifted:
         h = torch.roll(h, shifts=(-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
     _, Tp, Hp, Wp, _ = h.shape
-    mask = None
-    if shifted and attend is None:
+    if mask is not None and attend is None:
+        mask = _expand_masks(*mask, Tp // window[0], Hp // window[1], Wp // window[2],
+                             math.prod(window)).reshape(-1, *mask[0].shape[1:])
+    elif shifted and attend is None:
         mask = shifted_window_mask(Tp, Hp, Wp, tuple(window), tuple(shift))
-    elif shifted:  # an attention core takes the deduplicated tables, made once per volume
+    elif shifted and mask is None:  # an attention core takes the deduplicated tables
         mask = mask_tables(Tp, Hp, Wp, tuple(window), tuple(shift), x.device)
     o = window_attention(window_partition(h, window), w_qkv.to(dtype), w_proj.to(dtype),
                          b_proj.to(dtype), bias_hnn, mask, heads, dim_head, attend)
@@ -417,9 +431,10 @@ def _splits(rows: int, m: int, k: int, device) -> int:
     return max(1, min(-(-rows // 256), -(-4 * _sm_count(device) // tiles)))
 
 
-def _pad_roll(x, window, shift):
+def _pad_roll(x, window, shift, mask=None):
     """Pad and roll x as the kernels take it, with the deduplicated shift
-    masks and each window's id (None, None when unshifted)."""
+    masks and each window's id (None, None when unshifted; `mask` where
+    given)."""
     B, T, H, W, C = x.shape
     pd, ph, pw = _pads(T, H, W, window)
     xp = F.pad(x, (0, 0, 0, pw, 0, ph, 0, pd))
@@ -427,15 +442,15 @@ def _pad_roll(x, window, shift):
     if shifted:
         xp = torch.roll(xp, shifts=(-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
     xp = xp.contiguous()
-    masks = ids = None
-    if shifted:
+    masks, ids = mask if mask is not None else (None, None)
+    if shifted and mask is None:
         masks, ids = mask_tables(*xp.shape[1:4], tuple(window), tuple(shift), x.device)
     return xp, masks, ids
 
 
-def _stw_prepare(x, window, shift, heads, dim_head):
+def _stw_prepare(x, window, shift, heads, dim_head, mask=None):
     """``_pad_roll`` and the rope tables."""
-    xp, masks, ids = _pad_roll(x, window, shift)
+    xp, masks, ids = _pad_roll(x, window, shift, mask)
     rot = min(32, dim_head)
     cos, sin = _rope_tables(window[0] * window[1] * window[2], rot, x.device)
     return xp, masks, ids, rot, cos, sin
@@ -460,10 +475,10 @@ def _stw_checked(what, x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
 
 
 def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head,
-                 eps, wm=False):
+                 eps, wm=False, mask=None):
     if wm:
         return _stw_wm(x.detach(), gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window,
-                       shift=shift, heads=heads, dim_head=dim_head, eps=eps)
+                       shift=shift, heads=heads, dim_head=dim_head, eps=eps, mask=mask)
     _stw_checked("fused_stw_layer", x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window, heads,
                  dim_head, wide="window")
     B, T, H, W, C = x.shape
@@ -475,8 +490,9 @@ def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, he
     if _wide(C, N, heads, dim_head, x.dtype):  # pad and roll read in place by the kernel
         x = x.detach().contiguous()
         pd, ph, pw = _pads(T, H, W, window)
-        masks = ids = None
-        if any(sh > 0 for sh in shift):
+        # the body masks a window by its id, whatever the shift
+        masks, ids = mask if mask is not None else (None, None)
+        if any(sh > 0 for sh in shift) and mask is None:
             masks, ids = mask_tables(T + pd, H + ph, W + pw, tuple(window), tuple(shift),
                                      x.device)
         plan = stw_plan(C, N, heads, dim_head, _sm_count(x.device))
@@ -490,7 +506,8 @@ def _stw_forward(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, he
                       _build.stream(x))
         fused_stw_layer.launches += 1
         return out
-    xp, masks, ids, rot, cos, sin = _stw_prepare(x.detach(), window, shift, heads, dim_head)
+    xp, masks, ids, rot, cos, sin = _stw_prepare(x.detach(), window, shift, heads, dim_head,
+                                                 mask)
     _, Tp, Hp, Wp, _ = xp.shape
     out = torch.empty_like(xp)
     bias = _f32(bias_hnn)
@@ -515,21 +532,29 @@ class _STWLayer(torch.autograd.Function):
 
 
 def fused_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
-                    dim_head, eps=1e-5, window_major="0"):
+                    dim_head, eps=1e-5, window_major="0", mask=None):
     """Whole PreNormSTW layer; same arguments and result as ``stw_layer_plain``.
     ``window_major`` ("0", "1" or "auto") picks the layout, see
-    ``window_major_gate``."""
+    ``window_major_gate``; a layer with `mask` tables counts as shifted
+    there. `mask` (inference only): the (masks, ids) tables to apply in
+    place of the shift's own, as ``stw_layer_plain`` takes them."""
     kw = dict(window=tuple(window), shift=tuple(shift), heads=heads, dim_head=dim_head, eps=eps)
     operands = (x, gamma, w_qkv, w_proj, b_proj, bias_hnn)
     _, T, H, W, C = x.shape
     _, ph, pw = _pads(T, H, W, window)
-    wm = (window_major_gate(window_major, any(s > 0 for s in shift), min(H + ph, W + pw))
+    shifted = any(s > 0 for s in shift) or mask is not None
+    wm = (window_major_gate(window_major, shifted, min(H + ph, W + pw))
           and _wm_takes(C, math.prod(window), heads, dim_head, x.dtype))
     if x.device.type == "cpu":
-        return _stw_wm(*operands, **kw) if wm else stw_layer_plain(*operands, **kw)
+        if wm:
+            return _stw_wm(*operands, mask=mask, **kw)
+        return stw_layer_plain(*operands, mask=mask, **kw)
     if _needs_grad(*operands):
+        if mask is not None:
+            raise ValueError("fused_stw_layer: explicit mask tables are for inference; the "
+                             "backward takes the shift's own")
         return _STWLayer.apply(kw, wm, *operands)
-    return _stw_forward(*operands, wm=wm, **kw)
+    return _stw_forward(*operands, wm=wm, mask=mask, **kw)
 
 
 fused_stw_layer.launches = 0
@@ -581,11 +606,12 @@ def _expand_masks(masks, mask_ids, n_tw, n_hw, n_ww, N):
     return masks.float()[mask_ids.long()].reshape(n_tw, n_hw, n_ww, N, N)
 
 
-def wm_operands(x, window, shift):
+def wm_operands(x, window, shift, mask=None):
     """Kernel 9's token operands for a layer input x (B, T, H, W, C): x
     padded and rolled as for kernel 1, partitioned into windows (B, nW, N,
-    C), the expanded shift masks (nW, N, N) or None, and the padded shape."""
-    xp, masks, ids = _pad_roll(x, window, shift)
+    C), the expanded shift masks (nW, N, N) or None (`mask`'s tables where
+    given), and the padded shape."""
+    xp, masks, ids = _pad_roll(x, window, shift, mask)
     masks_exp = None
     if masks is not None:
         _, Tp, Hp, Wp, _ = xp.shape
@@ -595,11 +621,12 @@ def wm_operands(x, window, shift):
     return _wm_partition(xp, window), masks_exp, xp.shape
 
 
-def _stw_wm(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head, eps):
+def _stw_wm(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads, dim_head, eps,
+            mask=None):
     """The layer through kernel 9 (``pallas_stw._layer_impl``'s window-major
     branch): pad, roll and partition into windows, run the windows, reverse
     the partition, roll back and crop."""
-    xw, masks_exp, padded_shape = wm_operands(x, window, shift)
+    xw, masks_exp, padded_shape = wm_operands(x, window, shift, mask)
     ow = fused_stw_layer_wm(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp, heads=heads,
                             dim_head=dim_head, eps=eps)
     return _stw_unroll(_wm_reverse(ow, window, padded_shape), x.shape, shift)
@@ -1081,14 +1108,15 @@ def temporal_layer_plain_vjp(g, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, b
 
 # ------------------------------------------------------------------ unfused
 def stw_layer_unfused(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
-                      dim_head, eps=1e-5):
+                      dim_head, eps=1e-5, mask=None):
     """The PreNormSTW layer for the layers ``stw_route`` sends "unfused"
     (JAX's ``PreNormSTW`` with the fused layer off, ``WindowAttention3D``):
     ChanLN, pad and roll, window partition, the projections and rotary in
     torch, kernel 12 for the attention, the output projection, reverse and
     residual. Same arguments and result as ``stw_layer_plain``."""
     return stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, window=window, shift=shift,
-                           heads=heads, dim_head=dim_head, eps=eps, attend=fused_window_attention)
+                           heads=heads, dim_head=dim_head, eps=eps, attend=fused_window_attention,
+                           mask=mask)
 
 
 def temporal_layer_unfused(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
@@ -1099,3 +1127,68 @@ def temporal_layer_unfused(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_h
     return temporal_layer_plain(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn,
                                 heads=heads, dim_head=dim_head, eps=eps,
                                 attend=fused_window_attention)
+
+
+# ------------------------------------------------------- H-sharded layers
+@lru_cache(maxsize=None)
+def shard_mask_tables(Tp: int, H: int, Wp: int, window: Tuple[int, int, int],
+                      shift: Tuple[int, int, int], m: int, M: int, device):
+    """The shift masks of the global padded (Tp, H, Wp) volume for H shard m
+    of M: the deduplicated tables of the whole volume and the ids of the
+    shard's windows, H windows [m n_hw / M, (m + 1) n_hw / M) of every
+    (t, w) window row (the windows of ``window_partition`` over the shard's
+    rows, in its order). Kernel 1 masks a window by its id, so a shard's
+    kernel applies the global wrap masks whatever its local shift."""
+    masks, ids = mask_tables(Tp, H, Wp, window, shift, device)
+    n_hw = H // window[1]
+    per = n_hw // M
+    ids = ids.reshape(Tp // window[0], n_hw, Wp // window[2])[:, m * per:(m + 1) * per]
+    return masks, ids.reshape(-1).contiguous()
+
+
+def spatial_stw_layer(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift, heads,
+                      dim_head, shard, eps=1e-5, window_major="0", route="fused"):
+    """The PreNormSTW layer on an H shard (``pallas_stw._spatial_stw_layer``):
+    x (B, T, HL, W, C) is shard ``shard.m``'s rows of a global H = HL x
+    ``shard.model``; `window` and `shift` are the layer's on the global
+    shape. `route` is ``stw_route``'s: "fused" runs ``fused_stw_layer``
+    (kernel 1, or kernel 9 where the window-major gate takes the local
+    shape), "unfused" ``stw_layer_unfused`` (kernel 12). Three cases:
+
+    - windows not within the shards (``shard.aligned``): gather the global
+      H, run the whole layer, keep the shard's rows;
+    - unshifted: the shard's windows are its own, the layer runs locally;
+    - shifted: the global roll by -shift_h along H is the shard's rows
+      after its first shift_h with the next shard's first shift_h below
+      (a cyclic halo); the layer runs with shift (s_t, 0, s_w) and the
+      global masks, the ids cut to the shard's windows
+      (``shard_mask_tables``; an H-only shift keeps its wrap masks); a
+      cyclic halo the other way rolls the output back."""
+    layer = (stw_layer_unfused if route == "unfused"
+             else partial(fused_stw_layer, window_major=window_major))
+    params = (gamma, w_qkv, w_proj, b_proj, bias_hnn)
+    kw = dict(window=tuple(window), heads=heads, dim_head=dim_head, eps=eps)
+    B, T, HL, W, C = x.shape
+    H = HL * shard.model
+    if not shard.aligned(H, window[1]):
+        return shard.slice_h(layer(shard.gather_h(x), *params, shift=tuple(shift), **kw))
+    if not any(s > 0 for s in shift):
+        return layer(x, *params, shift=tuple(shift), **kw)
+    pd, _, pw = _pads(T, H, W, window)
+    mask = shard_mask_tables(T + pd, H, W + pw, tuple(window), tuple(shift), shard.m,
+                             shard.model, x.device)
+    sh = shift[1]
+    xr = shard.halo(x, 0, sh, "cyclic")[:, :, sh:] if sh else x
+    out = layer(xr, *params, shift=(shift[0], 0, shift[2]), mask=mask, **kw)
+    return shard.halo(out, sh, 0, "cyclic")[:, :, :HL] if sh else out
+
+
+def spatial_temporal_layer(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *, heads,
+                           dim_head, eps=1e-5, route="fused"):
+    """The PreNormTemporalAttn layer on an H shard
+    (``pallas_stw._spatial_temporal_layer``): attention runs along T at
+    each pixel, so a shard's rows need nothing of the others and kernel 2
+    (or, on the "unfused" route, kernel 12) runs on them unchanged."""
+    layer = temporal_layer_unfused if route == "unfused" else fused_temporal_layer
+    return layer(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, heads=heads,
+                 dim_head=dim_head, eps=eps)

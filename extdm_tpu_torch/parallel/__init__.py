@@ -1,4 +1,4 @@
-"""Data parallelism across processes (port of extdm_tpu/parallel)."""
+"""Data and spatial parallelism across processes (port of extdm_tpu/parallel)."""
 from extdm_tpu_torch.parallel.mesh import (  # noqa: F401
     DataGroup,
     World,
@@ -13,3 +13,4 @@ from extdm_tpu_torch.parallel.mesh import (  # noqa: F401
     rank_generator,
     shard_batch,
 )
+from extdm_tpu_torch.parallel.spatial import SpatialMesh, make_spatial_mesh  # noqa: F401

@@ -45,7 +45,8 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                         "more than one rank takes it without the flag too, as the JAX CLIs' "
                         "default GSPMD path does")
     p.add_argument("--loader", default="thread", choices=["thread", "process"],
-                   help="loader workers; 'process' is not ported (ROADMAP §1 item 5)")
+                   help="loader workers; 'process' is not ported (ROADMAP §1, the rest of the "
+                        "data feed)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--init_method", default="env://",
                    help="torch.distributed init method (default: torchrun's environment)")
@@ -57,8 +58,8 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
 def refuse_unported(args) -> None:
     """A flag whose path is not ported raises, naming its ROADMAP item."""
     if args.loader == "process":
-        raise NotImplementedError("--loader process: process workers are ROADMAP §1 item 5, "
-                                  "not ported yet; use --loader thread")
+        raise NotImplementedError("--loader process: process workers are in ROADMAP §1, the "
+                                  "rest of the data feed, not ported yet; use --loader thread")
 
 
 def default_backend(device) -> str:

@@ -28,7 +28,7 @@ each rank loads its rows of every global batch of ``--batch_size``, the
 step runs under SyncBN and averages losses and gradients over the ranks
 (``AETrainer(group=...)``); rank 0 logs, checkpoints, shoots and
 validates. A world of one runs as a single process does. Not ported:
-``--loader process`` (ROADMAP §1 item 5), which raises.
+``--loader process`` (ROADMAP §1, the rest of the data feed), which raises.
 """
 from __future__ import annotations
 

@@ -26,8 +26,8 @@ Launched on N ranks (torchrun), the job is data parallel (``train/job.py``):
 each rank loads its rows of every global batch of ``--batch_size`` and the
 step averages the gradients over the ranks (``DMTrainer(group=...)``);
 rank 0 logs, checkpoints, shoots and validates. A world of one runs as a
-single process does. Not ported: ``--loader process`` (ROADMAP §1 item 5),
-which raises.
+single process does. Not ported: ``--loader process`` (ROADMAP §1, the
+rest of the data feed), which raises.
 """
 from __future__ import annotations
 

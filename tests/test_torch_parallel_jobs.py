@@ -1,7 +1,7 @@
 """The port's jobs at world 2 and across world sizes, and the build lock,
 on the CPU: ``train_dm --shard_map`` and ``train_ae --shard_map`` at world
 2 (rank 0 alone logs and checkpoints; both ranks end with the same state),
-``valid_dm --mesh_data 2`` (and ``--mesh_model 2`` refused), a checkpoint
+``valid_dm --mesh_data 2`` (and ``--mesh_model 2`` refused in a world of 1), a checkpoint
 written at world 2 resumed at world 1 and the reverse, ``train_dm`` at
 world 1 bit for bit the same with and without ``--shard_map``; and
 ``_build.build_all`` called by 2 ranks at once compiling each source once.
@@ -116,7 +116,9 @@ def test_valid_dm_mesh_data_2_runs_and_mesh_model_raises(job_runs):
         "psnr2 (best-of-2)", "ssim2 (best-of-2)", "sampling_frames_per_sec"]
     from extdm_tpu_torch.eval import valid_dm
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 4\(b\)"):
+    # --mesh_model runs since the spatial sampler (test_torch_spatial_sampler.py);
+    # a process alone is no (1 x 2) mesh
+    with pytest.raises(ValueError, match=r"--mesh_data 1 x --mesh_model 2 in a launch of 1"):
         valid_dm.main(["--config", "unused.yaml", "--device", "cpu", "--mesh_model", "2"])
 
 
