@@ -80,6 +80,16 @@
    as above, then two steps with the host augmentation (numpy, no cv2),
    then eval/valid_ae on the checkpoint. Checks 6 / 5 grid-sample launches
    a step and the rest as for the DM job; prints the same timing lines.
+   Then the data feed: the AE job with host augmentation, 2 steps on
+   --loader process and 2 on --loader thread (launches a step equal, each
+   run's data wait, ms per step, the bare step's and the host's cores),
+   and 30 steps each at 64 repeats, 8 batches an epoch;
+   the first two batches a process loader ships to the card against a
+   process loader with device=None on the same seed, bitwise; the DM job 2
+   steps on --loader process. Without h5py (the card's machine),
+   HDF5VideoStore and HDF5VideoWriter must raise an ImportError naming it;
+   with h5py the DM job also runs on shards from write_video_hdf5 with
+   --clip_cache_mb, printing the prefill seconds. A line says which ran.
 10. Evaluation: the KTH sampling configuration in bf16 with the STW layout
    in "auto" (window-major on the two unshifted 32x32 layers: kernel 9);
    4 in-memory 64 px gray moving-shapes videos of 50 frames through the
@@ -2027,6 +2037,18 @@ def dm_job_phase(counters, card, bare_step_ms):
     log({"phase": "DM job phase", "seconds": time.perf_counter() - t_phase})
 
 
+def ae_job_yaml(tmp):
+    """The AE jobs' copy of configs/AE/kth.yaml: every cadence at 1 or 2,
+    num_repeats 8 (an epoch of 8 videos is one batch of 64), 8 workers."""
+    return job_yaml("configs/AE/kth.yaml", tmp, "flow_params", print_freq=1, update_ckpt_freq=2,
+                    save_img_freq=2, num_repeats=8, dataloader_workers=8)
+
+
+def ae_job_args(cfg_path):
+    return ["--config", cfg_path, "--batch_size", "64", "--synthetic_videos", "8", "--device",
+            "cuda"]
+
+
 def ae_job_phase(counters, card, bare_step_ms):
     """The AE training job (train/train_ae.py main) in-process on the card:
     configs/AE/kth.yaml at full width (float32), batch 64 of raw uint8 pairs
@@ -2047,12 +2069,9 @@ def ae_job_phase(counters, card, bare_step_ms):
     want_step = {n: {"grid_sample": 6, "grid_sample_bwd": 5}.get(n, 0) for n in counters}
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
-        cfg_path = job_yaml("configs/AE/kth.yaml", tmp, "flow_params", print_freq=1,
-                            update_ckpt_freq=2, save_img_freq=2, num_repeats=8,
-                            dataloader_workers=8)
-        common = ["--config", cfg_path, "--batch_size", "64", "--synthetic_videos", "8",
-                  "--valid_every", "2", "--valid_videos", "4", "--valid_batch_size", "4",
-                  "--device", "cuda"]
+        cfg_path = ae_job_yaml(tmp)
+        common = ae_job_args(cfg_path) + ["--valid_every", "2", "--valid_videos", "4",
+                                          "--valid_batch_size", "4"]
         ckpt0 = str(Path(tmp) / "run0" / train_ae.CKPT)
         plan = ((["--device_augment", "--max_steps", "4"], range(0, 4), True),
                 (["--device_augment", "--max_steps", "6", "--set_start", "--checkpoint", ckpt0],
@@ -2104,6 +2123,178 @@ def ae_job_phase(counters, card, bare_step_ms):
              "videos x 8 repeats", "launches_per_step": want_step, **r, "card": card})
     log({"phase": "valid_ae", "seconds": valid_seconds, **res, "card": card})
     log({"phase": "AE job phase", "seconds": time.perf_counter() - t_phase})
+
+
+def first_batches(loader, n):
+    """The first n batches of a loader, over as many epochs as that takes."""
+    out = []
+    while len(out) < n:
+        for batch in loader:
+            out.append(batch)
+            if len(out) == n:
+                break
+    return out
+
+
+def data_feed_phase(counters, card, dm_bare_ms, ae_bare_ms):
+    """The rest of the data feed on the card: the AE job with host
+    augmentation on ae_job_yaml's copy, 2 steps with --loader process and 2
+    with --loader thread (the steps' launches equal, each run's data wait and
+    ms per step beside the bare step's and the host's cores), then 30 steps
+    each at 64 repeats (8 batches an epoch); the first two
+    batches the process loader ships to the card against a process loader
+    with device=None on the same seed, bitwise; the DM job 2 steps with
+    --loader process. Without h5py (the card's machine) HDF5VideoStore and
+    HDF5VideoWriter must raise an ImportError naming it; with h5py the DM job
+    also runs on a store written by write_video_hdf5 with --clip_cache_mb and
+    its prefill seconds are printed."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from extdm_tpu_torch import data
+    from extdm_tpu_torch.config import dm_config_from_yaml, load_config
+    from extdm_tpu_torch.train import train_ae, train_dm
+    from extdm_tpu_torch.train.ae_trainer import AETrainer
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer
+    from extdm_tpu_torch.train.job import synthetic_stores
+
+    t_phase = time.perf_counter()
+    job_defaults()
+    cores = len(os.sched_getaffinity(0))
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    log({"phase": "data feed", "h5py": "present: the DM job on HDF5 shards with --clip_cache_mb"
+         if have_h5py else "absent: HDF5VideoStore and HDF5VideoWriter must raise ImportError",
+         "host_cores": cores})
+    with tempfile.TemporaryDirectory() as tmp:
+        # the AE job, host augmentation, process workers then threads: on
+        # ae_job_yaml's copy (one batch an epoch: the loop restarts the loader
+        # every step) and at 8 repeats more (8 batches an epoch, which process
+        # workers build side by side), for 30 steps: the loaders fill their
+        # prefetch queues during step 0's warm-up, so a few steps more would
+        # read those batches and not the loaders' rate
+        ae_cfg = ae_job_yaml(tmp)
+        wide_dir = Path(tmp) / "epoch8"
+        wide_dir.mkdir()
+        wide_cfg = job_yaml("configs/AE/kth.yaml", wide_dir, "flow_params", print_freq=1,
+                            update_ckpt_freq=100, save_img_freq=0, num_repeats=64,
+                            dataloader_workers=8)
+        want_ae = {n: {"grid_sample": 6, "grid_sample_bwd": 5}.get(n, 0) for n in counters}
+        for cfg_path, repeats, n_steps in ((ae_cfg, 8, 2), (wide_cfg, 64, 30)):
+            ae_steps = {}
+            for loader in ("process", "thread"):
+                log_dir = str(Path(tmp) / f"ae_{loader}_{repeats}")
+                steps = []
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                with per_call_launches(AETrainer, "train_step", counters, steps):
+                    train_ae.main(ae_job_args(cfg_path) + [
+                        "--max_steps", str(n_steps), "--valid_every", "0", "--loader", loader,
+                        "--log_dir", log_dir])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                recs = check_job_run(log_dir, "loss_total", range(n_steps),
+                                     ["train.log", "metrics.jsonl", train_ae.CKPT], "")
+                if steps != [want_ae] * n_steps:
+                    raise AssertionError(f"AE job --loader {loader}: step launches {steps}")
+                ae_steps[loader] = steps
+                log({"phase": "data feed AE job", "loader": loader,
+                     "config": f"configs/AE/kth.yaml, float32, batch 64, 8 in-memory videos x "
+                     f"{repeats} repeats, host augmentation", "batches_an_epoch": repeats // 8,
+                     **job_timing(recs, ae_bare_ms), "seconds": seconds, "host_cores": cores,
+                     "launches_per_step": want_ae, "card": card})
+            if ae_steps["process"] != ae_steps["thread"]:
+                raise AssertionError(f"AE job launches: process {ae_steps['process']} != thread "
+                                     f"{ae_steps['thread']}")
+
+        # the batches the process loader ships against its numpy batches
+        cfg = load_config(ae_cfg)
+        dp, tp = cfg["dataset_params"], cfg["flow_params"]["train_params"]
+        store = synthetic_stores(8, max(dp["max_frame_distance"] + 1, 16),
+                                 dp["valid_params"]["cond_frames"]
+                                 + dp["valid_params"]["pred_frames"], dp["frame_shape"],
+                                 1234)["train"]
+        shipped = []
+        for device in ("cuda", None):
+            ds = data.DatasetRepeater(data.TwoFramesDataset(
+                store, type="train", frame_shape=dp["frame_shape"],
+                min_frame_distance=dp.get("min_frame_distance", 0),
+                max_frame_distance=dp["max_frame_distance"],
+                augmentation_params=dp["augmentation_params"], seed=1234), tp["num_repeats"])
+            loader = data.DataLoader(ds, 64, num_workers=tp["dataloader_workers"], seed=1234,
+                                     prefetch=3, device=device, worker_type="process")
+            with contextlib.closing(loader):
+                shipped.append(first_batches(loader, 2))
+        for i, (card_batch, host_batch) in enumerate(zip(*shipped)):
+            for k, v in host_batch.items():
+                t = card_batch[k]
+                if not t.is_cuda or not torch.equal(t.cpu(), torch.from_numpy(v)):
+                    raise AssertionError(f"shipped batch {i} {k!r} differs from the CPU "
+                                         "process loader's")
+        log({"phase": "data feed shipped batches", "batches": 2, "keys": sorted(shipped[1][0]),
+             "bitwise_equal": True})
+
+        # the DM job on process workers (and on HDF5 shards with the clip cache)
+        dm_dir = Path(tmp) / "dm"
+        dm_dir.mkdir()
+        dm_cfg = job_yaml("configs/DM/kth.yaml", dm_dir, "diffusion_params", print_freq=1,
+                          update_ckpt_freq=100, save_img_freq=0, save_vid_freq=0,
+                          dataloader_workers=4)
+        fwd, bwd = expected_train_launches(dm_config_from_yaml(load_config(dm_cfg),
+                                                               dtype=torch.bfloat16))
+        want_dm = {n: {**fwd, **bwd}.get(n, 0) for n in counters}
+        common = ["--config", dm_cfg, "--bf16", "--batch_size", "8", "--max_steps", "2",
+                  "--valid_every", "0", "--loader", "process", "--device", "cuda"]
+        runs = [("memory", ["--synthetic_videos", "8"])]
+        if have_h5py:
+            dm = dm_config_from_yaml(load_config(dm_cfg))
+            rng = np.random.RandomState(1234)
+            nf = dm.cond_frames + dm.pred_frames
+            data.write_video_hdf5([data.make_moving_shapes_video(rng, nf + 8, dm.frame_shape)
+                                   for _ in range(8)], str(Path(tmp) / "shards" / "train"))
+            runs.append(("hdf5", ["--root_dir", str(Path(tmp) / "shards"),
+                                  "--clip_cache_mb", "64"]))
+        else:
+            for cls in (data.HDF5VideoStore, data.HDF5VideoWriter):
+                try:
+                    cls(tmp)
+                except ImportError as e:
+                    if "h5py" not in str(e):
+                        raise AssertionError(f"{cls.__name__}: {e} does not name h5py") from e
+                else:
+                    raise AssertionError(f"{cls.__name__} opened without h5py")
+            log({"phase": "data feed h5py", "import_error_names_h5py": True})
+        for name, extra in runs:
+            log_dir = str(Path(tmp) / f"dm_{name}")
+            steps = []
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with per_call_launches(DMTrainer, "train_step", counters, steps):
+                train_dm.main(common + extra + ["--log_dir", log_dir])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            recs = check_job_run(log_dir, "loss", range(2),
+                                 ["train.log", "metrics.jsonl", train_dm.CKPT], "")
+            if steps != [want_dm] * 2:
+                raise AssertionError(f"DM job --loader process ({name}): step launches {steps}")
+            prefill = re.search(r"clip cache prefilled: (\d+) videos in ([\d.]+)s",
+                                (Path(log_dir) / "train.log").read_text())
+            if (prefill is None) == (name == "hdf5"):
+                raise AssertionError(f"DM job ({name}): clip cache line {prefill}")
+            log({"phase": "data feed DM job", "loader": "process", "data": name,
+                 "config": "configs/DM/kth.yaml, bf16, batch 8, 8 videos, random LFAE",
+                 **job_timing(recs, dm_bare_ms), "seconds": seconds, "host_cores": cores,
+                 **({"prefill_videos": int(prefill[1]), "prefill_seconds": float(prefill[2])}
+                    if prefill else {}), "launches_per_step": want_dm, "card": card})
+    torch.cuda.empty_cache()
+    log({"phase": "data feed phase", "seconds": time.perf_counter() - t_phase, "card": card})
 
 
 # ----------------------------------------------------------------- evaluation
@@ -4469,6 +4660,9 @@ def main() -> int:
     counters = {n: k["wrapper"] for n, k in {**table, **btable, **ae_btable, **wm, **rt}.items()}
     dm_job_phase(counters, card, train_ms)
     ae_job_phase(counters, card, ae_ms)
+
+    # ---- the rest of the data feed: process workers, the clip cache, HDF5
+    data_feed_phase(counters, card, train_ms, ae_ms)
 
     # ---- the evaluation path (kernel 9)
     wsummary, eval_launches, eval_calls = eval_phase(table, btable, {**ae_btable, **rt}, card)

@@ -1,15 +1,17 @@
-"""Videos held in memory, and the seeded moving-shapes videos (port of
-extdm_tpu/data/synthetic.py).
+"""Videos held in memory, the seeded moving-shapes videos and their HDF5
+shards (port of extdm_tpu/data/synthetic.py).
 
 ``InMemoryVideoStore`` has the read API of ``HDF5VideoStore`` over numpy
 arrays: the card's machine has no h5py, so its data is made there, from a
 seed, and fed through the same ``VideoDataset`` and ``DataLoader``.
 ``make_moving_shapes_dataset`` draws the same videos, in the same order, as
-the JAX package's, which writes them to HDF5 shards.
+the JAX package's, which writes them to HDF5 shards;
+``write_moving_shapes_dataset`` writes them so (``write_video_hdf5``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import os
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -40,6 +42,10 @@ class InMemoryVideoStore:
 
     def attr(self, name: str):
         return self.attrs.get(name)
+
+    def prefill_cache(self, max_videos: Optional[int] = None) -> int:
+        """The videos are in memory already: nothing to cache."""
+        return 0
 
 
 def _make_sprite(rng: np.random.RandomState, size: int = 12) -> np.ndarray:
@@ -88,3 +94,29 @@ def make_moving_shapes_dataset(num_train: int = 64, num_valid: int = 16, num_fra
         videos = [make_moving_shapes_video(rng, num_frames, image_size) for _ in range(n)]
         stores[split] = InMemoryVideoStore(videos, name=split)
     return stores
+
+
+def write_video_hdf5(videos: Iterable[np.ndarray], out_dir: str, num_per_shard: int = 1000,
+                     force: bool = True) -> int:
+    """Videos (each (T, H, W[, C]) uint8) -> reference-layout shards in
+    `out_dir`; returns how many were written."""
+    from extdm_tpu_torch.data.h5 import HDF5VideoWriter
+
+    writer = HDF5VideoWriter(out_dir, num_per_shard=num_per_shard, force=force)
+    n = 0
+    for vid in videos:
+        writer.add_video(list(vid))
+        n += 1
+    writer.close()
+    return n
+
+
+def write_moving_shapes_dataset(root_dir: str, num_train: int = 64, num_valid: int = 16,
+                                num_frames: int = 30, image_size: int = 64,
+                                seed: int = 0) -> str:
+    """``make_moving_shapes_dataset``'s videos as shards under
+    ``<root_dir>/train`` and ``<root_dir>/valid``; returns root_dir."""
+    stores = make_moving_shapes_dataset(num_train, num_valid, num_frames, image_size, seed)
+    for split, store in stores.items():
+        write_video_hdf5(store.videos, os.path.join(root_dir, split))
+    return root_dir

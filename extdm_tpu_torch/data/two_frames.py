@@ -29,12 +29,12 @@ class TwoFramesDataset:
     ``<type>/`` HDF5 shards (a path holding "UCF": one store with the
     num_train / num_test attributes), or a store object such as an
     ``InMemoryVideoStore``, used as it is (its ``name`` selects UCF), as
-    ``VideoDataset`` takes it."""
+    ``VideoDataset`` takes it; ``cache_mb`` as there."""
 
     def __init__(self, data: Union[str, object], type: str = "train", total_videos: int = -1,
                  frame_shape: int = 64, min_frame_distance: int = 0,
                  max_frame_distance: int = 50, augmentation_params: Optional[dict] = None,
-                 seed: int = 0, raw_uint8: bool = False):
+                 seed: int = 0, raw_uint8: bool = False, cache_mb: int = 0):
         self.type = type
         self.total_videos = total_videos
         self.frame_shape = frame_shape
@@ -44,8 +44,12 @@ class TwoFramesDataset:
         if isinstance(data, (str, os.PathLike)):
             data = str(data)
             self.is_ucf = "UCF" in data
-            self.store = HDF5VideoStore(data if self.is_ucf else os.path.join(data, type))
+            self.store = HDF5VideoStore(data if self.is_ucf else os.path.join(data, type),
+                                        cache_mb=cache_mb)
         else:
+            if cache_mb:
+                raise ValueError("cache_mb is the budget of an HDF5 store the dataset opens; "
+                                 "a store given as it is keeps its own")
             self.store = data
             self.is_ucf = "UCF" in getattr(data, "name", "")
         if self.is_ucf:
@@ -136,6 +140,10 @@ class TwoFramesDataset:
                 "driving": np.ascontiguousarray(clips[:, 1], np.float32),
                 "frame": np.stack(fidx), "id": np.asarray([int(i) for i in indices])}
 
+    def prefill_cache(self) -> int:
+        """Fill the store's RAM clip cache; the number of videos cached."""
+        return self.store.prefill_cache()
+
 
 class DatasetRepeater:
     """The dataset num_repeats times over per epoch."""
@@ -153,3 +161,6 @@ class DatasetRepeater:
     def get_batch(self, indices):
         n = len(self.dataset)
         return self.dataset.get_batch([int(i) % n for i in indices])
+
+    def prefill_cache(self) -> int:
+        return self.dataset.prefill_cache()

@@ -32,11 +32,13 @@ class VideoDataset:
     num_train / num_test attributes), or a store object such as an
     ``InMemoryVideoStore``, which is used as it is (its ``name`` selects UCF).
     Items are (clip, video_index): the clip in the stored layout, float32 in
-    [0, 1], or the stored integers with ``raw_uint8``."""
+    [0, 1], or the stored integers with ``raw_uint8``. ``cache_mb``: the RAM
+    clip cache budget of the HDF5 store it opens (``HDF5VideoStore``)."""
 
     def __init__(self, data: Union[str, object], type: str = "train", total_videos: int = -1,
                  num_frames: int = 40, image_size: int = 64, random_time: bool = True,
-                 random_horizontal_flip: bool = False, seed: int = 0, raw_uint8: bool = False):
+                 random_horizontal_flip: bool = False, seed: int = 0, raw_uint8: bool = False,
+                 cache_mb: int = 0):
         self.type = type
         self.num_frames = num_frames
         self.image_size = image_size
@@ -48,8 +50,12 @@ class VideoDataset:
         if isinstance(data, (str, os.PathLike)):
             data = str(data)
             self.is_ucf = "UCF" in data
-            self.store = HDF5VideoStore(data if self.is_ucf else os.path.join(data, type))
+            self.store = HDF5VideoStore(data if self.is_ucf else os.path.join(data, type),
+                                        cache_mb=cache_mb)
         else:
+            if cache_mb:
+                raise ValueError("cache_mb is the budget of an HDF5 store the dataset opens; "
+                                 "a store given as it is keeps its own")
             self.store = data
             self.is_ucf = "UCF" in getattr(data, "name", "")
         if self.is_ucf:
@@ -90,3 +96,8 @@ class VideoDataset:
         if self.raw_uint8 and np.issubdtype(frames.dtype, np.integer):
             return np.ascontiguousarray(frames), video_index
         return frames.astype(np.float32) / 255.0, video_index
+
+    def prefill_cache(self) -> int:
+        """Fill the store's RAM clip cache (``HDF5VideoStore.prefill_cache``);
+        the number of videos cached."""
+        return self.store.prefill_cache()

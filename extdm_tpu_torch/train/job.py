@@ -1,8 +1,7 @@
 """The loop and flags the two training jobs share (``train/train_dm.py``,
 ``train/train_ae.py``): the print / checkpoint / shot / validation cadences
 of the JAX CLIs (scripts/train_dm.py, scripts/train_ae.py), the in-memory
-moving-shapes stores, the validation metrics, the data-parallel world and
-the refusal of the flag not ported yet.
+moving-shapes stores, the validation metrics and the data-parallel world.
 
 Data parallel: launched as several processes (``torchrun --nproc_per_node
 N -m extdm_tpu_torch.train.train_dm ...``), a job splits each global batch
@@ -45,21 +44,16 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                         "more than one rank takes it without the flag too, as the JAX CLIs' "
                         "default GSPMD path does")
     p.add_argument("--loader", default="thread", choices=["thread", "process"],
-                   help="loader workers; 'process' is not ported (ROADMAP §1, the rest of the "
-                        "data feed)")
+                   help="loader workers: threads, or forked processes that build whole batches "
+                        "(the host augmentation on several cores)")
+    p.add_argument("--clip_cache_mb", type=int, default=0,
+                   help="RAM budget of the HDF5 clip cache, filled before step 0 (0: off)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--init_method", default="env://",
                    help="torch.distributed init method (default: torchrun's environment)")
     p.add_argument("--synthetic_videos", type=int, default=0,
                    help="train and validate on this many moving-shapes videos made in memory "
                         "(each split from its own seed) instead of the config's HDF5 shards")
-
-
-def refuse_unported(args) -> None:
-    """A flag whose path is not ported raises, naming its ROADMAP item."""
-    if args.loader == "process":
-        raise NotImplementedError("--loader process: process workers are in ROADMAP §1, the "
-                                  "rest of the data feed, not ported yet; use --loader thread")
 
 
 def default_backend(device) -> str:

@@ -2,6 +2,7 @@
 scheduled, nan-guarded optimizer wrapper both trainers use."""
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence
 
 import torch
@@ -21,6 +22,32 @@ def multi_step(base_lr: float, milestones: Sequence[int], gamma: float) -> Calla
         return lr
 
     return schedule
+
+
+def _warmup(base_lr: float, warmup_steps: int, total_steps: int,
+            decay: Callable[[float], float]) -> Callable[[int], float]:
+    """base_lr times count / warmup_steps below warmup_steps, then times
+    decay(progress), progress rising from 0 to 1 over the remaining steps."""
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return base_lr * min(count / max(warmup_steps, 1), 1.0)
+        prog = min(max((count - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0), 1.0)
+        return base_lr * decay(prog)
+
+    return schedule
+
+
+def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
+                  min_ratio: float = 0.0) -> Callable[[int], float]:
+    """Linear warm-up, then a half cosine from base_lr to min_ratio * base_lr."""
+    return _warmup(base_lr, warmup_steps, total_steps,
+                   lambda p: min_ratio + (1 - min_ratio) * 0.5 * (1 + math.cos(math.pi * p)))
+
+
+def warmup_linear(base_lr: float, warmup_steps: int, total_steps: int,
+                  min_ratio: float = 0.0) -> Callable[[int], float]:
+    """Linear warm-up, then a line from base_lr to min_ratio * base_lr."""
+    return _warmup(base_lr, warmup_steps, total_steps, lambda p: 1 - (1 - min_ratio) * p)
 
 
 class ScheduledOptimizer:

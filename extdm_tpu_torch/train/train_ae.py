@@ -27,14 +27,19 @@ Launched on N ranks (torchrun), the job is data parallel (``train/job.py``):
 each rank loads its rows of every global batch of ``--batch_size``, the
 step runs under SyncBN and averages losses and gradients over the ranks
 (``AETrainer(group=...)``); rank 0 logs, checkpoints, shoots and
-validates. A world of one runs as a single process does. Not ported:
-``--loader process`` (ROADMAP §1, the rest of the data feed), which raises.
+validates. A world of one runs as a single process does.
+
+``--loader process`` makes the pairs, and their host augmentation, in forked
+worker processes (``DataLoader(worker_type="process")``: reseeded per batch,
+so a run repeats); ``--clip_cache_mb N`` fills an N MB RAM cache of the HDF5
+clips before step 0 and prints ``clip cache prefilled: n videos in s``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -45,7 +50,7 @@ from extdm_tpu_torch.train.checkpoint import (AE_PARTS, ae_payload, load_checkpo
                                               restore_ae, save_checkpoint,
                                               start_step_from_example)
 from extdm_tpu_torch.train.job import (Cadence, add_common_flags, data_group, epoch_of,
-                                       finish, open_logs, refuse_unported, run_loop,
+                                       finish, open_logs, run_loop,
                                        synthetic_stores, video_metrics)
 from extdm_tpu_torch.utils.logger import MetricLogger
 from extdm_tpu_torch.utils.seed import step_generator
@@ -197,7 +202,6 @@ def main(argv=None) -> int:
     p.add_argument("--device_augment", action="store_true",
                    help="ship raw uint8 pairs and augment them on the device")
     args = p.parse_args(argv)
-    refuse_unported(args)
 
     cfg = load_config(args.config)
     if args.root_dir:
@@ -247,8 +251,12 @@ def _train(args, cfg: dict, batch_size: int, device_aug: Optional[dict], group,
         min_frame_distance=dp.get("min_frame_distance", 0),
         max_frame_distance=dp.get("max_frame_distance", 50),
         augmentation_params=None if args.device_augment else aug_params, seed=args.seed,
-        raw_uint8=args.device_augment)
+        raw_uint8=args.device_augment, cache_mb=args.clip_cache_mb)
     dataset = DatasetRepeater(dataset, tp.get("num_repeats", 1))
+    if args.clip_cache_mb:
+        t0 = time.perf_counter()
+        n = dataset.prefill_cache()
+        print(f"clip cache prefilled: {n} videos in {time.perf_counter() - t0:.1f}s")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = ReconstructionModel(dtype=torch.bfloat16 if args.bf16 else None,
@@ -260,7 +268,8 @@ def _train(args, cfg: dict, batch_size: int, device_aug: Optional[dict], group,
                         learnable_loss_weights=args.learnable_loss_weights,
                         device_augment=device_aug, device=group.world.device, group=group)
     loader = DataLoader(dataset, batch_size, num_workers=tp.get("dataloader_workers", 8),
-                        seed=args.seed, prefetch=3, device=trainer.device, group=group)
+                        seed=args.seed, prefetch=3, device=trainer.device,
+                        worker_type=args.loader, group=group)
     start_step = 0
     if args.checkpoint:
         ckpt = load_checkpoint(args.checkpoint)
@@ -278,8 +287,9 @@ def _train(args, cfg: dict, batch_size: int, device_aug: Optional[dict], group,
                                  args.valid_batch_size, cache, seed=args.seed,
                                  device=trainer.device)
 
-    train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
-               validate=validate, metrics=metrics)
+    with contextlib.closing(loader):
+        train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
+                   validate=validate, metrics=metrics)
 
 
 if __name__ == "__main__":

@@ -26,14 +26,20 @@ Launched on N ranks (torchrun), the job is data parallel (``train/job.py``):
 each rank loads its rows of every global batch of ``--batch_size`` and the
 step averages the gradients over the ranks (``DMTrainer(group=...)``);
 rank 0 logs, checkpoints, shoots and validates. A world of one runs as a
-single process does. Not ported: ``--loader process`` (ROADMAP §1, the
-rest of the data feed), which raises.
+single process does.
+
+``--loader process`` makes the batches in forked worker processes
+(``DataLoader(worker_type="process")``: reseeded per batch, so a run
+repeats); ``--clip_cache_mb N`` fills an N MB RAM cache of the HDF5 clips
+before step 0 (and before the workers fork, which share it) and prints
+``clip cache prefilled: n videos in s``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -43,7 +49,7 @@ from extdm_tpu_torch.train.checkpoint import (dm_payload, load_checkpoint, resto
                                               save_checkpoint, start_step_from_example)
 from extdm_tpu_torch.train.dm_trainer import DMTrainer
 from extdm_tpu_torch.train.job import (Cadence, add_common_flags, data_group, epoch_of,
-                                       finish, open_logs, refuse_unported, run_loop,
+                                       finish, open_logs, run_loop,
                                        synthetic_stores, video_metrics)
 from extdm_tpu_torch.utils.logger import MetricLogger
 from extdm_tpu_torch.utils.seed import step_generator
@@ -143,7 +149,6 @@ def main(argv=None) -> int:
     p.add_argument("--path", type=int, default=0, help="1 -> THW bias variant")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = p.parse_args(argv)
-    refuse_unported(args)
 
     cfg_raw = load_config(args.config)
     if args.root_dir:
@@ -184,9 +189,16 @@ def _train(args, cfg_raw: dict, batch_size: int, group, metrics: MetricLogger) -
     else:
         train_data = valid_data = dp["root_dir"]
     dataset = VideoDataset(train_data, type=dp["train_params"]["type"], num_frames=nf,
-                           image_size=dp["frame_shape"], seed=args.seed, raw_uint8=True)
+                           image_size=dp["frame_shape"], seed=args.seed, raw_uint8=True,
+                           cache_mb=args.clip_cache_mb)
+    if args.clip_cache_mb:
+        t0 = time.perf_counter()
+        n = dataset.prefill_cache()
+        print(f"clip cache prefilled: {n} videos in {time.perf_counter() - t0:.1f}s "
+              f"({dataset.store.cache_bytes / 1e6:.0f} MB)")
     loader = DataLoader(dataset, batch_size, num_workers=tp.get("dataloader_workers", 8),
-                        seed=args.seed, prefetch=3, device=fd.device, group=group)
+                        seed=args.seed, prefetch=3, device=fd.device, worker_type=args.loader,
+                        group=group)
     sched = tp["scheduler_param"]
     trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), tp["lr"],
                                            sched["milestones"], sched["gamma"],
@@ -208,8 +220,9 @@ def _train(args, cfg_raw: dict, batch_size: int, group, metrics: MetricLogger) -
         return run_validation(fd, cfg_raw, valid_data, step_generator(root, 999),
                               num_videos=args.valid_videos, **nets)
 
-    train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
-               validate=validate, metrics=metrics)
+    with contextlib.closing(loader):
+        train_loop(trainer, loader, cadence, args.log_dir, root=root, batch_size=batch_size,
+                   validate=validate, metrics=metrics)
 
 
 if __name__ == "__main__":

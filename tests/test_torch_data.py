@@ -136,8 +136,18 @@ def test_loader_order_matches_jax(shuffle, drop_last, workers):
 
 
 def test_loader_and_store_refusals(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="thread"):
+    with pytest.raises(ValueError, match="'thread' or 'process'"):
+        data.DataLoader(_Items(4), 2, worker_type="spawn")
+    with pytest.raises(ValueError, match="get_batch"):
+        data.DataLoader(_Items(4), 2, batch_items=True)
+
+    def no_fork(method):
+        raise ValueError(f"cannot find context for {method!r}")
+
+    monkeypatch.setattr(data.loader.multiprocessing, "get_context", no_fork)
+    with pytest.raises(RuntimeError, match="no fork"):  # no silent fallback to threads
         data.DataLoader(_Items(4), 2, worker_type="process")
+    monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             data.DataLoader(_Items(4), 2, device="cuda")

@@ -22,9 +22,9 @@ LFAE, 32 px, tc = tp = 2.
   state as there); run_ae_validation's metrics equal JAX's
   run_ae_validation's on the same weights and HDF5 store (I3D and LPIPS
   random and converted).
-- Flags not ported raise NotImplementedError naming their ROADMAP item
-  (``--shard_map`` runs since the data-parallel port:
-  tests/test_torch_parallel_jobs.py).
+- Flags a launch cannot take raise (``--shard_map`` runs since the
+  data-parallel port: tests/test_torch_parallel_jobs.py; ``--loader process``
+  since the data-feed port: tests/test_torch_feed_jobs.py).
 """
 import importlib.util
 import json
@@ -252,9 +252,8 @@ def test_png_and_gif_read_back(tmp_path):
 
 # ------------------------------------------------------------------ flags
 @pytest.mark.parametrize("job,flag,error,match", [
-    ("dm", "--loader=process", NotImplementedError, "ROADMAP §1, the rest of the data feed"),
-    ("ae", "--loader=process", NotImplementedError, "ROADMAP §1, the rest of the data feed"),
-    # ported since: a process alone is no (1 x 2) mesh
+    # ported since: a process alone is no (1 x 2) mesh; --loader process runs
+    # (tests/test_torch_feed_jobs.py)
     ("valid_dm", "--mesh_model=2", ValueError, "--mesh_model 2 in a launch of 1 process")])
 def test_unported_flags_raise(job, flag, error, match):
     main = {"dm": train_dm, "ae": train_ae, "valid_dm": valid_dm}[job].main
