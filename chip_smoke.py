@@ -90,6 +90,16 @@
    HDF5VideoStore and HDF5VideoWriter must raise an ImportError naming it;
    with h5py the DM job also runs on shards from write_video_hdf5 with
    --clip_cache_mb, printing the prefill seconds. A line says which ran.
+   Then the artefacts (``artefacts_phase``): eval/valid_dm.py ``main`` on
+   configs/DM/kth.yaml (float32, 2 synthetic videos x 2 trajectories) with
+   --dump_arrays --dump_flow: every file, the sampler calls' launches,
+   kernel 4's 1 launch in the GT-flow encode, origin_flows.npy against the
+   LFAE's plain encode on the CPU, the seconds of the gif, arrays and
+   pngs; eval/analyze_dumps.py on the dumps; eval/video2video.py on 3
+   synthetic videos (5 kernel-4 launches in its encode, the transfer
+   against the same encode with the warps on their plain version, ms per
+   encode call); metrics/demo.py at 8 x 30 x 64^2 (each metric's seconds,
+   PSNR and SSIM against the CPU's).
 10. Evaluation: the KTH sampling configuration in bf16 with the STW layout
    in "auto" (window-major on the two unshifted 32x32 layers: kernel 9);
    4 in-memory 64 px gray moving-shapes videos of 50 frames through the
@@ -2295,6 +2305,213 @@ def data_feed_phase(counters, card, dm_bare_ms, ae_bare_ms):
                     if prefill else {}), "launches_per_step": want_dm, "card": card})
     torch.cuda.empty_cache()
     log({"phase": "data feed phase", "seconds": time.perf_counter() - t_phase, "card": card})
+
+
+# ---------------------------------------------------------------- artefacts
+ARTEFACT_VIDEOS, ARTEFACT_TRAJ = 2, 2
+# Kernel-4 launches: one LFAE encode_video runs one warp (the flow
+# predictor's sparse-motion warp, models/lfae/pixelwise_flow.py:75); with
+# with_decode (video2video) four more in the generator's decode (the full
+# resolution skip and source in one, the bottleneck, the two up-block skips).
+GT_FLOW_WARPS, TRANSFER_WARPS = 1, 5
+
+
+@contextlib.contextmanager
+def plain_sites(k):
+    """Every call site of kernel table entry `k` on its plain version."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in k["sites"]]
+    for mod, attr, _ in saved:
+        setattr(mod, attr, k["plain"])
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def artefacts_phase(table, counters, card):
+    """The evaluation artefacts and tools on the card, configs/DM/kth.yaml at
+    full width with the port's seeded weights (float32, valid_dm's dtype),
+    TF32 off: valid_dm.main on ARTEFACT_VIDEOS synthetic videos x
+    ARTEFACT_TRAJ trajectories with --dump_arrays --dump_flow --metrics
+    psnr,ssim (the files; origin_flows.npy's first video against the LFAE's
+    plain encode on the CPU with the same weights; kernel 4's launches in
+    the GT-flow encode, GT_FLOW_WARPS a batch; each sampler call's launches;
+    the seconds of the gif, the arrays and the pngs); analyze_dumps on those
+    dumps (all four metrics, the CSV and the gif grids: its seconds);
+    video2video on 3 synthetic videos (its transfer and flows against the
+    same encode with kernel 4's sites on the plain version, on the card;
+    TRANSFER_WARPS launches; ms per encode call); metrics.demo at the
+    reference's 8 x 30 x 64^2 (each metric's seconds; PSNR and SSIM against
+    the CPU's on the same videos). Returns the kernels' launches in the
+    GT-flow encode and in video2video's encode."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from extdm_tpu_torch.config import dm_config_from_yaml, load_config
+    from extdm_tpu_torch.eval import analyze_dumps, valid_dm, video2video
+    from extdm_tpu_torch.metrics import (I3DExtractor, LPIPSMetric, calculate_psnr1,
+                                         calculate_ssim1, demo)
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+
+    t_phase = time.perf_counter()
+    kth = str(Path(__file__).resolve().parent / "configs" / "DM" / "kth.yaml")
+    cfg = dm_config_from_yaml(load_config(kth))
+    vp = load_config(kth)["dataset_params"]["valid_params"]
+    tc = vp["cond_frames"]
+    zero = {n: 0 for n in counters}
+    with tempfile.TemporaryDirectory() as tmp, tf32_off():
+        # ---- valid_dm with every artefact
+        log_dir = Path(tmp) / "valid"
+        gt_calls, sampler_calls, seen = [], [], {}
+        write = valid_dm.write_artefacts
+
+        def writing(args, fd, out, tc_):
+            seen["seconds"] = write(args, fd, out, tc_)
+            return seen["seconds"]
+
+        def grab(args):  # the LFAE and real videos of the GT-flow encode
+            seen["lfae"], seen["real"] = copy.deepcopy(args[0].lfae).cpu(), args[1][:1].clone()
+
+        for c in counters.values():
+            c.launches = 0
+        valid_dm.write_artefacts = writing
+        t0 = time.perf_counter()
+        try:
+            with per_call_launches(valid_dm, "gt_flows", counters, gt_calls, before_first=grab), \
+                    per_call_launches(FlowDiffusion, "make_sampler", counters, sampler_calls,
+                                      factory=True):
+                valid_dm.main(["--config", kth, "--synthetic_videos", str(ARTEFACT_VIDEOS),
+                               "--num_sample_video", str(ARTEFACT_TRAJ), "--batch_size",
+                               str(ARTEFACT_VIDEOS), "--metrics", "psnr,ssim", "--dump_arrays",
+                               "--dump_flow", "--log_dir", str(log_dir), "--device", "cuda"])
+        finally:
+            valid_dm.write_artefacts = write
+        torch.cuda.synchronize()
+        valid_s = time.perf_counter() - t0
+        T = cfg.cond_frames + cfg.pred_frames
+        want_files = {"metrics.txt", "sample0.gif", "origin.npy", "result.npy",
+                      "origin_flows.npy", "result_flows.npy"}
+        want_files |= {f"flow_vis/{k}_t{t:03d}.png" for k in ("flow", "conf") for t in range(T)}
+        have = {str(p.relative_to(log_dir)) for p in log_dir.rglob("*") if p.is_file()}
+        if have != want_files:
+            raise AssertionError(f"valid_dm artefacts: missing {sorted(want_files - have)}, "
+                                 f"extra {sorted(have - want_files)}")
+        total_pred = vp["pred_frames"]
+        shapes = {n: list(np.load(log_dir / n, mmap_mode="r").shape)
+                  for n in ("origin.npy", "result.npy", "origin_flows.npy", "result_flows.npy")}
+        h = cfg.frame_shape // 2
+        want_shapes = {"origin.npy": [ARTEFACT_VIDEOS, tc + total_pred, cfg.frame_shape,
+                                      cfg.frame_shape, 3]}
+        want_shapes["result.npy"] = want_shapes["origin.npy"]
+        want_shapes["origin_flows.npy"] = want_shapes["result_flows.npy"] = [
+            ARTEFACT_VIDEOS, total_pred, h, h, 2]
+        if shapes != want_shapes:
+            raise AssertionError(f"artefact shapes {shapes} != {want_shapes}")
+        want_gt = [dict(zero, grid_sample=GT_FLOW_WARPS)]  # one batch of every video
+        if gt_calls != want_gt:
+            raise AssertionError(f"GT-flow encode launches {gt_calls} != {want_gt}")
+        want_call = dict(zero, **expected_launches(cfg))
+        if sampler_calls != [want_call] * len(sampler_calls) or len(sampler_calls) != math.ceil(
+                total_pred / cfg.pred_frames):
+            raise AssertionError(f"valid_dm sampler call launches {sampler_calls}")
+        with torch.no_grad():
+            want = seen["lfae"].encode_video(seen["real"], tc)["flow"][:, tc:]
+        got = torch.from_numpy(np.load(log_dir / "origin_flows.npy")[:1])
+        res = check("origin_flows card vs cpu", got, want, UNET_F32_REL_TOL)
+        log({"phase": "artefacts valid_dm", "config": "configs/DM/kth.yaml, float32 (valid_dm), "
+             f"{ARTEFACT_VIDEOS} synthetic videos x {ARTEFACT_TRAJ} trajectories, random "
+             "weights", "seconds": valid_s, "artefact_seconds": seen["seconds"],
+             "gt_flow_launches": gt_calls, "sampler_calls": len(sampler_calls),
+             "sampler_call_launches": want_call, "files": len(have), "shapes": shapes,
+             "metrics_txt": (log_dir / "metrics.txt").read_text().splitlines(),
+             "origin_flows_card_vs_cpu": res, "card": card})
+
+        # ---- analyze_dumps on those dumps
+        an_dir = Path(tmp) / "analysis"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = analyze_dumps.main(["--dump_dir", str(log_dir), "--cond_frames", str(tc),
+                                     "--out_dir", str(an_dir), "--per_video", "--render",
+                                     "--device", "cuda"])
+        torch.cuda.synchronize()
+        an_s = time.perf_counter() - t0
+        doc = json.load(open(an_dir / "metrics.json"))
+        gifs = sorted(p.name for p in an_dir.rglob("*.gif"))
+        if rc != 0 or sorted(doc) != ["fvd", "lpips", "psnr", "ssim"] or len(gifs) != \
+                ARTEFACT_VIDEOS or not (an_dir / "metrics_per_video.csv").is_file():
+            raise AssertionError(f"analyze_dumps: rc {rc}, metrics {sorted(doc)}, gifs {gifs}")
+        log({"phase": "artefacts analyze_dumps", "seconds": an_s, "metrics": doc, "gifs": gifs,
+             "card": card})
+
+        # ---- video2video: kernel 4 in encode and decode, then its plain version
+        v2v_dir = Path(tmp) / "v2v"
+        v2v_calls, outs, call_s = [], {}, []
+        transfer = video2video.transfer
+
+        def timed_transfer(lfae, hybrid, tc_, device):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs["kernel"] = transfer(lfae, hybrid, tc_, device)
+            call_s.append(time.perf_counter() - t0)
+            with plain_sites(table["grid_sample"]):
+                outs["plain"] = transfer(lfae, hybrid, tc_, device)
+            return outs["kernel"]
+
+        for c in counters.values():
+            c.launches = 0
+        video2video.transfer = timed_transfer
+        t0 = time.perf_counter()
+        try:
+            with per_call_launches(video2video, "transfer", counters, v2v_calls):
+                video2video.main(["--config", kth, "--synthetic_videos", "3", "--motion_indices",
+                                  "1,2", "--dump_flow", "--log_dir", str(v2v_dir), "--device",
+                                  "cuda"])
+        finally:
+            video2video.transfer = transfer
+        v2v_s = time.perf_counter() - t0
+        # the counted call holds the kernel call and the plain one (no launch)
+        want_v2v = [dict(zero, grid_sample=TRANSFER_WARPS)]
+        if v2v_calls != want_v2v:
+            raise AssertionError(f"video2video launches {v2v_calls} != {want_v2v}")
+        v2v_res = {k: check(f"video2video {k} kernel vs plain", torch.from_numpy(
+            outs["kernel"][k]), torch.from_numpy(outs["plain"][k]), UNET_F32_REL_TOL)
+            for k in ("out_vid", "flow")}
+        files = sorted(str(p.relative_to(v2v_dir)) for p in v2v_dir.rglob("*") if p.is_file())
+        want_v2v_files = 1 + 2 * 2 + 2 * 2 * 20  # gifs, then 20 frames' flow and grid pngs
+        if len(files) != want_v2v_files:
+            raise AssertionError(f"video2video files {files}")
+        log({"phase": "artefacts video2video", "motion_videos": 2, "frames": 20,
+             "ms_per_encode_call": call_s[0] * 1e3, "seconds": v2v_s, "launches": v2v_calls[0],
+             "kernel_vs_plain": v2v_res, "files": len(files), "card": card})
+
+        # ---- metrics.demo at the reference's 8 x 30 x 64^2
+        shape = (8, 30, 64, 64, 3)
+        v1, v2 = np.zeros(shape, np.float32), np.ones(shape, np.float32)
+        out_json = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_json), contextlib.redirect_stderr(io.StringIO()):
+            rc = demo.main(["--device", "cuda"])
+        demo_s = time.perf_counter() - t0
+        doc = json.loads(out_json.getvalue())
+        seconds = {}
+        demo.demo_metrics(v1, v2, I3DExtractor(device="cuda"), LPIPSMetric(device="cuda"),
+                          torch.device("cuda"), 8, seconds=seconds)
+        tchw = lambda v: torch.from_numpy(v).permute(0, 1, 4, 2, 3)  # noqa: E731
+        cpu = {"psnr": float(calculate_psnr1(tchw(v1), tchw(v2))[0]["psnr"]),
+               "ssim": float(calculate_ssim1(tchw(v1), tchw(v2))[0]["ssim"])}
+        errs = {k: abs(doc[k] - cpu[k]) for k in cpu}
+        if rc != 0 or any(not e <= METRIC_F64_TOL for e in errs.values()) or not all(
+                math.isfinite(doc[k]) for k in ("fvd", "psnr", "ssim", "lpips")):
+            raise AssertionError(f"metrics.demo: rc {rc}, card {doc} vs cpu {cpu}")
+        log({"phase": "artefacts metrics demo", "videos": list(shape), "seconds": demo_s,
+             "metric_seconds": seconds, "psnr_ssim_card_vs_cpu_abs_err": errs,
+             "keys": list(doc), "card": card})
+    torch.cuda.empty_cache()
+    log({"phase": "artefacts phase", "seconds": time.perf_counter() - t_phase, "card": card})
+    return gt_calls[0], v2v_calls[0]
 
 
 # ----------------------------------------------------------------- evaluation
@@ -4664,6 +4881,9 @@ def main() -> int:
     # ---- the rest of the data feed: process workers, the clip cache, HDF5
     data_feed_phase(counters, card, train_ms, ae_ms)
 
+    # ---- the evaluation artefacts and tools (kernel 4 in the encodes)
+    gt_launches, v2v_launches = artefacts_phase(table, counters, card)
+
     # ---- the evaluation path (kernel 9)
     wsummary, eval_launches, eval_calls = eval_phase(table, btable, {**ae_btable, **rt}, card)
 
@@ -4718,6 +4938,8 @@ def main() -> int:
                         "traj_step_launches": traj_step.get(name, 0),
                         "ae_bf16_step_launches": ae16_step.get(name, 0),
                         "spatial_rank_call_launches": spatial_launches.get(name, 0),
+                        "artefacts_gt_flow_launches": gt_launches.get(name, 0),
+                        "video2video_launches": v2v_launches.get(name, 0),
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",

@@ -1,7 +1,8 @@
 """Console entry points of the port (``pyproject.toml`` ``[project.scripts]``:
-``extdm-torch-train-ae``, ``-train-dm``, ``-valid-ae``, ``-valid-dm`` and
-``-make-dataset``), each the ``main`` of its module on the command line's
-arguments."""
+``extdm-torch-train-ae``, ``-train-dm``, ``-valid-ae``, ``-valid-dm``,
+``-make-dataset``, ``-analyze-dumps``, ``-video2video``, ``-metrics-demo``
+and ``-convert-checkpoint``), each the ``main`` of its module on the
+command line's arguments."""
 from __future__ import annotations
 
 
@@ -33,3 +34,27 @@ def make_dataset_main():
     from extdm_tpu_torch.data import make_dataset
 
     raise SystemExit(make_dataset.main())
+
+
+def analyze_dumps_main():
+    from extdm_tpu_torch.eval import analyze_dumps
+
+    raise SystemExit(analyze_dumps.main())
+
+
+def video2video_main():
+    from extdm_tpu_torch.eval import video2video
+
+    raise SystemExit(video2video.main())
+
+
+def metrics_demo_main():
+    from extdm_tpu_torch.metrics import demo
+
+    raise SystemExit(demo.main())
+
+
+def convert_checkpoint_main():
+    from extdm_tpu_torch import convert_checkpoint
+
+    raise SystemExit(convert_checkpoint.main())

@@ -9,6 +9,13 @@ inverse of the JAX package's torch -> flax mapping
 (``extdm_tpu/convert/torch2jax.py``). The split init conv of the JAX UNet
 (latent part + cond-feature part) is joined back into one conv.
 
+Whole JAX checkpoints (``utils.msgpack.load_jax_checkpoint``) become the
+payloads of the port's jobs: ``dm_payload_from_jax`` / ``ae_payload_from_jax``
+carry the weights, the example and step counts and the optax Adam(W)
+state (its moments through the same tree map as the weights, its counts
+into ``ScheduledOptimizer``'s); ``weights_state_dict`` maps a weights-only
+file. ``python -m extdm_tpu_torch.convert_checkpoint`` writes them.
+
 The trajwarp UNet's own parameters (``init_noise_conv``, ``init_traj``'s
 ``linear_q`` / ``linear_k`` / ``linear_v`` / ``linear_o`` and ``fuser``) and
 the guidance's ``null_cond_emb`` are named after the JAX tree's modules:
@@ -29,13 +36,18 @@ from extdm_tpu_torch.models.lfae.vgg import VGG19_CONV_IDX
 StateDict = Dict[str, torch.Tensor]
 
 
+def _array(v) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor (``utils.msgpack``'s leaf) as float32."""
+    return v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else k
         if isinstance(v, Mapping):
             yield from _flatten(v, path)
         else:
-            yield path, np.asarray(v)
+            yield path, _array(v)
 
 
 def conv_weight(kernel: np.ndarray) -> np.ndarray:
@@ -102,12 +114,20 @@ def recon_state_dict(variables: Mapping[str, Any]) -> StateDict:
     params = dict(variables.get("params", {}))
     vgg = params.pop("vgg", {})
     out = lfae_state_dict({"params": params, "batch_stats": variables.get("batch_stats", {})})
-    sd = {}
-    for j, i in enumerate(VGG19_CONV_IDX if vgg else []):
-        sd[f"vgg.features.{i}.weight"] = conv_weight(np.asarray(vgg[f"conv{j}"]["kernel"]))
-        sd[f"vgg.features.{i}.bias"] = vgg[f"conv{j}"]["bias"]
-    out.update(_tensors(sd.items()))
+    if vgg:
+        out.update({f"vgg.{k}": v for k, v in vgg19_state_dict({"params": vgg}).items()})
     return out
+
+
+def vgg19_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``Vgg19Features`` variables ({"params": {"conv<j>"}}) -> the port's
+    ``Vgg19Features`` state dict (torchvision's ``features.<i>`` names)."""
+    p = variables["params"]
+    sd = {}
+    for j, i in enumerate(VGG19_CONV_IDX):
+        sd[f"features.{i}.weight"] = conv_weight(_array(p[f"conv{j}"]["kernel"]))
+        sd[f"features.{i}.bias"] = _array(p[f"conv{j}"]["bias"])
+    return _tensors(sd.items())
 
 
 # ---------------------------------------------------------------------- Unet3D
@@ -120,7 +140,7 @@ class _Builder:
         node = self.p
         for part in path.split("/"):
             node = node[part]
-        return np.asarray(node)
+        return _array(node)
 
     def has(self, path: str) -> bool:
         try:
@@ -259,9 +279,9 @@ def lpips_state_dict(variables: Mapping[str, Any]) -> StateDict:
     sd = {}
     for j, i in enumerate(ALEX_CONV_IDX):
         conv = p["net"][f"conv{j}"]
-        sd[f"net.slice{j + 1}.{i}.weight"] = conv_weight(np.asarray(conv["kernel"]))
-        sd[f"net.slice{j + 1}.{i}.bias"] = conv["bias"]
-        lin = np.asarray(p[f"lin{j}"])  # (C, 1)
+        sd[f"net.slice{j + 1}.{i}.weight"] = conv_weight(_array(conv["kernel"]))
+        sd[f"net.slice{j + 1}.{i}.bias"] = _array(conv["bias"])
+        lin = _array(p[f"lin{j}"])  # (C, 1)
         sd[f"lin{j}.model.1.weight"] = lin.T.reshape(1, -1, 1, 1)
     out = _tensors(sd.items())
     out.update({f"scaling_layer.{k}": v for k, v in ScalingLayer().state_dict().items()})
@@ -280,3 +300,110 @@ def i3d_state_dict(variables: Mapping[str, Any]) -> StateDict:
     for key in [k for k in out if k.endswith(".running_var")]:
         out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+# ----------------------------------------------------------------- checkpoints
+WEIGHT_KINDS = ("lfae", "unet", "vgg19", "lpips", "i3d")
+
+
+def weights_state_dict(kind: str, tree: Mapping[str, Any]) -> StateDict:
+    """A weights-only JAX file's tree (``utils.msgpack.load_jax_checkpoint``)
+    -> the port's state dict: "lfae" an ``LFAE``'s variables, "unet" a
+    ``Unet3D``'s (its variables or their "params"), "vgg19", "lpips" and
+    "i3d" the converted networks ``scripts/convert_checkpoint.py`` writes."""
+    if kind == "unet":
+        return unet_state_dict(tree.get("params", tree))
+    fns = {"lfae": lfae_state_dict, "vgg19": vgg19_state_dict, "lpips": lpips_state_dict,
+           "i3d": i3d_state_dict}
+    if kind not in fns:
+        raise ValueError(f"kind {kind!r} is none of {WEIGHT_KINDS}")
+    return fns[kind](tree)
+
+
+def optax_adam_state(opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX trainers' optax state as flax stores it: adam(w)'s chain
+    ({"0": {count, mu, nu}, ..., {count}: the schedule's}), under
+    apply_if_finite's {"inner_state", "notfinite_count", ...} with the nan
+    guard. -> {"count": Adam's, "mu", "nu", "schedule_count",
+    "notfinite_count": None without the guard}."""
+    notfinite = None
+    if "inner_state" in opt_state:
+        notfinite = int(opt_state["notfinite_count"])
+        opt_state = opt_state["inner_state"]
+    parts = [opt_state[str(i)] for i in range(len(opt_state))]
+    adam = [p for p in parts if "mu" in p]
+    sched = [p for p in parts if set(p) == {"count"}]
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError(f"not an adam(w) chain of optax: parts {[sorted(p) for p in parts]}")
+    return {"count": int(adam[0]["count"]), "mu": adam[0]["mu"], "nu": adam[0]["nu"],
+            "schedule_count": int(sched[0]["count"]), "notfinite_count": notfinite}
+
+
+def fill_optimizer(optimizer, named_params, opt_state: Mapping[str, Any], moments) -> None:
+    """Set a ``ScheduledOptimizer`` over Adam(W) to a JAX optax state:
+    `moments` maps the mu / nu trees to state dicts keyed like
+    `named_params`; Adam's count is each parameter's step, the schedule's
+    count the update count, apply_if_finite's count the nan guard's."""
+    st = optax_adam_state(opt_state)
+    mu, nu = moments(st["mu"]), moments(st["nu"])
+    named_params = list(named_params)
+    missing = sorted({n for n, _ in named_params} - set(mu))
+    if missing:
+        raise ValueError(f"the optimizer state has no moments for {missing[:5]}")
+    for name, p in named_params:
+        optimizer.opt.state[p] = {"step": torch.tensor(float(st["count"])),
+                                  "exp_avg": mu[name].to(p), "exp_avg_sq": nu[name].to(p)}
+    optimizer.count = st["schedule_count"]
+    optimizer.notfinite_count = st["notfinite_count"] or 0
+
+
+def dm_payload_from_jax(ckpt: Mapping[str, Any], unet: torch.nn.Module, optimizer
+                        ) -> Dict[str, Any]:
+    """A JAX DM checkpoint ({"example", "step", "state": DMTrainState}, as
+    ``scripts/train_dm.py`` writes it; JAX's ``convert_checkpoint.py --kind
+    dm`` writes the state's "unet_params" alone) loaded into `unet` and
+    `optimizer` (``train.dm_trainer.make_optimizer`` over its parameters)
+    -> ``train.checkpoint.dm_payload``, which ``train_dm --checkpoint``
+    resumes. A state without "opt_state" gives a payload without
+    "optimizer" (weights for sampling and evaluation)."""
+    from extdm_tpu_torch.train.checkpoint import dm_payload
+
+    state = ckpt["state"]
+    unet.load_state_dict(unet_state_dict(state["unet_params"]))
+    if "opt_state" in state:
+        fill_optimizer(optimizer, unet.named_parameters(), state["opt_state"], unet_state_dict)
+    out = dm_payload(unet, optimizer, int(ckpt.get("step", 0)), int(ckpt.get("example", 0)))
+    if "opt_state" not in state:
+        del out["optimizer"]
+    return out
+
+
+def ae_payload_from_jax(ckpt: Mapping[str, Any], trainer) -> Dict[str, Any]:
+    """A JAX AE checkpoint ({"example", "step", "state": AETrainState}, as
+    ``scripts/train_ae.py`` writes it) loaded into an ``AETrainer``'s model,
+    loss weights and Adam (the trainer made with learnable loss weights
+    where the state has them) -> ``train.checkpoint.ae_payload``."""
+    from extdm_tpu_torch.train.checkpoint import ae_payload
+
+    state, model, lw = ckpt["state"], trainer.model, trainer.loss_weights
+    if (lw is None) != (state.get("loss_weights") is None):
+        raise ValueError("the trainer's learnable loss weights and the checkpoint's disagree")
+    model.load_state_dict(recon_state_dict({"params": state["params"],
+                                            "batch_stats": state.get("batch_stats", {})}))
+    named = list(model.named_parameters())
+    if lw is not None:
+        with torch.no_grad():
+            for k, w in lw.items():
+                w.copy_(torch.tensor(_array(state["loss_weights"][k])))
+        named += [(f"loss_weights.{k}", w) for k, w in lw.items()]
+
+    def moments(tree):
+        params, weights = (tree["0"], tree["1"]) if lw is not None else (tree, {})
+        out = recon_state_dict({"params": params})
+        out.update({f"loss_weights.{k}": torch.tensor(_array(v), dtype=torch.float32)
+                    for k, v in weights.items()})
+        return out
+
+    fill_optimizer(trainer.optimizer, named, state["opt_state"], moments)
+    return ae_payload(model, trainer.optimizer, int(ckpt.get("step", 0)),
+                      int(ckpt.get("example", 0)), loss_weights=lw)

@@ -1,4 +1,4 @@
-"""Stage-2 evaluation (port of scripts/valid_dm.py:41-225).
+"""Stage-2 evaluation (port of scripts/valid_dm.py).
 
     python -m extdm_tpu_torch.eval.valid_dm --config configs/DM/kth.yaml \\
         --synthetic_videos 4 --num_sample_video 4 --batch_size 4 --device cpu
@@ -16,13 +16,28 @@ distance and its FVD, best-of-n PSNR, SSIM and LPIPS, and the sampling
 rate (the first sampler call excluded, a CUDA sync before each clock read).
 The lines go to stdout and ``<log_dir>/metrics.txt``.
 
+Artefacts, as the JAX CLI writes them: ``sample0.gif`` always (video 0
+against its best trajectory, by I3D distance with FVD, else trajectory 0;
+blue cond / orange pred borders). ``--dump_arrays``: ``origin.npy`` (the
+real videos), ``result.npy`` (trajectory 0 of each) for
+``analyze_dumps``; with ``--dump_flow`` also ``result_flows.npy``
+(trajectory 0's predicted warp grids of every autoregressive round, cut to
+the predicted frames) and ``origin_flows.npy`` (the LFAE's
+``encode_video`` flows of the real videos' predicted frames, on the
+device in batches of ``--batch_size``). ``--dump_flow``:
+``flow_vis/flow_tNNN.png`` and ``conf_tNNN.png``, the first batch's last
+sampler call's grid and confidence of row 0.
+
 Data: ``--root_dir`` (the config's HDF5 shards; needs h5py) or
 ``--synthetic_videos N`` (moving-shapes videos made in memory from
 ``--seed``). Weights: ``--flowae_checkpoint`` / ``--checkpoint`` are
 ``.pth`` files with the reference key names; without the first the LFAE is
-a seeded random init (smoke mode), as in the JAX CLI. LPIPS and I3D take
-their reference state dicts (``--lpips_state_dict`` / ``--i3d_state_dict``)
-or stay seeded random, flagged ``pretrained: False``.
+a seeded random init (smoke mode), as in the JAX CLI (a JAX checkpoint
+converts with ``python -m extdm_tpu_torch.convert_checkpoint``). LPIPS and
+I3D take their reference state dicts (``--lpips_state_dict`` /
+``--i3d_state_dict``) or the JAX package's converted msgpack weights
+(``--lpips_params`` / ``--i3d_params``), one of the two for each, or stay
+seeded random, flagged ``pretrained: False``.
 
 ``--mesh_data N`` (a launch of N ranks, torchrun) shards the (videos x
 trajectories) batch axis of every sampler call over the ranks
@@ -33,8 +48,8 @@ D`` (a launch of D x M ranks) runs the spatial sampler
 (``FlowDiffusion.make_spatial_sampler``): the batch over D data rows, the
 latent H over M model ranks. Every rank draws from the same generator per
 (batch, round) as a single process, so the metrics are the single
-process's. Not ported yet: the comparison gif, ``--dump_flow`` and
-``--dump_arrays`` (ROADMAP §1, eval artefacts).
+process's. Rank 0 writes every artefact; the files equal a world of
+one's.
 """
 from __future__ import annotations
 
@@ -60,6 +75,8 @@ from extdm_tpu_torch.parallel.mesh import DataGroup, World, init_data_group, mak
 from extdm_tpu_torch.parallel.spatial import SpatialMesh, make_spatial_mesh
 from extdm_tpu_torch.train.checkpoint import AE_PARTS, load_checkpoint, restore_ae, restore_dm
 from extdm_tpu_torch.train.job import default_backend, finish
+from extdm_tpu_torch.utils.flow_viz import conf2fig, flow2fig
+from extdm_tpu_torch.utils.visualize import save_image, visualize_comparison_gif
 
 METRICS = ("fvd", "psnr", "ssim", "lpips")
 # Real videos (with their trajectories) per slab moved to the card for PSNR,
@@ -112,6 +129,40 @@ def load_weights(fd, flowae_checkpoint: str = "", checkpoint: str = "") -> None:
         print(f"loaded diffusion from {checkpoint}")
 
 
+def load_backbones(device, i3d_state_dict: str = "", i3d_params: str = "",
+                   lpips_state_dict: str = "", lpips_params: str = ""):
+    """(I3DExtractor or None, LPIPSMetric or None) on `device`: each from a
+    reference state dict (``.pth``) or from the JAX package's converted
+    weights (flax msgpack), never both; None where neither is given (the
+    caller's seeded random network)."""
+    from extdm_tpu_torch import convert
+    from extdm_tpu_torch.utils.msgpack import load_jax_checkpoint
+
+    def load(name, pth, msgpack, make, to_state_dict):
+        if pth and msgpack:
+            raise ValueError(f"--{name}_state_dict and --{name}_params both given: pass one")
+        if pth:
+            return make(load_checkpoint(pth), device=device)
+        if msgpack:
+            return make(to_state_dict(load_jax_checkpoint(msgpack)), device=device)
+        return None
+
+    return (load("i3d", i3d_state_dict, i3d_params, I3DExtractor, convert.i3d_state_dict),
+            load("lpips", lpips_state_dict, lpips_params, LPIPSMetric, convert.lpips_state_dict))
+
+
+@torch.no_grad()
+def gt_flows(fd, real: torch.Tensor, cond_frames: int, batch_size: int) -> np.ndarray:
+    """The LFAE's ``encode_video`` flows of (N, T, H, W, 3) host videos'
+    frames from cond_frames on: (N, T - cond_frames, h, w, 2) float32, the
+    encode on fd.device in batches of `batch_size`."""
+    out = []
+    for i in range(0, real.shape[0], max(1, batch_size)):
+        enc = fd.lfae.encode_video(real[i:i + batch_size].to(fd.device), cond_frames)
+        out.append(enc["flow"][:, cond_frames:].float().cpu())
+    return torch.cat(out).numpy()
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -138,7 +189,8 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
              metrics: Iterable[str] = METRICS, i3d: Optional[I3DExtractor] = None,
              lpips: Optional[LPIPSMetric] = None,
              init_noise: Optional[Callable[[int, int], Optional[torch.Tensor]]] = None,
-             group: Optional[DataGroup] = None, mesh: Optional[SpatialMesh] = None) -> Dict:
+             group: Optional[DataGroup] = None, mesh: Optional[SpatialMesh] = None,
+             keep_flows: bool = False) -> Dict:
     """Sample every batch of `loader` (clips in a stored layout, on any
     device) `num_traj` times and score the trajectories. `init_noise(batch,
     round)` may give each sampler call's starting noise. Each finished batch
@@ -153,7 +205,12 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
     samples; rank 0 alone computes the metrics (the others return no
     lines and no values). With a spatial `mesh` the calls run on the
     spatial sampler, every rank holds the samples and rank 0 alone computes
-    the metrics likewise."""
+    the metrics likewise. With FVD, ``best_idx`` is each video's trajectory
+    nearest it by I3D features (else None). With `keep_flows` it also
+    returns, in host memory, ``pred_grids``: trajectory 0's predicted warp
+    grids of every round, (N, total_pred, h, w, 2), and ``flow_dump``: the
+    first batch's last call's ``sample_vid_grid`` / ``sample_vid_conf`` of
+    row 0 (1, tc + tp, h, w, .)."""
     cfg, dev = fd.cfg, fd.device
     tc, tp = cfg.cond_frames, cfg.pred_frames
     wanted = set(metrics)
@@ -166,25 +223,34 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
         sampler, lead = fd.make_sampler(), True
     num_autoreg = math.ceil(total_pred / tp)
     real_all, sample_all, call_s, pred_frames = [], [], [], []
+    grids_all, flow_dump = [], None
     for clips in loader:
         clips = clips[0] if isinstance(clips, (tuple, list)) else clips
         video = canonicalize_clips(torch.as_tensor(clips).to(dev))  # (B, T, H, W, 3)
         video_rep = video.repeat_interleave(num_traj, dim=0)
         b = len(real_all)
-        cond, preds = video_rep[:, :tc], []
+        cond, preds, grids = video_rep[:, :tc], [], []
         for r in range(num_autoreg):
             gen = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + b * 1000 + r)
             noise = init_noise(b, r) if init_noise is not None else None
             _sync(dev)
             t0 = time.perf_counter()
-            pred = sampler(gen, cond, init_noise=noise)["sample_out_vid"][:, tc:].float()
+            out = sampler(gen, cond, init_noise=noise)
+            pred = out["sample_out_vid"][:, tc:].float()
             _sync(dev)
             call_s.append(time.perf_counter() - t0)
             pred_frames.append(pred.shape[0] * pred.shape[1])
             preds.append(pred.cpu())
+            if keep_flows:
+                grids.append(out["sample_vid_grid"][::num_traj, tc:].float().cpu())
             cond = pred[:, -tc:] if pred.shape[1] >= tc else torch.cat(
                 [cond[:, pred.shape[1]:], pred], dim=1)
         pred_full = torch.cat(preds, dim=1)[:, :total_pred]
+        if keep_flows:
+            grids_all.append(torch.cat(grids, dim=1)[:, :total_pred])
+            if flow_dump is None:
+                flow_dump = {k: None if out[k] is None else out[k][:1].float().cpu()
+                             for k in ("sample_vid_grid", "sample_vid_conf")}
         real_all.append(video.cpu())
         sample_all.append(torch.cat([video_rep[:, :tc].cpu(), pred_full], dim=1))
     if len(call_s) == 1:  # one call: time a warm one for the rate line
@@ -202,8 +268,11 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
     print(f"evaluated {N} videos x {num_traj} trajectories")
     lines, values = [], {}
     seconds = {"sampling_per_call": call_s, "loader_wait": getattr(loader, "wait_s", 0.0)}
+    result = dict(lines=lines, values=values, real=real, samples=samples, seconds=seconds,
+                  best_idx=None, pred_grids=torch.cat(grids_all) if keep_flows else None,
+                  flow_dump=flow_dump)
     if not lead:
-        return dict(lines=lines, values=values, real=real, samples=samples, seconds=seconds)
+        return result
 
     def timed(name, fn):
         _sync(dev)
@@ -227,6 +296,8 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
             return per_traj, best
 
         fvd_traj, fvd_best = timed("frechet", fvds)
+        result["best_idx"] = best_trajectory_by_feature_distance(real_feats, traj_feats,
+                                                                 num_traj)
         fvd_mean, fvd_std, fvd_conf = metric_stuff(np.asarray(fvd_traj))
         values.update(fvd_traj=fvd_traj, fvd_best=fvd_best, i3d_pretrained=i3d.pretrained)
         lines += [f"fvd_traj mean/std/conf95: {fvd_mean:.3f} / {fvd_std:.3f} / {fvd_conf:.3f}",
@@ -253,7 +324,7 @@ def evaluate(fd, loader: Iterable, *, num_traj: int, total_pred: int, seed: int 
     warm_s = sum(call_s[1:])
     values["sampling_frames_per_sec"] = sum(pred_frames[1:]) / warm_s
     lines.append(f"sampling_frames_per_sec: {values['sampling_frames_per_sec']:.2f}")
-    return dict(lines=lines, values=values, real=real, samples=samples, seconds=seconds)
+    return result
 
 
 def main(argv=None) -> int:
@@ -272,10 +343,15 @@ def main(argv=None) -> int:
     p.add_argument("--total_videos", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--seed", type=int, default=1234)
-    p.add_argument("--i3d_state_dict", default="", help="pytorch_i3d weights (.pth)")
-    p.add_argument("--lpips_state_dict", default="", help="lpips AlexNet weights (.pth)")
+    add_backbone_flags(p)
     p.add_argument("--metrics", default=",".join(METRICS),
                    help="comma-separated subset of fvd,psnr,ssim,lpips")
+    p.add_argument("--dump_flow", action="store_true",
+                   help="save the predicted flow / conf pictures (flow_vis/), and with "
+                        "--dump_arrays the flow arrays")
+    p.add_argument("--dump_arrays", action="store_true",
+                   help="save origin / result (+ flows, with --dump_flow) arrays for "
+                        "analyze_dumps")
     p.add_argument("--stw_window_major", default="0", choices=WINDOW_MAJOR_MODES,
                    help="STW layout: 0 padded windows, 1 window-major, auto by layer shape")
     p.add_argument("--device", default="cuda")
@@ -296,6 +372,16 @@ def main(argv=None) -> int:
         _evaluate(args, group, mesh)
     finish(group)
     return 0
+
+
+def add_backbone_flags(p: argparse.ArgumentParser) -> None:
+    """--i3d_state_dict / --lpips_state_dict (reference .pth) and --i3d_params /
+    --lpips_params (the JAX package's converted msgpack weights)."""
+    p.add_argument("--i3d_state_dict", default="", help="pytorch_i3d weights (.pth)")
+    p.add_argument("--lpips_state_dict", default="", help="lpips AlexNet weights (.pth)")
+    p.add_argument("--i3d_params", default="", help="converted I3D weights (JAX msgpack)")
+    p.add_argument("--lpips_params", default="",
+                   help="converted LPIPS-AlexNet weights (JAX msgpack)")
 
 
 def _eval_group(args, world: World):
@@ -347,19 +433,55 @@ def _evaluate(args, group: DataGroup, mesh: Optional[SpatialMesh] = None) -> Non
                            random_time=False, seed=args.seed, raw_uint8=True)
     loader = DataLoader(dataset, args.batch_size, shuffle=False, num_workers=8,
                         drop_last=False, seed=args.seed, device=fd.device)
-    i3d = (I3DExtractor(load_checkpoint(args.i3d_state_dict), device=fd.device)
-           if args.i3d_state_dict else None)
-    lpips = (LPIPSMetric(load_checkpoint(args.lpips_state_dict), device=fd.device)
-             if args.lpips_state_dict else None)
+    i3d, lpips = load_backbones(fd.device, args.i3d_state_dict, args.i3d_params,
+                                args.lpips_state_dict, args.lpips_params)
     out = evaluate(fd, loader, num_traj=args.num_sample_video, total_pred=total_pred,
                    seed=args.seed, metrics=args.metrics.split(","), i3d=i3d, lpips=lpips,
-                   group=group, mesh=mesh)
+                   group=group, mesh=mesh, keep_flows=args.dump_flow)
     if group.rank != 0:
         return
     print("\n".join(out["lines"]))
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "metrics.txt"), "w") as f:
         f.write("\n".join(out["lines"]) + "\n")
+    write_artefacts(args, fd, out, tc)
+
+
+def write_artefacts(args, fd, out: Dict, tc: int) -> Dict[str, float]:
+    """sample0.gif, and the --dump_arrays / --dump_flow files, in args.log_dir;
+    returns the seconds of each part (the arrays' include the GT flows')."""
+    real, samples = out["real"].numpy(), out["samples"].numpy()
+    N, n_traj = real.shape[0], args.num_sample_video
+    traj = samples.reshape(N, n_traj, *samples.shape[1:])
+    best = 0 if out["best_idx"] is None else int(out["best_idx"][0])
+    t0 = time.perf_counter()
+    visualize_comparison_gif(os.path.join(args.log_dir, "sample0.gif"), real[0], traj[0, best],
+                             tc)
+    seconds = {"gif": time.perf_counter() - t0}
+    if args.dump_arrays:
+        t0 = time.perf_counter()
+        np.save(os.path.join(args.log_dir, "origin.npy"), real)
+        np.save(os.path.join(args.log_dir, "result.npy"), traj[:, 0])
+        if args.dump_flow:
+            t1 = time.perf_counter()
+            flows = gt_flows(fd, out["real"], tc, args.batch_size)
+            seconds["gt_flows"] = time.perf_counter() - t1
+            np.save(os.path.join(args.log_dir, "origin_flows.npy"), flows)
+            np.save(os.path.join(args.log_dir, "result_flows.npy"), out["pred_grids"].numpy())
+        seconds["arrays"] = time.perf_counter() - t0
+        print(f"analysis arrays -> {args.log_dir}")
+    if args.dump_flow:
+        t0 = time.perf_counter()
+        fdir = os.path.join(args.log_dir, "flow_vis")
+        grid, conf = out["flow_dump"]["sample_vid_grid"], out["flow_dump"]["sample_vid_conf"]
+        for t in range(grid.shape[1]):
+            save_image(os.path.join(fdir, f"flow_t{t:03d}.png"), flow2fig(grid[0, t].numpy()))
+            if conf is not None:
+                save_image(os.path.join(fdir, f"conf_t{t:03d}.png"), conf2fig(conf[0, t].numpy()))
+        seconds["flow_pngs"] = time.perf_counter() - t0
+        print(f"flow/conf visualizations -> {fdir}")
+    print("artefact seconds: " + " ".join(f"{k}={v:.3f}" for k, v in seconds.items()))
+    return seconds
 
 
 if __name__ == "__main__":

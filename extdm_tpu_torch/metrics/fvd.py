@@ -5,9 +5,9 @@
 - ``I3DExtractor``: the I3D's 400-d pre-softmax features, on the device;
 - ``frechet_distance``: means and covariances, scipy's ``sqrtm`` on the
   host in float64;
-- ``calculate_fvd2`` (from features) and
-  ``best_trajectory_by_feature_distance`` (best of n by the L1 distance of
-  I3D features).
+- ``calculate_fvd1`` (from videos), ``calculate_fvd2`` (from features),
+  ``get_feats`` and ``best_trajectory_by_feature_distance`` (best of n by
+  the L1 distance of I3D features).
 
 No I3D weight file exists here: without a state dict ``I3DExtractor`` uses a
 seeded random (He) init and reports ``pretrained: False`` (deterministic,
@@ -95,8 +95,17 @@ def frechet_distance(feats_fake: np.ndarray, feats_real: np.ndarray) -> float:
     return float(np.real(m))
 
 
+def calculate_fvd1(videos1, videos2, extractor: I3DExtractor, bs: int = 10) -> float:
+    """FVD of two sets of (N, T, H, W, C) videos in [0, 1]."""
+    return frechet_distance(extractor.get_feats(videos1, bs), extractor.get_feats(videos2, bs))
+
+
 def calculate_fvd2(feats1: np.ndarray, feats2: np.ndarray) -> float:
     return frechet_distance(feats1, feats2)
+
+
+def get_feats(videos, extractor: I3DExtractor, bs: int = 10) -> np.ndarray:
+    return extractor.get_feats(videos, bs)
 
 
 def best_trajectory_by_feature_distance(real_feats: np.ndarray, traj_feats: np.ndarray,

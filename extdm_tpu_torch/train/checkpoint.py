@@ -84,6 +84,9 @@ def restore_dm(ckpt: Dict[str, Any], unet: torch.nn.Module,
     unet.load_state_dict({k[len("denoise_fn."):]: v for k, v in ckpt["diffusion"].items()
                           if k.startswith("denoise_fn.")})
     if optimizer is not None:
+        if "optimizer" not in ckpt:
+            raise ValueError("the DM checkpoint holds weights only (no optimizer state): it "
+                             "loads for sampling, not to resume training")
         optimizer.load_state_dict(ckpt["optimizer"])
 
 

@@ -1,6 +1,7 @@
-"""Flow, confidence and warped-grid pictures for the training shots (port of
-the parts of extdm_tpu/utils/flow_viz.py the training jobs call), numpy on
-the host."""
+"""Flow, confidence and warped-grid pictures (port of
+extdm_tpu/utils/flow_viz.py), numpy on the host: the Middlebury colour
+wheel of a flow, a warp grid's displacement and its colour picture, a
+confidence map in gray, and a warped grid's line mesh."""
 from __future__ import annotations
 
 import numpy as np
@@ -50,9 +51,26 @@ def flow_to_color(flow: np.ndarray, clip: float | None = None) -> np.ndarray:
     f = fk - np.floor(fk)
     img = np.zeros(flow.shape[:2] + (3,), np.uint8)
     for c in range(3):
-        col = (1 - f) * _WHEEL[k0, c] / 255.0 + f * _WHEEL[k1, c] / 255.0
-        img[..., c] = np.floor(255 * (1 - rad * (1 - col)))  # white toward zero motion
+        col0, col1 = _WHEEL[k0, c] / 255.0, _WHEEL[k1, c] / 255.0
+        col = (1 - f) * col0 + f * col1
+        col = 1 - rad * (1 - col)  # white toward zero motion
+        img[..., c] = np.floor(255 * col)
     return img
+
+
+def grid_to_flow(grid: np.ndarray) -> np.ndarray:
+    """Backward-warp grid (H, W, 2) in [-1, 1] -> displacement (u, v) in pixels
+    from the identity grid."""
+    h, w = grid.shape[:2]
+    ident_x, ident_y = np.meshgrid(np.linspace(-1, 1, w), np.linspace(-1, 1, h))
+    u = (grid[..., 0] - ident_x) * (w - 1) / 2
+    v = (grid[..., 1] - ident_y) * (h - 1) / 2
+    return np.stack([u, v], axis=-1)
+
+
+def flow2fig(grid: np.ndarray) -> np.ndarray:
+    """(H, W, 2) warp grid -> (H, W, 3) uint8 colour picture of its motion."""
+    return flow_to_color(grid_to_flow(grid))
 
 
 def conf2fig(conf: np.ndarray) -> np.ndarray:

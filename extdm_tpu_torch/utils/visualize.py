@@ -1,6 +1,9 @@
-"""Pictures of the training jobs (port of the parts of
-extdm_tpu/utils/visualize.py they call): the DM img/vid shot panels, the AE
-region grid, and PNG and GIF writers.
+"""Pictures of the jobs and the evaluation tools (port of
+extdm_tpu/utils/visualize.py): strips and grids of videos, frames with
+blue (cond) / orange (pred) borders, the real | sample comparison gif,
+the LFAE reconstruction grid, the origin / result / flow / diff analysis
+gifs, the DM img/vid shot panels, the AE region grid, and PNG and GIF
+writers.
 
 The card's machine has no imageio, cv2 or matplotlib, so ``save_image``
 writes PNG with zlib and struct, ``save_gif`` writes a GIF89a with a fixed
@@ -14,7 +17,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -36,6 +39,27 @@ def add_border(frame: np.ndarray, color, width: int = 2) -> np.ndarray:
     out[:width], out[-width:] = c, c
     out[:, :width], out[:, -width:] = c, c
     return out
+
+
+def video_strip(video: np.ndarray, max_frames: int = 10) -> np.ndarray:
+    """(T, H, W, C) -> one horizontal strip of up to max_frames frames."""
+    T = video.shape[0]
+    step = max(1, T // max_frames)
+    return np.concatenate([to_uint8(video[t]) for t in range(0, T, step)][:max_frames], axis=1)
+
+
+def comparison_grid(rows: Sequence[np.ndarray], max_frames: int = 10) -> np.ndarray:
+    """The strips of several videos (real / recon / sample) stacked, cut to
+    the narrowest."""
+    strips = [video_strip(v, max_frames) for v in rows]
+    w = min(s.shape[1] for s in strips)
+    return np.concatenate([s[:, :w] for s in strips], axis=0)
+
+
+def bordered_video(video: np.ndarray, cond_frames: int) -> List[np.ndarray]:
+    """uint8 frames with blue borders on the cond frames, orange on the rest."""
+    return [add_border(to_uint8(video[t]), COND_COLOR if t < cond_frames else PRED_COLOR)
+            for t in range(video.shape[0])]
 
 
 # ------------------------------------------------------------------ writers
@@ -133,6 +157,58 @@ def save_gif(path: str, frames: Sequence[np.ndarray], fps: int = 10) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(b"".join(parts))
+
+
+# ------------------------------------------------------- evaluation pictures
+def visualize_comparison_gif(path: str, real: np.ndarray, sample: np.ndarray,
+                             cond_frames: int, fps: int = 10) -> None:
+    """A real | sample gif, each frame bordered by cond / pred."""
+    frames = [np.concatenate([r, s], axis=1) for r, s in
+              zip(bordered_video(real, cond_frames), bordered_video(sample, cond_frames))]
+    save_gif(path, frames, fps)
+
+
+def lfae_visualize(path_prefix: str, real: np.ndarray, recon: np.ndarray,
+                   warped: Optional[np.ndarray] = None, max_frames: int = 10) -> None:
+    """<path_prefix>_grid.png: the strips of real / recon (/ warped)."""
+    rows = [real, recon] + ([warped] if warped is not None else [])
+    save_image(path_prefix + "_grid.png", comparison_grid(rows, max_frames))
+
+
+def visualize_ori_pre_flow_diff(save_path: str, origin: np.ndarray, result: np.ndarray,
+                                origin_flow: np.ndarray, result_flow: np.ndarray,
+                                video_diff: Optional[np.ndarray] = None,
+                                flow_diff: Optional[np.ndarray] = None,
+                                epoch_or_step_num: int = 0, cond_frame_num: int = 10,
+                                fps: int = 2) -> List[str]:
+    """GT-against-prediction gifs. Inputs (B, T, H, W, 3) float in [0, 1]; per
+    video each frame is the 2 x 3 tile [[origin, result, video_diff],
+    [origin_flow, result_flow, flow_diff]], bordered by cond / pred, one gif
+    a video at <save_path>/<step>/gif_grid/{i:03d}_psnr{psnr:.3f}.gif (the
+    predicted frames' PSNR). The diffs default to the root mean square over
+    channels. Returns the paths."""
+    if video_diff is None:
+        video_diff = np.sqrt(((origin - result) ** 2).mean(-1))[..., None].repeat(3, -1)
+    if flow_diff is None:
+        flow_diff = np.sqrt(((origin_flow - result_flow) ** 2).mean(-1))[..., None].repeat(3, -1)
+    mse = ((origin[:, cond_frame_num:] - result[:, cond_frame_num:]) ** 2).mean(axis=(1, 2, 3, 4))
+    psnr = 10 * np.log10(1.0 / np.maximum(mse, 1e-12))
+    out_dir = os.path.join(save_path, str(epoch_or_step_num), "gif_grid")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i in range(origin.shape[0]):
+        frames = []
+        for t in range(origin.shape[1]):
+            top = np.concatenate([to_uint8(origin[i, t]), to_uint8(result[i, t]),
+                                  to_uint8(video_diff[i, t])], axis=1)
+            bot = np.concatenate([to_uint8(origin_flow[i, t]), to_uint8(result_flow[i, t]),
+                                  to_uint8(flow_diff[i, t])], axis=1)
+            frames.append(add_border(np.concatenate([top, bot], axis=0),
+                                     COND_COLOR if t < cond_frame_num else PRED_COLOR))
+        path = os.path.join(out_dir, f"{i:03d}_psnr{psnr[i]:.3f}.gif")
+        save_gif(path, frames, fps)
+        paths.append(path)
+    return paths
 
 
 # ---------------------------------------------------------------- DM shots

@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: it imports nothing of JAX or the JAX package,
-its entry points refuse to fall back to the CPU silently, and its kernel
-wrappers take their plain versions only for CPU tensors."""
+"""Guards of the PyTorch port: it imports nothing of JAX or the JAX package
+(nor flax's msgpack: the JAX checkpoint reader is the port's own), its entry
+points refuse to fall back to the CPU silently, and its kernel wrappers
+take their plain versions only for CPU tensors."""
 import ast
 from pathlib import Path
 
@@ -17,7 +18,7 @@ from torch_port_helpers import tiny_flow_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "extdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "extdm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "extdm_tpu")
 
 
 def _imported_modules(path):
@@ -164,3 +165,75 @@ def test_window_major_kernel_call_matches_its_c_entry():
              and node.func.attr == "launch" and node.args[1].value == "stw_layer_wm"]
     assert len(calls) == 1
     assert len(calls[0].args) - 2 == len(_build.entry_points("attention")["stw_layer_wm"]) == 20
+
+
+def _tiny_dumps(d):
+    rng = np.random.default_rng(3)
+    for name in ("origin", "result"):
+        np.save(d / f"{name}.npy", rng.uniform(size=(2, 4, 16, 16, 3)).astype(np.float32))
+
+
+def _tiny_v2v_yaml(d):
+    import yaml
+
+    cfg = yaml.safe_load(open(ROOT / "configs" / "DM" / "kth.yaml"))
+    cfg["dataset_params"].update(frame_shape=32)
+    cfg["dataset_params"]["valid_params"]["cond_frames"] = 2
+    cfg["flow_params"]["model_params"] = tiny_flow_params()
+    (d / "tiny.yaml").write_text(yaml.safe_dump(cfg))
+    return str(d / "tiny.yaml")
+
+
+NEW_MAINS = {
+    "analyze_dumps": ("extdm_tpu_torch.eval.analyze_dumps",
+                      lambda d: (_tiny_dumps(d), ["--dump_dir", str(d), "--cond_frames", "2",
+                                                  "--metrics", "psnr,ssim"])[1]),
+    "video2video": ("extdm_tpu_torch.eval.video2video",
+                    lambda d: ["--config", _tiny_v2v_yaml(d), "--synthetic_videos", "2",
+                               "--motion_indices", "1", "--num_frames", "3", "--log_dir",
+                               str(d / "v2v")]),
+    "metrics_demo": ("extdm_tpu_torch.metrics.demo",
+                     lambda d: ["--num_videos", "2", "--video_length", "8", "--size", "32"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_MAINS))
+def test_new_mains_default_to_cuda_and_run_on_cpu(name, tmp_path, capsys):
+    """Each tool's --device defaults to cuda (no card here: it raises, no
+    silent CPU run) and --device cpu runs it to its end."""
+    import importlib
+
+    module, argv = NEW_MAINS[name]
+    main = importlib.import_module(module).main
+    args = argv(tmp_path)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(args)
+    assert main(args + ["--device", "cpu"]) == 0
+
+
+def test_convert_checkpoint_takes_no_device():
+    """The checkpoint converter only rearranges arrays on the host: no
+    --device to default."""
+    from extdm_tpu_torch import convert_checkpoint
+
+    with pytest.raises(SystemExit):
+        convert_checkpoint.main(["--src", "a", "--out", "b", "--kind", "unet", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("entry,module", [
+    ("analyze_dumps_main", "extdm_tpu_torch.eval.analyze_dumps"),
+    ("video2video_main", "extdm_tpu_torch.eval.video2video"),
+    ("metrics_demo_main", "extdm_tpu_torch.metrics.demo"),
+    ("convert_checkpoint_main", "extdm_tpu_torch.convert_checkpoint")])
+def test_new_cli_entry_points_reach_port_mains(monkeypatch, entry, module):
+    import importlib
+
+    from extdm_tpu_torch import cli
+
+    monkeypatch.setattr(importlib.import_module(module), "main", lambda argv=None: 7)
+    with pytest.raises(SystemExit) as exit_:
+        getattr(cli, entry)()
+    assert exit_.value.code == 7
+    name = "extdm-torch-" + entry[:-len("_main")].replace("_", "-")
+    assert f'{name} = "extdm_tpu_torch.cli:{entry}"' in (ROOT / "pyproject.toml").read_text()
