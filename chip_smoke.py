@@ -4067,12 +4067,12 @@ def _digest(module) -> list:
     """A checksum of every parameter and buffer of `module`, on its device:
     per tensor, the sum of its float32 bit patterns (as int64) weighted by
     their positions, so that equal states give equal lists."""
-    out = []
-    for t in module.state_dict().values():
-        bits = t.detach().float().reshape(-1).view(torch.int32).long()
-        pos = torch.arange(1, bits.numel() + 1, device=bits.device)
-        out.append(int((bits * pos).sum()))
-    return out
+    return [_digest_tensor(t) for t in module.state_dict().values()]
+
+
+def _digest_tensor(t) -> int:
+    bits = t.detach().float().reshape(-1).view(torch.int32).long()
+    return int((bits * torch.arange(1, bits.numel() + 1, device=bits.device)).sum())
 
 
 def dp_reference(tmp):
@@ -4084,6 +4084,7 @@ def dp_reference(tmp):
     from extdm_tpu_torch.config import kth_ae_training_config, kth_training_config
     from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
     from extdm_tpu_torch.models.lfae.transform import random_tps
+    from extdm_tpu_torch.parallel import resident_bytes
     from extdm_tpu_torch.train.device_augment import prepare_batch, sample_augment
     from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
 
@@ -4097,7 +4098,8 @@ def dp_reference(tmp):
     t = torch.randint(0, cfg.timesteps, (DP_DM_BATCH,), generator=g)
     noise = torch.randn((DP_DM_BATCH, cfg.pred_frames, *latent.shape[2:]), generator=g)
     init = {k: v.detach().clone() for k, v in fd.unet.state_dict().items()}
-    dm = {"init": _flat_params(fd.unet).cpu(), "params": [], "grads": [], "loss": []}
+    dm = {"init": _flat_params(fd.unet).cpu(), "params": [], "grads": [], "loss": [],
+          "resident_bytes": []}
     dm_inputs = {"unet_digest": _digest(fd.unet), "lfae_digest": _digest(fd.lfae),
                  "video": video, "t": t, "noise": noise}
     for _ in range(2):
@@ -4108,6 +4110,7 @@ def dp_reference(tmp):
         dm["params"].append(_flat_params(fd.unet).cpu())
         dm["grads"].append(_flat_grads(fd.unet))
         dm["loss"].append(aux["loss"].item())
+        dm["resident_bytes"].append(resident_bytes(trainer.optimizer))
     del fd, trainer, init
     torch.cuda.empty_cache()
 
@@ -4314,7 +4317,8 @@ def dp_phase(card):
             got = [torch.load(Path(tmp) / f"dp_rank{r}.pt", weights_only=False)
                    for r in range(DP_RANKS)]
             dp_check(got, ref, backend, spawn_s, want_dm, want_ae, want_sampler, card)
-    log({"phase": "DP phase", "seconds": time.perf_counter() - t_phase, "backends": backends})
+        log({"phase": "DP phase", "seconds": time.perf_counter() - t_phase, "backends": backends})
+        tp_phase(ref["dm"], tmp, want_dm, card)
 
 
 def dp_check(got, ref, backend, spawn_s, want_dm, want_ae, want_sampler, card):
@@ -4386,6 +4390,139 @@ def dp_check(got, ref, backend, spawn_s, want_dm, want_ae, want_sampler, card):
         raise AssertionError(f"DP {backend}: {failed} outside the single-process step's spread")
 
 
+# ------------------------------------------------------------------- TP
+# Phase "TP": the tensor-parallel DM step (DMTrainer(mesh=...),
+# parallel/tensor.py): each rank stores its slice of every weight JAX's rule
+# splits and AdamW's moments for it, gathers the whole weights before the
+# forward and averages the whole gradient over the world after the
+# backward. On one card, over gloo (host-staged all-reduces): KTH at bf16,
+# batch DP_DM_BATCH, from the seeded init, with DP's single-process step as
+# the reference, at (data 1, model 2) on 2 ranks and on the hybrid (dcn 2,
+# data 1, model 2) mesh on 4 ranks. Checks: each rank's launches on its
+# first step equal world 1's; the updated parameters (gathered whole)
+# against the single step by _spread_check (SPREAD_MULT times the single
+# step's repeat spread plus one bf16 ulp of its mean update); the replicated
+# leaves bit-identical across the ranks. Prints ms per step (the first, and
+# a second with the exchanges' ms by kind: tp_gather, grad, aux), each rank's resident
+# parameter + moment bytes beside the single process's, and its peak memory.
+TP_MESHES = ((2, 1), (4, 2))  # (ranks, dcn); model 2
+TP_MODEL = 2
+TP_LIMIT_S = 600
+
+
+def tp_rank(rank, world, dcn, tmp):
+    """One rank of phase "TP": the mesh, the seeded model, one counted step
+    on its data row's rows, then one timed step with its exchanges timed (a
+    sync before and after each); writes <tmp>/tp_<world>_rank<r>.pt."""
+    from extdm_tpu_torch.config import kth_training_config
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
+    from extdm_tpu_torch.parallel import (init_data_group, make_hybrid_mesh, make_spatial_mesh,
+                                          resident_bytes)
+    from extdm_tpu_torch.train.dm_trainer import DMTrainer, make_optimizer
+
+    w = init_data_group("gloo", "cuda", rank=rank, world_size=world, local_rank=rank,
+                        init_method=f"file://{tmp}/tp_store_{world}")
+    job_defaults()
+    inp = torch.load(Path(tmp) / "dp_inputs.pt", weights_only=False)["dm"]
+    table = kernel_table()
+    counters = {n: k["wrapper"] for n, k in {**table, **backward_table(table)}.items()}
+    cfg = kth_training_config(torch.bfloat16)
+    fd = FlowDiffusion(cfg, device=w.device, seed=0)
+    if (_digest(fd.unet), _digest(fd.lfae)) != (inp["unet_digest"], inp["lfae_digest"]):
+        raise AssertionError(f"TP rank {rank}: the seeded DM init differs from the parent's")
+    mesh = (make_hybrid_mesh(w, dcn, TP_MODEL) if dcn > 1
+            else make_spatial_mesh(w, world // TP_MODEL, TP_MODEL))
+    trainer = DMTrainer(fd, make_optimizer(fd.unet.parameters(), 2e-4, (500000,), 0.5),
+                        mesh=mesh)
+    rows = mesh.rows(DP_DM_BATCH)
+    video, t, noise = (inp[k][rows].to(w.device) for k in ("video", "t", "noise"))
+
+    def step():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = trainer.train_step(None, video, t=t, noise=noise)
+        torch.cuda.synchronize()
+        return aux, (time.perf_counter() - t0) * 1e3, {n: c.launches for n, c in counters.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    aux, first_ms, launches = step()
+    tp = trainer.tp
+    whole = tp.state_dict()
+    out = {"rank": rank, "place": [mesh.d, mesh.m, mesh.dcn], "rows": [rows.start, rows.stop],
+           "first_ms": first_ms, "launches": launches, "loss": aux["loss"].item(),
+           "params": torch.cat([whole[n].detach().float().reshape(-1).cpu() for n in tp.names]),
+           "replicated_digest": [_digest_tensor(tp.params[n]) for n in tp.names
+                                 if n not in tp.axes],
+           "ruled": len(tp.axes), "replicated": len(tp.names) - len(tp.axes),
+           "resident_bytes": resident_bytes(trainer.optimizer),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del whole
+    mesh.timings = {}
+    out["ms"] = [step()[1]]
+    out["exchange_ms"] = {k: sum(v) for k, v in mesh.timings.items()}
+    out["exchanges"] = {k: len(v) for k, v in mesh.timings.items()}
+    mesh.timings = None
+    torch.save(out, Path(tmp) / f"tp_{world}_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def tp_phase(ref, tmp, want_dm, card):
+    """Phase "TP": TP_MESHES on one card over gloo, against DP's
+    single-process DM step `ref` (whose inputs are in <tmp>/dp_inputs.pt)."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    failed = []
+    for world, dcn in TP_MESHES:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tp_rank, args=(world, dcn, tmp), nprocs=world, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=5.0):
+            if time.perf_counter() - t0 > TP_LIMIT_S:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"TP ranks at world {world} still running after "
+                                   f"{TP_LIMIT_S} s")
+        spawn_s = time.perf_counter() - t0
+        got = [torch.load(Path(tmp) / f"tp_{world}_rank{r}.pt", weights_only=False)
+               for r in range(world)]
+        mesh = ({"dcn": dcn, "data": world // (dcn * TP_MODEL), "model": TP_MODEL} if dcn > 1
+                else {"data": world // TP_MODEL, "model": TP_MODEL})
+        for g in got:
+            seen = {n: c for n, c in g["launches"].items() if c}
+            if seen != want_dm:
+                failed.append(f"world {world} rank {g['rank']} launches {seen} != world 1's "
+                              f"{want_dm}")
+            line = _spread_check(g["params"], ref["params"][0], ref["params"][1], ref["init"])
+            if not line["ok"]:
+                failed.append(f"world {world} rank {g['rank']} params {line}")
+            if g["replicated_digest"] != got[0]["replicated_digest"]:
+                failed.append(f"world {world} rank {g['rank']}: replicated leaves differ from "
+                              "rank 0's")
+            log({"phase": "TP", "mesh": mesh, "rank": g["rank"], "place": g["place"],
+                 "rows": g["rows"], "global_batch": DP_DM_BATCH,
+                 "note": "ranks share one card over gloo (host-staged all-reduce): a smoke, "
+                         "not a scaling figure",
+                 "first_ms": g["first_ms"], "ms": g["ms"],
+                 "exchange_ms": g["exchange_ms"], "exchanges": g["exchanges"],
+                 "loss": g["loss"], "single_loss": ref["loss"][0],
+                 "params_vs_single_step": line,
+                 "replicated_bit_identical": g["replicated_digest"] == got[0]["replicated_digest"],
+                 "ruled_tensors": g["ruled"], "replicated_tensors": g["replicated"],
+                 "resident_bytes": g["resident_bytes"],
+                 "single_process_resident_bytes": ref["resident_bytes"][0],
+                 "resident_share": g["resident_bytes"] / ref["resident_bytes"][0],
+                 "peak_bytes": g["peak_bytes"],
+                 "launches": {n: c for n, c in g["launches"].items() if c}, "card": card})
+        log({"phase": "TP checks", "mesh": mesh, "spawn_seconds": spawn_s, "failed": failed,
+             "card": card})
+    log({"phase": "TP phase", "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError(f"TP: {failed}")
+
+
 # ------------------------------------------------------------------ spatial
 # Phase "spatial": the spatial (sequence-parallel) sampler,
 # FlowDiffusion.make_spatial_sampler over a (data, model) mesh of spawned
@@ -4418,33 +4555,52 @@ def dp_check(got, ref, backend, spawn_s, want_dm, want_ae, want_sampler, card):
 # - per rank: launches of kernels 1/2/3/4/9 on a call (180 / 91 / 0 / 5 / 0:
 #   the resnet blocks run as resnet_block_sharded, convs and GroupNorm in
 #   torch, as JAX's spatial sampler runs them on XLA), ms per call (median of
-#   SPATIAL_TIMED_CALLS), the exchanges' ms and counts by kind on one more
+#   SPATIAL_TIMED_CALLS["kth"]), the exchanges' ms and counts by kind on one more
 #   call, and the peak device memory against the single process's;
 # - one configs/DM/cityscapes.yaml call at 128 px (a 64 x 64 latent: every
 #   level's windows within the shards), batch SPATIAL_CITY_BATCH: its result
-#   by the mean limit against the single process's, and the peak memory.
+#   by the mean limit against the single process's, and the peak memory;
+# - the w_ref/traj preset (kth_traj_config, bf16, batch SPATIAL_BATCH):
+#   TrajWarp on each shard's query rows against the whole cond features and
+#   the clamped halo of its resize (exchange kind "traj", one a DDIM step),
+#   kernel 1 at N = 32 on the shards' cut window ids; each rank's result
+#   against the single process's make_sampler by the same limits widened by
+#   make_sampler's repeat spread; launches per call (180 / 90 / 0 / 5 / 0),
+#   ms per call (one timed call), the exchanges by kind and the peak memory
+#   as for KTH.
 SPATIAL_RANKS = 2
 SPATIAL_BATCH = 4
 SPATIAL_CITY_BATCH = 2
-SPATIAL_TIMED_CALLS = 3
+# timed calls a rank makes of each model (none: the cityscapes call is
+# held and its memory read, no more)
+SPATIAL_TIMED_CALLS = {"kth": 3, "traj": 1}
 SPATIAL_LIMIT_S = 600
 SPATIAL_MAX_REL_TOL = 2.0 ** -5
 SPATIAL_MEAN_REL_TOL = 2.0 ** -6
-# (shape, shift, dtype) of kernel 1 on a shard's windows: KTH's first two
-# levels at model 2 (16 and 8 rows a shard), window (4, 4, 4), 8 heads of
-# 32, in bf16 (stw_layer.cu), and one float32 case (attention.cu's body).
-SPATIAL_K1_CASES = [((4, 30, 32, 32, 64), (2, 2, 2), torch.bfloat16),
-                    ((4, 30, 32, 32, 64), (0, 2, 0), torch.bfloat16),
-                    ((4, 30, 16, 16, 128), (2, 2, 2), torch.bfloat16),
-                    ((1, 6, 16, 8, 64), (2, 2, 2), torch.float32)]
+# (shape, shift, dtype, window) of kernel 1 on a shard's windows: KTH's
+# first two levels at model 2 (16 and 8 rows a shard), window (4, 4, 4), 8
+# heads of 32, in bf16 (stw_layer.cu), one float32 case (attention.cu's
+# body), and the w_ref/traj preset's window (2, 4, 4) (N = 32, shift (1, 2,
+# 2)) at its first two levels.
+SPATIAL_K1_CASES = [((4, 30, 32, 32, 64), (2, 2, 2), torch.bfloat16, (4, 4, 4)),
+                    ((4, 30, 32, 32, 64), (0, 2, 0), torch.bfloat16, (4, 4, 4)),
+                    ((4, 30, 16, 16, 128), (2, 2, 2), torch.bfloat16, (4, 4, 4)),
+                    ((1, 6, 16, 8, 64), (2, 2, 2), torch.float32, (4, 4, 4)),
+                    ((4, 30, 32, 32, 64), (1, 2, 2), torch.bfloat16, (2, 4, 4)),
+                    ((4, 30, 16, 16, 128), (1, 2, 2), torch.bfloat16, (2, 4, 4))]
+# the models of the phase: name -> which config (spatial_config)
+SPATIAL_MODELS = ("kth", "city", "traj")
 CITYSCAPES_YAML = Path(__file__).resolve().parent / "configs" / "DM" / "cityscapes.yaml"
 
 
-def spatial_config(city=False):
-    from extdm_tpu_torch.config import dm_config_from_yaml, kth_sampling_config, load_config
+def spatial_config(name="kth"):
+    from extdm_tpu_torch.config import (dm_config_from_yaml, kth_sampling_config,
+                                        kth_traj_config, load_config)
 
-    if city:
+    if name == "city":
         return dm_config_from_yaml(load_config(str(CITYSCAPES_YAML)), dtype=torch.bfloat16)
+    if name == "traj":
+        return kth_traj_config()
     return kth_sampling_config(dtype=torch.bfloat16)
 
 
@@ -4491,13 +4647,14 @@ def spatial_kernel1_phase(card, model=2):
     from extdm_tpu_torch.ops import fused_stw
 
     g = torch.Generator(device="cuda").manual_seed(81)
-    window, heads, dh = (4, 4, 4), 8, 32
-    hid, N = heads * dh, math.prod(window)
+    heads, dh = 8, 32
+    hid = heads * dh
 
     def randn(*s, scale=1.0):
         return scale * torch.randn(s, generator=g, device="cuda")
 
-    for shape, shift, dtype in SPATIAL_K1_CASES:
+    for shape, shift, dtype, window in SPATIAL_K1_CASES:
+        N = math.prod(window)
         B, T, H, W, C = shape
         x = randn(*shape).to(dtype)
         rel, residual = (BF16_REL_TOL, True) if dtype == torch.bfloat16 else (F32_REL_TOL, False)
@@ -4530,7 +4687,7 @@ def spatial_kernel1_phase(card, model=2):
                                            x.device)
         local = rolled[:, :, :HL].contiguous()
         log({"phase": "spatial kernel 1", "shape": list(shape), "shift": list(shift),
-             "dtype": str(dtype),
+             "window": list(window), "tokens": N, "dtype": str(dtype),
              "model": model, "local_shape": list(local.shape), "mask_tables": list(mask[0].shape),
              "ids": mask[1].numel(), "shards": shards, "joined_vs_global_plain": whole,
              "kernel_ms": cuda_ms(lambda: fused_stw.fused_stw_layer(
@@ -4558,20 +4715,21 @@ def _host(out):
 
 
 def spatial_reference(tmp):
-    """The single process's results, on the card: the KTH model's encode of
-    the cond videos and one denoiser forward on random noisy latents, two
-    make_sampler calls and one world-1 spatial call on the same seed (with
-    their peak memory), and the cityscapes call; writes the ranks' inputs to
-    <tmp>/spatial_inputs.pt and returns the references (on the host)."""
+    """The single process's results, on the card, for each of
+    SPATIAL_MODELS: the model's encode of the cond videos and one denoiser
+    forward on random noisy latents, two make_sampler calls and one world-1
+    spatial call on the same seed (with their peak memory); writes the
+    ranks' inputs to <tmp>/spatial_inputs.pt and returns the references (on
+    the host)."""
     from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
     from extdm_tpu_torch.parallel import World, make_spatial_mesh
 
     ref, inputs = {}, {}
     world1 = World(rank=0, size=1, local_rank=0, device=torch.device("cuda", 0), backend="gloo")
-    for name, city in (("kth", False), ("city", True)):
-        cfg = spatial_config(city)
+    for name in SPATIAL_MODELS:
+        cfg = spatial_config(name)
         fd = FlowDiffusion(cfg, device="cuda", seed=0)
-        B = SPATIAL_CITY_BATCH if city else SPATIAL_BATCH
+        B = SPATIAL_CITY_BATCH if name == "city" else SPATIAL_BATCH
         px = cfg.frame_shape
         cond = torch.rand((B, cfg.cond_frames, px, px, 3),
                           generator=torch.Generator().manual_seed(71)).cuda()
@@ -4607,8 +4765,9 @@ def spatial_reference(tmp):
 def spatial_rank(rank, world, backend, data, tmp):
     """One rank of phase "spatial": joins the group over `backend`, makes
     the (data, world / data) mesh and runs ``spatial_rank_calls`` on the KTH
-    model, then the cityscapes call, the counters from 0 before each call.
-    Writes what it measured to <tmp>/spatial_<backend>_rank<r>.pt."""
+    model, the cityscapes call and the traj model, the counters from 0
+    before each call. Writes what it measured to
+    <tmp>/spatial_<backend>_rank<r>.pt."""
     from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
     from extdm_tpu_torch.parallel import init_data_group, make_spatial_mesh
 
@@ -4632,21 +4791,21 @@ def spatial_rank(rank, world, backend, data, tmp):
            "device_name": torch.cuda.get_device_name(w.device)}
     mesh = make_spatial_mesh(w, data, world // data)
     out["place"] = [mesh.d, mesh.m]
-    for name, city in (("kth", False), ("city", True)):
-        cfg, case = spatial_config(city), inp[name]
+    for name in SPATIAL_MODELS:
+        cfg, case = spatial_config(name), inp[name]
         fd = FlowDiffusion(cfg, device=w.device, seed=0)
         if (_digest(fd.unet), _digest(fd.lfae)) != case["digest"]:
             raise AssertionError(f"spatial rank {rank}: the seeded init differs from the parent's")
-        out[name] = spatial_rank_calls(fd, mesh, case, counted, timed=not city)
+        out[name] = spatial_rank_calls(fd, mesh, case, counted, SPATIAL_TIMED_CALLS.get(name))
         del fd
         torch.cuda.empty_cache()
     torch.save(out, Path(tmp) / f"spatial_{backend}_rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
 
-def spatial_rank_calls(fd, mesh, case, counted, timed):
+def spatial_rank_calls(fd, mesh, case, counted, calls):
     """A rank's calls on one model: a counted first call, then, where
-    `timed`, one denoiser forward on the rank's rows, SPATIAL_TIMED_CALLS
+    `calls` is given, one denoiser forward on the rank's rows, `calls`
     timed calls and one with the exchanges timed (its peak memory), else
     one more call (its peak memory)."""
     dev = fd.device
@@ -4656,7 +4815,7 @@ def spatial_rank_calls(fd, mesh, case, counted, timed):
     res = {}
     got, res["first_ms"], res["launches"] = counted(lambda: sampler(gen.manual_seed(73), cond))
     res["out"] = _host(got)
-    if not timed:
+    if calls is None:
         _, res["peak"], res["work"] = _peak_call(lambda: sampler(gen.manual_seed(73), cond))
         return res
     rows = mesh.rows(cond.shape[0])
@@ -4669,7 +4828,7 @@ def spatial_rank_calls(fd, mesh, case, counted, timed):
     h_rows = mesh.h_rows(y.shape[2] * mesh.model)
     res.update(forward=y.float().cpu(), rows=[rows.start, rows.stop],
                h_rows=[h_rows.start, h_rows.stop], ms=[], timed_launches=[])
-    for _ in range(SPATIAL_TIMED_CALLS):
+    for _ in range(calls):
         _, ms, launches = counted(lambda: sampler(gen.manual_seed(73), cond))
         res["ms"].append(ms)
         res["timed_launches"].append(launches)
@@ -4686,7 +4845,7 @@ def spatial_phase(card):
     """Phase "spatial": kernel 1 on cut ids, the single-process references,
     then the ranks over gloo on cuda:0 (and over nccl, one a card, where
     there are 2 or 4 cards); checks and prints each rank's lines. Returns
-    rank 0's launches per KTH call over gloo."""
+    rank 0's launches per KTH call and per traj call over gloo."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -4732,7 +4891,7 @@ def spatial_phase(card):
                    for r in range(world)]
             spatial_check(got, ref, backend, world, data, spawn_s, card)
             if first is None:
-                first = got[0]["kth"]["launches"]
+                first = got[0]["kth"]["launches"], got[0]["traj"]["launches"]
     log({"phase": "spatial phase", "seconds": time.perf_counter() - t_phase,
          "runs": [list(r) for r in runs]})
     return first
@@ -4742,27 +4901,34 @@ def spatial_check(got, ref, backend, world, data, spawn_s, card):
     """Phase "spatial"'s lines and checks for one run of ranks: every line
     is printed before a failed check raises."""
     failed = []
-    kth_cfg = spatial_config()
-    want = {n: c for n, c in spatial_expected(kth_cfg).items() if c}
     for g in got:
-        kth, city = g["kth"], g["city"]
-        for what, seen in [("warm-up", kth["launches"])] + [
-                (f"timed call {i}", s) for i, s in enumerate(kth["timed_launches"])]:
-            nonzero = {n: c for n, c in seen.items() if c}
-            if nonzero != want:
-                failed.append(f"rank {g['rank']} {what} launches {nonzero} != {want}")
-        r0, r1 = kth["rows"]
-        h0, h1 = kth["h_rows"]
-        fwd = spatial_limits("denoiser forward", kth["forward"],
-                             ref["kth"]["forward"][r0:r1, :, h0:h1])
-        lines = {"forward": fwd}
-        for name, res in (("kth", kth), ("city", city)):
+        kth, city, traj = g["kth"], g["city"], g["traj"]
+        lines = {}
+        for name in ("kth", "traj"):
+            res = g[name]
+            want = {n: c for n, c in spatial_expected(spatial_config(name)).items() if c}
+            for what, seen in [("warm-up", res["launches"])] + [
+                    (f"timed call {i}", s) for i, s in enumerate(res["timed_launches"])]:
+                nonzero = {n: c for n, c in seen.items() if c}
+                if nonzero != want:
+                    failed.append(f"rank {g['rank']} {name} {what} launches {nonzero} != {want}")
+            r0, r1 = res["rows"]
+            h0, h1 = res["h_rows"]
+            lines[f"{name} forward"] = spatial_limits("denoiser forward", res["forward"],
+                                                      ref[name]["forward"][r0:r1, :, h0:h1])
+        if traj["exchanges"].get("traj") != spatial_config("traj").sampling_timesteps:
+            failed.append(f"rank {g['rank']} traj: {traj['exchanges'].get('traj')} warp halos "
+                          "a call, not one a DDIM step")
+        # the KTH and cityscapes calls against world 1's spatial call, the
+        # traj call against the single process's make_sampler
+        for name, res, against in (("kth", kth, "world1"), ("city", city, "world1"),
+                                   ("traj", traj, "plain")):
             for key, v in res["out"].items():
                 if v is None:
                     continue
-                lines[f"{name} {key} vs world 1"] = spatial_limits(
-                    key, v, ref[name]["world1"][key], ref[name]["spread"][key])
-                if name == "kth" and key.startswith("real_") and data == 1:
+                lines[f"{name} {key} vs {against}"] = spatial_limits(
+                    key, v, ref[name][against][key], ref[name]["spread"][key])
+                if name != "city" and key.startswith("real_") and data == 1:
                     lines[f"{name} {key} encode bitwise"] = {
                         "ok": torch.equal(v, ref[name]["plain"][key])}
         for what, line in lines.items():
@@ -4785,6 +4951,17 @@ def spatial_check(got, ref, backend, world, data, spawn_s, card):
                      "world1_spatial_working_bytes": ref["kth"]["world1_work"],
                      "unet_forward_working_bytes": kth["forward_work"],
                      "single_process_unet_forward_working_bytes": ref["kth"]["forward_work"]},
+             "traj": {"global_batch": SPATIAL_BATCH, "first_ms": traj["first_ms"],
+                      "ms": traj["ms"], "median_ms": statistics.median(traj["ms"]),
+                      "launches": {n: c for n, c in traj["launches"].items() if c},
+                      "exchanges_timed_call_ms": traj["exchanges_timed_call_ms"],
+                      "exchange_ms": traj["exchange_ms"], "exchanges": traj["exchanges"],
+                      "peak_bytes": traj["peak"], "single_process_peak_bytes": ref["traj"]["peak"],
+                      "working_bytes": traj["work"],
+                      "single_process_working_bytes": ref["traj"]["work"],
+                      "unet_forward_working_bytes": traj["forward_work"],
+                      "single_process_unet_forward_working_bytes":
+                          ref["traj"]["forward_work"]},
              "cityscapes": {"global_batch": SPATIAL_CITY_BATCH, "first_ms": city["first_ms"],
                             "launches": {n: c for n, c in city["launches"].items() if c},
                             "peak_bytes": city["peak"], "working_bytes": city["work"],
@@ -4896,14 +5073,15 @@ def main() -> int:
     _, traj_step = traj_train_phase(table, btable, {**ae_btable, **wm, **rt}, card)
     _, ae16_step = ae_bf16_phase(table, ae_btable, {**btable, **wm, **rt}, card, ae_ms)
 
-    # ---- data parallel: the DM and AE steps and the sampler in 2 ranks
+    # ---- data parallel: the DM and AE steps and the sampler in 2 ranks; then
+    # tensor parallel: the DM step on (data 1, model 2) and (dcn 2, data 1, model 2)
     job_defaults()
     torch.cuda.empty_cache()
     dp_phase(card)
 
     # ---- spatial: the sampler over ranks holding shards of the latent H
     torch.cuda.empty_cache()
-    spatial_launches = spatial_phase(card)
+    spatial_launches, spatial_traj_launches = spatial_phase(card)
 
     # each kernel's launches: on the sampling path for the forward kernels,
     # on the DM train path for its backward kernels, on the AE path for the
@@ -4938,6 +5116,7 @@ def main() -> int:
                         "traj_step_launches": traj_step.get(name, 0),
                         "ae_bf16_step_launches": ae16_step.get(name, 0),
                         "spatial_rank_call_launches": spatial_launches.get(name, 0),
+                        "spatial_traj_rank_call_launches": spatial_traj_launches.get(name, 0),
                         "artefacts_gt_flow_launches": gt_launches.get(name, 0),
                         "video2video_launches": v2v_launches.get(name, 0),
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],

@@ -131,10 +131,37 @@ def vgg19_state_dict(variables: Mapping[str, Any]) -> StateDict:
 
 
 # ---------------------------------------------------------------------- Unet3D
+def conv_weight_to_jax(weight: np.ndarray) -> np.ndarray:
+    """The inverse of ``conv_weight``: torch (O, I, *spatial) -> flax (*spatial, I, O)."""
+    nd = weight.ndim
+    return np.transpose(weight, tuple(range(2, nd)) + (1, 0))
+
+
+def conv_transpose_weight_to_jax(weight: np.ndarray) -> np.ndarray:
+    """The inverse of ``conv_transpose_weight``."""
+    return np.transpose(weight, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1]
+
+
+def _same(a):
+    return a
+
+
 class _Builder:
-    def __init__(self, params: Mapping[str, Any]):
-        self.p = params
+    """The UNet's key map, in both directions. Forward (``params``, the JAX
+    tree): ``sd`` collects the port's state dict. Reverse (``port``, a
+    port state dict): ``tree`` collects the JAX tree, each leaf put back
+    by the inverse of the forward transform. Every module method below maps
+    its leaves through ``_map``, and every optional part through
+    ``present``, so that both directions read one map."""
+
+    def __init__(self, params: Mapping[str, Any] = None, port: Mapping[str, Any] = None):
+        self.p, self.port = params, port
         self.sd: Dict[str, np.ndarray] = {}
+        self.tree: Dict[str, Any] = {}
+
+    @property
+    def reverse(self) -> bool:
+        return self.port is not None
 
     def get(self, path: str) -> np.ndarray:
         node = self.p
@@ -149,50 +176,78 @@ class _Builder:
         except KeyError:
             return False
 
+    def present(self, src: str, dst: str) -> bool:
+        """Whether the part at JAX path `src` (port key or key prefix `dst`)
+        is in the model being mapped."""
+        if self.reverse:
+            return any(k == dst or k.startswith(dst + ".") for k in self.port)
+        return self.has(src)
+
+    def _map(self, src: str, dst: str, to_port=_same, to_jax=_same, optional: bool = False):
+        if optional and not self.present(src, dst):
+            return
+        if self.reverse:
+            *head, leaf = src.split("/")
+            node = self.tree
+            for part in head:
+                node = node.setdefault(part, {})
+            node[leaf] = to_jax(self.port[dst])
+        else:
+            self.sd[dst] = to_port(self.get(src))
+
+    def copy(self, src: str, dst: str):
+        self._map(src, dst)
+
     def conv(self, src: str, dst: str, bias: bool = True):
-        self.sd[f"{dst}.weight"] = conv_weight(self.get(f"{src}/kernel"))
-        if bias and self.has(f"{src}/bias"):
-            self.sd[f"{dst}.bias"] = self.get(f"{src}/bias")
+        self._map(f"{src}/kernel", f"{dst}.weight", conv_weight, conv_weight_to_jax)
+        if bias:
+            self._map(f"{src}/bias", f"{dst}.bias", optional=True)
+
+    def conv_transpose(self, src: str, dst: str):
+        self._map(f"{src}/kernel", f"{dst}.weight", conv_transpose_weight,
+                  conv_transpose_weight_to_jax)
+        self._map(f"{src}/bias", f"{dst}.bias")
 
     def linear(self, src: str, dst: str):
-        self.sd[f"{dst}.weight"] = self.get(f"{src}/kernel").T
-        if self.has(f"{src}/bias"):
-            self.sd[f"{dst}.bias"] = self.get(f"{src}/bias")
+        self._map(f"{src}/kernel", f"{dst}.weight", np.transpose, np.transpose)
+        self._map(f"{src}/bias", f"{dst}.bias", optional=True)
 
     def gamma(self, src: str, dst: str):
-        self.sd[dst] = self.get(src).reshape(1, -1, 1, 1, 1)
+        self._map(src, dst, lambda a: a.reshape(1, -1, 1, 1, 1), lambda a: a.reshape(-1))
 
     def resnet(self, src: str, dst: str):
-        if self.has(f"{src}/mlp"):
+        if self.present(f"{src}/mlp", f"{dst}.mlp"):
             self.linear(f"{src}/mlp", f"{dst}.mlp.1")
         for blk in ("block1", "block2"):
             self.conv(f"{src}/{blk}/proj/Conv_0", f"{dst}.{blk}.proj")
-            self.sd[f"{dst}.{blk}.norm.weight"] = self.get(f"{src}/{blk}/norm/scale")
-            self.sd[f"{dst}.{blk}.norm.bias"] = self.get(f"{src}/{blk}/norm/bias")
-        if self.has(f"{src}/res_conv"):
+            self.copy(f"{src}/{blk}/norm/scale", f"{dst}.{blk}.norm.weight")
+            self.copy(f"{src}/{blk}/norm/bias", f"{dst}.{blk}.norm.bias")
+        if self.present(f"{src}/res_conv", f"{dst}.res_conv"):
             self.conv(f"{src}/res_conv", f"{dst}.res_conv")
 
     def stw(self, src: str, dst: str):
         self.gamma(f"{src}/norm/gamma", f"{dst}.fn.norm.gamma")
         a = f"{dst}.fn.fn.attn"
-        self.sd[f"{a}.relative_position_bias_table"] = self.get(
-            f"{src}/fn/attn/relative_position_bias_table")
+        self.copy(f"{src}/fn/attn/relative_position_bias_table",
+                  f"{a}.relative_position_bias_table")
         self.linear(f"{src}/fn/attn/qkv", f"{a}.qkv")
         self.linear(f"{src}/fn/attn/proj/Dense_0", f"{a}.proj")
 
     def temporal(self, src: str, dst: str):
         self.gamma(f"{src}/norm/gamma", f"{dst}.fn.norm.gamma")
         inner = f"{dst}.fn.fn.fn"
-        self.sd[f"{inner}.norm.weight"] = self.get(f"{src}/fn/norm/scale")
-        self.sd[f"{inner}.norm.bias"] = self.get(f"{src}/fn/norm/bias")
+        self.copy(f"{src}/fn/norm/scale", f"{inner}.norm.weight")
+        self.copy(f"{src}/fn/norm/bias", f"{inner}.norm.bias")
         self.linear(f"{src}/fn/attn/to_qkv", f"{inner}.attn.to_qkv")
         self.linear(f"{src}/fn/attn/to_out", f"{inner}.attn.to_out")
 
     def adaptor(self, src: str, dst: str):
-        self.gamma(f"{src}/adaptors/predictor_norm/gamma", f"{dst}.adaptors.predictor.fn.norm.gamma")
+        self.gamma(f"{src}/adaptors/predictor_norm/gamma",
+                   f"{dst}.adaptors.predictor.fn.norm.gamma")
         self.conv(f"{src}/adaptors/predictor/Conv_0", f"{dst}.adaptors.predictor.fn.fn")
         i = 0
-        while self.has(f"{src}/adaptors/extrapolator{i}/kernel"):
+        while self.present(f"{src}/adaptors/extrapolator{i}/kernel",
+                           f"{dst}.adaptors.extrapolators.{i}.fn.weight"):
             self.conv(f"{src}/adaptors/extrapolator{i}", f"{dst}.adaptors.extrapolators.{i}.fn",
                       bias=False)
             i += 1
@@ -200,11 +255,37 @@ class _Builder:
         self.gamma(f"{src}/fuser_norm/gamma", f"{dst}.fuser.norm.gamma")
         self.conv(f"{src}/fuser/Conv_0", f"{dst}.fuser.fn")
 
-
     def trajwarp(self, src: str, dst: str):
         for lin in ("linear_q", "linear_k", "linear_v", "linear_o"):
             self.linear(f"{src}{lin}", f"{dst}{lin}")
         self.conv(f"{src}fuser/Conv_0", f"{dst}fuser")
+
+    def init_conv(self):
+        """The JAX UNet's split init conv (init_conv on the latents,
+        init_conv_cond on the resized cond features: the adaptor family with
+        features) is the port's one init conv, joined on its input axis."""
+        if not self.reverse:
+            w = conv_weight(self.get("init_conv/Conv_0/kernel"))
+            if self.has("init_conv_cond/kernel"):
+                w = np.concatenate([w, conv_weight(self.get("init_conv_cond/kernel"))], axis=1)
+            self.sd["init_conv.weight"] = w
+            self.copy("init_conv/Conv_0/bias", "init_conv.bias")
+            return
+        w = self.port["init_conv.weight"]
+        tree = self.tree
+        if "cond_temporal_attn.fn.norm.gamma" in self.port:  # the features' width
+            fdim = self.port["cond_temporal_attn.fn.norm.gamma"].shape[1]
+            tree["init_conv_cond"] = {"kernel": conv_weight_to_jax(w[:, w.shape[1] - fdim:])}
+            w = w[:, :w.shape[1] - fdim]
+        tree.setdefault("init_conv", {})["Conv_0"] = {"kernel": conv_weight_to_jax(w)}
+        self.copy("init_conv/Conv_0/bias", "init_conv.bias")
+
+    def levels(self) -> int:
+        if self.reverse:
+            keys = [re.match(r"downs\.(\d+)\.0\.", k) for k in self.port]
+        else:
+            keys = [re.match(r"down(\d+)_block1$", k) for k in self.p]
+        return 1 + max(int(m.group(1)) for m in keys if m)
 
 
 def trajwarp_state_dict(params: Mapping[str, Any]) -> StateDict:
@@ -214,61 +295,72 @@ def trajwarp_state_dict(params: Mapping[str, Any]) -> StateDict:
     return _tensors(b.sd.items())
 
 
-def unet_state_dict(params: Mapping[str, Any]) -> StateDict:
-    """JAX ``Unet3D`` params (the "params" collection) -> ``Unet3D`` state dict."""
-    b = _Builder(params)
-    if b.has("init_noise_conv"):
+def _unet_map(b: _Builder) -> _Builder:
+    """The UNet's key map, run in `b`'s direction."""
+    if b.present("init_noise_conv", "init_noise_conv"):
         b.conv("init_noise_conv/Conv_0", "init_noise_conv")
         b.trajwarp("init_traj/", "init_traj.")
-    if b.has("null_cond_emb"):
-        b.sd["null_cond_emb"] = b.get("null_cond_emb")
-    w = conv_weight(b.get("init_conv/Conv_0/kernel"))
-    if b.has("init_conv_cond/kernel"):
-        w = np.concatenate([w, conv_weight(b.get("init_conv_cond/kernel"))], axis=1)
-    b.sd["init_conv.weight"] = w
-    b.sd["init_conv.bias"] = b.get("init_conv/Conv_0/bias")
-    if b.has("time_rel_pos_bias"):
-        b.sd["time_rel_pos_bias.relative_attention_bias.weight"] = b.get(
-            "time_rel_pos_bias/relative_attention_bias")
-    if b.has("rel_pos_bias_thw"):
-        b.sd["rel_pos_bias_thw.relative_attention_bias.weight"] = b.get(
-            "rel_pos_bias_thw/relative_attention_bias")
-        b.sd["alpha"], b.sd["beta"] = b.get("alpha"), b.get("beta")
+    if b.present("null_cond_emb", "null_cond_emb"):
+        b.copy("null_cond_emb", "null_cond_emb")
+    b.init_conv()
+    if b.present("time_rel_pos_bias", "time_rel_pos_bias"):
+        b.copy("time_rel_pos_bias/relative_attention_bias",
+               "time_rel_pos_bias.relative_attention_bias.weight")
+    if b.present("rel_pos_bias_thw", "rel_pos_bias_thw"):
+        b.copy("rel_pos_bias_thw/relative_attention_bias",
+               "rel_pos_bias_thw.relative_attention_bias.weight")
+        b.copy("alpha", "alpha")
+        b.copy("beta", "beta")
     b.temporal("init_temporal_attn", "init_temporal_attn")
-    if b.has("cond_temporal_attn"):
+    if b.present("cond_temporal_attn", "cond_temporal_attn"):
         b.temporal("cond_temporal_attn", "cond_temporal_attn")
         b.adaptor("cond_adaptor", "cond_adaptor")
     b.linear("time_mlp_0", "time_mlp.1")
     b.linear("time_mlp_1", "time_mlp.3")
 
-    n_levels = 1 + max(int(m.group(1)) for k in params
-                       for m in [re.match(r"down(\d+)_block1$", k)] if m)
     for side, lists in (("down", "downs"), ("up", "ups")):
-        for i in range(n_levels):
+        for i in range(b.levels()):
             src, dst = f"{side}{i}", f"{lists}.{i}"
             b.resnet(f"{src}_block1", f"{dst}.0")
             b.stw(f"{src}_stw1", f"{dst}.1")
             b.resnet(f"{src}_block2", f"{dst}.2")
             b.stw(f"{src}_stw2", f"{dst}.3")
-            if b.has(f"{src}_adaptor"):
+            if b.present(f"{src}_adaptor", f"{dst}.4"):
                 b.adaptor(f"{src}_adaptor", f"{dst}.4")
             b.temporal(f"{src}_tattn", f"{dst}.5")
-            if b.has(f"{src}_downsample"):
+            if side == "down" and b.present(f"{src}_downsample", f"{dst}.6"):
                 b.conv(f"{src}_downsample/Conv_0", f"{dst}.6")
-            if b.has(f"{src}_upsample"):
-                b.sd[f"{dst}.6.weight"] = conv_transpose_weight(b.get(f"{src}_upsample/conv/kernel"))
-                b.sd[f"{dst}.6.bias"] = b.get(f"{src}_upsample/conv/bias")
+            if side == "up" and b.present(f"{src}_upsample", f"{dst}.6"):
+                b.conv_transpose(f"{src}_upsample/conv", f"{dst}.6")
     b.resnet("mid_block1", "mid_block1")
     b.stw("mid_attn1", "mid_attn1")
     b.resnet("mid_block2", "mid_block2")
     b.stw("mid_attn2", "mid_attn2")
-    if b.has("mid_adaptor"):
+    if b.present("mid_adaptor", "mid_adaptor"):
         b.adaptor("mid_adaptor", "mid_adaptor")
     b.resnet("final_block", "final_conv.0")
     b.conv("final_conv", "final_conv.1")
     b.resnet("occlusion_block", "occlusion_map.0")
     b.conv("occlusion_conv", "occlusion_map.1")
-    return _tensors(b.sd.items())
+    return b
+
+
+def unet_arrays(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """``unet_state_dict`` as numpy arrays, each leaf transformed in place
+    where the transform is a view (a transpose, a flip, a reshape)."""
+    return _unet_map(_Builder(params)).sd
+
+
+def unet_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """JAX ``Unet3D`` params (the "params" collection) -> ``Unet3D`` state dict."""
+    return _tensors(unet_arrays(params).items())
+
+
+def jax_unet_params(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``unet_arrays``: a ``Unet3D`` state dict (numpy
+    arrays, or anything numpy transposes and slices) -> the JAX UNet's
+    "params" tree, leaf by leaf."""
+    return _unet_map(_Builder(port=state)).tree
 
 
 # --------------------------------------------------------------------- metrics

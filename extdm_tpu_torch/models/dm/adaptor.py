@@ -12,7 +12,8 @@ cast to the compute type where they are used; norm statistics stay float32.
 channel) statistics over (T, H, W) are combined over the shards
 (``SpatialMesh.moments``, the global count in the unbiased variance) and
 its 3x3x3 convolutions read one halo row of each neighbour; the rest acts
-on each pixel alone."""
+on each pixel alone. ``TrajWarp`` runs on a shard with no exchange of its
+own (see its docstring)."""
 from __future__ import annotations
 
 import math
@@ -162,7 +163,15 @@ class TrajWarp(nn.Module):
     heads), the attention output a ReLU'd projection; then [f_pred, warped]
     -> 1x1x1 ``fuser``. The attention is plain in the JAX package (no TPU
     kernel), here ``F.scaled_dot_product_attention`` on every device, which
-    on the card does not keep the (tp H W) x (tc H W) score matrix."""
+    on the card does not keep the (tp H W) x (tc H W) score matrix.
+
+    On an H shard (``shard``, a ``parallel.SpatialMesh``; inference): xp is
+    the shard's rows of the lifted latents and f is whole on every rank, as
+    the UNet's cond features are. The 2x2 max-pool stays within the shard
+    (its rows must be even), K and V come from the whole cond frames, each
+    query row's softmax is its own, and the 1x1x1 fuser acts on each pixel:
+    the shard's rows of the result need no exchange. Returns the shard's
+    rows of the (B, tc + tp, H, W, C) result."""
 
     def __init__(self, dim: int, tc: int, tp: int, heads: int = 8, dtype=None):
         super().__init__()
@@ -176,14 +185,20 @@ class TrajWarp(nn.Module):
         dt = self.compute_dtype
         return F.relu(F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt)))
 
-    def forward(self, xp: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-        B, T, H, W, C = f.shape
+    def forward(self, xp: torch.Tensor, f: torch.Tensor, shard=None) -> torch.Tensor:
+        B, T, _, W, C = f.shape
         fm, fp = f[:, :self.tc], f[:, self.tc:]
+        if shard is not None:
+            if xp.shape[2] % 2:
+                raise ValueError(f"the 2x2 max-pool on an H shard of {xp.shape[2]} rows: a "
+                                 "shard's rows must be even")
+            fm, fp = shard.slice_h(fm), shard.slice_h(fp)
+        H = fp.shape[2]
         xp = F.max_pool2d(xp.reshape(B * self.tp, *xp.shape[2:]).permute(0, 3, 1, 2), 2, 2)
         if tuple(xp.shape[2:]) != (H, W):
             raise ValueError(f"pooled queries {tuple(xp.shape[2:])} != features {(H, W)}")
         q = xp.permute(0, 2, 3, 1).reshape(B, -1, C)
-        kv = fm.reshape(B, -1, C)
+        kv = f[:, :self.tc].reshape(B, -1, C)  # every cond token, also on a shard
 
         def heads(a):
             return a.reshape(B, a.shape[1], self.heads, C // self.heads).transpose(1, 2)

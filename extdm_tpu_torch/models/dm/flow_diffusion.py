@@ -377,12 +377,12 @@ class FlowDiffusion:
         mesh; the latents are gathered over H, decoded on the data rows and
         the rows gathered. `init_noise`, where given, is the global x_T. The
         batch must divide over the data ranks, and every level's latent H
-        over the model ranks. Inference only. The trajwarp conditioning
-        raises: its warp attends over every cond token and its resize of the
-        warped features needs an exchange of its own."""
-        if self.cfg.conditioning == "trajwarp":
-            raise NotImplementedError("the spatial sampler of the trajwarp conditioning is "
-                                      "ROADMAP §1, trajwarp under --mesh_model")
+        over the model ranks. Inference only. Both conditioning families
+        run: the adaptor family's cond stream once a call on the global H,
+        cut to the shard; the trajwarp family's warp at every step on the
+        shard's query rows against the whole cond features, its resize
+        reading one clamped halo row of each neighbour
+        (``Unet3D.forward``)."""
 
         @torch.no_grad()
         def sampler(generator: torch.Generator, cond_video: torch.Tensor,

@@ -44,8 +44,13 @@ shard's windows), the temporal layers as ``spatial_temporal_layer`` (kernel
 2 unchanged), the MotionAdaptors with combined statistics. Windows, shifts
 and the position bias are those of the global shape; the conditioning
 stream is computed on the global H once a call and cut to the shard's rows.
-The ``trajwarp`` family is not sharded (its cross-attention reads every
-cond token): it raises.
+In the ``trajwarp`` family the init noise conv reads halos as the init
+conv does; ``TrajWarp`` runs on the shard's rows with the cond features
+whole (no exchange); the 2x bilinear resize of its result to the latent H
+reads one row above and one below each shard's rows, clamped at the global
+edges: the cond frames' rows are cut from the whole features, the warped
+frames' rows come from the neighbours (one ``"clamp"`` halo of kind
+``"traj"`` a call; ``upsample_rows_2x``).
 """
 from __future__ import annotations
 
@@ -159,6 +164,36 @@ def resnet_block_sharded(x, w1, b1, g1s, g1b, film: Optional[torch.Tensor], w2, 
     if wres is not None:
         res = x @ wres.to(dtype).flatten(1).t() + bres.to(dtype)
     return (h2 + res).to(dtype)
+
+
+def upsample_rows_2x(xh: torch.Tensor) -> torch.Tensor:
+    """The H half of a 2x bilinear upsample (align_corners=False) of R rows
+    given with one row above and one below: (..., R + 2, W, C) -> (..., 2R,
+    W, C). Output row 2j reads rows j - 1 and j (1/4, 3/4), row 2j + 1 rows
+    j and j + 1 (3/4, 1/4); in float32, returned in xh's dtype."""
+    x = xh.float()
+    above, mid, below = x[..., :-2, :, :], x[..., 1:-1, :, :], x[..., 2:, :, :]
+    out = torch.stack([0.25 * above + 0.75 * mid, 0.75 * mid + 0.25 * below], dim=-3)
+    return out.reshape(*x.shape[:-3], 2 * mid.shape[-3], *x.shape[-2:]).to(xh.dtype)
+
+
+def _traj_features_rows(f: torch.Tensor, cond_fea: torch.Tensor, tc: int, shard,
+                        size) -> torch.Tensor:
+    """``TrajWarp``'s result on an H shard (its rows of every frame at the
+    features' H) resized 2x to the shard's rows of the latent (H, W), as the
+    unsharded bilinear resize of the whole result: the cond frames' rows
+    with their margin cut from the whole features, the warped frames' from
+    the neighbours (a clamped halo, kind "traj")."""
+    H, W = size
+    if 2 * cond_fea.shape[2] != H:
+        raise ValueError(f"features of {cond_fea.shape[2]} rows resize 2x to the latent H = {H} "
+                         "on an H shard, not otherwise")
+    rows = torch.cat([shard.margin_rows(cond_fea[:, :tc], 1, 1, "clamp").to(f.dtype),
+                      shard.halo(f[:, tc:], 1, 1, "clamp", kind="traj")], dim=1)
+    rows = upsample_rows_2x(rows)
+    B, T = rows.shape[:2]
+    return interpolate_bilinear(rows.reshape(B * T, *rows.shape[2:]),
+                                (rows.shape[2], W)).reshape(B, T, rows.shape[2], W, -1)
 
 
 def _call(module: nn.Module, x: torch.Tensor, shard) -> torch.Tensor:
@@ -404,12 +439,9 @@ class Unet3D(nn.Module):
 
     def _global_h(self, HL: int, shard) -> int:
         """The global latent H of a shard's HL rows; every level's H must
-        split over the model ranks."""
+        split over the model ranks (so, with two levels or more, a shard's
+        rows are even, as the trajwarp family's 2x2 max-pool needs)."""
         H = HL * shard.model
-        if self.traj:
-            raise NotImplementedError("the trajwarp conditioning on an H shard is ROADMAP §1, "
-                                      "trajwarp under --mesh_model: its warp attends over every "
-                                      "cond token")
         deepest = shard.model * 2 ** (len(self.downs) - 1)
         if H % deepest:
             raise ValueError(f"latent H = {H} does not split over {shard.model} model ranks at "
@@ -475,11 +507,15 @@ class Unet3D(nn.Module):
             if cond_only or cond_cache is not None:
                 raise ValueError("the trajwarp conditioning depends on x: it has no cond cache")
             nc = self.init_noise_conv
-            x = conv_frames(x, nc.weight, nc.bias, dtype, padding=self.init_pad)
-            f = self.init_traj(x[:, tc:], cond_fea)
-            f = interpolate_bilinear(f.reshape(B * T, *f.shape[2:]), (H, W))
-            x = torch.cat([x, f.reshape(B, T, H, W, -1)], dim=-1)
-            x = conv_frames(x, w0, b0, dtype, padding=self.init_pad)
+            x = conv_frames(x, nc.weight, nc.bias, dtype, padding=self.init_pad, shard=shard)
+            f = self.init_traj(x[:, tc:], cond_fea, shard=shard)
+            if shard is None:
+                f = interpolate_bilinear(f.reshape(B * T, *f.shape[2:]), (H, W))
+                f = f.reshape(B, T, H, W, -1)
+            else:
+                f = _traj_features_rows(f, cond_fea, tc, shard, (H, W))
+            x = torch.cat([x, f], dim=-1)
+            x = conv_frames(x, w0, b0, dtype, padding=self.init_pad, shard=shard)
         elif self.use_ref_features:
             if cond_cache is None:  # on the global H, once a sampler call: cut to the shard
                 cond_cache = self.cond_stream(cond_fea, H, W, pos_bias)

@@ -1,4 +1,4 @@
-"""Data and spatial parallelism across processes (port of extdm_tpu/parallel)."""
+"""Data, spatial and tensor parallelism across processes (port of extdm_tpu/parallel)."""
 from extdm_tpu_torch.parallel.mesh import (  # noqa: F401
     DataGroup,
     World,
@@ -14,3 +14,10 @@ from extdm_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_batch,
 )
 from extdm_tpu_torch.parallel.spatial import SpatialMesh, make_spatial_mesh  # noqa: F401
+from extdm_tpu_torch.parallel.tensor import (  # noqa: F401
+    TensorParallel,
+    make_hybrid_mesh,
+    param_plan,
+    resident_bytes,
+    shard_params,
+)

@@ -14,7 +14,8 @@ exchanges that GSPMD inserts in the JAX package written out by hand.
 - ``halo(x, top, bottom, edge)``: x's rows with `top` rows of the previous
   shard above and `bottom` rows of the next one below. ``edge="zero"`` gives
   the first and last shards zeros (a convolution's padding),
-  ``edge="cyclic"`` wraps around (the shifted-window roll).
+  ``edge="cyclic"`` wraps around (the shifted-window roll), ``edge="clamp"``
+  repeats the global first and last rows (a bilinear resize's edge).
 - ``moments(x, dims)``: the global mean and sum of squared deviations of x
   over `dims` (which hold the H axis), for GroupNorm and the extrapolator's
   statistics.
@@ -26,7 +27,8 @@ has one nonzero term), and gloo takes CUDA tensors in its all-reduce (not in
 its all-gather or point-to-point calls), so the same code runs over nccl,
 over gloo on the card and over gloo on the CPU. ``timings``, where a caller
 sets it to a dict, collects each exchange's milliseconds by kind ("halo",
-"stats", "gather_h", "threshold", and "gather" for the batch rows), each
+"stats", "gather_h", "threshold", "traj" for the trajwarp family's resize
+of its warped features, and "gather" for the batch rows), each
 bracketed by a device sync, as ``DataGroup.timings`` does. Inference only:
 no exchange has a backward.
 """
@@ -40,7 +42,7 @@ import torch.distributed as dist
 
 from extdm_tpu_torch.parallel.mesh import DataGroup, World, _Timed, _wire, gather_batch
 
-EDGES = ("zero", "cyclic")
+EDGES = ("zero", "cyclic", "clamp")
 
 
 @dataclass(eq=False)
@@ -48,7 +50,10 @@ class SpatialMesh:
     """This rank's place in a (data, model) mesh: its data row ``d`` and H
     shard ``m``, the process group of its model row (None where model is
     1), and ``columns``, the data group of its model column (the batch
-    split: ``rows``, and the gather of a result's rows)."""
+    split: ``rows``, and the gather of a result's rows). A hybrid (dcn,
+    data, model) mesh (``parallel.tensor.make_hybrid_mesh``) is this mesh
+    with its dcn x data rows flattened, ``dcn`` recorded. For the
+    tensor-parallel step, ``m`` is the rank's slice of each ruled weight."""
     data: int
     model: int
     world: World
@@ -57,6 +62,7 @@ class SpatialMesh:
     model_group: Any = None
     columns: Optional[DataGroup] = None
     timings: Optional[Dict[str, List[float]]] = field(default=None, repr=False)
+    dcn: int = 1
 
     # ------------------------------------------------------------ layout
     def rows(self, batch: int) -> slice:
@@ -110,9 +116,10 @@ class SpatialMesh:
         """(B, T, HL, ...) -> (B, T, top + HL + bottom, ...): x with the last
         `top` rows of the previous shard above it and the first `bottom` rows
         of the next shard below it; past the global edges zeros
-        (``edge="zero"``) or the rows of the other end (``"cyclic"``). Where
-        a neighbour holds fewer rows than asked for, the rows come from the
-        gathered global H."""
+        (``edge="zero"``), the rows of the other end (``"cyclic"``) or the
+        global first and last rows repeated (``"clamp"``). Where a neighbour
+        holds fewer rows than asked for, the rows come from the gathered
+        global H."""
         if edge not in EDGES:
             raise ValueError(f"edge is one of {EDGES}, got {edge!r}")
         if top == 0 and bottom == 0:
@@ -132,12 +139,19 @@ class SpatialMesh:
         parts = []
         if top:
             above = buf[(m - 1) % M, :, :, :top]
-            parts.append(torch.zeros_like(above) if m == 0 and edge == "zero" else above)
+            parts.append(_edge_rows(x[:, :, :1], above, edge) if m == 0 else above)
         parts.append(x.to(buf.dtype))
         if bottom:
             below = buf[(m + 1) % M, :, :, top:]
-            parts.append(torch.zeros_like(below) if m == M - 1 and edge == "zero" else below)
+            parts.append(_edge_rows(x[:, :, -1:], below, edge) if m == M - 1 else below)
         return torch.cat(parts, dim=2).to(x.dtype)
+
+    def margin_rows(self, full: torch.Tensor, top: int, bottom: int, edge: str) -> torch.Tensor:
+        """This shard's rows of a global (B, T, H, ...) tensor that every
+        rank holds whole, with `top` rows above and `bottom` below, past the
+        global edges as ``halo``'s `edge`: ``halo`` without an exchange."""
+        HL = full.shape[2] // self.model
+        return _global_rows(full, self.m * HL - top, (self.m + 1) * HL + bottom, edge)
 
     def moments(self, x: torch.Tensor, dims: Sequence[int]):
         """(mean, m2, n) of float32 x over `dims`, which hold the H axis (dim
@@ -170,12 +184,23 @@ class SpatialMesh:
             self.columns.timings = None
 
 
+def _edge_rows(edge_row: torch.Tensor, rows: torch.Tensor, edge: str) -> torch.Tensor:
+    """The rows past a global edge in place of `rows` (what the cyclic
+    neighbour sent): zeros, `rows` itself (cyclic) or the edge row
+    repeated (clamp)."""
+    if edge == "zero":
+        return torch.zeros_like(rows)
+    if edge == "clamp":
+        return edge_row.to(rows.dtype).expand_as(rows)
+    return rows
+
+
 def _global_rows(full: torch.Tensor, lo: int, hi: int, edge: str) -> torch.Tensor:
-    """Rows [lo, hi) of a global (B, T, H, ...) tensor, past its edges zeros
-    or wrapped around."""
+    """Rows [lo, hi) of a global (B, T, H, ...) tensor, past its edges zeros,
+    wrapped around or the edge rows repeated."""
     H = full.shape[2]
     idx = torch.arange(lo, hi, device=full.device)
-    rows = full.index_select(2, idx % H)
+    rows = full.index_select(2, idx.clamp(0, H - 1) if edge == "clamp" else idx % H)
     if edge == "zero":
         inside = ((idx >= 0) & (idx < H)).to(rows.dtype)
         rows = rows * inside.reshape(1, 1, -1, *([1] * (full.ndim - 3)))

@@ -67,27 +67,49 @@ def select_gate_metric(vm: Dict[str, Any]) -> tuple:
     return -float(vm["valid_ssim"]), float(vm["valid_ssim"]), "ssim"
 
 
+def _snapshot(v: torch.Tensor) -> torch.Tensor:
+    """A host copy of `v` (a copy also on the CPU: a payload held in memory
+    must not follow the optimizer's in-place updates)."""
+    return v.detach().to("cpu", copy=True)
+
+
 def _cpu(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().cpu() for k, v in state.items()}
+    return {k: _snapshot(v) for k, v in state.items()}
 
 
 def dm_payload(unet: torch.nn.Module, optimizer: ScheduledOptimizer, step: int, example: int,
-               epoch: int = 0) -> Dict[str, Any]:
+               epoch: int = 0, tp=None) -> Dict[str, Any]:
+    """The DM payload. With `tp` (a tensor-parallel step's
+    ``parallel.TensorParallel``; every rank calls it, rank 0 writes) the
+    single process's payload: whole weights and whole moments, gathered."""
+    weights = unet.state_dict() if tp is None else tp.state_dict()
     return {"example": int(example), "epoch": int(epoch), "step": int(step),
-            "diffusion": {f"denoise_fn.{k}": v for k, v in _cpu(unet.state_dict()).items()},
-            "optimizer": optimizer.state_dict()}
+            "diffusion": {f"denoise_fn.{k}": v for k, v in _cpu(weights).items()},
+            "optimizer": _cpu_state(optimizer.state_dict() if tp is None
+                                    else tp.optimizer_state_dict())}
+
+
+def _cpu_state(sd: Dict[str, Any]) -> Dict[str, Any]:
+    return {**sd, "state": {i: {k: _snapshot(v) if torch.is_tensor(v) else v
+                                for k, v in st.items()} for i, st in sd["state"].items()}}
 
 
 def restore_dm(ckpt: Dict[str, Any], unet: torch.nn.Module,
-               optimizer: Optional[ScheduledOptimizer] = None) -> None:
-    """The UNet's weights (and the optimizer's state) from a DM payload."""
-    unet.load_state_dict({k[len("denoise_fn."):]: v for k, v in ckpt["diffusion"].items()
-                          if k.startswith("denoise_fn.")})
-    if optimizer is not None:
-        if "optimizer" not in ckpt:
-            raise ValueError("the DM checkpoint holds weights only (no optimizer state): it "
-                             "loads for sampling, not to resume training")
-        optimizer.load_state_dict(ckpt["optimizer"])
+               optimizer: Optional[ScheduledOptimizer] = None, tp=None) -> None:
+    """The UNet's weights (and the optimizer's state) from a DM payload;
+    with `tp`, this rank's slices of them."""
+    weights = {k[len("denoise_fn."):]: v for k, v in ckpt["diffusion"].items()
+               if k.startswith("denoise_fn.")}
+    if optimizer is not None and "optimizer" not in ckpt:
+        raise ValueError("the DM checkpoint holds weights only (no optimizer state): it "
+                         "loads for sampling, not to resume training")
+    opt_state = ckpt["optimizer"] if optimizer is not None else None
+    if tp is not None:
+        tp.load_state_dict(weights, opt_state)
+        return
+    unet.load_state_dict(weights)
+    if opt_state is not None:
+        optimizer.load_state_dict(opt_state)
 
 
 def ae_payload(model: torch.nn.Module, optimizer: ScheduledOptimizer, step: int, example: int,

@@ -13,6 +13,20 @@ rank applies the same update, and the nan guard skips on all ranks or on
 none), the aux is averaged and grad_norm is that of the averaged
 gradients. An explicit all-reduce, not a DistributedDataParallel wrapper:
 the UNet keeps its state-dict keys.
+
+Tensor parallel (JAX ``jax.jit(train_step)`` on a (data, model) or
+(dcn, data, model) mesh with ``shard_params``): given a
+``parallel.SpatialMesh`` (``make_spatial_mesh`` or ``make_hybrid_mesh``),
+each rank stores its slice of every weight JAX's rule splits, and AdamW's
+moments for that slice (``parallel.TensorParallel``). The ranks of one
+model row take that data row's rows and draw from the row's generator
+(``rank_generator(generator, row)``: JAX's batch spec is over the data
+axes only, so its model ranks see the same rows); before the forward the
+slices are gathered into whole weights, after the backward the whole
+gradient is averaged over the world, grad_norm is its norm, the nan
+guard its verdict, and each rank updates its slices and its replicated
+leaves. What it buys is the memory of the ruled weights and moments per
+rank, not speed: on one card every rank of a row computes the whole step.
 """
 from __future__ import annotations
 
@@ -23,6 +37,7 @@ import torch
 from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion
 from extdm_tpu_torch.parallel.mesh import (DataGroup, all_mean, average_gradients,
                                            broadcast_module, rank_generator)
+from extdm_tpu_torch.parallel.tensor import TensorParallel
 from extdm_tpu_torch.train.lr_schedule import ScheduledOptimizer, multi_step
 
 
@@ -58,15 +73,21 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, milestones: 
 
 
 class DMTrainer:
-    """``DMTrainer(fd, make_optimizer(...), group)``: with a data group of
-    several ranks the UNet's weights are broadcast from its rank 0 and each
-    step is data parallel."""
+    """``DMTrainer(fd, make_optimizer(fd.unet.parameters(), ...), group)``:
+    with a data group of several ranks the UNet's weights are broadcast from
+    its rank 0 and each step is data parallel. ``mesh=`` (a
+    ``parallel.SpatialMesh``; no group) makes the step tensor parallel:
+    ``self.tp`` holds the slices (``parallel.TensorParallel``)."""
 
     def __init__(self, fd: FlowDiffusion, optimizer: ScheduledOptimizer,
-                 group: Optional[DataGroup] = None):
+                 group: Optional[DataGroup] = None, mesh=None):
         self.fd = fd
         self.optimizer = optimizer
         self.group = group if group is not None and group.parallel else None
+        if self.group is not None and mesh is not None:
+            raise ValueError("a step is data parallel over a group or tensor parallel over a "
+                             "mesh, not both")
+        self.tp = TensorParallel(fd.unet, optimizer, mesh) if mesh is not None else None
         if self.group is not None:
             broadcast_module(fd.unet, self.group)
 
@@ -81,6 +102,8 @@ class DMTrainer:
         come from ``rank_generator(generator, rank)``, and the gradients
         and aux are averaged over the ranks."""
         video = canonicalize_video(video.to(self.fd.device))
+        if self.tp is not None:
+            return self._tp_step(generator, video, t, noise)
         if self.group is not None:
             generator = rank_generator(generator, self.group.rank)
         self.optimizer.zero_grad()
@@ -92,4 +115,18 @@ class DMTrainer:
         aux["grad_norm"] = global_norm(p.grad for p in self.optimizer.params
                                        if p.grad is not None)
         self.optimizer.step()
+        return aux
+
+    def _tp_step(self, generator, video, t, noise) -> Dict[str, torch.Tensor]:
+        """The tensor-parallel step: `video`, `t` and `noise` are this
+        rank's data row's rows."""
+        tp = self.tp
+        self.optimizer.zero_grad()
+        tp.gather_weights()
+        loss, aux = self.fd.loss(rank_generator(generator, tp.mesh.d), video, t=t, noise=noise)
+        loss.backward()
+        grad_norm, finite = tp.reduce_gradients()
+        aux = tp.mean_aux(aux)
+        aux["grad_norm"] = grad_norm
+        self.optimizer.step(finite=finite)
         return aux

@@ -2,8 +2,9 @@
 scheduled, nan-guarded optimizer wrapper both trainers use."""
 from __future__ import annotations
 
+import copy
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -71,15 +72,19 @@ class ScheduledOptimizer:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
-    def step(self) -> bool:
+    def step(self, finite: Optional[bool] = None) -> bool:
         """Apply one update from the parameters' .grad (zeros where a
         parameter has none, as optax sees a zero gradient); returns False
-        when the nan guard skipped it."""
+        when the nan guard skipped it. `finite` is the caller's verdict on
+        the whole gradient where this optimizer holds only a part of it (a
+        tensor-parallel rank); None: its parameters' gradients decide."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.nan_guard > 0:
-            finite = bool(torch.stack([torch.isfinite(p.grad).all() for p in self.params]).all())
+            if finite is None:
+                finite = bool(torch.stack([torch.isfinite(p.grad).all()
+                                           for p in self.params]).all())
             if not finite:
                 self.notfinite_count += 1
                 if self.notfinite_count > self.nan_guard:
@@ -100,7 +105,10 @@ class ScheduledOptimizer:
                 "notfinite_count": self.notfinite_count}
 
     def load_state_dict(self, state: dict) -> None:
-        state = dict(state)
+        """The counts and the torch optimizer's state from `state`, its
+        tensors copied (torch's loader keeps a tensor of the right type and
+        device as it is, and the steps then update it in place)."""
+        state = copy.deepcopy(dict(state))
         self.count = int(state.pop("count"))
         self.notfinite_count = int(state.pop("notfinite_count"))
         self.opt.load_state_dict(state)

@@ -5,9 +5,10 @@ worlds 2 and 4: each rank holds its H shard of a global input and the rows
 it computes, put back together, equal the unsharded result on the global
 input to 1e-5.
 
-- The exchanges on known values: ``halo`` with zero and cyclic edges (and
-  wider than a neighbour's rows), ``gather_h`` / ``slice_h``,
-  ``sum_over_model``, ``moments``.
+- The exchanges on known values: ``halo`` with zero, cyclic and clamped
+  edges (and wider than a neighbour's rows), ``margin_rows``,
+  ``gather_h`` / ``slice_h``, ``sum_over_model``, ``moments``;
+  ``upsample_rows_2x`` on clamped rows against the bilinear resize.
 - ``spatial_stw_layer`` against ``stw_layer_plain`` on the global tensor:
   aligned unshifted, shifted (1, 2, 2), H-only (0, 2, 0) (the wrap masks of
   the last shard), unaligned (HL = 2 < window_h, gathered), the unfused
@@ -36,10 +37,12 @@ from extdm_tpu.ops import pallas_stw
 from extdm_tpu.parallel.mesh import make_mesh
 from extdm_tpu_torch.models.dm.adaptor import MotionAdaptor
 from extdm_tpu_torch.models.dm.diffusion import dynamic_threshold
-from extdm_tpu_torch.models.dm.unet3d import Downsample, PreNormSTW, Unet3D, Upsample
+from extdm_tpu_torch.models.dm.unet3d import (Downsample, PreNormSTW, Unet3D, Upsample,
+                                              upsample_rows_2x)
 from extdm_tpu_torch.ops.fused_resnet import resnet_block_plain
 from extdm_tpu_torch.ops.fused_stw import (stw_layer_plain, stw_layer_unfused,
                                            temporal_layer_plain)
+from extdm_tpu_torch.ops.resize import interpolate_bilinear
 from torch_port_helpers import close
 
 WORLDS = (2, 4)
@@ -209,10 +212,11 @@ def joined(run, case, name=None):
 
 # ------------------------------------------------------------------ tests
 def _rows(x, lo, hi, edge):
-    """Rows [lo, hi) of x along dim 2: wrapped or zero past the edges."""
+    """Rows [lo, hi) of x along dim 2: wrapped, zero or the edge rows
+    repeated past the edges."""
     H = x.shape[2]
     idx = np.arange(lo, hi)
-    out = x[:, :, idx % H].clone()
+    out = x[:, :, np.clip(idx, 0, H - 1) if edge == "clamp" else idx % H].clone()
     if edge == "zero":
         out[:, :, (idx < 0) | (idx >= H)] = 0
     return out
@@ -238,6 +242,34 @@ def test_exchanges_on_known_values(runs, M):
         assert e["n"] == stats[0, :, :, :, 0].numel()
         close(e["mean"], mean, TOL)
         close(e["m2"], ((stats - mean) ** 2).sum(dim=(1, 2, 3), keepdim=True), TOL)
+
+
+@pytest.mark.parametrize("M", WORLDS)
+def test_clamped_halo_and_margin_rows_on_known_values(runs, M):
+    """The "clamp" edge repeats the global first and last rows, also past a
+    neighbour's rows; ``margin_rows`` cuts the same rows from a whole
+    tensor with no exchange."""
+    run = runs[M]
+    x = run["inp"]["exchanges"]["x"]
+    for r, g in enumerate(run["got"]):
+        e = g["exchanges"]
+        lo, hi = 3 * r, 3 * r + 3
+        assert torch.equal(e["halo_clamp"], _rows(x, lo - 2, hi + 1, "clamp"))
+        assert torch.equal(e["halo_clamp_wide"], _rows(x, lo - 4, hi + 1, "clamp"))
+        assert torch.equal(e["margin_clamp"], _rows(x, lo - 1, hi + 2, "clamp"))
+
+
+@pytest.mark.parametrize("rows", [4, 6])
+def test_upsample_rows_2x_is_the_bilinear_resize(rows):
+    """A 2x bilinear resize (align_corners=False) of (B, T, H, W, C), cut
+    into row blocks: each block's output rows from the block with one
+    clamped row above and below, the W half by interpolate."""
+    x = torch.randn(2, 3, 12, 5, 4, generator=torch.Generator().manual_seed(5))
+    want = interpolate_bilinear(x.reshape(6, 12, 5, 4), (24, 10)).reshape(2, 3, 24, 10, 4)
+    for lo in range(0, 12, rows):
+        block = upsample_rows_2x(_rows(x, lo - 1, lo + rows + 1, "clamp"))
+        got = interpolate_bilinear(block.reshape(6, 2 * rows, 5, 4), (2 * rows, 10))
+        close(got.reshape(2, 3, 2 * rows, 10, 4), want[:, :, 2 * lo:2 * (lo + rows)], 1e-6)
 
 
 @pytest.mark.parametrize("M", WORLDS)

@@ -14,14 +14,18 @@ import torch_parallel_ranks as ranks
 
 # ------------------------------------------------------------ layer cases
 def _exchanges(mesh, inp):
-    """halo (both edges, and past a neighbour's rows), gather_h / slice_h,
-    sum_over_model and moments on the inputs' global tensors."""
+    """halo (every edge, and past a neighbour's rows), margin_rows,
+    gather_h / slice_h, sum_over_model and moments on the inputs' global
+    tensors."""
     x = mesh.slice_h(inp["x"])
     HL = x.shape[2]
     out = {"halo_zero": mesh.halo(x, 2, 1, "zero"), "halo_cyclic": mesh.halo(x, 1, 2, "cyclic"),
            "halo_wide": mesh.halo(x, HL + 1, 0, "zero"), "gathered": mesh.gather_h(x),
            "bf16": mesh.halo(x.bfloat16(), 1, 1, "cyclic"),
-           "summed": mesh.sum_over_model(torch.tensor([float(mesh.m + 1)]))}
+           "summed": mesh.sum_over_model(torch.tensor([float(mesh.m + 1)])),
+           "halo_clamp": mesh.halo(x, 2, 1, "clamp"),
+           "halo_clamp_wide": mesh.halo(x, HL + 1, 1, "clamp"),
+           "margin_clamp": mesh.margin_rows(inp["x"], 1, 2, "clamp")}
     mean, m2, n = mesh.moments(mesh.slice_h(inp["stats"]), (1, 2, 3))
     out.update(mean=mean, m2=m2, n=n)
     return out
@@ -109,27 +113,66 @@ def layers(rank, world, store, inputs_path, out_dir):
 
 
 # ---------------------------------------------------------------- sampler
+def _counted(mesh, fn):
+    """fn()'s result and the count of its exchanges by kind."""
+    mesh.timings = {}
+    try:
+        res = fn()
+        return res, {k: len(v) for k, v in mesh.timings.items()}
+    finally:
+        mesh.timings = None
+
+
+def _sampler_runs(fd, mesh, inp):
+    """The spatial sampler drawn from a seeded generator (its exchanges
+    counted) and given the global x_T."""
+    sampler = fd.make_spatial_sampler(mesh)
+    drawn, exchanges = _counted(mesh, lambda: sampler(
+        torch.Generator().manual_seed(inp["seed"]), inp["cond"]))
+    given = sampler(torch.Generator().manual_seed(inp["seed"]), inp["cond"],
+                    init_noise=inp["x_T"])
+    return {"drawn": drawn, "given": given, "place": (mesh.d, mesh.m), "exchanges": exchanges}
+
+
+def _unet_exchanges(fd, unet, mesh, inp):
+    """The exchanges of one UNet call on this rank's rows of the encoded
+    cond video and the global x_T."""
+    rows = mesh.rows(inp["cond"].shape[0])
+    _, fea, x_cond = fd._encode(inp["cond"][rows])
+    t = torch.full((rows.stop - rows.start,), 500)
+    return _counted(mesh, lambda: unet(mesh.local(inp["x_T"]), t, mesh.slice_h(x_cond), fea,
+                                       shard=mesh))[1]
+
+
 def samplers(rank, world, store, inputs_path, out_dir):
     """The spatial sampler on each (data, model) mesh of the inputs at
     `world` ranks, drawn from a seeded generator and given the global x_T,
-    the exchanges of each call timed; then each (job, argv) of the inputs'
-    ``jobs`` through its ``main`` (``torch_parallel_ranks.jobs``)."""
+    the exchanges of the drawn call counted; likewise the trajwarp model of
+    the inputs' "traj", with the exchanges of one UNet call of it and of
+    its adaptor twin (the "twin" config, seeded weights); then each (job,
+    argv) of the inputs' ``jobs`` through its ``main``
+    (``torch_parallel_ranks.jobs``)."""
+    from extdm_tpu_torch.models.dm.flow_diffusion import FlowDiffusion, FlowDiffusionConfig
     from extdm_tpu_torch.parallel import make_spatial_mesh
 
     w = ranks._world(rank, world, store)
     inp = torch.load(inputs_path, weights_only=False)
     fd = ranks.dm_fd(inp)
-    out = {}
+    traj = inp.get("traj")
+    if traj is not None:
+        traj_fd = ranks.dm_fd(traj)
+        twin = FlowDiffusion(FlowDiffusionConfig(flow_params=traj["flow_params"],
+                                                 **traj["twin"]), device="cpu").unet
+    out = {"traj": {}}
     for data, model in inp["meshes"]:
         mesh = make_spatial_mesh(w, data, model)
-        sampler = fd.make_spatial_sampler(mesh)
-        mesh.timings = {}
-        drawn = sampler(torch.Generator().manual_seed(inp["seed"]), inp["cond"])
-        timings, mesh.timings = mesh.timings, None
-        given = sampler(torch.Generator().manual_seed(inp["seed"]), inp["cond"],
-                        init_noise=inp["x_T"])
-        out[(data, model)] = {"drawn": drawn, "given": given, "place": (mesh.d, mesh.m),
-                              "exchanges": {k: len(v) for k, v in timings.items()}}
+        with torch.no_grad():
+            out[(data, model)] = _sampler_runs(fd, mesh, inp)
+            if traj is not None:
+                res = _sampler_runs(traj_fd, mesh, traj)
+                res["unet_exchanges"] = _unet_exchanges(traj_fd, traj_fd.unet, mesh, traj)
+                res["twin_exchanges"] = _unet_exchanges(traj_fd, twin, mesh, traj)
+                out["traj"][(data, model)] = res
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
     if inp.get("jobs"):
