@@ -34,6 +34,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from extdm_tpu_torch.utils.profiler import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -161,8 +163,10 @@ def _function(source: str, name: str):
 
 
 def launch(source: str, name: str, *args) -> None:
-    """Call entry point `name` of ``csrc/<source>.cu``; raise on a CUDA error."""
-    code = _function(source, name)(*args)
+    """Call entry point `name` of ``csrc/<source>.cu``, in the span
+    ``launch.<name>``; raise on a CUDA error."""
+    with span("launch." + name):
+        code = _function(source, name)(*args)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code}")
 

@@ -24,6 +24,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from extdm_tpu_torch.utils.profiler import span
+
 
 def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
     x = np.linspace(0, timesteps, timesteps + 1, dtype=np.float64)
@@ -96,8 +98,10 @@ DenoiseFn = Callable[..., torch.Tensor]  # (x, t, cond_frames, cond_fea) -> eps
 
 
 def _extract(buf: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """buf[t] shaped (B, 1, ..., 1) to broadcast over a rank-`ndim` batch."""
-    return torch.as_tensor(buf, device=t.device)[t].reshape((-1,) + (1,) * (ndim - 1))
+    """buf[t] shaped (B, 1, ..., 1) to broadcast over a rank-`ndim` batch:
+    the whole table copied to t's device (the span ``schedule_copy``)."""
+    with span("schedule_copy"):
+        return torch.as_tensor(buf, device=t.device)[t].reshape((-1,) + (1,) * (ndim - 1))
 
 
 @dataclass(frozen=True)
@@ -171,16 +175,20 @@ class GaussianDiffusion:
         eta = np.float32(self.ddim_eta)
         for i, (time, time_next) in enumerate(ddim_time_pairs(self.schedule.num_timesteps,
                                                               self.sampling_timesteps)):
-            alpha, alpha_next = alphas_prev[time], alphas_prev[time_next]  # float32 scalars
-            t_b = torch.full((B,), int(time), dtype=torch.long, device=device)
-            pred_noise = denoise_fn(img, t_b, x_cond, cond_fea)
-            x_start = dynamic_threshold(self.predict_start_from_noise(img, t_b, pred_noise),
-                                        shard=shard)
-            sigma = eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
-            c = np.sqrt(np.maximum((1 - alpha_next) - sigma ** 2, np.float32(0.0)))
-            img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
-            if time_next > 0 and sigma > 0:
-                img = img + float(sigma) * normal(i)
+            with span("ddim.step"):
+                alpha, alpha_next = alphas_prev[time], alphas_prev[time_next]  # float32 scalars
+                t_b = torch.full((B,), int(time), dtype=torch.long, device=device)
+                with span("ddim.denoise"):
+                    pred_noise = denoise_fn(img, t_b, x_cond, cond_fea)
+                with span("ddim.update"):
+                    x_start = dynamic_threshold(
+                        self.predict_start_from_noise(img, t_b, pred_noise), shard=shard)
+                    sigma = eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
+                                          / (1 - alpha))
+                    c = np.sqrt(np.maximum((1 - alpha_next) - sigma ** 2, np.float32(0.0)))
+                    img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
+                    if time_next > 0 and sigma > 0:
+                        img = img + float(sigma) * normal(i)
         return img
 
     def p_sample_loop(self, denoise_fn: DenoiseFn, generator: torch.Generator,
@@ -197,11 +205,15 @@ class GaussianDiffusion:
         img = normal() if init_noise is None else _local(init_noise, shard).to(device,
                                                                               torch.float32)
         for i, t in enumerate(range(self.schedule.num_timesteps - 1, -1, -1)):
-            t_b = torch.full((B,), t, dtype=torch.long, device=device)
-            eps = denoise_fn(img, t_b, x_cond, cond_fea)
-            x0 = dynamic_threshold(self.predict_start_from_noise(img, t_b, eps), shard=shard)
-            mean, _, log_var = self.q_posterior(x0, img, t_b)
-            img = mean + torch.exp(0.5 * log_var) * normal(i) if t > 0 else mean
+            with span("ddim.step"):
+                t_b = torch.full((B,), t, dtype=torch.long, device=device)
+                with span("ddim.denoise"):
+                    eps = denoise_fn(img, t_b, x_cond, cond_fea)
+                with span("ddim.update"):
+                    x0 = dynamic_threshold(self.predict_start_from_noise(img, t_b, eps),
+                                           shard=shard)
+                    mean, _, log_var = self.q_posterior(x0, img, t_b)
+                    img = mean + torch.exp(0.5 * log_var) * normal(i) if t > 0 else mean
         return img
 
     def interpolate(self, denoise_fn: DenoiseFn, generator: torch.Generator,
@@ -228,6 +240,7 @@ class GaussianDiffusion:
             img = mean + torch.exp(0.5 * log_var) * normal(i) if ti > 0 else mean
         return img
 
+    @span("sample.ddim")
     def sample(self, denoise_fn: DenoiseFn, generator: torch.Generator, x_cond: torch.Tensor,
                pred_frames: int, cond_fea: Optional[torch.Tensor] = None,
                init_noise: Optional[torch.Tensor] = None,

@@ -25,6 +25,7 @@ from extdm_tpu_torch.models.lfae.generator import Generator
 from extdm_tpu_torch.models.lfae.region_predictor import RegionPredictor
 from extdm_tpu_torch.ops.coords import make_coordinate_grid
 from extdm_tpu_torch.parallel.mesh import gather_batch, rank_generator
+from extdm_tpu_torch.utils.profiler import span
 
 
 def _merge_bt(x: torch.Tensor) -> torch.Tensor:
@@ -220,6 +221,7 @@ class FlowDiffusion:
             return unet(x, t, cond_frames, cond_fea, cond_cache=cond_cache, shard=shard, **kw)
         return fn
 
+    @span("sample.cond_cache")
     def cond_cache(self, x_cond: torch.Tensor, fea: Optional[torch.Tensor],
                    unet: Optional[Unet3D] = None, shard=None):
         """The (x, t)-invariant conditioning term, computed once per sampler
@@ -293,6 +295,7 @@ class FlowDiffusion:
 
         return monitor
 
+    @span("sample.encode")
     def _encode(self, cond_video: torch.Tensor):
         """The LFAE's encode of the cond frames: (enc, ref features, latents)."""
         cfg = self.cfg
@@ -311,6 +314,7 @@ class FlowDiffusion:
                                      self.cfg.pred_frames, fea, init_noise=init_noise)
         return self._finalize(cond_video, enc, pred, decode)
 
+    @span("sample.decode")
     def _finalize(self, cond_video: torch.Tensor, enc: Dict[str, torch.Tensor],
                   pred: torch.Tensor, decode: bool) -> Dict[str, torch.Tensor]:
         """The sampler's dict from the encode and the predicted latents:
@@ -340,6 +344,7 @@ class FlowDiffusion:
         `decode` the LFAE's decoder does not run."""
 
         @torch.no_grad()
+        @span("sample")
         def sampler(generator: torch.Generator, cond_video: torch.Tensor,
                     init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
             return self._sample(generator, cond_video, decode, init_noise)
@@ -355,6 +360,7 @@ class FlowDiffusion:
         gathered on every rank. `init_noise`, where given, is the global
         batch's x_T. The batch must divide over the group's ranks."""
         @torch.no_grad()
+        @span("sample")
         def sampler(generator: torch.Generator, cond_video: torch.Tensor,
                     init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
             rows = group.rows(cond_video.shape[0])
@@ -385,6 +391,7 @@ class FlowDiffusion:
         (``Unet3D.forward``)."""
 
         @torch.no_grad()
+        @span("sample")
         def sampler(generator: torch.Generator, cond_video: torch.Tensor,
                     init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
             cond_video = cond_video[mesh.rows(cond_video.shape[0])].to(self.device)
@@ -401,6 +408,7 @@ class FlowDiffusion:
         return sampler
 
     @torch.no_grad()
+    @span("sample")
     def sample_video(self, generator: torch.Generator, cond_video: torch.Tensor,
                      decode: bool = True,
                      init_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:

@@ -73,6 +73,7 @@ from extdm_tpu_torch.ops.fused_stw import (WINDOW_MAJOR_MODES, fused_stw_layer,
                                            spatial_temporal_layer, stw_layer_unfused, stw_route,
                                            temporal_layer_unfused)
 from extdm_tpu_torch.ops.resize import interpolate_bilinear
+from extdm_tpu_torch.utils.profiler import span
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -480,6 +481,7 @@ class Unet3D(nn.Module):
         return conv_frames(cf, self.init_conv.weight[:, self.channels:], None, self.compute_dtype,
                            padding=self.init_pad)
 
+    @span("unet.forward")
     def forward(self, x, time, cond_frames, cond_fea=None, cond_cache=None,
                 cond_only: bool = False, cond=None, null_cond_mask=None, shard=None):
         """x (B, tp, h, w, C) noisy latents, cond_frames (B, tc, h, w, C),

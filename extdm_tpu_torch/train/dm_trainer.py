@@ -39,6 +39,7 @@ from extdm_tpu_torch.parallel.mesh import (DataGroup, all_mean, average_gradient
                                            broadcast_module, rank_generator)
 from extdm_tpu_torch.parallel.tensor import TensorParallel
 from extdm_tpu_torch.train.lr_schedule import ScheduledOptimizer, multi_step
+from extdm_tpu_torch.utils.profiler import span
 
 
 def canonicalize_video(video: torch.Tensor) -> torch.Tensor:
@@ -91,6 +92,7 @@ class DMTrainer:
         if self.group is not None:
             broadcast_module(fd.unet, self.group)
 
+    @span("train.step")
     def train_step(self, generator: torch.Generator, video: torch.Tensor,
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -107,14 +109,18 @@ class DMTrainer:
         if self.group is not None:
             generator = rank_generator(generator, self.group.rank)
         self.optimizer.zero_grad()
-        loss, aux = self.fd.loss(generator, video, t=t, noise=noise)
-        loss.backward()
+        with span("train.forward"):
+            loss, aux = self.fd.loss(generator, video, t=t, noise=noise)
+        with span("train.backward"):
+            loss.backward()
         if self.group is not None:
-            average_gradients(self.optimizer.params, self.group)
-            aux = all_mean(aux, self.group)
-        aux["grad_norm"] = global_norm(p.grad for p in self.optimizer.params
-                                       if p.grad is not None)
-        self.optimizer.step()
+            with span("train.reduce"):
+                average_gradients(self.optimizer.params, self.group)
+                aux = all_mean(aux, self.group)
+        with span("train.optimizer"):
+            aux["grad_norm"] = global_norm(p.grad for p in self.optimizer.params
+                                           if p.grad is not None)
+            self.optimizer.step()
         return aux
 
     def _tp_step(self, generator, video, t, noise) -> Dict[str, torch.Tensor]:
@@ -123,10 +129,15 @@ class DMTrainer:
         tp = self.tp
         self.optimizer.zero_grad()
         tp.gather_weights()
-        loss, aux = self.fd.loss(rank_generator(generator, tp.mesh.d), video, t=t, noise=noise)
-        loss.backward()
-        grad_norm, finite = tp.reduce_gradients()
-        aux = tp.mean_aux(aux)
+        with span("train.forward"):
+            loss, aux = self.fd.loss(rank_generator(generator, tp.mesh.d), video, t=t,
+                                     noise=noise)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.reduce"):  # the gradients' norm and nan verdict come with them
+            grad_norm, finite = tp.reduce_gradients()
+            aux = tp.mean_aux(aux)
         aux["grad_norm"] = grad_norm
-        self.optimizer.step(finite=finite)
+        with span("train.optimizer"):
+            self.optimizer.step(finite=finite)
         return aux
