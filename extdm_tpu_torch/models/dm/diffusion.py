@@ -36,7 +36,8 @@ def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
 
 @dataclass(frozen=True)
 class DiffusionSchedule:
-    """Schedule buffers (numpy float32), computed in float64."""
+    """Schedule buffers (numpy float32), computed in float64, and the pinned
+    host copies of those copied to a card (``pinned``)."""
 
     num_timesteps: int
     betas: np.ndarray
@@ -50,6 +51,17 @@ class DiffusionSchedule:
     posterior_log_variance_clipped: np.ndarray
     posterior_mean_coef1: np.ndarray
     posterior_mean_coef2: np.ndarray
+
+    def __post_init__(self):  # not a field: the fields are the tables
+        object.__setattr__(self, "_pinned", {})
+
+    def pinned(self, name: str) -> torch.Tensor:
+        """Table `name` in pinned host memory, made at its first use and kept
+        with the schedule."""
+        table = self._pinned.get(name)
+        if table is None:
+            table = self._pinned[name] = torch.from_numpy(getattr(self, name)).pin_memory()
+        return table
 
     @staticmethod
     def create(timesteps: int = 1000) -> "DiffusionSchedule":
@@ -97,11 +109,18 @@ def ddim_time_pairs(num_timesteps: int, sampling_steps: int) -> np.ndarray:
 DenoiseFn = Callable[..., torch.Tensor]  # (x, t, cond_frames, cond_fea) -> eps
 
 
-def _extract(buf: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """buf[t] shaped (B, 1, ..., 1) to broadcast over a rank-`ndim` batch:
-    the whole table copied to t's device (the span ``schedule_copy``)."""
+def _extract(s: DiffusionSchedule, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Table `name` of `s` at t, shaped (B, 1, ..., 1) to broadcast over a
+    rank-`ndim` batch: the whole table copied to t's device (the span
+    ``schedule_copy``). To a card the copy comes from the table's pinned
+    host copy and the host does not wait for it (a copy from pageable memory
+    drains the stream)."""
     with span("schedule_copy"):
-        return torch.as_tensor(buf, device=t.device)[t].reshape((-1,) + (1,) * (ndim - 1))
+        if t.is_cuda:
+            table = s.pinned(name).to(t.device, non_blocking=True)
+        else:
+            table = torch.as_tensor(getattr(s, name), device=t.device)
+        return table[t].reshape((-1,) + (1,) * (ndim - 1))
 
 
 @dataclass(frozen=True)
@@ -113,21 +132,21 @@ class GaussianDiffusion:
 
     def q_sample(self, x_start, t, noise):
         s = self.schedule
-        return (_extract(s.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
-                + _extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
+        return (_extract(s, "sqrt_alphas_cumprod", t, x_start.ndim) * x_start
+                + _extract(s, "sqrt_one_minus_alphas_cumprod", t, x_start.ndim) * noise)
 
     def predict_start_from_noise(self, x_t, t, noise):
         s = self.schedule
-        return (_extract(s.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
-                - _extract(s.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise)
+        return (_extract(s, "sqrt_recip_alphas_cumprod", t, x_t.ndim) * x_t
+                - _extract(s, "sqrt_recipm1_alphas_cumprod", t, x_t.ndim) * noise)
 
     def q_posterior(self, x_start, x_t, t):
         """Mean, variance and clipped log variance of q(x_{t-1} | x_t, x_0)."""
         s = self.schedule
-        mean = (_extract(s.posterior_mean_coef1, t, x_t.ndim) * x_start
-                + _extract(s.posterior_mean_coef2, t, x_t.ndim) * x_t)
-        return (mean, _extract(s.posterior_variance, t, x_t.ndim),
-                _extract(s.posterior_log_variance_clipped, t, x_t.ndim))
+        mean = (_extract(s, "posterior_mean_coef1", t, x_t.ndim) * x_start
+                + _extract(s, "posterior_mean_coef2", t, x_t.ndim) * x_t)
+        return (mean, _extract(s, "posterior_variance", t, x_t.ndim),
+                _extract(s, "posterior_log_variance_clipped", t, x_t.ndim))
 
     def p_losses(self, denoise_fn: "DenoiseFn", generator: torch.Generator, x_cond: torch.Tensor,
                  x_pred: torch.Tensor, cond_fea: Optional[torch.Tensor],

@@ -8,6 +8,12 @@ the card; on the CPU the layers run them. The unfused layers (the route for
 layers the whole-layer kernels do not take) run them with the attention core
 ``attend`` given: kernel 12, ``ops/window_attn.py``. Layouts are
 channels-last.
+
+The index and rotary tables are built on the host and copied to the device
+once per shape and device (``_window_index``, ``_bucket_index``,
+``rotary_on``), each build under the span ``table_upload``: a copy from
+pageable host memory drains the stream, so none is made inside a steady
+UNet call.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from extdm_tpu_torch.utils.profiler import span
+
 
 # --- rotary -------------------------------------------------------------------
 def rotary_tables(n: int, rot_dim: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -26,6 +34,15 @@ def rotary_tables(n: int, rot_dim: int) -> Tuple[np.ndarray, np.ndarray]:
     inv_freq = 1.0 / (10000 ** (np.arange(0, rot_dim, 2) / rot_dim))
     freqs = np.repeat(np.einsum("i,j->ij", np.arange(n), inv_freq), 2, axis=-1)
     return np.cos(freqs).astype(np.float32), np.sin(freqs).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+@span("table_upload")
+def rotary_on(n: int, rot_dim: int, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rotary_tables`` in `dtype` on `device`, made once."""
+    cos, sin = rotary_tables(n, rot_dim)
+    return (torch.as_tensor(cos, dtype=dtype, device=device),
+            torch.as_tensor(sin, dtype=dtype, device=device))
 
 
 def _rotate_half_interleaved(x: torch.Tensor) -> torch.Tensor:
@@ -38,7 +55,7 @@ def apply_rotary(x: torch.Tensor, rot_dim: int) -> torch.Tensor:
     min(rot_dim, d) features (rotary_embedding_torch semantics)."""
     n, d = x.shape[-2], x.shape[-1]
     rot = min(rot_dim, d)
-    cos, sin = (torch.as_tensor(t, dtype=x.dtype, device=x.device) for t in rotary_tables(n, rot))
+    cos, sin = rotary_on(n, rot, x.dtype, x.device)
     x_rot = x[..., :rot] * cos + _rotate_half_interleaved(x[..., :rot]) * sin
     return torch.cat([x_rot, x[..., rot:]], dim=-1) if rot < d else x_rot
 
@@ -67,6 +84,13 @@ def _rel_bucket_matrix(n: int, num_buckets: int, max_distance: int) -> np.ndarra
     return _relative_position_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance)
 
 
+@lru_cache(maxsize=None)
+@span("table_upload")
+def _bucket_index(n: int, num_buckets: int, max_distance: int, device) -> torch.Tensor:
+    """``_rel_bucket_matrix`` on `device`, made once."""
+    return torch.as_tensor(_rel_bucket_matrix(n, num_buckets, max_distance), device=device)
+
+
 class RelativePositionBias(nn.Module):
     """bias(n) -> (heads, n, n) from a learned bucket table."""
 
@@ -77,8 +101,7 @@ class RelativePositionBias(nn.Module):
 
     def bias(self, n: int) -> torch.Tensor:
         table = self.relative_attention_bias.weight
-        buckets = torch.as_tensor(_rel_bucket_matrix(n, self.num_buckets, self.max_distance),
-                                  device=table.device)
+        buckets = _bucket_index(n, self.num_buckets, self.max_distance, table.device)
         return table.t()[:, buckets]  # (heads, n, n), contiguous
 
     def forward(self, n: int) -> torch.Tensor:
@@ -154,6 +177,13 @@ def relative_position_index(window: Tuple[int, int, int]) -> np.ndarray:
     return rel.sum(-1)
 
 
+@lru_cache(maxsize=None)
+@span("table_upload")
+def _window_index(window: Tuple[int, int, int], N: int, device) -> torch.Tensor:
+    """``relative_position_index(window)[:N, :N]`` on `device`, made once."""
+    return torch.as_tensor(relative_position_index(window)[:N, :N], device=device)
+
+
 # --- attention parameters and plain math -------------------------------------------
 class WindowAttention3D(nn.Module):
     """Parameters of the window attention: relative position bias table for
@@ -174,8 +204,7 @@ class WindowAttention3D(nn.Module):
     def bias_hnn(self, N: int) -> torch.Tensor:
         """(heads, N, N) bias for a (possibly clamped) window of N tokens."""
         table = self.relative_position_bias_table
-        idx = torch.as_tensor(relative_position_index(self.window_size)[:N, :N],
-                              device=table.device)
+        idx = _window_index(self.window_size, N, table.device)
         return table.t()[:, idx]  # contiguous: kernels read each head's rows in place
 
 

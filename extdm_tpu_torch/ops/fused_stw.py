@@ -100,6 +100,7 @@ import torch.nn.functional as F
 from extdm_tpu_torch import _build
 from extdm_tpu_torch.nn.attention import (
     apply_rotary,
+    rotary_on,
     rotary_tables,
     shifted_window_mask,
     temporal_attention,
@@ -110,6 +111,7 @@ from extdm_tpu_torch.nn.attention import (
 from extdm_tpu_torch.nn.layers import chan_layer_norm
 from extdm_tpu_torch.ops.conv_engine import wgrad_splits
 from extdm_tpu_torch.ops.window_attn import fused_window_attention, mask_tables
+from extdm_tpu_torch.utils.profiler import span
 
 __all__ = ["stw_route", "stw_plan", "StwPlan", "stw_bwd_plan", "StwBwdPlan", "temporal_plan",
            "TemporalPlan", "temporal_bwd_plan", "temporal_operands", "temporal_operands_plain",
@@ -344,12 +346,7 @@ def stw_layer_plain(x, gamma, w_qkv, w_proj, b_proj, bias_hnn, *, window, shift,
 
 
 @lru_cache(maxsize=None)
-def _rope_tables(n, rot, device):
-    cos, sin = rotary_tables(n, rot)
-    return torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device)
-
-
-@lru_cache(maxsize=None)
+@span("table_upload")
 def _rope_pairs(n, rot, device):
     """The rope tables of kernel 1's bf16 body: (n, rot / 2, 4) float32, the
     cos and sin of dims 2 i and 2 i + 1 side by side."""
@@ -452,7 +449,7 @@ def _stw_prepare(x, window, shift, heads, dim_head, mask=None):
     """``_pad_roll`` and the rope tables."""
     xp, masks, ids = _pad_roll(x, window, shift, mask)
     rot = min(32, dim_head)
-    cos, sin = _rope_tables(window[0] * window[1] * window[2], rot, x.device)
+    cos, sin = rotary_on(window[0] * window[1] * window[2], rot, torch.float32, x.device)
     return xp, masks, ids, rot, cos, sin
 
 
@@ -717,7 +714,7 @@ def _stw_wm_narrow(xw, gamma, w_qkv, w_proj, b_proj, bias_hnn, masks_exp, *, hea
     xw = xw.detach().contiguous()
     out = torch.empty_like(xw)
     rot = min(32, dim_head)
-    cos, sin = _rope_tables(N, rot, xw.device)
+    cos, sin = rotary_on(N, rot, torch.float32, xw.device)
     wq, wp = _weights(xw, w_qkv, w_proj)
     g, bp, bias = _f32(gamma), _f32(b_proj), _f32(bias_hnn)
     masks = None if masks_exp is None else _f32(masks_exp)
@@ -965,7 +962,7 @@ def _temporal_narrow(x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias_hnn, *,
     refuses)."""
     B, T, H, W, C = x.shape
     rot = min(32, dim_head)
-    cos, sin = _rope_tables(T, rot, x.device)
+    cos, sin = rotary_on(T, rot, torch.float32, x.device)
     out = torch.empty_like(x)
     wq, wo = _weights(x, w_qkv, w_out)
     g, s, b, bias = _f32(gamma_cln), _f32(ln_scale), _f32(ln_bias), _f32(bias_hnn)
@@ -1072,7 +1069,7 @@ def _temporal_bwd_narrow(gc, x, gamma_cln, ln_scale, ln_bias, w_qkv, w_out, bias
     B, T, H, W, C = x.shape
     hid = heads * dim_head
     rot = min(32, dim_head)
-    cos, sin = _rope_tables(T, rot, x.device)
+    cos, sin = rotary_on(T, rot, torch.float32, x.device)
     tokens = x.numel() // C
     G = 64 // T if T <= 64 else 1
     nblk = max(1, min(-(-(B * H * W) // G), 2 * _sm_count(x.device)))

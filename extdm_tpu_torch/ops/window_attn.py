@@ -44,6 +44,7 @@ import torch
 
 from extdm_tpu_torch import _build
 from extdm_tpu_torch.nn.attention import shifted_window_mask
+from extdm_tpu_torch.utils.profiler import span
 
 __all__ = ["fused_window_attention", "window_attention_plain", "window_attention_operands",
            "window_attention_output", "dedupe_masks", "mask_tables", "MAX_N", "MAX_D"]
@@ -60,6 +61,7 @@ def dedupe_masks(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @lru_cache(maxsize=None)
+@span("table_upload")
 def mask_tables(Tp: int, Hp: int, Wp: int, window: Tuple[int, int, int],
                 shift: Tuple[int, int, int], device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The deduplicated shift masks of a padded (Tp, Hp, Wp) volume

@@ -36,7 +36,10 @@ The spans the port opens ("extdm." + the name):
 - ``launch.<entry>``: each call of a hand-written kernel's C entry point
   (``_build.launch``); the entry's name tells the route taken.
 - ``schedule_copy``: each copy of a diffusion schedule table from the host
-  to the tensor's device, with the host's wait inside it.
+  to the tensor's device (to a card from pinned memory, without a wait).
+- ``table_upload``: each build of a table kept on a device per shape (the
+  UNet's window and bucket indices, rotary and shift-mask tables): a cache
+  miss, so none in a steady loop.
 """
 from __future__ import annotations
 
