@@ -4,11 +4,13 @@ shapes of their arguments, and the least time the card could take for them.
 Each ``*_cost`` takes the arguments of one call of an entry point as the
 program passes them (``fused_stw_layer``, ``fused_temporal_layer``,
 ``fused_resnet_block``, ``grid_sample`` and the backward entries
-``stw_layer_bwd``, ``temporal_layer_bwd``, ``resnet_block_bwd``) and
-returns (bytes, flops, dtype): every input byte read once and every output
-byte written once, and the products the layer needs. They are frozen copies
-of the cost model the kernels were tuned against, so that a change to the
-program cannot move its own yardstick.
+``stw_layer_bwd``, ``temporal_layer_bwd``, ``resnet_block_bwd``), or of
+a module's ``forward`` (``trajwarp_cost``: ``TrajWarp``), and returns
+(bytes, flops, dtype): every input byte read once and every output byte
+written once, and the products the layer needs. They are frozen copies of
+the cost model the kernels were tuned against (``trajwarp_cost``: counted
+from the published layer), so that a change to the program cannot move its
+own yardstick.
 """
 from __future__ import annotations
 
@@ -76,6 +78,25 @@ def resnet_cost(x, w1, b1, g1s, g1b, film, w2, b2, g2s, g2b, wres=None, bres=Non
     weights = w1.numel() + w2.numel() + (wres.numel() if wres is not None else 0)
     byts = (x.numel() + P * Cout + weights) * x.element_size()
     return byts, flops, x.dtype
+
+
+def trajwarp_cost(xp, f, *, heads, **_):
+    """The trajwarp family's feature warp (``TrajWarp.forward(xp, f)``):
+    the q projection of the nq = B tp h w pooled prediction tokens, the k
+    and v projections of the nk = B tc h w cond tokens, each query's scores
+    and values against its row's tc h w keys, the output projection and the
+    1x1x1 fuser from 2C to C; xp, f and the weights read once, the output
+    (f's shape) written once. The 2x2 max-pool is bytes only."""
+    B, tp = xp.shape[:2]
+    _, T, h, w, C = f.shape
+    if C % heads:
+        raise ValueError(f"{C} channels do not split into {heads} heads")
+    nq, nk = B * tp * h * w, B * (T - tp) * h * w
+    flops = (2 * nq * C * C + 4 * nk * C * C + 4 * B * (tp * h * w) * ((T - tp) * h * w) * C
+             + 2 * nq * C * C + 4 * nq * C * C)
+    weights = 4 * (C * C + C) + 2 * C * C + C
+    byts = (xp.numel() + weights + f.numel()) * xp.element_size() + f.numel() * f.element_size()
+    return byts, flops, xp.dtype
 
 
 FORWARD = {"stw_layer": stw_cost, "temporal_layer": temporal_cost,

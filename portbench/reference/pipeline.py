@@ -3,7 +3,8 @@ diffusion (cosine schedule), DDIM sampling of a call and the epsilon loss
 and AdamW step of DM training.
 
 ``Reference(model)`` builds the modules from a configuration's ``model``
-section (the configuration files under ``portbench/configs``);
+section (the configuration files under ``portbench/configs``), the
+denoiser of the family that its ``conditioning`` names (``DENOISERS``);
 ``load_state_dict`` takes the benchmark's seeded weights under the
 reference checkpoints' keys (``lfae.*`` and ``unet.*``). Rows of a batch
 are independent in every function here, so a caller may run any subset
@@ -19,7 +20,11 @@ import torch
 import torch.nn as nn
 
 from portbench.reference.lfae import LFAE
+from portbench.reference.trajwarp import TrajUnet3D
 from portbench.reference.unet import Unet3D
+
+# the denoiser of each conditioning family a configuration's ``conditioning`` names
+DENOISERS = {"adaptor": Unet3D, "trajwarp": TrajUnet3D}
 
 
 def cosine_alphas_cumprod(timesteps: int, s: float = 0.008) -> np.ndarray:
@@ -60,11 +65,16 @@ class Reference(nn.Module):
         self.sampling_steps = model["sampling_timesteps"]
         self.eta = model["ddim_eta"]
         self.lfae = LFAE(model["flow_params"])
-        self.unet = Unet3D(dim=model["dim"], dim_mults=tuple(model["dim_mults"]),
-                           window_size=tuple(model["window_size"]),
-                           attn_heads=model["attn_heads"], attn_dim_head=model["attn_dim_head"],
-                           cond_num=self.tc, pred_num=self.tp,
-                           cond_feature_dim=bottleneck_dim(model["flow_params"]))
+        conditioning = model.get("conditioning", "adaptor")
+        if conditioning not in DENOISERS:
+            raise ValueError(f"conditioning {conditioning!r}: the reference builds "
+                             f"{' or '.join(DENOISERS)}")
+        self.unet = DENOISERS[conditioning](
+            dim=model["dim"], dim_mults=tuple(model["dim_mults"]),
+            window_size=tuple(model["window_size"]), attn_heads=model["attn_heads"],
+            attn_dim_head=model["attn_dim_head"], cond_num=self.tc, pred_num=self.tp,
+            cond_feature_dim=bottleneck_dim(model["flow_params"]),
+            down_adaptor_from_level=model.get("down_adaptor_from_level", 0))
         # the schedule's tables, computed in float64 and used in float32
         ac = cosine_alphas_cumprod(self.timesteps)
         f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731

@@ -5,10 +5,13 @@ Per level: two time-conditioned resnet blocks, a shifted and a plain 3-D
 window attention layer (Swin3D windows, rotary q/k, a learned relative
 position bias), a motion adaptor (the distribution extrapolation of the
 cond frames' features into the prediction window) and attention over time
-(T5 relative position bias). The reference frame's features enter through
-their own adaptor and temporal attention and the init conv. Parameter
-names are the reference denoiser's state-dict keys. Nothing here is
-imported from the program.
+(T5 relative position bias). ``DenoiserBody`` holds the levels, the
+middle and the output heads, which the conditioning families share; in
+``Unet3D``, the adaptor family, the reference frame's features enter
+through their own adaptor and temporal attention and the init conv, as a
+term free of the noisy latents (``cond_term``). The trajwarp family is in
+``reference/trajwarp.py``. Parameter names are the reference denoiser's
+state-dict keys. Nothing here is imported from the program.
 """
 from __future__ import annotations
 
@@ -371,24 +374,25 @@ class SinusoidalPosEmb(nn.Module):
         return time_embedding(t, self.dim)
 
 
-class Unet3D(nn.Module):
-    """The adaptor-conditioned denoiser with reference-frame features."""
+def resize_frames(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Bilinear resize (align_corners=False) of every frame of (B, T, h, w, C) to (H, W)."""
+    B, T = x.shape[:2]
+    y = F.interpolate(x.reshape(B * T, *x.shape[2:]).permute(0, 3, 1, 2), size=(H, W),
+                      mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1).reshape(B, T, H, W, -1)
 
-    def __init__(self, dim: int, dim_mults: Sequence[int], window_size: Tuple[int, int, int],
-                 attn_heads: int, attn_dim_head: int, cond_num: int, pred_num: int,
-                 cond_feature_dim: int, channels: int = 3, init_kernel_size: int = 7,
-                 groups: int = 8):
-        super().__init__()
-        self.channels, self.tc, self.tp = channels, cond_num, pred_num
-        heads, dh = attn_heads, attn_dim_head
+
+class DenoiserBody(nn.Module):
+    """What both conditioning families share after their init conv: the
+    init temporal attention, the time MLP, the down levels, the middle, the
+    up levels and the two output heads. A family registers its own init
+    modules first and then calls ``_build_body``, so that the state dict
+    keeps the reference denoiser's key order."""
+
+    def _build_body(self, dim: int, dim_mults: Sequence[int], window_size: Tuple[int, int, int],
+                    heads: int, dh: int, cond_num: int, pred_num: int, groups: int,
+                    down_adaptor_from_level: int) -> None:
         shift = tuple(w // 2 for w in window_size)
-        self.init_pad = init_kernel_size // 2
-        k0 = init_kernel_size
-        self.time_rel_pos_bias = RelativePositionBias(heads)
-        self.init_conv = nn.Conv3d(channels + cond_feature_dim, dim, (1, k0, k0),
-                                   padding=(0, k0 // 2, k0 // 2))
-        self.cond_adaptor = MotionAdaptor(cond_feature_dim, cond_num, pred_num)
-        self.cond_temporal_attn = PreNormTemporalAttn(cond_feature_dim, heads, dh)
         self.init_temporal_attn = PreNormTemporalAttn(dim, heads, dh)
         time_dim = dim * 4
         self.time_mlp = nn.Sequential(SinusoidalPosEmb(dim), nn.Linear(dim, time_dim),
@@ -408,8 +412,9 @@ class Unet3D(nn.Module):
                 resample(d_out) if resample is not None else nn.Identity(),
             ])
 
-        self.downs = nn.ModuleList(level(a, b, True, Downsample if i < n - 1 else None)
-                                   for i, (a, b) in enumerate(in_out))
+        self.downs = nn.ModuleList(
+            level(a, b, i >= down_adaptor_from_level, Downsample if i < n - 1 else None)
+            for i, (a, b) in enumerate(in_out))
         mid = dims[-1]
         self.mid_block1 = ResnetBlock3d(mid, mid, time_dim, groups)
         self.mid_attn1 = PreNormSTW(mid, window_size, shift, heads, dh)
@@ -423,28 +428,9 @@ class Unet3D(nn.Module):
         self.occlusion_map = nn.Sequential(ResnetBlock3d(dim * 2, dim, None, groups),
                                            PointwiseConv3d(dim, 1))
 
-    def cond_term(self, cond_fea: torch.Tensor, H: int, W: int) -> torch.Tensor:
-        """The conditioning that the init conv adds from the features: it
-        depends on neither the noisy latents nor the time."""
-        B, T = cond_fea.shape[:2]
-        pos_bias = self.time_rel_pos_bias(T)
-        cf = self.cond_temporal_attn(self.cond_adaptor(cond_fea), pos_bias)
-        cf = F.interpolate(cf.reshape(B * T, *cf.shape[2:]).permute(0, 3, 1, 2), size=(H, W),
-                           mode="bilinear", align_corners=False)
-        cf = cf.permute(0, 2, 3, 1).reshape(B, T, H, W, -1)
-        return conv_frames(cf, self.init_conv.weight[:, self.channels:], None,
-                           padding=self.init_pad)
-
-    def forward(self, x, time, cond_frames, cond_fea=None, cond_term=None):
-        """x (B, tp, h, w, 3) noisy latents, cond_frames (B, tc, h, w, 3),
-        cond_fea (B, tc + tp, hf, wf, Cf) -> predicted noise (B, tp, h, w, 3)."""
-        x = torch.cat([cond_frames, x], dim=1)
-        B, T, H, W, _ = x.shape
-        pos_bias = self.time_rel_pos_bias(T)
-        if cond_term is None:
-            cond_term = self.cond_term(cond_fea, H, W)
-        x = conv_frames(x, self.init_conv.weight[:, :self.channels], self.init_conv.bias,
-                        padding=self.init_pad) + cond_term
+    def _body(self, x: torch.Tensor, time: torch.Tensor, pos_bias: torch.Tensor) -> torch.Tensor:
+        """The init conv's output x (B, tc + tp, h, w, dim) -> the predicted
+        noise of the prediction frames (B, tp, h, w, 3)."""
         r = x
         x = self.init_temporal_attn(x, pos_bias)
         t = self.time_mlp(time)
@@ -466,3 +452,44 @@ class Unet3D(nn.Module):
         out = torch.cat([proj(block(x)) for block, proj in (self.final_conv, self.occlusion_map)],
                         dim=-1)
         return out[:, self.tc:]
+
+
+class Unet3D(DenoiserBody):
+    """The adaptor-conditioned denoiser with reference-frame features."""
+
+    def __init__(self, dim: int, dim_mults: Sequence[int], window_size: Tuple[int, int, int],
+                 attn_heads: int, attn_dim_head: int, cond_num: int, pred_num: int,
+                 cond_feature_dim: int, channels: int = 3, init_kernel_size: int = 7,
+                 groups: int = 8, down_adaptor_from_level: int = 0):
+        super().__init__()
+        self.channels, self.tc, self.tp = channels, cond_num, pred_num
+        heads, dh = attn_heads, attn_dim_head
+        self.init_pad = init_kernel_size // 2
+        k0 = init_kernel_size
+        self.time_rel_pos_bias = RelativePositionBias(heads)
+        self.init_conv = nn.Conv3d(channels + cond_feature_dim, dim, (1, k0, k0),
+                                   padding=(0, k0 // 2, k0 // 2))
+        self.cond_adaptor = MotionAdaptor(cond_feature_dim, cond_num, pred_num)
+        self.cond_temporal_attn = PreNormTemporalAttn(cond_feature_dim, heads, dh)
+        self._build_body(dim, dim_mults, window_size, heads, dh, cond_num, pred_num, groups,
+                         down_adaptor_from_level)
+
+    def cond_term(self, cond_fea: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        """The conditioning that the init conv adds from the features: it
+        depends on neither the noisy latents nor the time."""
+        pos_bias = self.time_rel_pos_bias(cond_fea.shape[1])
+        cf = self.cond_temporal_attn(self.cond_adaptor(cond_fea), pos_bias)
+        return conv_frames(resize_frames(cf, H, W), self.init_conv.weight[:, self.channels:], None,
+                           padding=self.init_pad)
+
+    def forward(self, x, time, cond_frames, cond_fea=None, cond_term=None):
+        """x (B, tp, h, w, 3) noisy latents, cond_frames (B, tc, h, w, 3),
+        cond_fea (B, tc + tp, hf, wf, Cf) -> predicted noise (B, tp, h, w, 3)."""
+        x = torch.cat([cond_frames, x], dim=1)
+        B, T, H, W, _ = x.shape
+        pos_bias = self.time_rel_pos_bias(T)
+        if cond_term is None:
+            cond_term = self.cond_term(cond_fea, H, W)
+        x = conv_frames(x, self.init_conv.weight[:, :self.channels], self.init_conv.bias,
+                        padding=self.init_pad) + cond_term
+        return self._body(x, time, pos_bias)

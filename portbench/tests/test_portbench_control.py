@@ -22,7 +22,7 @@ def test_control_fails_where_the_program_passes(cell, monkeypatch):
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
     traffic = CELLS[cell]
     for seed in (2 ** 31 + 21, 2 ** 32 + 5, 3):
-        run = harness.make_run(cell, seed, 0.0, False, "cpu", config=tiny.config(),
+        run = harness.make_run(cell, seed, 0.0, False, "cpu", config=tiny.config(cell),
                                traffic=traffic)
         read = calibrate.train_seed if traffic["kind"] == "train" else calibrate.sample_seed
         line = read(harness.driver(run), run, {}, control=True)

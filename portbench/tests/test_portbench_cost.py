@@ -5,6 +5,7 @@ import math
 import pytest
 import torch
 
+from portbench import harness
 from portbench.cost import kernels
 from portbench.cost.flops import sample_flops, train_flops
 from portbench.tests import tiny
@@ -102,3 +103,30 @@ def test_model_flops_are_linear_in_rows_and_steps():
     assert train_flops(m, 4) == pytest.approx(4 * train_flops(m, 1))
     # forward and backward of the denoiser: about three of its forwards
     assert 2.5 * step < train_flops(m, 1) < 3.5 * step + one
+
+
+# Model flops of a unit of each cell (flop counter over the reference at the
+# cells' sizes): a KTH and a Cityscapes sampler call of 100 rows, a train
+# step of 24 clips.
+UNIT_FLOPS = {"kth-sample-traj100": 217.5449e12, "city-sample-traj100": 56.3594e12,
+              "kth-train-b24": 23.8758e12}
+
+
+@pytest.mark.parametrize("cell", sorted(UNIT_FLOPS))
+def test_unit_flops_of_the_cells_stay(cell):
+    run = harness.make_run(cell, 1, 1.0, False, "cpu")
+    assert harness.driver(run).unit_flops(run) == pytest.approx(UNIT_FLOPS[cell], rel=1e-4)
+
+
+def test_trajwarp_cost_by_hand():
+    # B 2, tc 3, tp 2, features 2 x 4 of 16 channels in 4 heads; queries at 4 x 8
+    xp, f = t(2, 2, 4, 8, 16), t(2, 5, 2, 4, 16, dtype=torch.float32)
+    byts, flops, dtype = kernels.trajwarp_cost(xp, f, heads=4)
+    nq, nk = 2 * 2 * 8, 2 * 3 * 8
+    assert flops == (2 * nq * 256 + 4 * nk * 256 + 4 * 2 * 16 * 24 * 16 + 2 * nq * 256
+                     + 4 * nq * 256)
+    weights = 4 * (256 + 16) + 2 * 256 + 16
+    assert byts == (2 * 2 * 4 * 8 * 16 + weights + 2 * 5 * 8 * 16) * 2 + 2 * 5 * 8 * 16 * 4
+    assert dtype is BF16
+    with pytest.raises(ValueError):
+        kernels.trajwarp_cost(xp, f, heads=3)

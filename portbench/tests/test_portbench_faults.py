@@ -14,7 +14,8 @@ TRAIN = ("kth-train-b24", tiny.TRAFFIC["train"])
 
 def run_cell(cell, seed=2 ** 31 + 11):
     name, traffic = cell
-    run = harness.make_run(name, seed, 0.5, False, "cpu", config=tiny.config(), traffic=traffic)
+    run = harness.make_run(name, seed, 0.5, False, "cpu", config=tiny.config(name),
+                           traffic=traffic)
     return harness.execute(run)
 
 

@@ -94,7 +94,7 @@ def test_limits_are_positive(benchmark):
 def test_limits_name_the_drivers_numbers(cell):
     """Every limit of a cell names a number that its driver's check reads,
     at the tiny size; a limit whose number is not read fails the run."""
-    run = harness.make_run(cell, 2 ** 31 + 3, 0.5, False, "cpu", config=tiny.config(),
+    run = harness.make_run(cell, 2 ** 31 + 3, 0.5, False, "cpu", config=tiny.config(cell),
                            traffic=tiny.traffic(cell))
     result = harness.execute(run)
     assert set(result["checks"]) == set(run.limits) and run.limits, cell

@@ -75,7 +75,7 @@ def test_a_traced_run_reads_the_programs_spans(cell, monkeypatch):
     runs the kernels' plain versions, which launch nothing; the copy count
     is the program's: two a DDIM step, four a train step."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    run = harness.make_run(cell, 2 ** 31 + 7, 1e-3, True, "cpu", config=tiny.config(),
+    run = harness.make_run(cell, 2 ** 31 + 7, 1e-3, True, "cpu", config=tiny.config(cell),
                            traffic=tiny.traffic(cell))
     result = harness.execute(run)
     kind = run.traffic["kind"]

@@ -1,9 +1,11 @@
 """A configuration of the benchmark's shapes at a size the CPU runs in
 seconds, for the tests: every layer of the KTH and Cityscapes
-configurations at small widths, depths and frames."""
+configurations at small widths, depths and frames, with a denoiser of each
+conditioning family (``MODELS``)."""
 import copy
 import json
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -22,13 +24,31 @@ MODEL = dict(flow_params=FLOW, cond_frames=2, pred_frames=3, frame_shape=16, tim
              sampling_timesteps=3, ddim_eta=1.0, loss_type="l2", use_residual_flow=False, dim=16,
              dim_mults=[1, 2], window_size=[2, 4, 4], attn_heads=2, attn_dim_head=8,
              use_ref_features=True, conditioning="adaptor")
+# The trajwarp family: 16 px frames, 8 px latents and 4 px features, so that the
+# 2x2 max-pool of the lifted latents meets the features as at KTH (64, 32, 16);
+# window (2, 4, 4) as w_ref/traj's; three levels, adaptors from level 1, so
+# that the up levels past the first two have one.
+TRAJ_MODEL = dict(MODEL, dim_mults=[1, 2, 2], conditioning="trajwarp", down_adaptor_from_level=1)
+MODELS = {"adaptor": MODEL, "trajwarp": TRAJ_MODEL}
 
 
-def config(dtype: str = "float32") -> dict:
-    """A benchmark configuration file's contents at the tiny size."""
-    return {"name": "tiny", "dtype": dtype, "reduced": [], "model": copy.deepcopy(MODEL),
+def config(cell: Optional[str] = None, family: Optional[str] = None,
+           dtype: str = "float32") -> dict:
+    """A benchmark configuration file's contents at the tiny size, with the
+    denoiser of `family`, else of the conditioning that the configuration
+    file of `cell` names, else the adaptor one."""
+    family = family or (conditioning(cell) if cell else "adaptor")
+    return {"name": "tiny", "dtype": dtype, "reduced": [], "model": copy.deepcopy(MODELS[family]),
             "test_pred_frames": 5, "train": {"lr": 2e-5, "milestones": [80000], "gamma": 0.75,
                                              "weight_decay": 0.01}}
+
+
+def conditioning(cell: str) -> str:
+    """The conditioning family of the configuration that `cell` runs."""
+    bench = benchmark()
+    name = next(w["config"] for w in bench["workloads"] if w["name"] == cell)
+    path = next(c["file"] for c in bench["configs"] if c["name"] == name)
+    return json.loads((ROOT / path).read_text())["model"].get("conditioning", "adaptor")
 
 
 TRAFFIC = {"sample": dict(kind="sample", rows=6, check_calls=2, check_rows=3),

@@ -20,6 +20,7 @@ independent in the sampler, so the reference runs only the chosen ones.
 """
 from __future__ import annotations
 
+import functools
 import math
 import random
 import time
@@ -28,6 +29,7 @@ import torch
 
 from portbench import program, weights
 from portbench.cost.flops import sample_flops
+from portbench.cost.kernels import trajwarp_cost
 from portbench.harness import Run, Window
 
 NOISE, SAMPLER = 2_000_000, 3_000_000  # generator streams of a call's noise and sampler
@@ -86,6 +88,11 @@ def spans(state: dict, spans) -> None:
     spans.layer(fd, "cond_cache", "cond_cache")
     spans.layer(fd.diffusion, "sample", "ddim")
     spans.layer(fd.lfae, "decode_flows", "decode")
+    # the trajwarp family's feature warp, in the UNet that the sampler runs
+    # (in bfloat16 a copy of fd.unet, made in the warm-up)
+    warp = getattr(fd.sampling_unet(), "init_traj", None)
+    if warp is not None:
+        spans.op(warp, "forward", "trajwarp", functools.partial(trajwarp_cost, heads=warp.heads))
 
 
 def call(state: dict, k: int, cond):
